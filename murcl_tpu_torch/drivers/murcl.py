@@ -134,7 +134,8 @@ def run(args) -> dict:
         loss_meter = AverageMeter()
         # per-step losses stay on the device until the epoch ends (no sync per step)
         step_losses, step_counts = [], []
-        for ids in epoch_batches(bank.num_slides, args.num_data, args.batch_size, np_rng):
+        for ids, _ in epoch_batches(bank.num_slides, args.num_data, args.batch_size, np_rng,
+                                    drop_partial=True):
             stats = engine.train_step(bank, torch.as_tensor(ids, device=device), generator)
             step_losses.append(stats.step_losses[-1])
             step_counts.append(len(ids))

@@ -1,2 +1,2 @@
-"""Training engine: config, stage-1 contrastive engine, optimizer,
-checkpoints and JAX weight interchange."""
+"""Training engine: config, MuRCL stage-1 contrastive engine, supervised
+RLMIL engine, losses, optimizer, checkpoints and JAX weight interchange."""

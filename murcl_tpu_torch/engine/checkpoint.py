@@ -1,9 +1,12 @@
 """Checkpoints in the reference layout (``murcl_tpu/engine/checkpoint.py``).
 
-Every epoch writes ``checkpoint.pth.tar`` with ``torch.save`` -- a dict
-``{epoch, model_state_dict, fc, optimizer, ppo_optimizer, policy}`` whose
-``model_state_dict`` is the ``CL`` wrapper's (keys under ``encoder.``) --
-and copies it to ``model_best.pth.tar`` on improvement.
+Every epoch (MuRCL) or every best epoch (RLMIL with ``--save_model``)
+writes ``checkpoint.pth.tar`` with ``torch.save`` -- a dict ``{epoch,
+model_state_dict, fc, optimizer, ppo_optimizer, policy}`` -- and copies it to
+``model_best.pth.tar`` on improvement. A MuRCL checkpoint's
+``model_state_dict`` is the ``CL`` wrapper's (keys under ``encoder.``); an
+RLMIL one is the bare aggregator's. :func:`transfer_state` is the
+``strict=False`` surgery that moves weights between the two.
 """
 
 from __future__ import annotations
@@ -14,15 +17,17 @@ from pathlib import Path
 import torch
 
 
-def save_checkpoint(save_dir, epoch: int, model, fc, optimizer=None,
+def save_checkpoint(save_dir, epoch: int, model, fc, optimizer=None, ppo=None,
                     is_best: bool = False, filename: str = "checkpoint.pth.tar") -> Path:
+    """``ppo`` (a :class:`~murcl_tpu_torch.models.rlmil.PPO`) adds ``policy``
+    and ``ppo_optimizer``."""
     state = {
         "epoch": epoch,
         "model_state_dict": model.state_dict(),
         "fc": fc.state_dict(),
         "optimizer": optimizer.state_dict() if optimizer is not None else None,
-        "ppo_optimizer": None,
-        "policy": None,
+        "ppo_optimizer": ppo.optimizer.state_dict() if ppo is not None else None,
+        "policy": ppo.policy.state_dict() if ppo is not None else None,
     }
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
@@ -36,3 +41,30 @@ def save_checkpoint(save_dir, epoch: int, model, fc, optimizer=None,
 def load_checkpoint(path, map_location="cpu") -> dict:
     """Load a checkpoint this package wrote (tensors and plain containers)."""
     return torch.load(path, map_location=map_location, weights_only=True)
+
+
+def transfer_state(module: torch.nn.Module, state_dict: dict, verbose: bool = True) -> list:
+    """Load the entries of ``state_dict`` that match ``module`` by name and
+    shape; the rest of ``module`` keeps its fresh init. ``module.`` prefixes
+    are stripped, and ``encoder.`` too when every key carries it (the ``CL``
+    wrapper). Returns, and prints, what was skipped (reference
+    ``train_RLMIL.py:124-135``; ``murcl_tpu/engine/torch_import.py:71-87``)."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in state_dict.items()}
+    if sd and all(k.startswith("encoder.") for k in sd):
+        sd = {k[len("encoder."):]: v for k, v in sd.items()}
+    own = module.state_dict()
+    merged, skipped = dict(own), []
+    for k, v in own.items():
+        if k not in sd:
+            skipped.append(f"{k} (missing in source)")
+        elif sd[k].shape != v.shape:
+            skipped.append(f"{k} (shape {tuple(v.shape)} != {tuple(sd[k].shape)})")
+        else:
+            merged[k] = sd[k]
+    module.load_state_dict(merged)
+    if verbose and skipped:
+        print(f"transfer_state: kept fresh init for {len(skipped)} entries:")
+        for s in skipped[:20]:
+            print(f"  - {s}")
+    return skipped

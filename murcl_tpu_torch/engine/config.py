@@ -20,9 +20,15 @@ class RolloutConfig:
     T: int = 6
     feat_size: int = 1024
     num_clusters: int = 10
-    train_stage: int = 1  # 1 (2 | 3 are later slices)
+    train_stage: int = 1  # 1 | 2 | 3 (MuRCL pretraining: 1 only so far)
+    num_classes: int = 2
+    bag_weight: float = 0.7  # CLAM's CE weight; 1 - bag_weight on the instance loss
     # aggregator compute dtype; losses, softmax and the GRU head stay float32
     compute_dtype: str = "float32"  # float32 | bfloat16
+
+    @property
+    def uses_policy(self) -> bool:
+        return self.train_stage != 1
 
 
 @dataclass(frozen=True)

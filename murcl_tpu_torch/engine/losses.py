@@ -1,0 +1,33 @@
+"""Loss helpers of the supervised engine (counterpart of ``murcl_tpu/engine/losses.py``).
+
+Single-device: the JAX package's ``axis_name`` (a global mean across a data
+mesh) comes with the multi-device slice (ROADMAP queue 1, slice 5).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def masked_mean(x, valid):
+    """Mean of ``x`` over the rows where ``valid`` (B,) is true; 0 when no
+    row is valid."""
+    w = valid.to(x.dtype)
+    return (x * w).sum() / w.sum().clamp_min(1.0)
+
+
+def cross_entropy(logits, labels, valid):
+    """Torch ``CrossEntropyLoss`` (mean over the batch) restricted to the
+    ``valid`` rows, so a padded last batch counts only its real slides."""
+    nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None].long())[:, 0]
+    return masked_mean(nll, valid)
+
+
+def label_confidence(logits, labels):
+    """Softmax probability of the true class over the last axis: the
+    supervised reward ``confidence_t - confidence_{t-1}``. ``logits
+    (..., B, C)``, ``labels (B,)``; returns ``(..., B)``."""
+    probs = torch.softmax(logits, dim=-1)
+    idx = labels.long().expand(probs.shape[:-1])[..., None]
+    return probs.gather(-1, idx)[..., 0]

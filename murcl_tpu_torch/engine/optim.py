@@ -5,7 +5,10 @@ The aggregator trains at ``backbone_lr`` and the GRU head at ``fc_lr``
 (groups ``model`` and ``fc``). Weight decay is torch's classic L2, added to
 the gradient before the moments (not AdamW). Schedulers step per epoch and
 only after ``--warmup`` epochs; :func:`set_learning_rates` writes the
-epoch's rates into the groups.
+epoch's rates into the groups. Linear evaluation
+(:func:`freeze_for_linear_eval`) freezes the aggregator but its heads; frozen
+parameters stay out of the optimizer, so they take no step and no decay,
+like optax's ``set_to_zero`` group in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ def make_optimizer(model: torch.nn.Module, fc: torch.nn.Module, optimizer: str =
                    backbone_lr: float = 1e-4, fc_lr: float = 1e-4, beta1: float = 0.9,
                    beta2: float = 0.999, momentum: float = 0.9, nesterov: bool = True,
                    wdecay: float = 1e-5) -> torch.optim.Optimizer:
-    groups = [{"params": list(model.parameters()), "lr": backbone_lr, "name": "model"},
+    groups = [{"params": [p for p in model.parameters() if p.requires_grad],
+               "lr": backbone_lr, "name": "model"},
               {"params": list(fc.parameters()), "lr": fc_lr, "name": "fc"}]
     if optimizer == "Adam":
         return torch.optim.Adam(groups, betas=(beta1, beta2), eps=1e-8,
@@ -29,6 +33,15 @@ def make_optimizer(model: torch.nn.Module, fc: torch.nn.Module, optimizer: str =
         return torch.optim.SGD(groups, momentum=momentum, nesterov=nesterov,
                                weight_decay=wdecay)
     raise NotImplementedError(f"optimizer {optimizer!r}")
+
+
+def freeze_for_linear_eval(model: torch.nn.Module) -> None:
+    """Linear evaluation (reference ``train_RLMIL.py:139-144``): every
+    aggregator parameter except the ``classifiers*`` / ``instance_classifiers*``
+    heads gets ``requires_grad_(False)``."""
+    for name, p in model.named_parameters():
+        if not name.startswith(("classifiers", "instance_classifiers")):
+            p.requires_grad_(False)
 
 
 def set_learning_rates(opt: torch.optim.Optimizer, backbone_lr: float, fc_lr: float) -> None:

@@ -1,16 +1,16 @@
 """Move weights between the JAX package's parameter trees and the port.
 
-The JAX trees (``murcl_tpu`` ``CLAM_SB`` and ``FullLayer``) are nested
-dicts of arrays, optionally under ``'params'``, with flax kernels stored
-``(in, out)``; the port's modules keep the reference torch layout (weights
-``(out, in)``), the same mapping as ``murcl_tpu/engine/torch_import.py``
-``export_model_state`` / ``import_model_state``. Arrays pass through numpy,
-so this module needs no JAX.
+The JAX trees (``murcl_tpu`` ``CLAM_SB``, ``FullLayer`` and ``ActorCritic``)
+are nested dicts of arrays, optionally under ``'params'``, with flax kernels
+stored ``(in, out)``; the port's modules keep the reference torch layout
+(weights ``(out, in)``), the same mapping as ``murcl_tpu/engine/torch_import.py``
+(``export_model_state`` / ``import_model_state``, ``ACTOR_CRITIC_MAP``).
+Arrays pass through numpy, so this module needs no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +25,9 @@ _CLAM_LINEARS = [
 ]
 _GRU = [("weight_ih_l0", "w_ih", True), ("weight_hh_l0", "w_hh", True),
         ("bias_ih_l0", "b_ih", False), ("bias_hh_l0", "b_hh", False)]
+# ActorCritic: (torch prefix, JAX module) of its linears; its GRU is "gru"
+_POLICY_LINEARS = [("state_encoder.0", "enc_hidden"), ("state_encoder.2", "enc_out"),
+                   ("actor.0", "actor"), ("critic.0", "critic")]
 
 
 def _unwrap(tree: dict) -> dict:
@@ -41,13 +44,27 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
-def params_from_jax(model_tree: dict, fc_tree: dict, arch: str = "CLAM_SB"
-                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+def _gru_from_jax(node: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.{k}": _t(np.asarray(node[j]).T if tr else node[j]) for k, j, tr in _GRU}
+
+
+def _gru_to_jax(sd: dict, prefix: str) -> dict:
+    return {j: sd[f"{prefix}.{k}"].T.copy() if tr else sd[f"{prefix}.{k}"].copy()
+            for k, j, tr in _GRU}
+
+
+def _numpy(sd: Dict[str, torch.Tensor]) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def params_from_jax(model_tree: dict, fc_tree: Optional[dict] = None, arch: str = "CLAM_SB"
+                    ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
     """JAX ``(model, fc)`` parameter trees -> the port's ``state_dict``s
-    (``CLAM_SB`` keys without the ``encoder.`` prefix, ``FullLayer`` keys)."""
+    (``CLAM_SB`` keys without the ``encoder.`` prefix, ``FullLayer`` keys;
+    ``None`` for a missing ``fc_tree``)."""
     if arch != "CLAM_SB":
         raise NotImplementedError(f"{arch} weights come with its slice (ROADMAP queue 1)")
-    mt, ft = _unwrap(model_tree), _unwrap(fc_tree)
+    mt = _unwrap(model_tree)
     model = {}
     for prefix, path, w, b in _CLAM_LINEARS:
         node = _node(mt, path)
@@ -57,8 +74,10 @@ def params_from_jax(model_tree: dict, fc_tree: dict, arch: str = "CLAM_SB"
     for i in range(kernels.shape[0]):
         model[f"instance_classifiers.{i}.weight"] = _t(kernels[i].T)
         model[f"instance_classifiers.{i}.bias"] = _t(biases[i])
-    fc = {f"rnn.{k}": _t(np.asarray(ft["rnn"][j]).T if tr else ft["rnn"][j])
-          for k, j, tr in _GRU}
+    if fc_tree is None:
+        return model, None
+    ft = _unwrap(fc_tree)
+    fc = _gru_from_jax(ft["rnn"], "rnn")
     fc["fc.weight"] = _t(np.asarray(ft["fc"]["kernel"]).T)
     fc["fc.bias"] = _t(ft["fc"]["bias"])
     return model, fc
@@ -70,7 +89,7 @@ def jax_from_params(model_sd: Dict[str, torch.Tensor], fc_sd: Dict[str, torch.Te
     of numpy arrays. An ``encoder.`` prefix on every model key is dropped."""
     if arch != "CLAM_SB":
         raise NotImplementedError(f"{arch} weights come with its slice (ROADMAP queue 1)")
-    sd = {k: v.detach().cpu().numpy() for k, v in model_sd.items()}
+    sd = _numpy(model_sd)
     if all(k.startswith("encoder.") for k in sd):
         sd = {k[len("encoder."):]: v for k, v in sd.items()}
     model: dict = {}
@@ -84,8 +103,28 @@ def jax_from_params(model_sd: Dict[str, torch.Tensor], fc_sd: Dict[str, torch.Te
     model["instance_kernel"] = np.stack(
         [sd[f"instance_classifiers.{i}.weight"].T for i in range(n)])
     model["instance_bias"] = np.stack([sd[f"instance_classifiers.{i}.bias"] for i in range(n)])
-    f = {k: v.detach().cpu().numpy() for k, v in fc_sd.items()}
-    fc = {"rnn": {j: f[f"rnn.{k}"].T.copy() if tr else f[f"rnn.{k}"].copy()
-                  for k, j, tr in _GRU},
+    f = _numpy(fc_sd)
+    fc = {"rnn": _gru_to_jax(f, "rnn"),
           "fc": {"kernel": f["fc.weight"].T.copy(), "bias": f["fc.bias"].copy()}}
     return {"params": model}, {"params": fc}
+
+
+def policy_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``ActorCritic`` tree (``policy_conv=False``) -> the port's
+    ``ActorCritic`` ``state_dict``."""
+    t = _unwrap(tree)
+    sd = _gru_from_jax(t["gru"], "gru")
+    for prefix, name in _POLICY_LINEARS:
+        sd[f"{prefix}.weight"] = _t(np.asarray(t[name]["kernel"]).T)
+        sd[f"{prefix}.bias"] = _t(t[name]["bias"])
+    return sd
+
+
+def jax_from_policy(sd: Dict[str, torch.Tensor]) -> dict:
+    """Inverse of :func:`policy_from_jax`: ``{'params': tree}`` of numpy arrays."""
+    f = _numpy(sd)
+    tree = {"gru": _gru_to_jax(f, "gru")}
+    for prefix, name in _POLICY_LINEARS:
+        tree[name] = {"kernel": f[f"{prefix}.weight"].T.copy(),
+                      "bias": f[f"{prefix}.bias"].copy()}
+    return {"params": tree}

@@ -1,22 +1,30 @@
-"""CLAM_SB on the fused-trunk route (counterpart of ``murcl_tpu/models/clam.py``).
+"""CLAM_SB (counterpart of ``murcl_tpu/models/clam.py``).
 
 Reference module layout (``models/clam.py:37-80`` of the reference): the
 trunk ``attention_net = [Linear(in, 512), ReLU, Dropout, Attn_Net_Gated]``,
 the dead-code bag head ``classifiers`` and per-class ``instance_classifiers``.
 Parameters and their ``state_dict`` keys follow it, so reference checkpoints
 and the port's are one format; init is xavier-normal weights and zero
-biases. The forward does not run these submodules one by one: their
-parameters feed :func:`murcl_tpu_torch.ops.attention.fused_trunk_attention_pool`
-(kernels K2/K3 on the GPU), which computes trunk, gates, softmax and pooling
-in one op, with bag mixup folded in when ``mix`` is given.
+biases. The forward does not run these submodules one by one; their
+parameters feed one of two routes:
+
+- default (pretraining): :func:`murcl_tpu_torch.ops.attention.fused_trunk_attention_pool`
+  (kernels K2/K3 on the GPU) computes trunk, gates, softmax and pooling in
+  one op, with bag mixup folded in when ``mix`` is given;
+- ``instance_eval=True`` (supervised training): the trunk is plain torch,
+  ``relu(h @ Wf + bf)`` in the bag dtype, because the instance losses gather
+  its rows; the pool is :func:`murcl_tpu_torch.ops.attention.gated_attention_pool`
+  (K7 on the GPU), with the gradient flowing back into the trunk. The
+  instance losses follow ``_instance_losses`` of the JAX model.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from murcl_tpu_torch.ops.attention import fused_trunk_attention_pool
+from murcl_tpu_torch.ops.attention import fused_trunk_attention_pool, gated_attention_pool
 
 SIZE_DICT = {"small": (512, 256), "big": (512, 384)}
 
@@ -32,9 +40,16 @@ class AttnNetGated(nn.Module):
         self.attention_c = nn.Linear(D, 1)
 
 
+def _instance_ce(logits, target: int):
+    """Per-bag mean cross-entropy of ``logits (B, C, k, 2)`` against one
+    pseudo-label for every instance: ``(B, C)``."""
+    return -F.log_softmax(logits, dim=-1)[..., target].mean(dim=-1)
+
+
 class CLAM_SB(nn.Module):
     """Single-branch CLAM; ``forward`` returns ``(M (B, L1), aux)`` where
-    ``aux`` holds ``attention`` (raw scores (B, N)) and ``logits``."""
+    ``aux`` holds ``attention`` (raw scores (B, N)), ``logits`` and, with
+    ``instance_eval``, ``instance_loss`` (B,)."""
 
     def __init__(self, in_dim: int = 512, gate: bool = True, size_arg: str = "small",
                  dropout: float = 0.0, k_sample: int = 8, n_classes: int = 2,
@@ -42,7 +57,8 @@ class CLAM_SB(nn.Module):
         super().__init__()
         if not gate:
             raise NotImplementedError(
-                "ungated CLAM needs the ungated attention kernel (ROADMAP queue 2, K7)")
+                "ungated CLAM needs K2/K3 with gated=False on its default route (ROADMAP "
+                "queue 2); K7's ungated mode exists")
         l1, l2 = SIZE_DICT[size_arg]
         self.dropout = dropout
         self.k_sample = k_sample
@@ -61,24 +77,62 @@ class CLAM_SB(nn.Module):
                 nn.init.xavier_normal_(m.weight)
                 nn.init.zeros_(m.bias)
 
-    def forward(self, h, mask=None, mix=None, instance_eval: bool = False,
+    def forward(self, h, mask=None, mix=None, instance_eval: bool = False, label=None,
                 generator: torch.Generator = None):
         """``h (B, N, in_dim)`` bags (data, no grad); ``mix=(perm, lam)``
-        folds bag mixup into the kernel; in training with dropout > 0 one
-        dropout seed is drawn from ``generator`` per forward."""
-        if instance_eval:
-            raise NotImplementedError(
-                "CLAM instance-eval is supervised-only (ROADMAP queue 1, slice 3)")
-        trunk = self.attention_net[0]
-        att = self.attention_net[3]
+        folds bag mixup into the kernel (default route only); ``label (B,)``
+        is needed with ``instance_eval``. In training with dropout > 0 one
+        dropout seed is drawn from ``generator`` per forward: it keys the
+        kernels' hash masks, and on the instance route the trunk's mask comes
+        from a ``torch.Generator`` on the bag's device seeded with it."""
         rate, seed = 0.0, 0
         if self.training and self.dropout > 0:
             rate = self.dropout
             seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
-        m, _, s = fused_trunk_attention_pool(
-            h, trunk.weight.t(), trunk.bias,
-            att.attention_a[0].weight.t(), att.attention_a[0].bias,
-            att.attention_b[0].weight.t(), att.attention_b[0].bias,
-            att.attention_c.weight[0], att.attention_c.bias[0],
-            mask=mask, dropout=rate, seed=seed, mix=mix)
-        return m, {"attention": s, "logits": self.classifiers(m)}
+        trunk = self.attention_net[0]
+        att = self.attention_net[3]
+        gates = (att.attention_a[0].weight.t(), att.attention_a[0].bias,
+                 att.attention_b[0].weight.t(), att.attention_b[0].bias,
+                 att.attention_c.weight[0], att.attention_c.bias[0])
+        if not instance_eval:
+            m, _, s = fused_trunk_attention_pool(h, trunk.weight.t(), trunk.bias, *gates,
+                                                 mask=mask, dropout=rate, seed=seed, mix=mix)
+            return m, {"attention": s, "logits": self.classifiers(m)}
+
+        if label is None:
+            raise ValueError("instance_eval=True requires integer labels (B,)")
+        if mix is not None:
+            raise ValueError("mix is folded into the default route only; the supervised "
+                             "instance route never mixes")
+        dt = h.dtype
+        x = torch.relu(h @ trunk.weight.t().to(dt) + trunk.bias.to(dt))
+        if rate > 0:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+            keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+            x = torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=dt, device=x.device))
+        m, p, s = gated_attention_pool(x, *gates, mask=mask, dropout=rate, seed=seed)
+        aux = {"attention": s, "logits": self.classifiers(m),
+               "instance_loss": self._instance_loss(p, x, label)}
+        return m, aux
+
+    def _instance_loss(self, p, x, label):
+        """In/out-of-class instance losses (JAX ``_instance_losses``): the
+        ``k_sample`` rows of highest and of lowest attention ``p`` go through
+        every class's binary classifier; the label's class scores top = 1 and
+        bottom = 0, and with ``subtyping`` the other classes push their top-k
+        to 0, averaged over classes. Returns ``(B,)``."""
+        k = self.k_sample
+        rows = lambda idx: x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))  # noqa: E731
+        top = rows(p.topk(k, dim=1).indices).float()
+        bot = rows((-p).topk(k, dim=1).indices).float()
+        w = torch.stack([c.weight.t() for c in self.instance_classifiers])  # (C, L1, 2)
+        bias = torch.stack([c.bias for c in self.instance_classifiers])  # (C, 2)
+        logit_top = torch.einsum("bkl,clo->bcko", top, w) + bias[None, :, None, :]
+        logit_bot = torch.einsum("bkl,clo->bcko", bot, w) + bias[None, :, None, :]
+        loss_in = (_instance_ce(logit_top, 1) + _instance_ce(logit_bot, 0)) / 2
+        in_class = F.one_hot(label.long(), self.n_classes).to(loss_in.dtype)
+        total = (loss_in * in_class).sum(dim=1)
+        if self.subtyping:
+            loss_out = _instance_ce(logit_top, 0)
+            total = (total + (loss_out * (1.0 - in_class)).sum(dim=1)) / self.n_classes
+        return total

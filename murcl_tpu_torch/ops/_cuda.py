@@ -1,6 +1,7 @@
 """Build, load and launch-count the hand-written CUDA kernels in ``csrc/``.
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one shared
+Each ``.cu`` source is compiled with ``nvcc`` for ``sm_90a`` by its own
+process, all started together, and the objects are linked into one shared
 library with a plain C interface, loaded with :mod:`ctypes`. The library is
 built on first use into ``build/murcl_tpu_torch/`` at the repository root,
 named by a hash of the sources and flags, so an edited source builds anew.
@@ -26,10 +27,12 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "murcl_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {
     "compact": 0,
+    "attention_pool_fwd": 0,
+    "attention_pool_bwd": 0,
     "fused_trunk_fwd": 0,
     "fused_trunk_bwd": 0,
     "ntxent_fwd": 0,
@@ -54,6 +57,15 @@ _SIGNATURES = {
     # dz, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1, D, stream
     "murcl_fused_trunk_bwd": [_I] + [_P] * 13 + [_I, _U, _U, _F] + [_P] * 18
     + [_I] * 5 + [_P],
+    # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, use_dropout, seed,
+    # thresh, scale, m, p, s, B, N, F, D, stream
+    "murcl_attention_pool_fwd": [_I, _I] + [_P] * 8 + [_I, _U, _U, _F] + [_P] * 3
+    + [_I] * 4 + [_P],
+    # is_bf16, gated, x, wa, ba, wb, bb, wc, waT, wbT, mask, use_dropout, seed,
+    # thresh, scale, p, gm, gp, gs, dp, dza, dzb, dx, dwa, dba, dwb, dbb, dwc,
+    # dbc, B, N, F, D, stream
+    "murcl_attention_pool_bwd": [_I, _I] + [_P] * 9 + [_I, _U, _U, _F] + [_P] * 14
+    + [_I] * 4 + [_P],
 }
 
 _lib = None
@@ -86,6 +98,17 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmurcl_kernels_{digest.hexdigest()[:16]}.so"
 
 
+def _wait(procs) -> None:
+    """Wait for every ``(process, source)`` pair, then raise if any failed."""
+    failed = []
+    for proc, src in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src} ({proc.returncode}):\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile the kernels unless a library of the current sources exists."""
     out = library_path()
@@ -93,11 +116,21 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True), src.name))
+    _wait(procs)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    link = subprocess.Popen([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _wait([(link, "the link")])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 

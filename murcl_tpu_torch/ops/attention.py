@@ -1,5 +1,7 @@
-"""CLAM's fused mixup + trunk + gated attention pool: kernels K2/K3 and their
-plain twins, as one :class:`torch.autograd.Function`.
+"""Attention pooling kernels and their plain twins, each as one
+:class:`torch.autograd.Function`: CLAM's fused mixup + trunk + gated
+attention pool (K2/K3) and the attention pool over a bag that is already the
+trunk's output (K7, :func:`gated_attention_pool`, at the end of the module).
 
 Counterpart of ``murcl_tpu/ops/attention_pallas.py``
 ``fused_trunk_attention_pool`` on its Pallas route (forward
@@ -301,3 +303,194 @@ def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
     perm, lam = mix if mix is not None else (None, None)
     return _FusedTrunkAttention.apply(h, wf, bf, wa, ba, wb, bb, wc, bc, mask,
                                       float(dropout), int(seed), perm, lam)
+
+
+# ---------------------------------------------------------------------------
+# K7: attention pool without the trunk (gated or not), with a gradient for x
+# ---------------------------------------------------------------------------
+# Counterpart of ``murcl_tpu/ops/attention_pallas.py`` ``gated_attention_pool``
+# on its Pallas route (forward ``_make_fwd_kernel``, backward
+# ``_make_bwd_kernel``). Its rounding points differ from K2/K3: ``a``, ``g``,
+# ``u`` and the gate dropout scale stay f32, only Wa/Wb are rounded to the bag
+# dtype for the gate products, and wc stays f32. The TPU switched bags over
+# 6 MiB to its tiled kernel (a VMEM limit); the GPU kernel tiles rows, so any
+# N takes K7.
+
+
+def gated_attention_pool_plain_fwd(x, wa, ba, wb, bb, wc, bc, mask, gated=True,
+                                   dropout=0.0, seed=0):
+    """Plain PyTorch forward (mirror of the TPU forward kernel): ``(M, p, s)``."""
+    dt = x.dtype
+    b, n, _ = x.shape
+    d = wa.shape[1]
+    xf = x.float()
+    u = torch.tanh(xf @ wa.to(dt).float() + ba)
+    if dropout > 0:
+        u = u * _keep_scale(seed, dropout, b, n, d, 1, x.device, torch.float32)
+    if gated:
+        g = torch.sigmoid(xf @ wb.to(dt).float() + bb)
+        if dropout > 0:
+            g = g * _keep_scale(seed, dropout, b, n, d, 2, x.device, torch.float32)
+        u = u * g
+    s = u @ wc.float() + bc
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, _NEG_INF)), dim=-1)
+    m = (p.to(dt).float().unsqueeze(1) @ xf).squeeze(1)
+    return m, p, s
+
+
+def gated_attention_pool_plain_bwd(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated=True,
+                                   dropout=0.0, seed=0):
+    """Plain PyTorch backward (mirror of the TPU backward kernel):
+    ``(dx, dwa, dba, dwb, dbb, dwc, dbc)``; ``dx`` in the bag dtype, the
+    rest f32 summed over bags (``dwb``/``dbb`` zeros when ungated)."""
+    dt = x.dtype
+    b, n, f = x.shape
+    d = wa.shape[1]
+    xf = x.float()
+    a = torch.tanh(xf @ wa.to(dt).float() + ba)
+    ka = (_keep_scale(seed, dropout, b, n, d, 1, x.device, torch.float32)
+          if dropout > 0 else None)
+    a_eff = a * ka if ka is not None else a
+    u = a_eff
+    if gated:
+        g = torch.sigmoid(xf @ wb.to(dt).float() + bb)
+        kb = (_keep_scale(seed, dropout, b, n, d, 2, x.device, torch.float32)
+              if dropout > 0 else None)
+        g_eff = g * kb if kb is not None else g
+        u = a_eff * g_eff
+
+    dp = (xf @ gm.to(dt).float().unsqueeze(-1)).squeeze(-1) + gp
+    ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
+    ds = torch.where(mask, ds, torch.zeros_like(ds)) + gs
+    dbc = ds.sum()
+    dwc = torch.einsum("bnd,bn->d", u, ds)
+    du = ds.unsqueeze(-1) * wc.float()
+    da = du * g_eff if gated else du
+    if ka is not None:
+        da = da * ka
+    dza = da * (1 - a * a)
+
+    flat = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+    dwa, dba = flat(xf).T @ flat(dza.to(dt).float()), flat(dza).sum(0)
+    dx = p.unsqueeze(-1) * gm.unsqueeze(1) + dza @ wa.float().T
+    if gated:
+        dg = du * a_eff
+        if kb is not None:
+            dg = dg * kb
+        dzb = dg * g * (1 - g)
+        dwb, dbb = flat(xf).T @ flat(dzb.to(dt).float()), flat(dzb).sum(0)
+        dx = dx + dzb @ wb.float().T
+    else:
+        dwb, dbb = torch.zeros_like(dwa), torch.zeros_like(dba)
+    return dx.to(dt), dwa, dba, dwb, dbb, dwc, dbc
+
+
+def _check_pool_shapes(name, x, wa):
+    b, n, f = x.shape
+    d = wa.shape[1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: bags must be float32 or bfloat16")
+    if f % _TN or d % _TN:
+        raise ValueError(f"{name}: needs F and D multiples of {_TN} (got {f}, {d})")
+    smem = 4 * max(_TM * (f + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + 3 * d + 32,
+                   n + 32)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: tiles need {smem} bytes of shared memory")
+
+
+def _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed):
+    """Kernel operands: Wa/Wb in the bag dtype, biases and wc f32, all
+    contiguous; and the dropout arguments."""
+    c = lambda t, ty: t.to(ty).contiguous()  # noqa: E731
+    f32 = torch.float32
+    ops = dict(x=x.contiguous(), wa=c(wa, x.dtype), ba=c(ba, f32), wb=c(wb, x.dtype),
+               bb=c(bb, f32), wc=c(wc, f32), mask=c(mask, torch.bool))
+    drop = (int(dropout > 0), int(seed) & _M32,
+            dropout_threshold(dropout) if dropout > 0 else 0, float(1.0 / (1.0 - dropout)))
+    return ops, drop
+
+
+def _pool_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed):
+    name = "gated_attention_pool"
+    _check_pool_shapes(name, x, wa)
+    o, drop = _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed)
+    bc32 = bc.to(torch.float32).reshape(1).contiguous()
+    _cuda.require_cuda(name, *o.values(), bc32)
+    b, n, f = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    m, p, s = torch.empty((b, f), **f32), torch.empty((b, n), **f32), torch.empty((b, n), **f32)
+    err = _cuda.library().murcl_attention_pool_fwd(
+        int(x.dtype == torch.bfloat16), int(gated), _p(o["x"]), _p(o["wa"]), _p(o["ba"]),
+        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop, _p(m), _p(p),
+        _p(s), b, n, f, wa.shape[1], _cuda.stream())
+    _cuda.check(err, name)
+    _cuda.LAUNCHES["attention_pool_fwd"] += 1
+    return m, p, s
+
+
+def _pool_bwd_cuda(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, seed):
+    name = "gated_attention_pool backward"
+    _check_pool_shapes(name, x, wa)
+    o, drop = _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed)
+    waT, wbT = (w.to(torch.float32).T.contiguous() for w in (wa, wb))
+    p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
+    _cuda.require_cuda(name, *o.values(), waT, wbT, p, gm, gp, gs)
+    b, n, f = x.shape
+    d = wa.shape[1]
+    dev, dt = x.device, x.dtype
+    f32 = dict(dtype=torch.float32, device=dev)
+    dpv = torch.empty((b, n), **f32)
+    dza = torch.empty((b, n, d), dtype=dt, device=dev)
+    dzb = torch.empty((b, n, d), dtype=dt, device=dev) if gated else None
+    dx = torch.empty((b, n, f), dtype=dt, device=dev)
+    dwa, dba = torch.empty((f, d), **f32), torch.empty((d,), **f32)
+    dwb, dbb = torch.empty((f, d), **f32), torch.empty((d,), **f32)
+    dwc, dbc = torch.empty((d,), **f32), torch.empty((), **f32)
+    err = _cuda.library().murcl_attention_pool_bwd(
+        int(dt == torch.bfloat16), int(gated), _p(o["x"]), _p(o["wa"]), _p(o["ba"]),
+        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(waT), _p(wbT), _p(o["mask"]), *drop, _p(p),
+        _p(gm), _p(gp), _p(gs), _p(dpv), _p(dza), _p(dzb), _p(dx), _p(dwa), _p(dba), _p(dwb),
+        _p(dbb), _p(dwc), _p(dbc), b, n, f, d, _cuda.stream())
+    _cuda.check(err, name)
+    _cuda.LAUNCHES["attention_pool_bwd"] += 1
+    return dx, dwa, dba, dwb, dbb, dwc, dbc
+
+
+class _AttentionPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed):
+        if x.device.type == "cpu":
+            m, p, s = gated_attention_pool_plain_fwd(x, wa, ba, wb, bb, wc, bc, mask, gated,
+                                                     dropout, seed)
+        else:
+            m, p, s = _pool_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed)
+        ctx.save_for_backward(x, wa, ba, wb, bb, wc, mask, p)
+        ctx.gated, ctx.dropout, ctx.seed = gated, dropout, seed
+        return m, p, s
+
+    @staticmethod
+    def backward(ctx, gm, gp, gs):
+        x, wa, ba, wb, bb, wc, mask, p = ctx.saved_tensors
+        args = (x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, ctx.gated, ctx.dropout, ctx.seed)
+        if x.device.type == "cpu":
+            dx, dwa, dba, dwb, dbb, dwc, dbc = gated_attention_pool_plain_bwd(*args)
+        else:
+            dx, dwa, dba, dwb, dbb, dwc, dbc = _pool_bwd_cuda(*args)
+        return dx, dwa, dba, dwb, dbb, dwc, dbc.reshape(()), None, None, None, None
+
+
+def gated_attention_pool(x, wa, ba, wb, bb, wc, bc, mask=None, gated: bool = True,
+                         dropout: float = 0.0, seed: int = 0):
+    """Attention pooling over bags ``x (B, N, F)``: ``(M (B, F), p, s)``.
+
+    ``wa``/``wb`` ``(F, D)``, ``wc (D,)``, biases and ``bc ()`` float32;
+    ``gated=False`` ignores ``wb``/``bb`` and returns zero gradients for them.
+    ``seed`` keys the gate dropout masks (hash streams 1 and 2, bag = index in
+    the batch). The gradient flows to ``x`` as well as to the weights. CPU
+    tensors take the plain twins; CUDA tensors always launch K7f (forward)
+    and K7b (backward).
+    """
+    if mask is None:
+        mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+    return _AttentionPool.apply(x, wa, ba, wb, bb, wc, bc, mask, bool(gated), float(dropout),
+                                int(seed))

@@ -4,9 +4,9 @@ Marked ``cuda``: each test skips, with its reason, where there is no CUDA
 device (the kernels build with nvcc on first use and have no CPU mode). Run
 on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Shapes are small; ``chip_smoke.py`` checks the main path's full shapes.
-Tolerances: K1 bitwise; K4 1e-5; K2/K3 relative Frobenius 1e-4 in f32
-(sum order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32
-sum in another order crosses a rounding boundary).
+Tolerances: K1 bitwise; K4 1e-5; K2/K3 and K7 relative Frobenius 1e-4 in
+f32 (sum order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an
+f32 sum in another order crosses a rounding boundary).
 """
 
 import pytest
@@ -15,7 +15,9 @@ import torch
 from murcl_tpu_torch.data.bank import bank_from_arrays
 from murcl_tpu_torch.ops import _cuda
 from murcl_tpu_torch.ops.attention import (fused_trunk_attention_pool, fused_trunk_plain_bwd,
-                                           fused_trunk_plain_fwd)
+                                           fused_trunk_plain_fwd, gated_attention_pool,
+                                           gated_attention_pool_plain_bwd,
+                                           gated_attention_pool_plain_fwd)
 from murcl_tpu_torch.ops.compact import gather_compact, gather_compact_plain
 from murcl_tpu_torch.ops.ntxent import nt_xent, nt_xent_plain
 from murcl_tpu_torch.ops.select import select_ranks
@@ -104,4 +106,40 @@ def test_fused_trunk_matches_plain(dev, dtype, rate, tol):
     got = [o.detach() for o in outs] + [x.grad for x in ws]
     for name, g, wv in zip(["M", "p", "s", "dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc",
                             "dbc"], got, want):
+        assert _rel(g, wv) <= tol, name
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
+                                            (torch.bfloat16, 0.0, 2e-2),
+                                            (torch.bfloat16, 0.25, 2e-2)])
+def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, n, f, d = 5, 100, 256, 128
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * sc
+
+    w = [r(f, d, sc=f ** -0.5), r(d, sc=0.1), r(f, d, sc=f ** -0.5), r(d, sc=0.1),
+         r(d, sc=d ** -0.5), r((), sc=0.1)]
+    x = r(b, n, f).to(dtype)
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor([100, 90, 33, 64, 1],
+                                                              device=dev)[:, None]
+    cots = [r(b, f), r(b, n, sc=0.1), r(b, n, sc=0.01)]
+    xg = x.clone().requires_grad_(True)
+    ws = [v.clone().requires_grad_(True) for v in w]
+    before = dict(_cuda.LAUNCHES)
+    outs = gated_attention_pool(xg, *ws, mask=mask, gated=gated, dropout=rate, seed=9)
+    torch.autograd.backward(outs, cots)
+    assert _cuda.LAUNCHES["attention_pool_fwd"] == before["attention_pool_fwd"] + 1
+    assert _cuda.LAUNCHES["attention_pool_bwd"] == before["attention_pool_bwd"] + 1
+    m, p, s = gated_attention_pool_plain_fwd(x, *w, mask, gated, rate, 9)
+    want = [m, p, s, *gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots, gated, rate,
+                                                      9)]
+    got = [o.detach() for o in outs] + [xg.grad] + [v.grad for v in ws]
+    names = ["M", "p", "s", "dx", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
+    for name, g, wv in zip(names, got, want):
+        if not gated and name in ("dwb", "dbb"):
+            assert not g.any(), name
+            continue
         assert _rel(g, wv) <= tol, name

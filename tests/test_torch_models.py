@@ -18,7 +18,7 @@ from murcl_tpu.engine.torch_import import FULL_LAYER_MAP, export_model_state, fl
 from murcl_tpu.models import CLAM_SB as JaxCLAM
 from murcl_tpu.models import FullLayer as JaxFullLayer
 from murcl_tpu_torch.engine.weights import jax_from_params, params_from_jax
-from murcl_tpu_torch.models import CL, CLAM_SB, FullLayer
+from murcl_tpu_torch.models import CL, CLAM_SB, ActorCritic, FullLayer
 
 DIM, N, B, PROJ, HID = 16, 12, 3, 8, 32
 
@@ -91,9 +91,12 @@ def test_params_round_trip(tiny_clam):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="K7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
         CLAM_SB(gate=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FullLayer(32, fc_rnn=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ActorCritic(32, policy_conv=True)
+    # the instance branch is ported (tests/test_torch_clam_instance.py); it needs labels
+    with pytest.raises(ValueError, match="labels"):
         CLAM_SB(in_dim=DIM)(torch.zeros(1, 4, DIM), instance_eval=True)
