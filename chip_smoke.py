@@ -8,26 +8,42 @@
    paths' per-bag shapes, and times both at the full shapes:
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape and at the
    supervised per-step shape (64 distinct slides, the JAX package's K5);
-   K4 NT-Xent loss and grads <= 1e-5 abs; K2/K3 fused trunk + attention and
-   K7 attention pool (gated and ungated) relative Frobenius error <= 1e-4
-   in f32 and <= 2e-2 in bf16 at dropout 0 and 0.25, with the kernels' keep
-   rates within 1% of 0.75.
+   K6 mixup bitwise in bf16 at (1536, 1024, 512) and in f32 at (192, 1024,
+   512); K4 NT-Xent loss and grads <= 1e-5 abs; K2/K3 fused trunk +
+   attention (gated and mixed; ungated; gated and ungated with the bags'
+   gradient dh) and K7 attention pool (gated and ungated at D 256; ABMIL's
+   mode, ungated at D 128, at dropout 0 only) relative Frobenius error <=
+   1e-4 in f32 and <= 2e-2 in bf16 at dropout 0 and 0.25, with the kernels'
+   keep rates within 1% of 0.75; K2 and K3 timed gated and ungated, K3 also
+   unmixed with and without dh, K7 in ABMIL's mode at (1536, 1024, 512),
+   each beside its plain twin.
 4. Drives the paths on one synthetic dataset of 192 slides x 2048 patches
-   (dim 512, K 10), every launch count set to 0 before a path and read
+   (dim 512, K 10), every launch count set to 0 before a stage and read
    after it:
-   - MuRCL pretraining, ``murcl_tpu_torch.drivers.murcl.run`` at stage 1,
-     CLAM_SB, batch 128, feat_size 1024, T 6, bf16, one epoch (5 steps) on
-     64 slides: a finite loss, the checkpoint, every kernel launched;
+   - MuRCL pretraining, ``murcl_tpu_torch.drivers.murcl.run``, stages 1 ->
+     2 -> 3 for CLAM_SB and then for ABMIL, batch 128, feat_size 1024, T 6,
+     bf16, on 64 slides: stage 1 one epoch of 5 steps (CLAM_SB) or 2 steps
+     (ABMIL), stages 2 and 3 one epoch of 1 step (stage 2 one PPO epoch).
+     Per stage a finite loss, the checkpoints (with the policy at stages 2
+     and 3) and the kernels: CLAM_SB launches K1, K2 and K4f in every stage
+     and K3 and K4b in stages 1 and 3 only; ABMIL launches K1, K7f and K4f
+     in every stage, K6 in stage 1 only, K7b and K4b in stages 1 and 3
+     only, and never K2 or K3. Then one ABMIL stage-1 step through the
+     kernels and through their plain twins, from the same weights and
+     draws: step losses and gradients compared, and an optimizer step must
+     move every weight with a gradient (``abmil_step_check``);
    - supervised RLMIL, ``murcl_tpu_torch.drivers.rlmil.run``, finetune
-     stages 1 -> 2 -> 3 from that checkpoint on 128 / 32 / 32 slides, batch
-     64, feat_size 1024, T 6, bf16, one epoch each (2 steps; stage 2 one
-     PPO epoch): finite losses, each stage's checkpoints (with the policy
-     in stages 2 and 3), ``pred.csv`` and ``final_res.csv``; compaction and
-     K7f launched in every stage, K7b in stages 1 and 3 and not in stage 2.
-5. Times steady supervised steps at batch 64 (stage 3, then stage 1): 2
-   warm-up steps, then a host clock around 5 synchronised steps; then
-   ``torch.profiler`` traces 3 more steps of each and prints device time by
-   kernel and the device's busy share.
+     stages 1 -> 2 -> 3 from the CLAM_SB MuRCL stage-3 ``model_best`` on
+     128 / 32 / 32 slides, batch 64, feat_size 1024, T 6, bf16, one epoch
+     each (2 steps; stage 2 one PPO epoch): finite losses, each stage's
+     checkpoints (with the policy in stages 2 and 3), ``pred.csv`` and
+     ``final_res.csv``; compaction and K7f launched in every stage, K7b in
+     stages 1 and 3 and not in stage 2.
+5. Times steady steps: supervised at batch 64 (stage 3, then stage 1), and
+   MuRCL ABMIL stage 1 and CLAM_SB stage 3 at batch 128: 2 warm-up steps,
+   then a host clock around 5 synchronised steps; then ``torch.profiler``
+   traces 3 more steps of each and prints device time by kernel and the
+   device's busy share.
 
 Prints the kernel table as one JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits nonzero before
@@ -36,6 +52,7 @@ that line. Run from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -53,6 +70,7 @@ CHECK_BAGS = 192  # bags in the K2/K3 comparisons
 RL_BATCH, RL_SPLITS = 64, (128, 32, 32)  # supervised batch; train / valid / test slides
 POOL_BAGS = T * RL_BATCH  # K7's bags in a supervised stage-1 step
 POOL_CHECK_BAGS = 48  # bags in the K7 comparisons
+ABMIL_D = 128  # ABMIL's attention width (MuRCL's default --D)
 
 
 def card_line() -> str:
@@ -89,25 +107,27 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def run_fused(h, w, mask, dropout, seed, mix, cots):
-    """Kernels K2 + K3 through the op's autograd: ``(M, p, s, *8 grads)``."""
+def run_fused(h, w, mask, dropout, seed, mix, cots, gated=True, need_dh=False):
+    """Kernels K2 + K3 through the op's autograd: ``(M, p, s, *8 grads[, dh])``."""
     import torch
 
     from murcl_tpu_torch.ops.attention import fused_trunk_attention_pool
 
+    hg = h.detach().clone().requires_grad_(need_dh)
     ws = [x.detach().clone().requires_grad_(True) for x in w]
-    outs = fused_trunk_attention_pool(h, *ws, mask=mask, dropout=dropout, seed=seed,
-                                      mix=mix)
+    outs = fused_trunk_attention_pool(hg, *ws, mask=mask, dropout=dropout, seed=seed,
+                                      mix=mix, gated=gated)
     torch.autograd.backward(outs, cots)
-    return [o.detach() for o in outs] + [x.grad for x in ws]
+    return [o.detach() for o in outs] + [x.grad for x in ws] + ([hg.grad] if need_dh else [])
 
 
-def run_plain(h, w, mask, dropout, seed, mix, cots):
+def run_plain(h, w, mask, dropout, seed, mix, cots, gated=True, need_dh=False):
     """The plain PyTorch twins on the same (CUDA) tensors."""
     from murcl_tpu_torch.ops.attention import fused_trunk_plain_bwd, fused_trunk_plain_fwd
 
-    m, p, s = fused_trunk_plain_fwd(h, *w, mask, dropout, seed, *mix)
-    return [m, p, s, *fused_trunk_plain_bwd(h, *w[:7], mask, p, *cots, dropout, seed, *mix)]
+    m, p, s = fused_trunk_plain_fwd(h, *w, mask, dropout, seed, *mix, gated=gated)
+    return [m, p, s, *fused_trunk_plain_bwd(h, *w[:7], mask, p, *cots, dropout, seed, *mix,
+                                            gated=gated, need_dh=need_dh)]
 
 
 def fused_inputs(b, dtype, gen, dev, masked: bool):
@@ -149,7 +169,7 @@ def trunk_keep_rate(dev) -> float:
     m, p, s = z(b, L1), z(b, N_MAIN), z(b, N_MAIN)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _cuda.library().murcl_fused_trunk_fwd(
-        1, ptr(o["h"]), None, None, ptr(o["wf"]), ptr(o["bf"]), ptr(o["wa"]), ptr(o["ba"]),
+        1, 1, ptr(o["h"]), None, None, ptr(o["wf"]), ptr(o["bf"]), ptr(o["wa"]), ptr(o["ba"]),
         ptr(o["wb"]), ptr(o["bb"]), ptr(o["wc"]), ptr(bc), ptr(o["mask"]), *drop, ptr(xc),
         ptr(m), ptr(p), ptr(s), b, N_MAIN, FIN, L1, D, _cuda.stream())
     _cuda.check(err, "keep-rate probe")
@@ -256,21 +276,32 @@ def check_fused(dev, gen):
 
     from murcl_tpu_torch.ops.attention import _FusedTrunkAttention
 
-    names = ["M", "p", "s", "dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
+    names = ["M", "p", "s", "dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc", "dh"]
     err_f, err_b = 0.0, 0.0
     cases = [(torch.float32, 0.0, 1e-4, True), (torch.bfloat16, 0.0, 2e-2, True),
              (torch.bfloat16, 0.25, 2e-2, False)]
-    for dtype, rate, tol, masked in cases:
-        h, w, mask, mix, cots = fused_inputs(CHECK_BAGS, dtype, gen, dev, masked)
-        got = run_fused(h, w, mask, rate, 77, mix, cots)
-        want = run_plain(h, w, mask, rate, 77, mix, cots)
-        rels = {n: rel_err(g, wv) for n, g, wv in zip(names, got, want)}
-        print(f"K2/K3 {dtype} dropout {rate}: rel err "
-              + ", ".join(f"{n} {v:.2e}" for n, v in rels.items()))
-        check(max(rels.values()) <= tol, f"K2/K3 {dtype} dropout {rate}: {rels}")
-        err_f = max(err_f, *(float((g - wv).abs().max()) for g, wv in zip(got[:3], want[:3])))
-        err_b = max(err_b, *(float((g - wv).abs().max()) for g, wv in zip(got[3:], want[3:])))
-        del h, got, want
+    # (gated, mixed, need_dh): the main path's mode, then the modes of the
+    # model API (ungated CLAM; a CLAM differentiated with respect to its bags)
+    modes = [(True, True, False), (False, True, False), (True, False, True),
+             (False, False, True)]
+    for gated, mixed, need_dh in modes:
+        for dtype, rate, tol, masked in cases:
+            h, w, mask, mix, cots = fused_inputs(CHECK_BAGS, dtype, gen, dev, masked)
+            mix = mix if mixed else (None, None)
+            got = run_fused(h, w, mask, rate, 77, mix if mixed else None, cots, gated, need_dh)
+            want = run_plain(h, w, mask, rate, 77, mix, cots, gated, need_dh)
+            rels = {n: rel_err(g, wv) for n, g, wv in zip(names, got, want)
+                    if gated or n not in ("dwb", "dbb")}
+            if not gated:
+                check(not got[7].any() and not got[8].any(), "K3 ungated: dwb/dbb not zero")
+            what = f"K2/K3 gated={gated} mixed={mixed} dh={need_dh} {dtype} dropout {rate}"
+            print(f"{what}: rel err " + ", ".join(f"{n} {v:.2e}" for n, v in rels.items()))
+            check(max(rels.values()) <= tol, f"{what}: {rels}")
+            err_f = max(err_f, *(float((g - wv).abs().max())
+                                 for g, wv in zip(got[:3], want[:3])))
+            err_b = max(err_b, *(float((g.float() - wv.float()).abs().max())
+                                 for g, wv in zip(got[3:], want[3:])))
+            del h, got, want
     keep = trunk_keep_rate(dev)
     print(f"K2 trunk keep rate at dropout 0.25: {keep:.5f}")
     check(abs(keep - 0.75) <= 0.0075, f"keep rate {keep}")
@@ -279,7 +310,7 @@ def check_fused(dev, gen):
     h, w, mask, mix, cots = fused_inputs(B_MAIN, torch.bfloat16, gen, dev, False)
     ws = [x.detach().clone().requires_grad_(True) for x in w]
     perm, lam = mix
-    args = (h, *ws, mask, 0.25, 77, perm, lam)
+    args = (h, *ws, mask, 0.25, 77, perm, lam, True)
     _, p, _ = _FusedTrunkAttention.apply(*args)
     p = p.detach()
     from murcl_tpu_torch.ops import attention as att
@@ -287,24 +318,79 @@ def check_fused(dev, gen):
     k_fwd = median_ms(lambda: att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam), reps=3)
     k_bwd = median_ms(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77, perm, lam),
                       reps=3)
+    modes = {
+        "fwd_ungated": median_ms(lambda: att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam,
+                                                       gated=False), reps=3),
+        "bwd_ungated": median_ms(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77,
+                                                       perm, lam, gated=False), reps=3),
+        # unmixed, as a CLAM differentiated with respect to its bags runs it
+        "bwd_dh": median_ms(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77,
+                                                  None, None, need_dh=True), reps=3),
+        "bwd_unmixed": median_ms(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77,
+                                                       None, None), reps=3),
+    }
     del ws
     torch.cuda.empty_cache()
     p_fwd = median_ms(lambda: att.fused_trunk_plain_fwd(h, *w, mask, 0.25, 77, perm, lam),
                       reps=3)
     p_bwd = median_ms(lambda: att.fused_trunk_plain_bwd(h, *w[:7], mask, p, *cots, 0.25, 77,
                                                         perm, lam), reps=3)
-    return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f},
-            {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b})
+    plain = {
+        "fwd_ungated": median_ms(lambda: att.fused_trunk_plain_fwd(
+            h, *w, mask, 0.25, 77, perm, lam, gated=False), reps=3),
+        "bwd_ungated": median_ms(lambda: att.fused_trunk_plain_bwd(
+            h, *w[:7], mask, p, *cots, 0.25, 77, perm, lam, gated=False), reps=3),
+        "bwd_dh": median_ms(lambda: att.fused_trunk_plain_bwd(
+            h, *w[:7], mask, p, *cots, 0.25, 77, need_dh=True), reps=3),
+        "bwd_unmixed": median_ms(lambda: att.fused_trunk_plain_bwd(
+            h, *w[:7], mask, p, *cots, 0.25, 77), reps=3),
+    }
+    return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f,
+             "ungated_ms": modes["fwd_ungated"], "ungated_plain_ms": plain["fwd_ungated"]},
+            {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b,
+             "ungated_ms": modes["bwd_ungated"], "ungated_plain_ms": plain["bwd_ungated"],
+             "dh_ms": modes["bwd_dh"], "dh_plain_ms": plain["bwd_dh"],
+             "unmixed_ms": modes["bwd_unmixed"], "unmixed_plain_ms": plain["bwd_unmixed"]})
 
 
-def pool_inputs(b, dtype, gen, dev, masked: bool):
+def check_mixup(dev, gen):
+    """K6 against ``apply_mix``: bitwise in bf16 at the ABMIL stage-1 shape
+    and in f32 at an eighth of it; both timed."""
+    import torch
+
+    from murcl_tpu_torch.ops.mixup import _mixup_rows_cuda, apply_mix
+
+    res = {"max_abs_err": 0.0}
+    # (dtype, bags, group): perm_abs permutes within groups, as the engine's
+    # (step, view) groups of BATCH bags
+    for dtype, view, b, grp in ((torch.bfloat16, torch.int16, B_MAIN, BATCH),
+                                (torch.float32, torch.int32, B_MAIN // 8, BATCH // 2)):
+        x = torch.randn(b, N_MAIN, FIN, generator=gen, device=dev).to(dtype)
+        base = torch.arange(b // grp, device=dev).repeat_interleave(grp) * grp
+        perm = torch.cat([torch.randperm(grp, generator=gen, device=dev)
+                          for _ in range(b // grp)]) + base
+        lam = 0.9 + 0.1 * torch.rand(b, generator=gen, device=dev)
+        got, want = _mixup_rows_cuda(x, perm, lam), apply_mix(x, perm, lam)
+        check(torch.equal(got.view(view), want.view(view)), f"K6 not bitwise ({dtype})")
+        del got, want
+        tag = "" if dtype == torch.bfloat16 else "_f32"
+        res["ms" + tag] = median_ms(lambda: _mixup_rows_cuda(x, perm, lam))
+        res["plain_ms" + tag] = median_ms(lambda: apply_mix(x, perm, lam))
+        del x
+        torch.cuda.empty_cache()
+    gib = 3 * B_MAIN * N_MAIN * FIN * 2 / 2**30
+    res["gbps"] = gib * 2**30 / 1e9 / (res["ms"] / 1e3)
+    return res
+
+
+def pool_inputs(b, dtype, gen, dev, masked: bool, d: int = D):
     import torch
 
     def r(*shape, sc=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * sc
 
-    w = [r(L1, D, sc=L1 ** -0.5), r(D, sc=0.1), r(L1, D, sc=L1 ** -0.5), r(D, sc=0.1),
-         r(D, sc=D ** -0.5), r((), sc=0.1)]
+    w = [r(L1, d, sc=L1 ** -0.5), r(d, sc=0.1), r(L1, d, sc=L1 ** -0.5), r(d, sc=0.1),
+         r(d, sc=d ** -0.5), r((), sc=0.1)]
     x = torch.relu(r(b, N_MAIN, L1)).to(dtype)  # a trunk output: post-relu
     lengths = torch.randint(600, N_MAIN + 1, (b,), generator=gen, device=dev)
     mask = torch.arange(N_MAIN, device=dev)[None, :] < lengths[:, None]
@@ -359,9 +445,12 @@ def check_pool(dev, gen):
     err_f, err_b = 0.0, 0.0
     cases = [(torch.float32, 0.0, 1e-4), (torch.bfloat16, 0.0, 2e-2),
              (torch.bfloat16, 0.25, 2e-2)]
-    for gated in (True, False):
-        for dtype, rate, tol in cases:
-            x, w, mask, cots = pool_inputs(POOL_CHECK_BAGS, dtype, gen, dev, True)
+    # (gated, D, cases): CLAM's pools at D 256, then ABMIL's mode (ungated,
+    # D 128, dropout 0) at its own width
+    modes = [(True, D, cases), (False, D, cases), (False, ABMIL_D, cases[:2])]
+    for gated, d, mode_cases in modes:
+        for dtype, rate, tol in mode_cases:
+            x, w, mask, cots = pool_inputs(POOL_CHECK_BAGS, dtype, gen, dev, True, d)
             xg = x.clone().requires_grad_(True)
             ws = [v.clone().requires_grad_(True) for v in w]
             outs = att._AttentionPool.apply(xg, *ws, mask, gated, rate, 77)
@@ -372,9 +461,9 @@ def check_pool(dev, gen):
                                                                   gated, rate, 77)]
             rels = {n: rel_err(g, wv) for n, g, wv in zip(names, got, want)
                     if gated or n not in ("dwb", "dbb")}
-            print(f"K7 gated={gated} {dtype} dropout {rate}: rel err "
-                  + ", ".join(f"{n} {v:.2e}" for n, v in rels.items()))
-            check(max(rels.values()) <= tol, f"K7 gated={gated} {dtype} dropout {rate}: {rels}")
+            what = f"K7 gated={gated} D={d} {dtype} dropout {rate}"
+            print(f"{what}: rel err " + ", ".join(f"{n} {v:.2e}" for n, v in rels.items()))
+            check(max(rels.values()) <= tol, f"{what}: {rels}")
             err_f = max(err_f, *(float((g - wv).abs().max()) for g, wv in zip(got[:3], want[:3])))
             err_b = max(err_b, *(float((g.float() - wv.float()).abs().max())
                                  for g, wv in zip(got[3:], want[3:])))
@@ -396,8 +485,28 @@ def check_pool(dev, gen):
                       reps=3)
     p_bwd = median_ms(lambda: att.gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots,
                                                                  True, 0.25, 77), reps=3)
-    return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f},
-            {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b})
+    del x, p, cots
+    torch.cuda.empty_cache()
+
+    # ABMIL's mode at its stage-1 shape: bf16, ungated, D 128, dropout 0
+    x, w, mask, cots = pool_inputs(B_MAIN, torch.bfloat16, gen, dev, False, ABMIL_D)
+    _, p, _ = att._pool_fwd_cuda(x, *w, mask, False, 0.0, 0)
+    abmil = {
+        "fwd": median_ms(lambda: att._pool_fwd_cuda(x, *w, mask, False, 0.0, 0), reps=3),
+        "bwd": median_ms(lambda: att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, False, 0.0, 0),
+                         reps=3),
+    }
+    torch.cuda.empty_cache()
+    abmil["fwd_plain"] = median_ms(lambda: att.gated_attention_pool_plain_fwd(
+        x, *w, mask, False, 0.0, 0), reps=3)
+    abmil["bwd_plain"] = median_ms(lambda: att.gated_attention_pool_plain_bwd(
+        x, *w[:5], mask, p, *cots, False, 0.0, 0), reps=3)
+    del x, p, cots
+    torch.cuda.empty_cache()
+    return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f,
+             "abmil_ms": abmil["fwd"], "abmil_plain_ms": abmil["fwd_plain"]},
+            {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b,
+             "abmil_ms": abmil["bwd"], "abmil_plain_ms": abmil["bwd_plain"]})
 
 
 def make_dataset(root):
@@ -418,32 +527,161 @@ def make_dataset(root):
     return ds
 
 
-def main_path(dev, ds, results):
-    import numpy as np
+# per arch, the kernels each MuRCL stage must launch (> 0) and must not (== 0)
+MURCL_KERNELS = {
+    "CLAM_SB": {1: (("compact", "fused_trunk_fwd", "fused_trunk_bwd", "ntxent_fwd",
+                     "ntxent_bwd"), ("mixup_rows", "attention_pool_fwd")),
+                2: (("compact", "fused_trunk_fwd", "ntxent_fwd"),
+                    ("fused_trunk_bwd", "ntxent_bwd", "mixup_rows")),
+                3: (("compact", "fused_trunk_fwd", "fused_trunk_bwd", "ntxent_fwd",
+                     "ntxent_bwd"), ("mixup_rows",))},
+    "ABMIL": {1: (("compact", "mixup_rows", "attention_pool_fwd", "attention_pool_bwd",
+                   "ntxent_fwd", "ntxent_bwd"), ("fused_trunk_fwd", "fused_trunk_bwd")),
+              2: (("compact", "attention_pool_fwd", "ntxent_fwd"),
+                  ("fused_trunk_fwd", "fused_trunk_bwd", "attention_pool_bwd", "ntxent_bwd",
+                   "mixup_rows")),
+              3: (("compact", "attention_pool_fwd", "attention_pool_bwd", "ntxent_fwd",
+                   "ntxent_bwd"), ("fused_trunk_fwd", "fused_trunk_bwd", "mixup_rows"))},
+}
+MURCL_REPEAT = {("CLAM_SB", 1): 10, ("ABMIL", 1): 4}  # data_repeat; 2 (one step) otherwise
+
+
+def murcl_args(dev, ds, results, arch, stage, **extra):
+    from murcl_tpu_torch.drivers.murcl import default_args
+
+    return default_args(data_csv=ds["data_csv"], data_split_json=ds["data_split_json"],
+                        device=str(dev), train_stage=stage, arch=arch, batch_size=BATCH,
+                        feat_size=N_MAIN, T=T, compute_dtype="bfloat16",
+                        data_repeat=MURCL_REPEAT.get((arch, stage), 2), epochs=1,
+                        ppo_epochs=1, base_save_dir=str(results), **extra)
+
+
+def murcl_path(dev, ds, results, arch):
+    """MuRCL stages 1 -> 2 -> 3 of ``arch`` through the driver; per stage the
+    launch counts. Returns ``(counts per stage, stage-3 model_best path)``."""
     import torch
 
-    from murcl_tpu_torch.drivers.murcl import default_args, run
+    from murcl_tpu_torch.drivers.murcl import run
     from murcl_tpu_torch.ops import _cuda
 
-    args = default_args(data_csv=ds["data_csv"], data_split_json=ds["data_split_json"],
-                        device=str(dev), train_stage=1, arch="CLAM_SB",
-                        batch_size=BATCH, feat_size=N_MAIN, T=T, compute_dtype="bfloat16",
-                        data_repeat=10, epochs=1, base_save_dir=str(results), save_dir="run")
+    per_stage, run_dir = {}, None
+    for stage in (1, 2, 3):
+        args = murcl_args(dev, ds, results, arch, stage)
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        out = run(args)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_cuda.LAUNCHES)
+        per_stage[stage] = launches
+        run_dir = Path(out["save_dir"])
+        what = f"MuRCL {arch} stage {stage}"
+        check(run_dir.name == f"stage_{stage}", f"{what} ran in {run_dir}")
+        check(math.isfinite(out["best_loss"]), f"{what}: loss {out['best_loss']}")
+        for name in ("checkpoint.pth.tar", "model_best.pth.tar", "losses.csv"):
+            check((run_dir / name).exists(), f"{what}: no {name}")
+        ckpt = torch.load(run_dir / "checkpoint.pth.tar", map_location="cpu", weights_only=True)
+        check((ckpt["policy"] is not None) == (stage > 1), f"{what}: policy entry")
+        used, unused = MURCL_KERNELS[arch][stage]
+        check(all(launches[k] > 0 for k in used) and all(launches[k] == 0 for k in unused),
+              f"{what}: launches {launches}")
+        print(f"{what}: loss {out['best_loss']:.6f}, {out['steps_per_sec']:.4f} steps/s over "
+              f"the epoch (first step included), run() wall {wall:.2f} s, launches {launches}")
+    return per_stage, str(run_dir / "model_best.pth.tar")
+
+
+@contextlib.contextmanager
+def plain_twins():
+    """For one comparison, route the CUDA wrappers of the ABMIL path (K1, K6,
+    K7, K4) to their plain twins on the same CUDA tensors; restored after."""
+    from types import SimpleNamespace
+
+    from murcl_tpu_torch.ops import attention as att
+    from murcl_tpu_torch.ops import compact, mixup, ntxent
+
+    swaps = [(compact, "_gather_compact_cuda", compact.gather_compact_plain),
+             (mixup, "_mixup_rows_cuda", mixup.apply_mix),
+             (att, "_pool_fwd_cuda", att.gated_attention_pool_plain_fwd),
+             (att, "_pool_bwd_cuda", att.gated_attention_pool_plain_bwd),
+             (ntxent, "_NTXent", SimpleNamespace(apply=ntxent.nt_xent_plain))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def abmil_step_check(dev, ds, results):
+    """One ABMIL stage-1 step at the bench.py shape through the kernels, then
+    through their plain twins on the card, from the same weights and draws:
+    step losses within 1e-4 absolute, every gradient within a Frobenius error
+    of 2e-2 relative to the larger of its norm and 1e-4 of the largest
+    gradient's norm (the floor holds the gradients that cancel: the score
+    bias's is zero in exact arithmetic, as softmax ignores a shift). Then one
+    optimizer step must move every weight that has a gradient. Prints the
+    embeddings' spread across bags (norm of the std over bags / norm of the
+    mean)."""
+    import torch
+
+    from murcl_tpu_torch.drivers.murcl import setup
+    from murcl_tpu_torch.ops import _cuda
+
+    s = setup(murcl_args(dev, ds, results, "ABMIL", 1, exist_ok=True))
+    eng = s.engine
+    named = ([(f"model.{k}", v) for k, v in eng.model.named_parameters()]
+             + [(f"fc.{k}", v) for k, v in eng.fc.named_parameters()])
+    ids = torch.arange(BATCH, device=dev) % SLIDES
+    embs = []
+    hook = eng.model.encoder.register_forward_hook(lambda m, i, out: embs.append(out[0].detach()))
+
+    def grads():
+        eng.model.train()
+        eng.fc.train()
+        eng.optimizer.zero_grad(set_to_none=True)
+        total, stats = eng.rollout_batched(s.bank, ids, torch.Generator().manual_seed(0))
+        total.backward()
+        torch.cuda.synchronize()
+        return stats.step_losses.clone(), {k: v.grad.clone() for k, v in named
+                                           if v.grad is not None}
+
     _cuda.reset_launch_counts()
-    t0 = time.time()
-    out = run(args)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = dict(_cuda.LAUNCHES)
-    check(math.isfinite(out["best_loss"]), f"loss {out['best_loss']}")
-    check((Path(out["save_dir"]) / "checkpoint.pth.tar").exists(), "no checkpoint")
-    used = ("compact", "fused_trunk_fwd", "fused_trunk_bwd", "ntxent_fwd", "ntxent_bwd")
-    check(all(launches[k] > 0 for k in used), f"a kernel never launched: {launches}")
-    check(np.isfinite(out["steps_per_sec"]), "no step rate")
-    print(f"MuRCL path: 5 stage-1 steps, loss {out['best_loss']:.6f}, "
-          f"{out['steps_per_sec']:.4f} steps/s over the epoch (first step included), "
-          f"run() wall {wall:.2f} s, launches {launches}")
-    return launches, str(Path(out["save_dir"]) / "model_best.pth.tar")
+    k_loss, k_grads = grads()
+    check(all(_cuda.LAUNCHES[k] > 0 for k in ("compact", "mixup_rows", "attention_pool_fwd",
+                                              "attention_pool_bwd", "ntxent_fwd",
+                                              "ntxent_bwd")), f"kernel step: {_cuda.LAUNCHES}")
+    _cuda.reset_launch_counts()
+    with plain_twins():
+        p_loss, p_grads = grads()
+    check(not any(_cuda.LAUNCHES.values()), f"plain step launched {_cuda.LAUNCHES}")
+    hook.remove()
+    loss_err = float((k_loss - p_loss).abs().max())
+    check(k_grads.keys() == p_grads.keys() and len(k_grads) >= 10,
+          f"gradients of {sorted(k_grads)} against {sorted(p_grads)}")
+    floor = 1e-4 * max(float(g.norm()) for g in p_grads.values())
+    rels = {k: float((k_grads[k].double() - p_grads[k].double()).norm()
+                     / max(float(p_grads[k].norm()), floor)) for k in k_grads}
+    worst = max(rels, key=rels.get)
+    emb_k, emb_p = embs[0].float(), embs[1].float()
+    spread = float(emb_k.std(dim=0).norm() / emb_k.mean(dim=0).norm())
+    print(f"ABMIL stage-1 step, kernels against plain twins: step losses "
+          f"{[round(float(v), 6) for v in k_loss]} (max abs diff {loss_err:.2e}); "
+          f"embedding rel err {rel_err(emb_k, emb_p):.2e}, spread across bags {spread:.3e}; "
+          f"{len(rels)} gradients, worst rel err {rels[worst]:.2e} ({worst}), "
+          f"norms {min(float(g.norm()) for g in k_grads.values()):.3e} to "
+          f"{max(float(g.norm()) for g in k_grads.values()):.3e}")
+    check(loss_err <= 1e-4, f"ABMIL step losses {k_loss} against plain {p_loss}")
+    check(rels[worst] <= 2e-2, f"ABMIL gradients against plain: {rels}")
+
+    before = {k: v.detach().clone() for k, v in named}
+    eng.train_step(s.bank, ids, torch.Generator().manual_seed(0))
+    still = [k for k in k_grads if torch.equal(before[k], dict(named)[k])]
+    check(not still, f"ABMIL stage-1 step left {still} unchanged")
+    del s, eng, before, k_grads, p_grads
+    torch.cuda.empty_cache()
+    return {"loss_err": loss_err, "grad_rel_err": rels[worst], "spread": spread}
 
 
 def rlmil_args(dev, ds, results, stage, pretrained, **extra):
@@ -529,6 +767,43 @@ def steady_steps(dev, ds, results, pretrained):
     return out
 
 
+def steady_murcl_steps(dev, ds, results):
+    """Steady MuRCL steps at batch 128: ABMIL stage 1, then CLAM_SB stage 3
+    (which chains on the CLAM_SB path's stage 2). Returns ``{name: ms}``."""
+    import torch
+
+    from murcl_tpu_torch.drivers.murcl import setup
+
+    out = {}
+    for arch, stage in (("ABMIL", 1), ("CLAM_SB", 3)):
+        s = setup(murcl_args(dev, ds, results, arch, stage, exist_ok=True))
+        gen = torch.Generator().manual_seed(0)
+        ids = torch.arange(BATCH, device=dev) % SLIDES
+
+        def step():
+            s.engine.train_step(s.bank, ids, gen)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        name = f"MuRCL {arch} stage {stage}"
+        out[name] = statistics.median(times)
+        print(f"{name}, batch {BATCH}: median step {out[name]:.2f} ms "
+              f"({1e3 / out[name]:.3f} steps/s), steps {[round(t, 2) for t in times]}, "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_steps(step, name, out[name])
+        del s
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_steps(step, what: str, step_ms: float, n: int = 3) -> None:
     """Device time by kernel over ``n`` traced steps, and the union of the
     kernel intervals per step against the untraced step time ``step_ms``."""
@@ -588,10 +863,22 @@ def main() -> int:
     k2, k3 = check_fused(dev, gen)
     print(f"K2 fused fwd {k2['ms']:.2f} ms vs plain {k2['plain_ms']:.2f} ms; "
           f"K3 bwd {k3['ms']:.2f} ms vs plain {k3['plain_ms']:.2f} ms ({card})")
+    print(f"K2 ungated {k2['ungated_ms']:.2f} ms vs plain {k2['ungated_plain_ms']:.2f} ms; "
+          f"K3 ungated {k3['ungated_ms']:.2f} ms vs plain {k3['ungated_plain_ms']:.2f} ms, "
+          f"unmixed {k3['unmixed_ms']:.2f} ms vs plain {k3['unmixed_plain_ms']:.2f} ms, "
+          f"unmixed with dh {k3['dh_ms']:.2f} ms vs plain {k3['dh_plain_ms']:.2f} ms ({card})")
     k7f, k7b = check_pool(dev, gen)
     print(f"K7 pool fwd {k7f['ms']:.2f} ms vs plain {k7f['plain_ms']:.2f} ms; "
           f"K7 bwd {k7b['ms']:.2f} ms vs plain {k7b['plain_ms']:.2f} ms at "
           f"({POOL_BAGS}, {N_MAIN}, {L1}) bf16, dropout 0.25 ({card})")
+    print(f"K7 ABMIL mode (ungated, D {ABMIL_D}, dropout 0) at ({B_MAIN}, {N_MAIN}, {L1}) "
+          f"bf16: fwd {k7f['abmil_ms']:.2f} ms vs plain {k7f['abmil_plain_ms']:.2f} ms; "
+          f"bwd {k7b['abmil_ms']:.2f} ms vs plain {k7b['abmil_plain_ms']:.2f} ms ({card})")
+    k6 = check_mixup(dev, gen)
+    print(f"K6 mixup bitwise ok; {k6['ms']:.3f} ms vs plain {k6['plain_ms']:.3f} ms at "
+          f"({B_MAIN}, {N_MAIN}, {FIN}) bf16 ({k6['gbps']:.0f} GB/s moved); "
+          f"{k6['ms_f32']:.3f} ms vs plain {k6['plain_ms_f32']:.3f} ms at "
+          f"({B_MAIN // 8}, {N_MAIN}, {FIN}) f32 ({card})")
 
     work = REPO / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -600,19 +887,25 @@ def main() -> int:
         t0 = time.time()
         ds = make_dataset(tmp / "data")
         print(f"synthetic dataset written in {time.time() - t0:.1f} s")
-        launches, pretrained = main_path(dev, ds, tmp / "murcl")
-        per_stage = rlmil_path(dev, ds, tmp / "rlmil", pretrained)
+        clam_stages, pretrained = murcl_path(dev, ds, tmp / "murcl", "CLAM_SB")
+        abmil_stages, _ = murcl_path(dev, ds, tmp / "murcl", "ABMIL")
+        abmil_step_check(dev, ds, tmp / "murcl")
+        rl_stages = rlmil_path(dev, ds, tmp / "rlmil", pretrained)
         steady_steps(dev, ds, tmp / "rlmil", pretrained)
+        steady_murcl_steps(dev, ds, tmp / "murcl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for counts in per_stage.values():
-        for k, v in counts.items():
-            launches[k] += v
+    launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+    for stages in (clam_stages, abmil_stages, rl_stages):
+        for counts in stages.values():
+            for k, v in counts.items():
+                launches[k] += v
 
     base = "murcl_tpu_torch/csrc/"
     rows = [
         ("compact", base + "compact.cu",
          "murcl_tpu/ops/compact_pallas.py:296 (also serves :164 and :52)", k1),
+        ("mixup_rows", base + "mixup.cu", "murcl_tpu/ops/compact_pallas.py:419", k6),
         ("fused_trunk_fwd", base + "fused_trunk.cu",
          "murcl_tpu/ops/attention_pallas.py:563", k2),
         ("fused_trunk_bwd", base + "fused_trunk.cu",
@@ -627,6 +920,12 @@ def main() -> int:
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"]} for n, src, rep, r in rows]
+    for row in kernels:  # the modes each attention row was held in
+        if row["name"].startswith("fused_trunk"):
+            row["modes"] = ("gated and ungated, mixed and unmixed"
+                            + ("; bags' gradient dh" if row["name"].endswith("bwd") else ""))
+        if row["name"].startswith("attention_pool"):
+            row["modes"] = f"gated and ungated at D {D}; ungated at D {ABMIL_D} (ABMIL)"
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

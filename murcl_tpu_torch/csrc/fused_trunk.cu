@@ -1,14 +1,17 @@
-// K2 + K3: CLAM's fused mixup + trunk + gated attention pool, forward and
-// backward (need_dh = false).
+// K2 + K3: CLAM's fused mixup + trunk + attention pool, forward and
+// backward, gated or not, with the bags' gradient dh on request.
 //
 // Replaces murcl_tpu/ops/attention_pallas.py _make_fused_trunk_fwd_kernel
 // and _make_fused_trunk_bwd_kernel (via _fused_trunk_fwd_pallas and
-// _fused_trunk_bwd_pallas, reached by fused_trunk_attention_pool with mix=).
+// _fused_trunk_bwd_pallas, reached by fused_trunk_attention_pool).
 // Per bag i (N rows, Fin -> L1 -> D):
 //   h   = lam_i * h_i + (1 - lam_i) * h_perm[i]             (1 - lam in f32)
 //   xc  = drop(relu(h @ Wf + bf))
 //   a   = drop(tanh(xc @ Wa + ba)),  g = drop(sigmoid(xc @ Wb + bb))
-//   s   = (a * g) @ wc + bc,  p = masked softmax(s),  M = p @ xc
+//   u   = a * g (gated) or a (ungated: Wb, bb unread, their grads zero)
+//   s   = u @ wc + bc,  p = masked softmax(s),  M = p @ xc
+// and with need_dh (unmixed only) dh = dz @ Wf^T, dz the trunk's
+// pre-activation gradient in the bag dtype, rounded as the TPU kernel does.
 // xc, a, g and the backward's dx chain are rounded to the bag dtype right
 // after they are evaluated, as the TPU kernels do; products accumulate in
 // f32. Every product runs here, in FP32 FMA tiles (no tensor cores yet).
@@ -25,9 +28,14 @@
 //  * backward: trunk_bwd_kernel recomputes the mix and the trunk and writes
 //    the mixed bag, xc and dp = xc @ gm + gp; gates_bwd_kernel first sums
 //    p * dp over the bag (the cross-tile sum the softmax backward needs),
-//    then recomputes the gates and writes dza, dzb and dz; wgrad_kernel
+//    then recomputes the gates and writes dza, dzb and dz (and, with
+//    need_dh, multiplies its dz tile, kept in shared memory, by Wf^T into
+//    dh: one more (N, L1) x (L1, Fin) product per bag); wgrad_kernel
 //    contracts the scratches into dWf, dWa, dWb (and the bias sums) as a
 //    split-K sum over all B x N rows, adding the splits with f32 atomics.
+// The gated flag is a runtime argument, uniform over the launch: ungated
+// blocks skip the Wb products, dzb and dWb. Gate a keeps dropout stream 1 in
+// both modes.
 // Dropout keep bits come from a counter hash keyed by (seed, bag, stream,
 // row, col) (common.cuh), so the backward regenerates the forward's masks.
 #include "tiles.cuh"
@@ -110,7 +118,7 @@ trunk_fwd_kernel(const T* __restrict__ h, const int64_t* __restrict__ perm,
                  const float* __restrict__ bf, const T* __restrict__ wa,
                  const float* __restrict__ ba, const T* __restrict__ wb,
                  const float* __restrict__ bb, const T* __restrict__ wc,
-                 const float* __restrict__ bc, Dropout dp, T* __restrict__ xc_out,
+                 const float* __restrict__ bc, Dropout dp, int gated, T* __restrict__ xc_out,
                  float* __restrict__ s_out, int N, int Fin, int L1, int D) {
   extern __shared__ float smem[];
   const int ldh = Fin + 1, ldx = L1 + 1;
@@ -132,7 +140,7 @@ trunk_fwd_kernel(const T* __restrict__ h, const int64_t* __restrict__ perm,
   float ga[RM][RN], gb[RM][RN];
   for (int n0 = 0; n0 < D; n0 += TN) {
     gemm_tile<T>(Xs, ldx, wa, D, L1, n0, Bs, ga);
-    gemm_tile<T>(Xs, ldx, wb, D, L1, n0, Bs, gb);
+    if (gated) gemm_tile<T>(Xs, ldx, wb, D, L1, n0, Bs, gb);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const uint32_t row = r0 + ty + 16 * i;
@@ -140,12 +148,13 @@ trunk_fwd_kernel(const T* __restrict__ h, const int64_t* __restrict__ perm,
       for (int j = 0; j < RN; ++j) {
         const int col = n0 + tx + 16 * j;
         float a = rnd<T>(tanhf(ga[i][j] + ba[col]));
-        float g = rnd<T>(sigmoidf(gb[i][j] + bb[col]));
-        if (dp.on) {
-          a = rnd<T>(__fmul_rn(a, keep_scale<T>(dp, key_a, row * D + col)));
-          g = rnd<T>(__fmul_rn(g, keep_scale<T>(dp, key_b, row * D + col)));
+        if (dp.on) a = rnd<T>(__fmul_rn(a, keep_scale<T>(dp, key_a, row * D + col)));
+        float u = a;
+        if (gated) {
+          float g = rnd<T>(sigmoidf(gb[i][j] + bb[col]));
+          if (dp.on) g = rnd<T>(__fmul_rn(g, keep_scale<T>(dp, key_b, row * D + col)));
+          u = rnd<T>(__fmul_rn(a, g));
         }
-        const float u = rnd<T>(__fmul_rn(a, g));
         sacc[i] = fmaf(u, ld<T>(wc + col), sacc[i]);
       }
     }
@@ -195,19 +204,21 @@ trunk_bwd_kernel(const T* __restrict__ h, const int64_t* __restrict__ perm,
   }
 }
 
-// Backward pass 2: softmax backward, gate backward (dza, dzb, dwc, dbc) and
-// dz = drop/relu'(bf16(p gm^T) + dza @ Wa^T + dzb @ Wb^T).
+// Backward pass 2: softmax backward, gate backward (dza, dzb, dwc, dbc),
+// dz = drop/relu'(bf16(p gm^T) + dza @ Wa^T + dzb @ Wb^T) and, when dh_out is
+// set, dh = dz @ Wf^T.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gates_bwd_kernel(const T* __restrict__ xc, const T* __restrict__ wa,
                  const float* __restrict__ ba, const T* __restrict__ wb,
                  const float* __restrict__ bb, const T* __restrict__ wc,
                  const T* __restrict__ waT, const T* __restrict__ wbT,
-                 const uint8_t* __restrict__ mask, Dropout dp, const float* __restrict__ p,
-                 const float* __restrict__ gm, const float* __restrict__ gs,
-                 const float* __restrict__ dpv, T* __restrict__ dza_out,
-                 T* __restrict__ dzb_out, T* __restrict__ dz_out, float* __restrict__ dwc,
-                 float* __restrict__ dbc, int N, int L1, int D) {
+                 const T* __restrict__ wfT, const uint8_t* __restrict__ mask, Dropout dp,
+                 int gated, const float* __restrict__ p, const float* __restrict__ gm,
+                 const float* __restrict__ gs, const float* __restrict__ dpv,
+                 T* __restrict__ dza_out, T* __restrict__ dzb_out, T* __restrict__ dz_out,
+                 T* __restrict__ dh_out, float* __restrict__ dwc, float* __restrict__ dbc,
+                 int N, int Fin, int L1, int D) {
   extern __shared__ float smem[];
   const int ldx = L1 + 1, ldd = D + 1;
   float* Xs = smem;
@@ -253,7 +264,7 @@ gates_bwd_kernel(const T* __restrict__ xc, const T* __restrict__ wa,
   float ga[RM][RN], gb[RM][RN];
   for (int n0 = 0; n0 < D; n0 += TN) {
     gemm_tile<T>(Xs, ldx, wa, D, L1, n0, Bs, ga);
-    gemm_tile<T>(Xs, ldx, wb, D, L1, n0, Bs, gb);
+    if (gated) gemm_tile<T>(Xs, ldx, wb, D, L1, n0, Bs, gb);
 #pragma unroll
     for (int j = 0; j < RN; ++j) {
       const int col = n0 + tx + 16 * j;
@@ -264,32 +275,39 @@ gates_bwd_kernel(const T* __restrict__ xc, const T* __restrict__ wa,
         const int r = ty + 16 * i;
         const uint32_t idx = (uint32_t)(r0 + r) * D + col;
         const float a = rnd<T>(tanhf(ga[i][j] + ba[col]));
-        const float g = rnd<T>(sigmoidf(gb[i][j] + bb[col]));
-        float ka = 1.f, kb = 1.f, a_eff = a, g_eff = g;
+        float ka = 1.f, a_eff = a;
         if (dp.on) {
           ka = keep_scale<T>(dp, key_a, idx);
-          kb = keep_scale<T>(dp, key_b, idx);
           a_eff = rnd<T>(__fmul_rn(a, ka));
-          g_eff = rnd<T>(__fmul_rn(g, kb));
         }
-        const float u = rnd<T>(__fmul_rn(a_eff, g_eff));
+        float g = 0.f, kb = 1.f, g_eff = 0.f, u = a_eff;
+        if (gated) {
+          g = rnd<T>(sigmoidf(gb[i][j] + bb[col]));
+          g_eff = g;
+          if (dp.on) {
+            kb = keep_scale<T>(dp, key_b, idx);
+            g_eff = rnd<T>(__fmul_rn(g, kb));
+          }
+          u = rnd<T>(__fmul_rn(a_eff, g_eff));
+        }
         const float ds_t = rnd<T>(Ds[r]);
         wsum = fmaf(u, ds_t, wsum);
         const float du = rnd<T>(__fmul_rn(ds_t, wc_t));
-        float da = rnd<T>(__fmul_rn(du, g_eff));
-        float dg = rnd<T>(__fmul_rn(du, a_eff));
-        if (dp.on) {
-          da = rnd<T>(__fmul_rn(da, ka));
-          dg = rnd<T>(__fmul_rn(dg, kb));
-        }
+        float da = gated ? rnd<T>(__fmul_rn(du, g_eff)) : du;
+        if (dp.on) da = rnd<T>(__fmul_rn(da, ka));
         const float dza = rnd<T>(__fmul_rn(da, rnd<T>(1.f - rnd<T>(__fmul_rn(a, a)))));
-        const float dzb = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(dg, g)), rnd<T>(1.f - g)));
+        float dzb = 0.f;
+        if (gated) {
+          float dg = rnd<T>(__fmul_rn(du, a_eff));
+          if (dp.on) dg = rnd<T>(__fmul_rn(dg, kb));
+          dzb = rnd<T>(__fmul_rn(rnd<T>(__fmul_rn(dg, g)), rnd<T>(1.f - g)));
+        }
         const bool live = r0 + r < N;
         DAs[r * ldd + col] = live ? dza : 0.f;
         DBs[r * ldd + col] = live ? dzb : 0.f;
         if (live) {
           dza_out[((size_t)bag * N + r0 + r) * D + col] = st<T>(dza);
-          dzb_out[((size_t)bag * N + r0 + r) * D + col] = st<T>(dzb);
+          if (gated) dzb_out[((size_t)bag * N + r0 + r) * D + col] = st<T>(dzb);
         }
       }
       atomicAdd(&Wcs[col], wsum);
@@ -303,7 +321,7 @@ gates_bwd_kernel(const T* __restrict__ xc, const T* __restrict__ wa,
   float a1[RM][RN], a2[RM][RN];
   for (int n0 = 0; n0 < L1; n0 += TN) {
     gemm_tile<T>(DAs, ldd, waT, L1, D, n0, Bs, a1);
-    gemm_tile<T>(DBs, ldd, wbT, L1, D, n0, Bs, a2);
+    if (gated) gemm_tile<T>(DBs, ldd, wbT, L1, D, n0, Bs, a2);
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int r = ty + 16 * i;
@@ -312,7 +330,7 @@ gates_bwd_kernel(const T* __restrict__ xc, const T* __restrict__ wa,
       for (int j = 0; j < RN; ++j) {
         const int col = n0 + tx + 16 * j;
         float dx = rnd<T>(__fadd_rn(rnd<T>(__fmul_rn(Ps[r], gmb[col])), rnd<T>(a1[i][j])));
-        dx = rnd<T>(__fadd_rn(dx, rnd<T>(a2[i][j])));
+        if (gated) dx = rnd<T>(__fadd_rn(dx, rnd<T>(a2[i][j])));
         // relu'(z) is read as xc > 0; they differ only where 0 < z rounds
         // to a bf16 zero (|z| < 1e-40)
         const float x = Xs[r * ldx + col];
@@ -321,8 +339,25 @@ gates_bwd_kernel(const T* __restrict__ xc, const T* __restrict__ wa,
           m = x > 0.f ? keep_scale<T>(dp, key_x, (uint32_t)(r0 + r) * L1 + col) : 0.f;
         else
           m = x > 0.f ? 1.f : 0.f;
-        dz_out[((size_t)bag * N + r0 + r) * L1 + col] = st<T>(rnd<T>(__fmul_rn(dx, m)));
+        const float dz = rnd<T>(__fmul_rn(dx, m));
+        dz_out[((size_t)bag * N + r0 + r) * L1 + col] = st<T>(dz);
+        // this thread alone reads and writes Xs[r][col]: the tile becomes dz
+        if (dh_out) Xs[r * ldx + col] = dz;
       }
+    }
+  }
+  if (!dh_out) return;
+  // dh = dz @ Wf^T, rounded to T once (the tile's dead rows hold xc = 0)
+  float acc[RM][RN];
+  for (int n0 = 0; n0 < Fin; n0 += TN) {
+    gemm_tile<T>(Xs, ldx, wfT, Fin, L1, n0, Bs, acc);
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int row = r0 + ty + 16 * i;
+      if (row >= N) continue;
+#pragma unroll
+      for (int j = 0; j < RN; ++j)
+        dh_out[((size_t)bag * N + row) * Fin + n0 + tx + 16 * j] = st<T>(acc[i][j]);
     }
   }
 }
@@ -335,15 +370,15 @@ size_t gates_smem(int L1, int D) {
 template <typename T>
 int fwd_impl(const void* h, const void* perm, const void* lam, const void* wf, const void* bf,
              const void* wa, const void* ba, const void* wb, const void* bb, const void* wc,
-             const void* bc, const void* mask, Dropout dp, void* xc, void* m, void* p, void* s,
-             int B, int N, int Fin, int L1, int D, cudaStream_t stream) {
+             const void* bc, const void* mask, Dropout dp, int gated, void* xc, void* m,
+             void* p, void* s, int B, int N, int Fin, int L1, int D, cudaStream_t stream) {
   const size_t smem1 = trunk_smem(Fin, L1);
   MURCL_TRY(allow_smem(trunk_fwd_kernel<T>, smem1));
   const dim3 tiles((N + TM - 1) / TM, B);
   trunk_fwd_kernel<T><<<tiles, THREADS, smem1, stream>>>(
       (const T*)h, (const int64_t*)perm, (const float*)lam, (const T*)wf, (const float*)bf,
       (const T*)wa, (const float*)ba, (const T*)wb, (const float*)bb, (const T*)wc,
-      (const float*)bc, dp, (T*)xc, (float*)s, N, Fin, L1, D);
+      (const float*)bc, dp, gated, (T*)xc, (float*)s, N, Fin, L1, D);
   MURCL_TRY(cudaGetLastError());
   return pool<T>((const float*)s, (const uint8_t*)mask, (const T*)xc, (float*)m, (float*)p, B, N,
                  L1, stream);
@@ -352,11 +387,11 @@ int fwd_impl(const void* h, const void* perm, const void* lam, const void* wf, c
 template <typename T>
 int bwd_impl(const void* h, const void* perm, const void* lam, const void* wf, const void* bf,
              const void* wa, const void* ba, const void* wb, const void* bb, const void* wc,
-             const void* waT, const void* wbT, const void* mask, Dropout dp, const void* p,
-             const void* gm, const void* gp, const void* gs, void* hm, void* xc, void* dpv,
-             void* dza, void* dzb, void* dz, void* dwf, void* dbf, void* dwa, void* dba,
-             void* dwb, void* dbb, void* dwc, void* dbc, int B, int N, int Fin, int L1, int D,
-             cudaStream_t stream) {
+             const void* waT, const void* wbT, const void* wfT, const void* mask, Dropout dp,
+             int gated, const void* p, const void* gm, const void* gp, const void* gs, void* hm,
+             void* xc, void* dpv, void* dza, void* dzb, void* dz, void* dh, void* dwf, void* dbf,
+             void* dwa, void* dba, void* dwb, void* dbb, void* dwc, void* dbc, int B, int N,
+             int Fin, int L1, int D, cudaStream_t stream) {
   MURCL_TRY(cudaMemsetAsync(dwf, 0, sizeof(float) * Fin * L1, stream));
   MURCL_TRY(cudaMemsetAsync(dbf, 0, sizeof(float) * L1, stream));
   MURCL_TRY(cudaMemsetAsync(dwa, 0, sizeof(float) * L1 * D, stream));
@@ -378,22 +413,22 @@ int bwd_impl(const void* h, const void* perm, const void* lam, const void* wf, c
   MURCL_TRY(allow_smem(gates_bwd_kernel<T>, smem2));
   gates_bwd_kernel<T><<<tiles, THREADS, smem2, stream>>>(
       (const T*)xc, (const T*)wa, (const float*)ba, (const T*)wb, (const float*)bb,
-      (const T*)wc, (const T*)waT, (const T*)wbT, (const uint8_t*)mask, dp, (const float*)p,
-      (const float*)gm, (const float*)gs, (const float*)dpv, (T*)dza, (T*)dzb, (T*)dz,
-      (float*)dwc, (float*)dbc, N, L1, D);
+      (const T*)wc, (const T*)waT, (const T*)wbT, (const T*)wfT, (const uint8_t*)mask, dp,
+      gated, (const float*)p, (const float*)gm, (const float*)gs, (const float*)dpv, (T*)dza,
+      (T*)dzb, (T*)dz, (T*)dh, (float*)dwc, (float*)dbc, N, Fin, L1, D);
   MURCL_TRY(cudaGetLastError());
 
   const long long R = (long long)B * N;
   int err = wgrad<T>(hm, Fin, dz, L1, R, (float*)dwf, (float*)dbf, stream);
   if (err) return err;
   err = wgrad<T>(xc, L1, dza, D, R, (float*)dwa, (float*)dba, stream);
-  if (err) return err;
+  if (err || !gated) return err;
   return wgrad<T>(xc, L1, dzb, D, R, (float*)dwb, (float*)dbb, stream);
 }
 
 }  // namespace
 
-MURCL_API int murcl_fused_trunk_fwd(int is_bf16, const void* h, const void* perm,
+MURCL_API int murcl_fused_trunk_fwd(int is_bf16, int gated, const void* h, const void* perm,
                                     const void* lam, const void* wf, const void* bf,
                                     const void* wa, const void* ba, const void* wb,
                                     const void* bb, const void* wc, const void* bc,
@@ -404,27 +439,30 @@ MURCL_API int murcl_fused_trunk_fwd(int is_bf16, const void* h, const void* perm
   const Dropout dp{use_dropout, seed, thresh, scale};
   auto strm = (cudaStream_t)stream;
   if (is_bf16)
-    return fwd_impl<__nv_bfloat16>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask, dp, xc,
-                                   m, p, s, B, N, Fin, L1, D, strm);
-  return fwd_impl<float>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask, dp, xc, m, p, s,
-                         B, N, Fin, L1, D, strm);
+    return fwd_impl<__nv_bfloat16>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask, dp,
+                                   gated, xc, m, p, s, B, N, Fin, L1, D, strm);
+  return fwd_impl<float>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask, dp, gated, xc, m, p,
+                         s, B, N, Fin, L1, D, strm);
 }
 
+// dzb may be null when ungated; dh (and wfT) null unless the bags' gradient
+// is wanted.
 MURCL_API int murcl_fused_trunk_bwd(
-    int is_bf16, const void* h, const void* perm, const void* lam, const void* wf,
+    int is_bf16, int gated, const void* h, const void* perm, const void* lam, const void* wf,
     const void* bf, const void* wa, const void* ba, const void* wb, const void* bb,
-    const void* wc, const void* waT, const void* wbT, const void* mask, int use_dropout,
-    uint32_t seed, uint32_t thresh, float scale, const void* p, const void* gm, const void* gp,
-    const void* gs, void* hm, void* xc, void* dpv, void* dza, void* dzb, void* dz, void* dwf,
-    void* dbf, void* dwa, void* dba, void* dwb, void* dbb, void* dwc, void* dbc, int B, int N,
-    int Fin, int L1, int D, void* stream) {
+    const void* wc, const void* waT, const void* wbT, const void* wfT, const void* mask,
+    int use_dropout, uint32_t seed, uint32_t thresh, float scale, const void* p, const void* gm,
+    const void* gp, const void* gs, void* hm, void* xc, void* dpv, void* dza, void* dzb,
+    void* dz, void* dh, void* dwf, void* dbf, void* dwa, void* dba, void* dwb, void* dbb,
+    void* dwc, void* dbc, int B, int N, int Fin, int L1, int D, void* stream) {
   const Dropout dp{use_dropout, seed, thresh, scale};
   auto strm = (cudaStream_t)stream;
   if (is_bf16)
-    return bwd_impl<__nv_bfloat16>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, mask, dp,
-                                   p, gm, gp, gs, hm, xc, dpv, dza, dzb, dz, dwf, dbf, dwa, dba,
-                                   dwb, dbb, dwc, dbc, B, N, Fin, L1, D, strm);
-  return bwd_impl<float>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, mask, dp, p, gm,
-                         gp, gs, hm, xc, dpv, dza, dzb, dz, dwf, dbf, dwa, dba, dwb, dbb, dwc,
-                         dbc, B, N, Fin, L1, D, strm);
+    return bwd_impl<__nv_bfloat16>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, wfT,
+                                   mask, dp, gated, p, gm, gp, gs, hm, xc, dpv, dza, dzb, dz, dh,
+                                   dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1, D,
+                                   strm);
+  return bwd_impl<float>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, wfT, mask, dp,
+                         gated, p, gm, gp, gs, hm, xc, dpv, dza, dzb, dz, dh, dwf, dbf, dwa, dba,
+                         dwb, dbb, dwc, dbc, B, N, Fin, L1, D, strm);
 }

@@ -1,5 +1,6 @@
 """Driver plumbing (counterpart of ``murcl_tpu/drivers/common.py``): the
-reference save-dir schemes, the per-epoch batch order and epoch metrics."""
+reference save-dir schemes, the per-epoch batch order, epoch metrics and
+the policy loading both drivers share."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from murcl_tpu_torch.engine.checkpoint import transfer_state
 from murcl_tpu_torch.ops.metrics import get_metrics
 
 
@@ -44,6 +46,13 @@ def rlmil_save_dir(args) -> str:
         Path(args.base_save_dir) / f"{args.dataset}_np_{args.feat_size}" / "RLMIL" / rl
         / args.arch / arch_setting / args.train_method / exp / f"seed{args.seed}"
         / f"stage_{args.train_stage}")
+
+
+def load_policy(ppo, state_dict) -> None:
+    """Load ``state_dict`` into the PPO's policy by :func:`transfer_state`,
+    then copy it into ``policy_old``."""
+    transfer_state(ppo.policy, state_dict)
+    ppo.policy_old.load_state_dict(ppo.policy.state_dict())
 
 
 def epoch_batches(num_slides: int, num_data: int, batch_size: int, rng: np.random.Generator,

@@ -1,9 +1,16 @@
-"""MuRCL pretraining driver, stage 1 (counterpart of ``murcl_tpu/drivers/murcl.py``).
+"""MuRCL pretraining driver, stages 1 -> 2 -> 3 (counterpart of ``murcl_tpu/drivers/murcl.py:51-261``).
 
-Stage 1 warms the aggregator and the GRU projection head on random
-sub-bags of the train split. Best = minimum train loss; a checkpoint is
-written every epoch with a ``model_best`` copy. The per-epoch loss is the
-mean over steps of each step's last NT-Xent loss, as in the reference.
+Stage 1 warms the aggregator (``--arch CLAM_SB`` or ``ABMIL``) and the GRU
+projection head on random sub-bags of the train split; stage 2 trains the
+PPO policy against the frozen aggregator for ``--ppo_epochs`` epochs, with
+no aggregator optimizer and no LR schedule; stage 3 fine-tunes aggregator
+and head under the fixed policy. Stage N >= 2 loads aggregator and head from
+``<save_dir>/../stage_{N-1}/model_best.pth.tar`` unless ``--checkpoint``
+names another file, and stage 3 also its policy (into ``policy`` and
+``policy_old``). Best = minimum train loss; a checkpoint is written every
+epoch (with the policy and the PPO optimizer at stages 2 and 3) with a
+``model_best`` copy. The per-epoch loss is the mean over steps of each
+step's last NT-Xent loss, as in the reference.
 
 ``--device cpu`` runs the plain PyTorch path; any other device is a CUDA
 device, which runs the hand-written kernels. Without a CUDA device only
@@ -23,13 +30,13 @@ import torch
 
 from murcl_tpu_torch.data.bank import build_bank
 from murcl_tpu_torch.data.contract import load_split
-from murcl_tpu_torch.drivers.common import epoch_batches, murcl_save_dir
-from murcl_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
+from murcl_tpu_torch.drivers.common import epoch_batches, load_policy, murcl_save_dir
+from murcl_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint, transfer_state
 from murcl_tpu_torch.engine.config import PretrainConfig
 from murcl_tpu_torch.engine.contrastive import ContrastiveEngine
 from murcl_tpu_torch.engine.optim import (lr_schedule_factory, make_optimizer,
                                           set_learning_rates)
-from murcl_tpu_torch.models import CL, CLAM_SB, FullLayer
+from murcl_tpu_torch.models import CL, PPO, FullLayer, build_aggregator
 from murcl_tpu_torch.utils.general import (AverageMeter, BestVariable, CSVWriter, EarlyStop,
                                            increment_path, init_seeds)
 
@@ -50,20 +57,35 @@ def resolve_device(spec) -> torch.device:
 
 def _reject_unported(args) -> None:
     todo = [
-        (args.train_stage != 1, "--train_stage 2/3 (PPO): ROADMAP queue 1, slice 2"),
-        (args.arch != "CLAM_SB", f"--arch {args.arch}: ROADMAP queue 1, slice 3"),
-        (not args.fc_rnn, "the cascaded-FC head (fc_rnn false): ROADMAP queue 1, slice 2"),
-        (args.streaming, "--streaming: ROADMAP queue 1, slice 4"),
-        (int(args.dp_devices or 0) > 1, "--dp_devices > 1: ROADMAP queue 1, slice 5"),
-        (args.use_tensorboard, "--use_tensorboard: ROADMAP queue 1, slice 6"),
-        (int(args.profile or 0) > 0, "--profile: ROADMAP queue 1, slice 6"),
+        (args.policy_conv, "--policy_conv: ROADMAP queue 1, item 10"),
+        (not args.fc_rnn, "the cascaded-FC head (fc_rnn false): ROADMAP queue 1, item 10"),
+        (args.streaming, "--streaming: ROADMAP queue 1, item 13"),
+        (int(args.dp_devices or 0) > 1, "--dp_devices > 1: ROADMAP queue 1, item 14"),
+        (args.use_tensorboard, "--use_tensorboard: ROADMAP queue 1, item 16"),
+        (int(args.profile or 0) > 0, "--profile: ROADMAP queue 1, item 16"),
     ]
     for unported, what in todo:
         if unported:
             raise NotImplementedError(f"not ported yet: {what}")
 
 
-def run(args) -> dict:
+def _arch_setting(args) -> dict:
+    """``murcl_tpu/drivers/murcl.py:51-65`` without the TPU gate-math knob."""
+    if args.arch == "ABMIL":
+        # MuRCL sizes ABMIL with L=model_dim and a projection-dim head
+        return {"L": args.model_dim, "D": args.D, "dropout": args.dropout,
+                "dim_out": args.projection_dim}
+    if args.arch == "CLAM_SB":
+        # gate/dropout(0.25)/subtyping are hardcoded in the reference
+        return {"gate": True, "size_arg": args.size_arg, "dropout": 0.25,
+                "k_sample": args.k_sample, "subtyping": True}
+    raise ValueError(args.arch)
+
+
+def setup(args) -> SimpleNamespace:
+    """Bank, modules, optimizer, policy, engine and the stage chaining of one
+    stage: ``SimpleNamespace(device, bank, model, fc, ppo, optimizer, engine,
+    start_epoch)``. Creates ``args.save_dir`` and fills the derived args."""
     _reject_unported(args)
     device = resolve_device(args.device)
     init_seeds(args.seed)
@@ -86,21 +108,39 @@ def run(args) -> dict:
     print(f"train_length: {bank.num_slides}, epoch_step: {args.num_data}, "
           f"eval_step: {args.eval_step}")
 
-    # gate/dropout(0.25)/subtyping are hardcoded in the reference (train_MuRCL.py:82-91)
-    encoder = CLAM_SB(in_dim=bank.patch_dim, gate=True, size_arg=args.size_arg, dropout=0.25,
-                      k_sample=args.k_sample, n_classes=args.projection_dim, subtyping=True)
+    encoder, feature_num = build_aggregator(args.arch, dim_in=bank.patch_dim,
+                                            num_classes=args.projection_dim,
+                                            arch_setting=_arch_setting(args))
     model = CL(encoder, projection_dim=args.projection_dim).to(device)
-    fc = FullLayer(feature_num=512, hidden_state_dim=args.fc_hidden_dim,
+    fc = FullLayer(feature_num=feature_num, hidden_state_dim=args.fc_hidden_dim,
                    fc_rnn=args.fc_rnn, class_num=args.projection_dim).to(device)
-    optimizer = make_optimizer(model, fc, optimizer=args.optimizer,
-                               backbone_lr=args.backbone_lr, fc_lr=args.fc_lr,
-                               beta1=args.beta1, beta2=args.beta2, momentum=args.momentum,
-                               nesterov=args.nesterov, wdecay=args.wdecay)
-    cfg = PretrainConfig(arch=args.arch, T=args.T, feat_size=args.feat_size,
-                         num_clusters=args.num_clusters, train_stage=args.train_stage,
-                         alpha=args.alpha, temperature=args.temperature,
-                         compute_dtype=args.compute_dtype)
-    engine = ContrastiveEngine(cfg, model, fc, optimizer)
+    ppo = None
+    if args.train_stage != 1:
+        ppo = PPO(state_dim=feature_num, hidden_state_dim=args.policy_hidden_dim,
+                  policy_conv=args.policy_conv, action_std=args.action_std, lr=args.ppo_lr,
+                  gamma=args.ppo_gamma, K_epochs=args.K_epochs,
+                  action_size=args.num_clusters).to(device)
+    optimizer = None
+    if args.train_stage == 2:
+        args.epochs = args.ppo_epochs
+    else:
+        optimizer = make_optimizer(model, fc, optimizer=args.optimizer,
+                                   backbone_lr=args.backbone_lr, fc_lr=args.fc_lr,
+                                   beta1=args.beta1, beta2=args.beta2, momentum=args.momentum,
+                                   nesterov=args.nesterov, wdecay=args.wdecay)
+
+    # stage chaining (murcl_tpu/drivers/murcl.py:146-159)
+    if args.train_stage >= 2:
+        if args.checkpoint is None:
+            args.checkpoint = str(save_dir.parent / f"stage_{args.train_stage - 1}"
+                                  / "model_best.pth.tar")
+        if not Path(args.checkpoint).exists():
+            raise FileNotFoundError(f"{args.checkpoint} does not exist!")
+        ckpt = load_checkpoint(args.checkpoint, map_location=device)
+        transfer_state(model.encoder, ckpt["model_state_dict"])
+        transfer_state(fc, ckpt["fc"])
+        if args.train_stage == 3 and ckpt.get("policy") is not None:
+            load_policy(ppo, ckpt["policy"])
 
     start_epoch = 0
     resume_path = save_dir / "checkpoint.pth.tar"
@@ -108,10 +148,27 @@ def run(args) -> dict:
         ckpt = load_checkpoint(resume_path, map_location=device)
         model.load_state_dict(ckpt["model_state_dict"])
         fc.load_state_dict(ckpt["fc"])
-        optimizer.load_state_dict(ckpt["optimizer"])
+        if optimizer is not None and ckpt.get("optimizer") is not None:
+            optimizer.load_state_dict(ckpt["optimizer"])
+        if ppo is not None and ckpt.get("policy") is not None:
+            ppo.load_policy(ckpt["policy"])
+            if ckpt.get("ppo_optimizer") is not None:
+                ppo.optimizer.load_state_dict(ckpt["ppo_optimizer"])
         start_epoch = int(ckpt["epoch"])
         print(f"resumed from {resume_path} at epoch {start_epoch}")
 
+    cfg = PretrainConfig(arch=args.arch, T=args.T, feat_size=args.feat_size,
+                         num_clusters=args.num_clusters, train_stage=args.train_stage,
+                         num_classes=args.projection_dim, alpha=args.alpha,
+                         temperature=args.temperature, compute_dtype=args.compute_dtype)
+    engine = ContrastiveEngine(cfg, model, fc, optimizer, ppo=ppo)
+    return SimpleNamespace(device=device, bank=bank, model=model, fc=fc, ppo=ppo,
+                           optimizer=optimizer, engine=engine, start_epoch=start_epoch)
+
+
+def run(args) -> dict:
+    s = setup(args)
+    save_dir = Path(args.save_dir)
     with open(save_dir / "args.json", "w", encoding="utf-8") as fp:
         json.dump(vars(args), fp, indent=1, default=str)
 
@@ -128,15 +185,17 @@ def run(args) -> dict:
     fc_lr_fn = lr_schedule_factory(args.scheduler, args.fc_lr, args.epochs, int(args.warmup))
 
     steps_per_sec = None
-    for epoch in range(start_epoch, args.epochs):
+    for epoch in range(s.start_epoch, args.epochs):
         t0 = time.time()
-        set_learning_rates(optimizer, backbone_lr_fn(epoch), fc_lr_fn(epoch))
+        if s.optimizer is not None:  # stage 2 has no aggregator optimizer
+            set_learning_rates(s.optimizer, backbone_lr_fn(epoch), fc_lr_fn(epoch))
         loss_meter = AverageMeter()
         # per-step losses stay on the device until the epoch ends (no sync per step)
         step_losses, step_counts = [], []
-        for ids, _ in epoch_batches(bank.num_slides, args.num_data, args.batch_size, np_rng,
+        for ids, _ in epoch_batches(s.bank.num_slides, args.num_data, args.batch_size, np_rng,
                                     drop_partial=True):
-            stats = engine.train_step(bank, torch.as_tensor(ids, device=device), generator)
+            stats = s.engine.train_step(s.bank, torch.as_tensor(ids, device=s.device),
+                                        generator)
             step_losses.append(stats.step_losses[-1])
             step_counts.append(len(ids))
         for loss, cnt in zip(step_losses, step_counts):
@@ -146,7 +205,8 @@ def run(args) -> dict:
         steps_per_sec = len(step_losses) / dt if dt > 0 else None
 
         is_best = best_train_loss.compare(train_loss, epoch + 1, inplace=True)
-        save_checkpoint(save_dir, epoch + 1, model, fc, optimizer, is_best=is_best)
+        save_checkpoint(save_dir, epoch + 1, s.model, s.fc, s.optimizer, s.ppo,
+                        is_best=is_best)
         losses_csv.write_row([epoch + 1, train_loss, best_train_loss.epoch,
                               best_train_loss.best])
         results_csv.write_row([epoch + 1, best_train_loss.epoch, best_train_loss.best])

@@ -35,7 +35,8 @@ import torch
 
 from murcl_tpu_torch.data.bank import build_bank
 from murcl_tpu_torch.data.contract import load_split
-from murcl_tpu_torch.drivers.common import EpochOutputs, epoch_batches, rlmil_save_dir
+from murcl_tpu_torch.drivers.common import (EpochOutputs, epoch_batches, load_policy,
+                                           rlmil_save_dir)
 from murcl_tpu_torch.drivers.murcl import resolve_device
 from murcl_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint, transfer_state
 from murcl_tpu_torch.engine.config import RolloutConfig
@@ -51,22 +52,17 @@ from murcl_tpu_torch.utils.general import (BestVariable, CSVWriter, EarlyStop, i
 
 def _reject_unported(args) -> None:
     todo = [
-        (args.arch != "CLAM_SB", f"--arch {args.arch}: ROADMAP queue 1, slice 3 (ABMIL/DSMIL)"),
-        (not args.fc_rnn, "the cascaded-FC head (fc_rnn false): ROADMAP queue 1, slice 2"),
-        (args.policy_conv, "--policy_conv: ROADMAP queue 1, slice 2"),
-        (args.streaming, "--streaming: ROADMAP queue 1, slice 4"),
-        (int(args.dp_devices or 0) > 1, "--dp_devices > 1: ROADMAP queue 1, slice 5"),
-        (args.use_tensorboard, "--use_tensorboard: ROADMAP queue 1, slice 6"),
-        (int(args.profile or 0) > 0, "--profile: ROADMAP queue 1, slice 6"),
+        (args.arch != "CLAM_SB", f"--arch {args.arch} in RLMIL: ROADMAP queue 1, item 12"),
+        (not args.fc_rnn, "the cascaded-FC head (fc_rnn false): ROADMAP queue 1, item 10"),
+        (args.policy_conv, "--policy_conv: ROADMAP queue 1, item 10"),
+        (args.streaming, "--streaming: ROADMAP queue 1, item 13"),
+        (int(args.dp_devices or 0) > 1, "--dp_devices > 1: ROADMAP queue 1, item 14"),
+        (args.use_tensorboard, "--use_tensorboard: ROADMAP queue 1, item 16"),
+        (int(args.profile or 0) > 0, "--profile: ROADMAP queue 1, item 16"),
     ]
     for unported, what in todo:
         if unported:
             raise NotImplementedError(f"not ported yet: {what}")
-
-
-def _load_policy(ppo: PPO, state_dict) -> None:
-    transfer_state(ppo.policy, state_dict)
-    ppo.policy_old.load_state_dict(ppo.policy.state_dict())
 
 
 def _load_stage_checkpoint(args, model, fc, device) -> dict:
@@ -137,12 +133,12 @@ def setup(args) -> SimpleNamespace:
             # stage 2 takes the policy of the pretrained MuRCL run (train_RLMIL.py:155-166)
             source = _pretrained(args, device) if args.train_stage == 2 else ckpt
             if source.get("policy") is not None:
-                _load_policy(ppo, source["policy"])
+                load_policy(ppo, source["policy"])
     elif args.train_method == "scratch":
         if args.train_stage >= 2:
             ckpt = _load_stage_checkpoint(args, model, fc, device)
             if args.train_stage == 3 and ckpt.get("policy") is not None:
-                _load_policy(ppo, ckpt["policy"])
+                load_policy(ppo, ckpt["policy"])
     else:
         raise ValueError(args.train_method)
 
@@ -152,7 +148,7 @@ def setup(args) -> SimpleNamespace:
         transfer_state(model, ckpt["model_state_dict"])
         transfer_state(fc, ckpt["fc"])
         if ppo is not None and ckpt.get("policy") is not None:
-            _load_policy(ppo, ckpt["policy"])
+            load_policy(ppo, ckpt["policy"])
         print(f"resumed model/fc/policy from {resume_path}")
 
     optimizer = None

@@ -16,11 +16,11 @@ from dataclasses import dataclass
 class RolloutConfig:
     """Shape + schedule of the T-step cluster-window rollout."""
 
-    arch: str  # CLAM_SB (ABMIL | DSMIL are later slices)
+    arch: str  # ABMIL | CLAM_SB (DSMIL: ROADMAP queue 1, item 12)
     T: int = 6
     feat_size: int = 1024
     num_clusters: int = 10
-    train_stage: int = 1  # 1 | 2 | 3 (MuRCL pretraining: 1 only so far)
+    train_stage: int = 1  # 1 | 2 | 3
     num_classes: int = 2
     bag_weight: float = 0.7  # CLAM's CE weight; 1 - bag_weight on the instance loss
     # aggregator compute dtype; losses, softmax and the GRU head stay float32
@@ -28,6 +28,7 @@ class RolloutConfig:
 
     @property
     def uses_policy(self) -> bool:
+        """Stages 2 and 3 take their actions from the PPO policy."""
         return self.train_stage != 1
 
 

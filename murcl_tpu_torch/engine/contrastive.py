@@ -1,20 +1,43 @@
-"""MuRCL stage-1 contrastive pretraining engine, batched layout.
+"""MuRCL contrastive pretraining engine, stages 1, 2 and 3, for CLAM_SB and ABMIL.
 
-Counterpart of ``murcl_tpu/engine/contrastive.py`` ``ContrastiveEngine``:
-``_rollout_batched`` and the stage-1 branch of ``_train_impl``. Stage 1
-draws every action uniformly at random, so all T steps x 2 views select,
-compact, mix and encode as one ``(T*2B, feat_size, D)`` batch; only the GRU
-head and the per-step NT-Xent run step by step.
+Counterpart of ``murcl_tpu/engine/contrastive.py`` ``ContrastiveEngine``.
+Per batch, two views of sub-bags are selected, mixed, encoded by the shared
+aggregator and projected by the shared GRU head; each step's loss is NT-Xent
+between the views, and the reward ``sim_{t-1} - sim_t`` (decreasing cosine
+similarity is rewarded).
+
+- Stage 1 (:meth:`ContrastiveEngine.rollout_batched`, JAX
+  ``_rollout_batched`` ``:185-300``) draws every action uniformly at
+  random, so all T steps x 2 views select, compact (K1), mix and encode as
+  one ``(T*2B, feat_size, D)`` batch; only the GRU head and the per-step
+  NT-Xent run step by step. CLAM_SB folds the mix into its fused trunk
+  kernel (K2/K3); ABMIL mixes with :func:`~murcl_tpu_torch.ops.mixup.mixup_rows`
+  (K6) first, as the JAX engine does for an arch off CLAM's fused route.
+- Stages 2 and 3 (:meth:`ContrastiveEngine.rollout_sequential`, JAX
+  ``_rollout_sequential`` ``:302-430``) run T steps of one aggregator
+  forward over both views (2B bags). t=0 takes two uniform action draws;
+  from t=1 each view's actions come from ``policy_old`` acting on that
+  view's previous embedding, each view with its own policy carry starting at
+  zero. CLAM_SB folds the mix into K2; ABMIL mixes each view with
+  :func:`~murcl_tpu_torch.ops.mixup.mixup_ref`, the JAX ``mixup`` expression.
+- Stage 2 runs the rollout with the aggregator and head in eval mode and no
+  gradient, then one PPO update per view, view 0 first; stages 1 and 3
+  back-propagate the mean of the T losses and step the optimizer (the
+  policy stays fixed in stage 3).
 
 The reference ``Full_layer`` keeps its GRU hidden as module state and the
 two views call it in turn, so the hidden state interleaves across views:
 at t=0 each view restarts from zeros and view 1's carry is kept; at each
-later step view 0 consumes the carry view 1 wrote. The loop below threads
-one carry view0 -> view1 per step to match.
+later step view 0 consumes the carry view 1 wrote. One carry threads view0
+-> view1 per step to match.
 
 Random draws come from one explicit CPU ``torch.Generator`` in a fixed
-order: actions, the mixup draws of each (step, view) group, then one
-dropout seed per aggregator forward. Tests inject actions and mixup draws.
+order. Stage 1: the actions ``(T, 2, B, K)``, the mixup draws of each
+(step, view) group, then one dropout seed per aggregator forward. Stages 2
+and 3: the t=0 actions ``(2, B, K)``; then per step, for t >= 1 the policy
+noise of view 0 and of view 1, and for every step the mixup draws of view 0
+and of view 1 and the forward's dropout seed. Tests inject the actions, the
+noise and the mixup draws.
 """
 
 from __future__ import annotations
@@ -22,12 +45,15 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from murcl_tpu_torch.engine.config import PretrainConfig
-from murcl_tpu_torch.ops.mixup import mixup_factors
+from murcl_tpu_torch.engine.losses import cosine_similarity
+from murcl_tpu_torch.models.rlmil import Rollout, act
+from murcl_tpu_torch.ops.mixup import mixup_factors, mixup_ref, mixup_rows
 from murcl_tpu_torch.ops.ntxent import nt_xent
 from murcl_tpu_torch.ops.select import select_feats
+
+ARCHS = ("ABMIL", "CLAM_SB")
 
 
 class PretrainStats(NamedTuple):
@@ -37,23 +63,35 @@ class PretrainStats(NamedTuple):
 
 
 class ContrastiveEngine:
-    """Stage-1 MuRCL training step over a device-resident feature bank.
+    """One MuRCL training step over a device-resident feature bank.
 
-    ``model`` is the ``CL``-wrapped aggregator, ``fc`` the GRU head.
+    ``model`` is the ``CL``-wrapped aggregator, ``fc`` the GRU head, ``ppo``
+    a :class:`~murcl_tpu_torch.models.rlmil.PPO` (stages 2 and 3) and
+    ``optimizer`` over model and fc (stages 1 and 3).
     """
 
-    def __init__(self, cfg: PretrainConfig, model, fc, optimizer=None):
-        if cfg.train_stage != 1:
+    def __init__(self, cfg: PretrainConfig, model, fc, optimizer=None, ppo=None):
+        if cfg.arch not in ARCHS:
             raise NotImplementedError(
-                "stages 2/3 (PPO) are not ported yet (ROADMAP queue 1, slice 2)")
-        if cfg.arch != "CLAM_SB":
-            raise NotImplementedError(
-                f"{cfg.arch} is not ported yet (ROADMAP queue 1, slice 3)")
+                f"{cfg.arch} is not ported yet: ROADMAP queue 1, item 12")
+        if cfg.uses_policy and ppo is None:
+            raise ValueError(f"stage {cfg.train_stage} requires a PPO policy")
+        if cfg.train_stage != 2 and optimizer is None:
+            raise ValueError("stages 1/3 require an optimizer")
         self.cfg = cfg
         self.model = model
         self.fc = fc
         self.optimizer = optimizer
+        self.ppo = ppo
         self.cdtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+        # CLAM_SB's fused trunk kernel mixes in place of a standalone pass
+        self.fused_mix = cfg.arch == "CLAM_SB"
+
+    def _encode(self, x, generator, mix=None):
+        """Aggregator forward of the bags ``x``: the f32 embedding ``(B, F)``."""
+        kwargs = {"mix": mix} if mix is not None else {}
+        emb, _ = self.model.encoder(x.to(self.cdtype), generator=generator, **kwargs)
+        return emb.float()
 
     def rollout_batched(self, bank, slide_ids, generator: torch.Generator,
                         actions: Optional[torch.Tensor] = None, mix=None):
@@ -80,10 +118,12 @@ class ContrastiveEngine:
         # mixup permutes within each (step, view) group of b bags
         base = torch.arange(t_steps * 2)[:, None] * b
         perm_abs = (perms.to(torch.int64).cpu() + base).reshape(-1).to(dev)
-        emb, _ = self.model.encoder(x_flat.to(self.cdtype),
-                                    mix=(perm_abs, lams.reshape(-1).to(dev)),
-                                    generator=generator)
-        emb = emb.float().reshape(t_steps, 2, b, -1)
+        lam_flat = lams.reshape(-1).to(dev)
+        if self.fused_mix:
+            emb = self._encode(x_flat, generator, mix=(perm_abs, lam_flat))
+        else:
+            emb = self._encode(mixup_rows(x_flat, perm_abs, lam_flat), generator)
+        emb = emb.reshape(t_steps, 2, b, -1)
 
         proj_a, _ = self.fc(emb[0, 0])
         proj_b, carry = self.fc(emb[0, 1])
@@ -96,16 +136,106 @@ class ContrastiveEngine:
         total = step_losses.sum() / t_steps
 
         with torch.no_grad():  # rewards are reported only in stage 1
-            sims = torch.stack([F.cosine_similarity(pa, pb, dim=-1, eps=1e-8)
-                                for pa, pb in projs])
+            sims = torch.stack([cosine_similarity(pa, pb) for pa, pb in projs])
             rewards = (sims[:-1] - sims[1:]).mean(dim=1)
         return total, PretrainStats(total.detach(), step_losses.detach(), rewards)
 
-    def train_step(self, bank, slide_ids, generator: torch.Generator) -> PretrainStats:
+    def _pair_forward(self, bank, slide_ids, actions, carry, generator, mix_t):
+        """Both views of one step through one aggregator forward of 2B bags
+        (K1 compacts both from the same slide windows), then the GRU head,
+        view 0 then view 1: ``(proj (2, B, C), states (2, B, F), carry)``.
+        ``carry=None`` restarts each view's head from zeros (t=0)."""
+        cfg = self.cfg
+        b = slide_ids.shape[0]
+        dev = bank.feats.device
+        x2 = select_feats(bank, torch.cat([slide_ids, slide_ids]),
+                          torch.cat([actions[0], actions[1]]).to(dev), cfg.feat_size)
+        if mix_t is None:
+            mix_t = [mixup_factors(generator, b, cfg.alpha) for _ in range(2)]
+        (lam_a, perm_a), (lam_b, perm_b) = ((lam.to(dev), perm.to(dev, torch.int64))
+                                            for lam, perm in mix_t)
+        if self.fused_mix:
+            emb2 = self._encode(x2, generator, mix=(torch.cat([perm_a, perm_b + b]),
+                                                    torch.cat([lam_a, lam_b])))
+        else:
+            emb2 = self._encode(torch.cat([mixup_ref(x2[:b], perm_a, lam_a),
+                                           mixup_ref(x2[b:], perm_b, lam_b)]), generator)
+        if carry is None:
+            proj_a, _ = self.fc(emb2[:b])
+            proj_b, carry = self.fc(emb2[b:])
+        else:
+            proj_a, c_mid = self.fc(emb2[:b], carry)
+            proj_b, carry = self.fc(emb2[b:], c_mid)
+        states = emb2.detach().reshape(2, b, -1)
+        return torch.stack([proj_a, proj_b]), states, carry
+
+    def rollout_sequential(self, bank, slide_ids, generator: torch.Generator,
+                           actions0: Optional[torch.Tensor] = None,
+                           noise: Optional[torch.Tensor] = None, mix=None):
+        """Stages 2/3 rollout (needs the policy): ``(total, PretrainStats,
+        (Rollout of view 0, Rollout of view 1))``. ``actions0 (2, B, K)``, the
+        standard-normal policy ``noise (T-1, 2, B, K)`` and ``mix=(lams (T, 2,
+        B), perms (T, 2, B))`` override the random draws (tests)."""
+        cfg = self.cfg
+        b = slide_ids.shape[0]
+        dev = bank.feats.device
+        mix_of = lambda t: None if mix is None else [(mix[0][t, v], mix[1][t, v])  # noqa: E731
+                                                     for v in (0, 1)]
+        if actions0 is None:
+            actions0 = torch.rand((2, b, cfg.num_clusters), generator=generator,
+                                  device=generator.device)
+        projs, states, fc_carry = self._pair_forward(bank, slide_ids, actions0, None,
+                                                     generator, mix_of(0))
+        losses = [nt_xent(projs[0], projs[1], cfg.temperature)]
+        sim_last = cosine_similarity(projs[0].detach(), projs[1].detach())
+
+        pol = [self.ppo.zero_hidden(b, dev), self.ppo.zero_hidden(b, dev)]
+        steps, rewards = ([], []), []
+        for t in range(1, cfg.T):
+            acts = []
+            for v in (0, 1):
+                action, pol[v], pstep = act(self.ppo.policy_old, states[v], pol[v], generator,
+                                            None if noise is None else noise[t - 1, v])
+                acts.append(action)
+                steps[v].append(pstep)
+            projs, states, fc_carry = self._pair_forward(bank, slide_ids, acts, fc_carry,
+                                                         generator, mix_of(t))
+            losses.append(nt_xent(projs[0], projs[1], cfg.temperature))
+            sim = cosine_similarity(projs[0].detach(), projs[1].detach())
+            rewards.append(sim_last - sim)
+            sim_last = sim
+
+        step_losses = torch.stack(losses)
+        total = step_losses.sum() / cfg.T
+        rewards = torch.stack(rewards)
+        rollouts = tuple(
+            Rollout(states=torch.stack([s.state for s in view]),
+                    actions=torch.stack([s.action for s in view]),
+                    logprobs=torch.stack([s.logprob for s in view]), rewards=rewards)
+            for view in steps)
+        stats = PretrainStats(total.detach(), step_losses.detach(), rewards.mean(dim=1))
+        return total, stats, rollouts
+
+    def train_step(self, bank, slide_ids, generator: torch.Generator, **draws) -> PretrainStats:
+        """One optimizer step (stages 1/3) or one PPO update per view (stage
+        2). ``draws`` go to the rollout (tests inject the random draws)."""
+        cfg = self.cfg
+        if cfg.train_stage == 2:
+            self.model.eval()
+            self.fc.eval()
+            with torch.no_grad():
+                _, stats, rollouts = self.rollout_sequential(bank, slide_ids, generator,
+                                                             **draws)
+            for rollout in rollouts:  # view 0 first (train_MuRCL.py:296-298)
+                self.ppo.update(rollout)
+            return stats
         self.model.train()
         self.fc.train()
         self.optimizer.zero_grad(set_to_none=True)
-        total, stats = self.rollout_batched(bank, slide_ids, generator)
+        if cfg.uses_policy:
+            total, stats, _ = self.rollout_sequential(bank, slide_ids, generator, **draws)
+        else:
+            total, stats = self.rollout_batched(bank, slide_ids, generator, **draws)
         total.backward()
         self.optimizer.step()
         return stats

@@ -24,6 +24,14 @@ def cross_entropy(logits, labels, valid):
     return masked_mean(nll, valid)
 
 
+def cosine_similarity(a, b, eps: float = 1e-8):
+    """Row-wise cosine similarity with each norm clamped at ``eps``, the JAX
+    formula (``murcl_tpu/engine/losses.py:48``): the MuRCL reward."""
+    na = torch.linalg.vector_norm(a, dim=-1).clamp_min(eps)
+    nb = torch.linalg.vector_norm(b, dim=-1).clamp_min(eps)
+    return (a * b).sum(dim=-1) / (na * nb)
+
+
 def label_confidence(logits, labels):
     """Softmax probability of the true class over the last axis: the
     supervised reward ``confidence_t - confidence_{t-1}``. ``logits

@@ -53,7 +53,8 @@ class SupervisedEngine:
     def __init__(self, cfg: RolloutConfig, model, fc, ppo=None, optimizer=None):
         if cfg.arch != "CLAM_SB":
             raise NotImplementedError(
-                f"{cfg.arch} in the supervised engine is not ported yet (ROADMAP queue 1)")
+                f"{cfg.arch} in the supervised engine is not ported yet: ROADMAP queue 1, "
+                "item 12")
         if cfg.uses_policy and ppo is None:
             raise ValueError(f"stage {cfg.train_stage} requires a PPO policy")
         if cfg.train_stage != 2 and optimizer is None:

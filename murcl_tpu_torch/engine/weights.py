@@ -1,11 +1,14 @@
 """Move weights between the JAX package's parameter trees and the port.
 
-The JAX trees (``murcl_tpu`` ``CLAM_SB``, ``FullLayer`` and ``ActorCritic``)
-are nested dicts of arrays, optionally under ``'params'``, with flax kernels
-stored ``(in, out)``; the port's modules keep the reference torch layout
-(weights ``(out, in)``), the same mapping as ``murcl_tpu/engine/torch_import.py``
-(``export_model_state`` / ``import_model_state``, ``ACTOR_CRITIC_MAP``).
-Arrays pass through numpy, so this module needs no JAX.
+The JAX trees (``murcl_tpu`` ``ABMIL``, ``CLAM_SB`` gated or not,
+``FullLayer`` and ``ActorCritic``) are nested dicts of arrays, optionally
+under ``'params'``, with flax kernels stored ``(in, out)``; the port's
+modules keep the reference torch layout (weights ``(out, in)``), the same
+mapping as ``murcl_tpu/engine/torch_import.py`` (``ABMIL_MAP``,
+``clam_map``, ``ACTOR_CRITIC_MAP``). Ungated CLAM keeps the reference
+``Attn_Net`` keys (``attention_net.3.module.0`` and ``.3``), which
+``clam_map`` does not cover; they map to the JAX leaves ``attn/wa, ba, wc,
+bc``. Arrays pass through numpy, so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -22,6 +25,21 @@ _CLAM_LINEARS = [
     ("attention_net.3.attention_b.0", ("attn",), "wb", "bb"),
     ("attention_net.3.attention_c", ("attn",), "wc", "bc"),
     ("classifiers", ("classifiers",), "kernel", "bias"),
+]
+_CLAM_UNGATED_LINEARS = [
+    ("attention_net.0", ("fc",), "kernel", "bias"),
+    ("attention_net.3.module.0", ("attn",), "wa", "ba"),
+    ("attention_net.3.module.3", ("attn",), "wc", "bc"),
+    ("classifiers", ("classifiers",), "kernel", "bias"),
+]
+_ABMIL_LINEARS = [
+    ("encoder.0", ("encoder", "dense_0"), "kernel", "bias"),
+    ("encoder.3", ("encoder", "dense_1"), "kernel", "bias"),
+    ("encoder.6", ("encoder", "dense_2"), "kernel", "bias"),
+    ("attention.0", ("attn",), "wa", "ba"),
+    ("attention.2", ("attn",), "wc", "bc"),
+    ("decoder.0", ("decoder",), "kernel", "bias"),
+    ("fc", ("fc",), "kernel", "bias"),
 ]
 _GRU = [("weight_ih_l0", "w_ih", True), ("weight_hh_l0", "w_hh", True),
         ("bias_ih_l0", "b_ih", False), ("bias_hh_l0", "b_hh", False)]
@@ -57,23 +75,31 @@ def _numpy(sd: Dict[str, torch.Tensor]) -> dict:
     return {k: v.detach().cpu().numpy() for k, v in sd.items()}
 
 
+def _linears(arch: str, gated: bool) -> list:
+    if arch == "ABMIL":
+        return _ABMIL_LINEARS
+    if arch == "CLAM_SB":
+        return _CLAM_LINEARS if gated else _CLAM_UNGATED_LINEARS
+    raise NotImplementedError(f"{arch} weights: ROADMAP queue 1, item 12")
+
+
 def params_from_jax(model_tree: dict, fc_tree: Optional[dict] = None, arch: str = "CLAM_SB"
                     ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
     """JAX ``(model, fc)`` parameter trees -> the port's ``state_dict``s
-    (``CLAM_SB`` keys without the ``encoder.`` prefix, ``FullLayer`` keys;
-    ``None`` for a missing ``fc_tree``)."""
-    if arch != "CLAM_SB":
-        raise NotImplementedError(f"{arch} weights come with its slice (ROADMAP queue 1)")
+    (aggregator keys without the ``encoder.`` prefix, ``FullLayer`` keys;
+    ``None`` for a missing ``fc_tree``). ``arch`` is ``CLAM_SB`` (gated or
+    not, read from the tree) or ``ABMIL``."""
     mt = _unwrap(model_tree)
     model = {}
-    for prefix, path, w, b in _CLAM_LINEARS:
+    for prefix, path, w, b in _linears(arch, "wb" in mt.get("attn", {})):
         node = _node(mt, path)
         model[f"{prefix}.weight"] = _t(np.asarray(node[w]).T)
         model[f"{prefix}.bias"] = _t(np.asarray(node[b]).reshape(-1))
-    kernels, biases = np.asarray(mt["instance_kernel"]), np.asarray(mt["instance_bias"])
-    for i in range(kernels.shape[0]):
-        model[f"instance_classifiers.{i}.weight"] = _t(kernels[i].T)
-        model[f"instance_classifiers.{i}.bias"] = _t(biases[i])
+    if arch == "CLAM_SB":
+        kernels, biases = np.asarray(mt["instance_kernel"]), np.asarray(mt["instance_bias"])
+        for i in range(kernels.shape[0]):
+            model[f"instance_classifiers.{i}.weight"] = _t(kernels[i].T)
+            model[f"instance_classifiers.{i}.bias"] = _t(biases[i])
     if fc_tree is None:
         return model, None
     ft = _unwrap(fc_tree)
@@ -83,26 +109,31 @@ def params_from_jax(model_tree: dict, fc_tree: Optional[dict] = None, arch: str 
     return model, fc
 
 
-def jax_from_params(model_sd: Dict[str, torch.Tensor], fc_sd: Dict[str, torch.Tensor],
-                    arch: str = "CLAM_SB") -> Tuple[dict, dict]:
+def jax_from_params(model_sd: Dict[str, torch.Tensor],
+                    fc_sd: Optional[Dict[str, torch.Tensor]] = None,
+                    arch: str = "CLAM_SB") -> Tuple[dict, Optional[dict]]:
     """Inverse of :func:`params_from_jax`: ``({'params': model}, {'params': fc})``
-    of numpy arrays. An ``encoder.`` prefix on every model key is dropped."""
-    if arch != "CLAM_SB":
-        raise NotImplementedError(f"{arch} weights come with its slice (ROADMAP queue 1)")
+    of numpy arrays (``None`` for a missing ``fc_sd``). An ``encoder.`` prefix
+    on every model key is dropped; the bias of ``attention.2``/``attention_c``
+    keeps torch's ``(1,)`` shape, the JAX leaf's."""
     sd = _numpy(model_sd)
     if all(k.startswith("encoder.") for k in sd):
         sd = {k[len("encoder."):]: v for k, v in sd.items()}
     model: dict = {}
-    for prefix, path, w, b in _CLAM_LINEARS:
+    for prefix, path, w, b in _linears(arch, "attention_net.3.attention_b.0.weight" in sd):
         node = model
         for p in path:
             node = node.setdefault(p, {})
         node[w] = sd[f"{prefix}.weight"].T.copy()
         node[b] = sd[f"{prefix}.bias"].copy()
-    n = sum(1 for k in sd if k.startswith("instance_classifiers.") and k.endswith(".weight"))
-    model["instance_kernel"] = np.stack(
-        [sd[f"instance_classifiers.{i}.weight"].T for i in range(n)])
-    model["instance_bias"] = np.stack([sd[f"instance_classifiers.{i}.bias"] for i in range(n)])
+    if arch == "CLAM_SB":
+        n = sum(1 for k in sd if k.startswith("instance_classifiers.") and k.endswith(".weight"))
+        model["instance_kernel"] = np.stack(
+            [sd[f"instance_classifiers.{i}.weight"].T for i in range(n)])
+        model["instance_bias"] = np.stack(
+            [sd[f"instance_classifiers.{i}.bias"] for i in range(n)])
+    if fc_sd is None:
+        return {"params": model}, None
     f = _numpy(fc_sd)
     fc = {"rnn": _gru_to_jax(f, "rnn"),
           "fc": {"kernel": f["fc.weight"].T.copy(), "bias": f["fc.bias"].copy()}}

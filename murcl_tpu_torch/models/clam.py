@@ -1,16 +1,20 @@
 """CLAM_SB (counterpart of ``murcl_tpu/models/clam.py``).
 
 Reference module layout (``models/clam.py:37-80`` of the reference): the
-trunk ``attention_net = [Linear(in, 512), ReLU, Dropout, Attn_Net_Gated]``,
-the dead-code bag head ``classifiers`` and per-class ``instance_classifiers``.
-Parameters and their ``state_dict`` keys follow it, so reference checkpoints
-and the port's are one format; init is xavier-normal weights and zero
-biases. The forward does not run these submodules one by one; their
-parameters feed one of two routes:
+trunk ``attention_net = [Linear(in, 512), ReLU, Dropout, Attn_Net_Gated]``
+(``Attn_Net`` with ``gate=False``), the dead-code bag head ``classifiers``
+and per-class ``instance_classifiers``. Parameters and their ``state_dict``
+keys follow it, so reference checkpoints and the port's are one format; init
+is xavier-normal weights and zero biases. The forward does not run these
+submodules one by one; their parameters feed one of two routes, gated or
+not:
 
 - default (pretraining): :func:`murcl_tpu_torch.ops.attention.fused_trunk_attention_pool`
   (kernels K2/K3 on the GPU) computes trunk, gates, softmax and pooling in
-  one op, with bag mixup folded in when ``mix`` is given;
+  one op, with bag mixup folded in when ``mix`` is given. An unmixed bag
+  that requires grad gets its gradient from K3 (the JAX model's
+  ``attn_input_grad``, ``murcl_tpu/models/clam.py:234``, which autograd's
+  ``needs_input_grad`` decides here); the engines' bags are data and need none;
 - ``instance_eval=True`` (supervised training): the trunk is plain torch,
   ``relu(h @ Wf + bf)`` in the bag dtype, because the instance losses gather
   its rows; the pool is :func:`murcl_tpu_torch.ops.attention.gated_attention_pool`
@@ -39,6 +43,33 @@ class AttnNetGated(nn.Module):
         self.attention_b = nn.Sequential(nn.Linear(L, D), nn.Sigmoid(), nn.Dropout(dropout))
         self.attention_c = nn.Linear(D, 1)
 
+    def gates(self):
+        """``(wa (L, D), ba, wb, bb, wc (D,), bc ())`` for the attention ops."""
+        a, b, c = self.attention_a[0], self.attention_b[0], self.attention_c
+        return a.weight.t(), a.bias, b.weight.t(), b.bias, c.weight[0], c.bias[0]
+
+
+class AttnNet(nn.Module):
+    """Parameters of the reference ungated ``Attn_Net`` (keys ``module.0`` and
+    ``module.3``). The dropout slot at index 2 stays at rate 0 too, so the
+    keys are the reference's dropout-on layout; ``murcl_tpu``'s
+    ``torch_import.clam_map`` maps only the gated layout, and
+    :mod:`murcl_tpu_torch.engine.weights` maps this one to the JAX leaves
+    ``attn/wa, ba, wc, bc``."""
+
+    def __init__(self, L: int, D: int, dropout: float):
+        super().__init__()
+        self.module = nn.Sequential(nn.Linear(L, D), nn.Tanh(), nn.Dropout(dropout),
+                                    nn.Linear(D, 1))
+
+    def gates(self):
+        """``(wa, ba, wb, bb, wc, bc)`` with zero ``wb``/``bb``, which the
+        ungated ops ignore (the JAX model's inert inputs, ``clam.py:129-131``)."""
+        a, c = self.module[0], self.module[3]
+        zb = torch.zeros(a.bias.shape, device=a.bias.device)
+        zw = torch.zeros(a.weight.t().shape, device=a.weight.device)
+        return a.weight.t(), a.bias, zw, zb, c.weight[0], c.bias[0]
+
 
 def _instance_ce(logits, target: int):
     """Per-bag mean cross-entropy of ``logits (B, C, k, 2)`` against one
@@ -55,11 +86,8 @@ class CLAM_SB(nn.Module):
                  dropout: float = 0.0, k_sample: int = 8, n_classes: int = 2,
                  subtyping: bool = False):
         super().__init__()
-        if not gate:
-            raise NotImplementedError(
-                "ungated CLAM needs K2/K3 with gated=False on its default route (ROADMAP "
-                "queue 2); K7's ungated mode exists")
         l1, l2 = SIZE_DICT[size_arg]
+        self.gate = gate
         self.dropout = dropout
         self.k_sample = k_sample
         self.n_classes = n_classes
@@ -68,7 +96,7 @@ class CLAM_SB(nn.Module):
         # the reference's dropout-on key layout (attention_net.3)
         self.attention_net = nn.Sequential(
             nn.Linear(in_dim, l1), nn.ReLU(), nn.Dropout(dropout),
-            AttnNetGated(l1, l2, dropout))
+            (AttnNetGated if gate else AttnNet)(l1, l2, dropout))
         self.classifiers = nn.Linear(l1, n_classes)
         self.instance_classifiers = nn.ModuleList(
             [nn.Linear(l1, 2) for _ in range(n_classes)])
@@ -90,13 +118,11 @@ class CLAM_SB(nn.Module):
             rate = self.dropout
             seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
         trunk = self.attention_net[0]
-        att = self.attention_net[3]
-        gates = (att.attention_a[0].weight.t(), att.attention_a[0].bias,
-                 att.attention_b[0].weight.t(), att.attention_b[0].bias,
-                 att.attention_c.weight[0], att.attention_c.bias[0])
+        gates = self.attention_net[3].gates()
         if not instance_eval:
             m, _, s = fused_trunk_attention_pool(h, trunk.weight.t(), trunk.bias, *gates,
-                                                 mask=mask, dropout=rate, seed=seed, mix=mix)
+                                                 mask=mask, dropout=rate, seed=seed, mix=mix,
+                                                 gated=self.gate)
             return m, {"attention": s, "logits": self.classifiers(m)}
 
         if label is None:
@@ -110,7 +136,8 @@ class CLAM_SB(nn.Module):
             gen = torch.Generator(device=x.device).manual_seed(seed)
             keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
             x = torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=dt, device=x.device))
-        m, p, s = gated_attention_pool(x, *gates, mask=mask, dropout=rate, seed=seed)
+        m, p, s = gated_attention_pool(x, *gates, mask=mask, gated=self.gate, dropout=rate,
+                                       seed=seed)
         aux = {"attention": s, "logits": self.classifiers(m),
                "instance_loss": self._instance_loss(p, x, label)}
         return m, aux

@@ -48,8 +48,7 @@ class FullLayer(nn.Module):
         super().__init__()
         if not fc_rnn:
             raise NotImplementedError(
-                "the cascaded-FC head (fc_rnn=False) is not ported (ROADMAP queue 1, "
-                "slice 2)")
+                "the cascaded-FC head (fc_rnn=False) is not ported: ROADMAP queue 1, item 10")
         self.hidden_state_dim = hidden_state_dim
         self.rnn = nn.GRU(feature_num, hidden_state_dim)
         self.fc = nn.Linear(hidden_state_dim, class_num)
@@ -72,8 +71,7 @@ class ActorCritic(nn.Module):
         super().__init__()
         if policy_conv:
             raise NotImplementedError(
-                "the conv state encoder (policy_conv) is not ported (ROADMAP queue 1, "
-                "slice 2)")
+                "the conv state encoder (policy_conv) is not ported: ROADMAP queue 1, item 10")
         self.hidden_state_dim = hidden_state_dim
         self.action_size = action_size
         self.action_std = action_std

@@ -37,25 +37,30 @@ LAUNCHES = {
     "fused_trunk_bwd": 0,
     "ntxent_fwd": 0,
     "ntxent_bwd": 0,
+    "mixup_rows": 0,
 }
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # bank, offsets, ranks, num_patches, out, B, nmax, F, row_bytes, stream
     "murcl_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # is_bf16, x, perm, lam, out, B, per_bag, vec, stream
+    "murcl_mixup_rows": [_I, _P, _P, _P, _P, _I, _L, _I, _P],
     # zi, zj, temp, loss, B, d, stream
     "murcl_ntxent_fwd": [_P, _P, _F, _P, _I, _I, _P],
     # zi, zj, temp, g, dzi, dzj, B, d, stream
     "murcl_ntxent_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _P],
-    # is_bf16, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask,
+    # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask,
     # use_dropout, seed, thresh, scale, xc_scratch, m, p, s, B, N, Fin, L1, D,
     # stream
-    "murcl_fused_trunk_fwd": [_I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 4
+    "murcl_fused_trunk_fwd": [_I, _I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 4
     + [_I] * 5 + [_P],
-    # is_bf16, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, mask,
-    # use_dropout, seed, thresh, scale, p, gm, gp, gs, hm, xc, dp, dza, dzb,
-    # dz, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1, D, stream
-    "murcl_fused_trunk_bwd": [_I] + [_P] * 13 + [_I, _U, _U, _F] + [_P] * 18
+    # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, wfT,
+    # mask, use_dropout, seed, thresh, scale, p, gm, gp, gs, hm, xc, dp, dza,
+    # dzb, dz, dh, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1, D,
+    # stream
+    "murcl_fused_trunk_bwd": [_I, _I] + [_P] * 14 + [_I, _U, _U, _F] + [_P] * 19
     + [_I] * 5 + [_P],
     # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, use_dropout, seed,
     # thresh, scale, m, p, s, B, N, F, D, stream

@@ -1,17 +1,18 @@
 """Attention pooling kernels and their plain twins, each as one
-:class:`torch.autograd.Function`: CLAM's fused mixup + trunk + gated
-attention pool (K2/K3) and the attention pool over a bag that is already the
-trunk's output (K7, :func:`gated_attention_pool`, at the end of the module).
+:class:`torch.autograd.Function`: CLAM's fused mixup + trunk + attention
+pool (K2/K3) and the attention pool over a bag that is already the trunk's
+output (K7, :func:`gated_attention_pool`, at the end of the module).
 
 Counterpart of ``murcl_tpu/ops/attention_pallas.py``
 ``fused_trunk_attention_pool`` on its Pallas route (forward
-``_make_fused_trunk_fwd_kernel``, backward ``_make_fused_trunk_bwd_kernel``
-with ``need_dh=False``). Per bag ``i``:
+``_make_fused_trunk_fwd_kernel`` ``:563``, backward
+``_make_fused_trunk_bwd_kernel`` ``:642``). Per bag ``i``:
 
     h   = lam_i * h_i + (1 - lam_i) * h[perm_i]      (only with ``mix``)
     xc  = drop(relu(h @ Wf + bf))
     a   = drop(tanh(xc @ Wa + ba)),  g = drop(sigmoid(xc @ Wb + bb))
-    s   = (a * g) @ wc + bc,  p = softmax(s masked),  M = p @ xc
+    u   = a * g, or a with ``gated=False`` (Wb, bb unused; zero gradients)
+    s   = u @ wc + bc,  p = softmax(s masked),  M = p @ xc
 
 returning ``(M (B, L1), p (B, N), s (B, N))`` in float32. ``xc``, ``a``,
 ``g`` and the backward's ``dx`` chain are rounded to the bag dtype where the
@@ -27,8 +28,11 @@ plain version drop the same units and the backward regenerates the
 forward's masks. (The TPU drew its masks from its own PRNG, so the port
 agrees with the JAX package at dropout 0 only.)
 
-The input bags are data: no gradient is produced for ``h`` (the Function
-returns ``None`` for it and refuses an ``h`` that requires grad).
+An ``h`` that requires grad gets ``dh = dz @ Wf^T`` (the TPU kernel's
+``need_dh=True``, ``attention_pallas.py:797-800``), rounded to the bag dtype.
+With ``mix`` the bags must be data: the partner bag's share of ``dh`` would
+need a scatter, so the op refuses an ``h`` that requires grad, as
+``attention_pallas.py:647-650`` does.
 """
 
 from __future__ import annotations
@@ -92,8 +96,9 @@ def _mm(x, w, dt):
     return x.to(dt).float() @ w.to(dt).float()
 
 
-def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed):
-    """Shared forward/backward recompute: ``(xc, mzx, a, g, a_eff, g_eff)``.
+def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated=True):
+    """Shared forward/backward recompute: ``(xc, mzx, a, g, a_eff, g_eff, ka,
+    kb)``; ``g``, ``g_eff`` and ``kb`` are None when ungated.
 
     ``mzx`` folds relu' with the trunk keep mask (the backward's dz factor).
     """
@@ -109,25 +114,26 @@ def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed):
         mzx = (z > 0).to(dt)
         xc = torch.relu(z).to(dt)
     a = torch.tanh(_mm(xc, wa, dt) + ba).to(dt)
-    g = torch.sigmoid(_mm(xc, wb, dt) + bb).to(dt)
+    g = torch.sigmoid(_mm(xc, wb, dt) + bb).to(dt) if gated else None
+    ka = kb = None
+    a_eff, g_eff = a, g
     if dropout > 0:
         ka = _keep_scale(seed, dropout, b, n, d, 1, h.device, dt)
-        kb = _keep_scale(seed, dropout, b, n, d, 2, h.device, dt)
-        a_eff, g_eff = a * ka, g * kb
-    else:
-        ka = kb = None
-        a_eff, g_eff = a, g
+        a_eff = a * ka
+        if gated:
+            kb = _keep_scale(seed, dropout, b, n, d, 2, h.device, dt)
+            g_eff = g * kb
     return xc, mzx, a, g, a_eff, g_eff, ka, kb
 
 
 def fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout=0.0,
-                          seed=0, perm=None, lam=None):
+                          seed=0, perm=None, lam=None, gated=True):
     """Plain PyTorch forward (mirror of the TPU forward kernel): ``(M, p, s)``."""
     dt = h.dtype
     if perm is not None:
         h = apply_mix(h, perm, lam)
-    xc, _, _, _, a_eff, g_eff, _, _ = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed)
-    u = a_eff * g_eff
+    xc, _, _, _, a_eff, g_eff, _, _ = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated)
+    u = a_eff * g_eff if gated else a_eff
     s = (u.float() @ wc.to(dt).float()) + bc
     p = torch.softmax(torch.where(mask, s, torch.full_like(s, _NEG_INF)), dim=-1)
     m = (p.to(dt).float().unsqueeze(1) @ xc.float()).squeeze(1)
@@ -135,14 +141,18 @@ def fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout=0.0,
 
 
 def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
-                          dropout=0.0, seed=0, perm=None, lam=None):
-    """Plain PyTorch backward (mirror of the TPU backward kernel, no ``dh``):
-    ``(dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)`` in float32, summed over bags."""
+                          dropout=0.0, seed=0, perm=None, lam=None, gated=True,
+                          need_dh=False):
+    """Plain PyTorch backward (mirror of the TPU backward kernel):
+    ``(dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)`` in float32, summed over bags
+    (``dwb``/``dbb`` zeros when ungated), and with ``need_dh`` a ninth entry,
+    ``dh`` in the bag dtype."""
     dt = h.dtype
     if perm is not None:
         h = apply_mix(h, perm, lam)
-    xc, mzx, a, g, a_eff, g_eff, ka, kb = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed)
-    u = a_eff * g_eff
+    xc, mzx, a, g, a_eff, g_eff, ka, kb = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed,
+                                                 gated)
+    u = a_eff * g_eff if gated else a_eff
 
     dp = (xc.float() @ gm.to(dt).float().unsqueeze(-1)).squeeze(-1) + gp
     ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
@@ -151,23 +161,32 @@ def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
     dbc = ds.sum()
     dwc = torch.einsum("bnd,bn->d", u.float(), ds_t.float())
     du = ds_t.unsqueeze(-1) * wc.to(dt)
-    da, dg = du * g_eff, du * a_eff
+    da = du * g_eff if gated else du
     if dropout > 0:
-        da, dg = da * ka, dg * kb
+        da = da * ka
     dza = da * (1 - a * a)
-    dzb = dg * g * (1 - g)
 
     flat = lambda t: t.reshape(-1, t.shape[-1]).float()  # noqa: E731
     dwa, dba = flat(xc).T @ flat(dza), flat(dza).sum(0)
-    dwb, dbb = flat(xc).T @ flat(dzb), flat(dzb).sum(0)
     dx = (p.unsqueeze(-1) * gm.unsqueeze(1)).to(dt) + (dza.float() @ wa.to(dt).float().T).to(dt)
-    dx = dx + (dzb.float() @ wb.to(dt).float().T).to(dt)
+    if gated:
+        dg = du * a_eff
+        if dropout > 0:
+            dg = dg * kb
+        dzb = dg * g * (1 - g)
+        dwb, dbb = flat(xc).T @ flat(dzb), flat(dzb).sum(0)
+        dx = dx + (dzb.float() @ wb.to(dt).float().T).to(dt)
+    else:
+        dwb, dbb = torch.zeros_like(dwa), torch.zeros_like(dba)
     dz = dx * mzx
     dwf, dbf = flat(h).T @ flat(dz), flat(dz).sum(0)
-    return dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc
+    grads = (dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)
+    if need_dh:
+        grads += ((dz.float() @ wf.to(dt).float().T).to(dt),)
+    return grads
 
 
-def _check_shapes(name, h, wf, wa):
+def _check_shapes(name, h, wf, wa, need_dh=False):
     b, n, fin = h.shape
     l1, d = wf.shape[1], wa.shape[1]
     if h.dtype not in (torch.float32, torch.bfloat16):
@@ -175,6 +194,8 @@ def _check_shapes(name, h, wf, wa):
     if fin % 64 or l1 % _TN or d % _TN:
         raise ValueError(f"{name}: needs Fin % 64 == 0 and L1, D multiples of {_TN} "
                          f"(got {fin}, {l1}, {d})")
+    if need_dh and fin % _TN:
+        raise ValueError(f"{name}: the bags' gradient needs Fin % {_TN} == 0 (got {fin})")
     smem = 4 * max(_TM * (fin + 1) + _TM * (l1 + 1) + _KC * _TN,
                    _TM * (l1 + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + d + 32,
                    n + 32)
@@ -202,7 +223,7 @@ def _p(t):
     return None if t is None else t.data_ptr()
 
 
-def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam):
+def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam, gated=True):
     name = "fused_trunk_attention_pool"
     _check_shapes(name, h, wf, wa)
     o, drop = _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed)
@@ -216,7 +237,7 @@ def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam)
     p = torch.empty((b, n), dtype=torch.float32, device=dev)
     s = torch.empty((b, n), dtype=torch.float32, device=dev)
     err = _cuda.library().murcl_fused_trunk_fwd(
-        int(h.dtype == torch.bfloat16), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
+        int(h.dtype == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
         _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
         _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop, _p(xc), _p(m), _p(p), _p(s),
         b, n, fin, l1, d, _cuda.stream())
@@ -226,10 +247,13 @@ def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam)
 
 
 def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
-              perm, lam):
+              perm, lam, gated=True, need_dh=False):
+    """K3: the grads of :func:`fused_trunk_plain_bwd`, in its order."""
     name = "fused_trunk_attention_pool backward"
+    _check_shapes(name, h, wf, wa, need_dh)
     o, drop = _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed)
     waT, wbT = o["wa"].T.contiguous(), o["wb"].T.contiguous()
+    wfT = o["wf"].T.contiguous() if need_dh else None
     p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
     b, n, fin = h.shape
     l1, d = wf.shape[1], wa.shape[1]
@@ -238,7 +262,8 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
     xc = torch.empty((b, n, l1), dtype=dt, device=dev)
     dz = torch.empty((b, n, l1), dtype=dt, device=dev)
     dza = torch.empty((b, n, d), dtype=dt, device=dev)
-    dzb = torch.empty((b, n, d), dtype=dt, device=dev)
+    dzb = torch.empty((b, n, d), dtype=dt, device=dev) if gated else None
+    dh = torch.empty((b, n, fin), dtype=dt, device=dev) if need_dh else None
     dpv = torch.empty((b, n), dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dwf, dbf = torch.empty((fin, l1), **f32), torch.empty((l1,), **f32)
@@ -247,62 +272,69 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
     dwc, dbc = torch.empty((d,), **f32), torch.empty((), **f32)
     _cuda.require_cuda(name, p, gm, gp, gs, waT, wbT)
     err = _cuda.library().murcl_fused_trunk_bwd(
-        int(dt == torch.bfloat16), _p(o["h"]), _p(o["perm"]), _p(o["lam"]), _p(o["wf"]),
-        _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]), _p(o["wc"]),
-        _p(waT), _p(wbT), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp), _p(gs), _p(hm),
-        _p(xc), _p(dpv), _p(dza), _p(dzb), _p(dz), _p(dwf), _p(dbf), _p(dwa), _p(dba),
-        _p(dwb), _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d, _cuda.stream())
+        int(dt == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
+        _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
+        _p(o["wc"]), _p(waT), _p(wbT), _p(wfT), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp),
+        _p(gs), _p(hm), _p(xc), _p(dpv), _p(dza), _p(dzb), _p(dz), _p(dh), _p(dwf), _p(dbf),
+        _p(dwa), _p(dba), _p(dwb), _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d,
+        _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["fused_trunk_bwd"] += 1
-    return dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc
+    grads = (dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)
+    return grads + (dh,) if need_dh else grads
 
 
 class _FusedTrunkAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam):
-        if ctx.needs_input_grad[0]:
-            raise ValueError("fused_trunk_attention_pool produces no gradient for the "
-                             "bags; pass them as data (requires_grad=False)")
+    def forward(ctx, h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam, gated):
+        if ctx.needs_input_grad[0] and perm is not None:
+            raise ValueError("fused_trunk_attention_pool with mix produces no gradient for "
+                             "the bags; pass them as data (requires_grad=False)")
         if h.device.type == "cpu":
             m, p, s = fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask,
-                                            dropout, seed, perm, lam)
+                                            dropout, seed, perm, lam, gated)
         else:
             m, p, s = _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed,
-                                perm, lam)
+                                perm, lam, gated)
         ctx.save_for_backward(h, wf, bf, wa, ba, wb, bb, wc, mask, p, perm, lam)
-        ctx.dropout, ctx.seed = dropout, seed
+        ctx.dropout, ctx.seed, ctx.gated = dropout, seed, gated
         return m, p, s
 
     @staticmethod
     def backward(ctx, gm, gp, gs):
         h, wf, bf, wa, ba, wb, bb, wc, mask, p, perm, lam = ctx.saved_tensors
+        need_dh = ctx.needs_input_grad[0]
         args = (h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, ctx.dropout,
-                ctx.seed, perm, lam)
+                ctx.seed, perm, lam, ctx.gated, need_dh)
         if h.device.type == "cpu":
             grads = fused_trunk_plain_bwd(*args)
         else:
             grads = _bwd_cuda(*args)
-        dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc = grads
-        return (None, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc.reshape(()), None, None,
-                None, None, None)
+        dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc = grads[:8]
+        dh = grads[8] if need_dh else None
+        return (dh, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc.reshape(()), None, None,
+                None, None, None, None)
 
 
 def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
-                               dropout: float = 0.0, seed: int = 0, mix=None):
-    """CLAM trunk + gated attention pooling in one op: ``(M, p, s)``.
+                               dropout: float = 0.0, seed: int = 0, mix=None,
+                               gated: bool = True):
+    """CLAM trunk + attention pooling in one op: ``(M, p, s)``.
 
     ``h (B, N, Fin)`` float32 or bfloat16; ``wf (Fin, L1)``, ``wa``/``wb``
     ``(L1, D)``, ``wc (D,)``, biases and ``bc ()`` float32 (weights are
-    rounded to the bag dtype). ``mix=(perm, lam)`` mixes bag ``i`` with bag
-    ``perm[i]`` (absolute indices) before the trunk. ``seed`` keys the
-    dropout masks. CPU tensors take the plain version; CUDA tensors always
-    launch K2 (forward) and K3 (backward).
+    rounded to the bag dtype). ``gated=False`` scores ``tanh`` alone and
+    ignores ``wb``/``bb``. ``mix=(perm, lam)`` mixes bag ``i`` with bag
+    ``perm[i]`` (absolute indices) before the trunk; without it, an ``h``
+    that requires grad gets its gradient. ``seed`` keys the dropout masks.
+    CPU tensors take the plain version; CUDA tensors always launch K2
+    (forward) and K3 (backward).
     """
     if mask is None:
         mask = torch.ones(h.shape[:2], dtype=torch.bool, device=h.device)
     perm, lam = mix if mix is not None else (None, None)
     return _FusedTrunkAttention.apply(h, wf, bf, wa, ba, wb, bb, wc, bc, mask,
-                                      float(dropout), int(seed), perm, lam)
+                                      float(dropout), int(seed), perm, lam, bool(gated))
 
 
 # ---------------------------------------------------------------------------

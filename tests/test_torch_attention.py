@@ -137,7 +137,9 @@ def test_dropout_deterministic_with_keep_rate():
 
 
 def test_bags_requiring_grad_are_refused():
-    h, weights, mask, _, _, _ = _inputs(3)
+    # with mix only: the unmixed op returns dh (tests/test_torch_fused_modes.py)
+    h, weights, mask, perm, lam, _ = _inputs(3)
     with pytest.raises(ValueError, match="no gradient for the bags"):
         tat.fused_trunk_attention_pool(torch.tensor(h, requires_grad=True),
-                                       *[torch.tensor(x) for x in weights])
+                                       *[torch.tensor(x) for x in weights],
+                                       mix=(torch.tensor(perm), torch.tensor(lam)))

@@ -4,9 +4,10 @@ Marked ``cuda``: each test skips, with its reason, where there is no CUDA
 device (the kernels build with nvcc on first use and have no CPU mode). Run
 on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Shapes are small; ``chip_smoke.py`` checks the main path's full shapes.
-Tolerances: K1 bitwise; K4 1e-5; K2/K3 and K7 relative Frobenius 1e-4 in
-f32 (sum order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an
-f32 sum in another order crosses a rounding boundary).
+Tolerances: K1 and K6 bitwise; K4 1e-5; K2/K3 (gated or not, with or
+without the bags' gradient) and K7 relative Frobenius 1e-4 in f32 (sum
+order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32 sum
+in another order crosses a rounding boundary).
 """
 
 import pytest
@@ -19,6 +20,7 @@ from murcl_tpu_torch.ops.attention import (fused_trunk_attention_pool, fused_tru
                                            gated_attention_pool_plain_bwd,
                                            gated_attention_pool_plain_fwd)
 from murcl_tpu_torch.ops.compact import gather_compact, gather_compact_plain
+from murcl_tpu_torch.ops.mixup import apply_mix, mixup_rows
 from murcl_tpu_torch.ops.ntxent import nt_xent, nt_xent_plain
 from murcl_tpu_torch.ops.select import select_ranks
 
@@ -138,6 +140,61 @@ def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol):
                                                       9)]
     got = [o.detach() for o in outs] + [xg.grad] + [v.grad for v in ws]
     names = ["M", "p", "s", "dx", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
+    for name, g, wv in zip(names, got, want):
+        if not gated and name in ("dwb", "dbb"):
+            assert not g.any(), name
+            continue
+        assert _rel(g, wv) <= tol, name
+
+
+@pytest.mark.parametrize("dtype,view", [(torch.float32, torch.int32),
+                                        (torch.bfloat16, torch.int16)])
+@pytest.mark.parametrize("shape", [(12, 100, 128), (6, 7, 33)])  # the second: scalar tail
+def test_mixup_rows_bitwise(dev, dtype, view, shape):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = (torch.randn(*shape, generator=gen, device=dev) * 3).to(dtype)
+    b = shape[0]
+    perm = torch.cat([torch.randperm(b // 2, generator=gen, device=dev),
+                      torch.randperm(b - b // 2, generator=gen, device=dev) + b // 2])
+    lam = 0.9 + 0.1 * torch.rand(b, generator=gen, device=dev)
+    before = _cuda.LAUNCHES["mixup_rows"]
+    got = mixup_rows(x, perm, lam)
+    assert _cuda.LAUNCHES["mixup_rows"] == before + 1
+    want = apply_mix(x, perm, lam)
+    assert torch.equal(got.view(view), want.view(view))
+
+
+@pytest.mark.parametrize("gated,need_dh", [(False, False), (False, True), (True, True)])
+@pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
+                                            (torch.bfloat16, 0.0, 2e-2),
+                                            (torch.bfloat16, 0.25, 2e-2)])
+def test_fused_trunk_modes_match_plain(dev, gated, need_dh, dtype, rate, tol):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, n, fin, l1, d = 5, 100, 128, 128, 128
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * sc
+
+    w = [r(fin, l1, sc=fin ** -0.5), r(l1, sc=0.1), r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1),
+         r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1), r(d, sc=d ** -0.5), r((), sc=0.1)]
+    h = r(b, n, fin).to(dtype)
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor([100, 64, 33, 100, 1],
+                                                              device=dev)[:, None]
+    cots = [r(b, l1), r(b, n, sc=0.1), r(b, n, sc=0.01)]
+    hg = h.clone().requires_grad_(need_dh)
+    ws = [x.clone().requires_grad_(True) for x in w]
+    outs = fused_trunk_attention_pool(hg, *ws, mask=mask, dropout=rate, seed=6, gated=gated)
+    torch.autograd.backward(outs, cots)
+    m, p, s = fused_trunk_plain_fwd(h, *w, mask, rate, 6, gated=gated)
+    grads = fused_trunk_plain_bwd(h, *w[:7], mask, p, *cots, rate, 6, gated=gated,
+                                  need_dh=need_dh)
+    names = ["M", "p", "s", "dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
+    got = [o.detach() for o in outs] + [x.grad for x in ws]
+    want = [m, p, s, *grads[:8]]
+    if need_dh:
+        names.append("dh")
+        got.append(hg.grad)
+        want.append(grads[8])
     for name, g, wv in zip(names, got, want):
         if not gated and name in ("dwb", "dbb"):
             assert not g.any(), name

@@ -1,4 +1,4 @@
-"""Port's stage-1 CLI end to end on the CPU plain path, and its guards:
+"""Port's MuRCL CLI at stage 1 end to end on the CPU plain path, and its guards:
 unported options raise, importing the port leaves JAX unloaded, and a
 kernel launch with no CUDA toolkit raises instead of falling back."""
 
@@ -43,8 +43,9 @@ def test_cli_stage1_one_epoch(synthetic_dataset, tmp_path):
     assert torch.load(run / "checkpoint.pth.tar", weights_only=True)["epoch"] == 2
 
 
-@pytest.mark.parametrize("extra", [("--train_stage", "2"), ("--arch", "ABMIL"),
-                                   ("--streaming",), ("--dp_devices", "2")])
+# stages 2/3 and ABMIL are ported (tests/test_torch_murcl_stages.py)
+@pytest.mark.parametrize("extra", [("--policy_conv",), ("--use_tensorboard",),
+                                   ("--streaming",), ("--dp_devices", "2"), ("--profile", "1")])
 def test_unported_flags_raise(synthetic_dataset, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(_argv(synthetic_dataset, tmp_path, *extra))
