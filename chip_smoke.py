@@ -16,7 +16,12 @@
    1e-4 in f32 and <= 2e-2 in bf16 at dropout 0 and 0.25, with the kernels'
    keep rates within 1% of 0.75; K2 and K3 timed gated and ungated, K3 also
    unmixed with and without dh, K7 in ABMIL's mode at (1536, 1024, 512),
-   each beside its plain twin.
+   each beside its plain twin. K8 (the streaming attention pool) at the
+   heatmap's largest bag (1, 60416, 512) f32 gated with a masked tail and at
+   (4, 12288, 512) gated and ungated in f32 and bf16, relative Frobenius
+   error <= 1e-4 in f32 and <= 2e-2 in bf16, one backward through its op
+   (K7b) at (4, 12288, 512) f32, and K8 timed at (1, 60416, 512) and (1,
+   12288, 512) f32 beside its twin and its bound.
 4. Drives the paths on one synthetic dataset of 192 slides x 2048 patches
    (dim 512, K 10), every launch count set to 0 before a stage and read
    after it:
@@ -32,6 +37,13 @@
      kernels and through their plain twins, from the same weights and
      draws: step losses and gradients compared, and an optimizer step must
      move every weight with a gradient (``abmil_step_check``);
+   - full-slide heatmaps, ``murcl_tpu_torch.preprocess.heatmaps.run_heatmaps``,
+     from the CLAM_SB stage-3 ``model_best`` over 3 slides of 2,000, 12,000
+     and 60,000 patches (dim 512, f32, a 300 x 200 grid of 4-pixel patches
+     on a 1,200 x 800 slide held in memory): K2's forward once and K8 twice,
+     nothing else; one PNG of the thumbnail's shape per slide; the scores
+     equal to those through the plain twins within 1e-4; per slide the
+     load, score, paint and write times;
    - supervised RLMIL, ``murcl_tpu_torch.drivers.rlmil.run``, finetune
      stages 1 -> 2 -> 3 from the CLAM_SB MuRCL stage-3 ``model_best`` on
      128 / 32 / 32 slides, batch 64, feat_size 1024, T 6, bf16, one epoch
@@ -45,7 +57,10 @@
    traces 3 more steps of each and prints device time by kernel and the
    device's busy share.
 
-Prints the kernel table as one JSON line, the card line, and as its last
+Every kernel's row carries its bound at the timed shape (``bound``: the
+larger of its operations at the published H100 SXM peak for their type and
+its bytes at 3.35 TB/s). Prints the kernel table as one JSON line, the card
+line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits nonzero before
 that line. Run from the repository root: ``python3 chip_smoke.py``.
 """
@@ -71,6 +86,25 @@ RL_BATCH, RL_SPLITS = 64, (128, 32, 32)  # supervised batch; train / valid / tes
 POOL_BAGS = T * RL_BATCH  # K7's bags in a supervised stage-1 step
 POOL_CHECK_BAGS = 48  # bags in the K7 comparisons
 ABMIL_D = 128  # ABMIL's attention width (MuRCL's default --D)
+# the heatmap path: slides of these many patches on a 300 x 200 grid of
+# 4-pixel patches (a 1,200 x 800 single-level slide), padded to multiples
+# of BUCKET; K8's checks at the largest padded bag and at (4, 12288)
+HEAT_SLIDES, HEAT_GRID, HEAT_PATCH, BUCKET = (2000, 12000, 60000), (300, 200), 4, 512
+K8_MAIN, K8_CHECK = (1, 60416), (4, 12288)
+# published H100 SXM peaks: HBM bytes/s, f32 outside the tensor cores, bf16
+HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+
+
+def bound(flops: float, nbytes: float, peak: float):
+    """``(ms, side)``: the larger of the operations over their type's peak
+    rate and the bytes (each input read once, each output written once)
+    over HBM's rate."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -177,6 +211,18 @@ def trunk_keep_rate(dev) -> float:
     return float((xc != 0).float().mean())
 
 
+def compact_bound(ranks, offs, nump):
+    """K1's bound in bf16: the bank rows this run reads (each once), the
+    indices, and the sub-bags written."""
+    import torch
+
+    p = torch.arange(ranks.shape[1], device=ranks.device)[None, :]
+    live = (ranks >= 0) & (p < nump[:, None])
+    read = torch.unique((offs[:, None] + p)[live]).numel()
+    return bound(0, read * FIN * 2 + nbytes(ranks, offs, nump)
+                 + ranks.shape[0] * N_MAIN * FIN * 2, BF16_FLOPS)
+
+
 def check_compaction(dev, gen):
     import torch
 
@@ -211,6 +257,7 @@ def check_compaction(dev, gen):
                                                                N_MAIN, nump))
             res["plain_ms"] = median_ms(lambda: gather_compact_plain(feats_dt, offs, ranks,
                                                                      N_MAIN, nump))
+            res["bound_ms"], res["bound_by"] = compact_bound(ranks, offs, nump)
     # the supervised per-step shape (the JAX package's K5): 64 distinct slides
     ids = torch.randperm(SLIDES, generator=gen, device=dev)[:RL_BATCH]
     actions = torch.rand(RL_BATCH, K, generator=gen, device=dev)
@@ -227,6 +274,7 @@ def check_compaction(dev, gen):
                                                                   N_MAIN, nump))
             res["k5_plain_ms"] = median_ms(lambda: gather_compact_plain(feats_dt, offs, ranks,
                                                                         N_MAIN, nump))
+            res["k5_bound_ms"] = compact_bound(ranks, offs, nump)[0]
     res["max_abs_err"] = 0.0
     return res
 
@@ -259,15 +307,20 @@ def check_ntxent(dev, gen):
     zi = torch.randn(BATCH, 128, generator=gen, device=dev, requires_grad=True)
     zj = torch.randn(BATCH, 128, generator=gen, device=dev, requires_grad=True)
     g = torch.ones((), device=dev)
+    # sim = zn zn^T over 2B rows: 2 (2B)^2 d flops forward, twice that for
+    # the two products of the backward after recomputing it
+    sim_flops = 2 * (2 * BATCH) ** 2 * 128
     fwd = {"ms": median_ms(lambda: _NTXent.apply(zi, zj, 0.5), reps=20),
            "plain_ms": median_ms(lambda: nt_xent_plain(zi, zj, 0.5), reps=20),
            "max_abs_err": max(errs_f)}
+    fwd["bound_ms"], fwd["bound_by"] = bound(sim_flops, nbytes(zi, zj) + 4, F32_FLOPS)
     lk, lp = _NTXent.apply(zi, zj, 0.5), nt_xent_plain(zi, zj, 0.5)
     bwd = {"ms": median_ms(lambda: torch.autograd.grad(lk, (zi, zj), g, retain_graph=True),
                            reps=20),
            "plain_ms": median_ms(lambda: torch.autograd.grad(lp, (zi, zj), g,
                                                              retain_graph=True), reps=20),
            "max_abs_err": max(errs_b)}
+    bwd["bound_ms"], bwd["bound_by"] = bound(3 * sim_flops, 2 * nbytes(zi, zj) + 4, F32_FLOPS)
     return fwd, bwd
 
 
@@ -345,9 +398,20 @@ def check_fused(dev, gen):
         "bwd_unmixed": median_ms(lambda: att.fused_trunk_plain_bwd(
             h, *w[:7], mask, p, *cots, 0.25, 77), reps=3),
     }
+    # matmul terms at the timed shape (bf16): trunk 2 R Fin L1, gates 4 R L1 D,
+    # pool 2 R L1; the backward recomputes trunk and gates and adds dx
+    # through the gates, dWa/dWb and dWf
+    r = B_MAIN * N_MAIN
+    trunk, gates = 2 * r * FIN * L1, 4 * r * L1 * D
+    io = nbytes(h, mask, perm, lam) + r * 4 * 2 + B_MAIN * L1 * 4
+    fb = bound(trunk + gates + 2 * r * L1, io, BF16_FLOPS)
+    bb = bound(2 * trunk + 3 * gates + 2 * r * L1,
+               nbytes(h, mask, perm, lam, p, *cots), BF16_FLOPS)
     return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f,
+             "bound_ms": fb[0], "bound_by": fb[1],
              "ungated_ms": modes["fwd_ungated"], "ungated_plain_ms": plain["fwd_ungated"]},
             {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b,
+             "bound_ms": bb[0], "bound_by": bb[1],
              "ungated_ms": modes["bwd_ungated"], "ungated_plain_ms": plain["bwd_ungated"],
              "dh_ms": modes["bwd_dh"], "dh_plain_ms": plain["bwd_dh"],
              "unmixed_ms": modes["bwd_unmixed"], "unmixed_plain_ms": plain["bwd_unmixed"]})
@@ -376,6 +440,10 @@ def check_mixup(dev, gen):
         tag = "" if dtype == torch.bfloat16 else "_f32"
         res["ms" + tag] = median_ms(lambda: _mixup_rows_cuda(x, perm, lam))
         res["plain_ms" + tag] = median_ms(lambda: apply_mix(x, perm, lam))
+        if dtype == torch.bfloat16:  # x read once (x[perm] is x), out written once
+            res["bound_ms"], res["bound_by"] = bound(3 * x.numel(),
+                                                     2 * nbytes(x) + nbytes(perm, lam),
+                                                     F32_FLOPS)
         del x
         torch.cuda.empty_cache()
     gib = 3 * B_MAIN * N_MAIN * FIN * 2 / 2**30
@@ -485,6 +553,12 @@ def check_pool(dev, gen):
                       reps=3)
     p_bwd = median_ms(lambda: att.gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots,
                                                                  True, 0.25, 77), reps=3)
+    # gates 4 R F D (forward; recomputed, then dx and dWa/dWb in the
+    # backward), pool and dp 2 R F
+    r = POOL_BAGS * N_MAIN
+    gates = 4 * r * L1 * D
+    fb = bound(gates + 2 * r * L1, nbytes(x, mask) + r * 8 + POOL_BAGS * L1 * 4, BF16_FLOPS)
+    bb = bound(3 * gates + 2 * r * L1, 2 * nbytes(x) + nbytes(mask, p, *cots), BF16_FLOPS)
     del x, p, cots
     torch.cuda.empty_cache()
 
@@ -503,10 +577,87 @@ def check_pool(dev, gen):
         x, *w[:5], mask, p, *cots, False, 0.0, 0), reps=3)
     del x, p, cots
     torch.cuda.empty_cache()
-    return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f,
-             "abmil_ms": abmil["fwd"], "abmil_plain_ms": abmil["fwd_plain"]},
-            {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b,
-             "abmil_ms": abmil["bwd"], "abmil_plain_ms": abmil["bwd_plain"]})
+    return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f, "bound_ms": fb[0],
+             "bound_by": fb[1], "abmil_ms": abmil["fwd"], "abmil_plain_ms": abmil["fwd_plain"]},
+            {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b, "bound_ms": bb[0],
+             "bound_by": bb[1], "abmil_ms": abmil["bwd"], "abmil_plain_ms": abmil["bwd_plain"]})
+
+
+def tiled_inputs(b, n, dtype, gen, dev, lengths):
+    import torch
+
+    def r(*shape, sc=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * sc
+
+    w = [r(L1, D, sc=L1 ** -0.5), r(D, sc=0.1), r(L1, D, sc=L1 ** -0.5), r(D, sc=0.1),
+         r(D, sc=D ** -0.5), r((), sc=0.1)]
+    x = torch.relu(r(b, n, L1)).to(dtype)  # a trunk output: post-relu
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+    return x, w, mask
+
+
+def check_tiled(dev, gen):
+    """K8 against its twin: the heatmap's largest bag (1, 60416, 512) f32
+    gated with a masked tail, and (4, 12288, 512) gated and ungated in f32
+    and bf16; one backward through the op (K7b) at (4, 12288, 512) f32.
+    Both timed at (1, 60416, 512) and (1, 12288, 512) f32."""
+    import torch
+
+    from murcl_tpu_torch.ops import attention as att
+
+    err = 0.0
+    (b1, n1), (b4, n4) = K8_MAIN, K8_CHECK
+    cases = [(b1, n1, [HEAT_SLIDES[-1]], True, torch.float32, 1e-4)]
+    for gated in (True, False):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            cases.append((b4, n4, [n4, n4 - 1000, 12000, 5000], gated, dtype, tol))
+    for b, n, lengths, gated, dtype, tol in cases:
+        x, w, mask = tiled_inputs(b, n, dtype, gen, dev, lengths)
+        got = att._tiled_fwd_cuda(x, *w, mask, gated)
+        want = att.attention_pool_tiled_plain(x, *w, mask, gated)
+        rels = {nm: rel_err(g, wv) for nm, g, wv in zip("Mps", got, want)}
+        what = f"K8 gated={gated} ({b}, {n}, {L1}) {dtype}"
+        print(f"{what}: rel err " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+        check(max(rels.values()) <= tol, f"{what}: {rels}")
+        err = max(err, *(float((g - wv).abs().max()) for g, wv in zip(got, want)))
+        del x, got, want
+
+    x, w, mask = tiled_inputs(b4, n4, torch.float32, gen, dev, [n4, 11000, 9000, 3000])
+    cots = [torch.randn(b4, L1, generator=gen, device=dev),
+            0.1 * torch.randn(b4, n4, generator=gen, device=dev),
+            0.01 * torch.randn(b4, n4, generator=gen, device=dev)]
+    xg = x.clone().requires_grad_(True)
+    ws = [v.clone().requires_grad_(True) for v in w]
+    outs = att._AttentionPoolTiled.apply(xg, *ws, mask, True)
+    torch.autograd.backward(outs, cots)
+    p = att.attention_pool_tiled_plain(x, *w, mask, True)[1]
+    want = att.gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots, True)
+    names = ["dx", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
+    rels = {nm: rel_err(g, wv) for nm, g, wv in zip(names, [xg.grad] + [v.grad for v in ws],
+                                                     want)}
+    print(f"K8's op backward (K7b) gated ({b4}, {n4}, {L1}) f32: rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    check(max(rels.values()) <= 1e-4, f"K8's op backward: {rels}")
+    del x, xg, ws, outs, cots, want
+    torch.cuda.empty_cache()
+
+    res = {"max_abs_err": err}
+    for n in (n1, n4):
+        x, w, mask = tiled_inputs(1, n, torch.float32, gen, dev, [n - 416])
+        ms = median_ms(lambda: att._tiled_fwd_cuda(x, *w, mask, True))
+        plain_ms = median_ms(lambda: att.attention_pool_tiled_plain(x, *w, mask, True))
+        flops = 4 * n * L1 * D + 2 * n * D + 2 * n * L1
+        b_ms, b_by = bound(flops, nbytes(x, mask) + n * 4 + L1 * 4, F32_FLOPS)
+        print(f"K8 at (1, {n}, {L1}) f32 gated: {ms:.3f} ms vs plain {plain_ms:.3f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP at 67 TFLOP/s, "
+              f"{nbytes(x) / 1e6:.1f} MB at 3.35 TB/s); {flops / ms / 1e9:.2f} TFLOP/s")
+        if n == n1:
+            res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        else:
+            res.update(ms_12288=ms, plain_ms_12288=plain_ms, bound_ms_12288=b_ms)
+        del x
+        torch.cuda.empty_cache()
+    return res
 
 
 def make_dataset(root):
@@ -593,7 +744,8 @@ def murcl_path(dev, ds, results, arch):
 @contextlib.contextmanager
 def plain_twins():
     """For one comparison, route the CUDA wrappers of the ABMIL path (K1, K6,
-    K7, K4) to their plain twins on the same CUDA tensors; restored after."""
+    K7, K4) and of the heatmap path (K2, K8) to their plain twins on the
+    same CUDA tensors; restored after."""
     from types import SimpleNamespace
 
     from murcl_tpu_torch.ops import attention as att
@@ -603,6 +755,8 @@ def plain_twins():
              (mixup, "_mixup_rows_cuda", mixup.apply_mix),
              (att, "_pool_fwd_cuda", att.gated_attention_pool_plain_fwd),
              (att, "_pool_bwd_cuda", att.gated_attention_pool_plain_bwd),
+             (att, "_fwd_cuda", att.fused_trunk_plain_fwd),
+             (att, "_tiled_fwd_cuda", att.attention_pool_tiled_plain),
              (ntxent, "_NTXent", SimpleNamespace(apply=ntxent.nt_xent_plain))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -682,6 +836,125 @@ def abmil_step_check(dev, ds, results):
     del s, eng, before, k_grads, p_grads
     torch.cuda.empty_cache()
     return {"loss_err": loss_err, "grad_rel_err": rels[worst], "spread": spread}
+
+
+def make_slides(root):
+    """The heatmap path's data: one feature npz per slide (dim 512, f32) in
+    the data contract, a manifest, coord JSONs as the tiling step writes
+    them, and each slide as an in-memory ``ImageSlide`` (the GPU machine
+    has no PIL), keyed by its path."""
+    import numpy as np
+
+    from murcl_tpu_torch.data import contract
+    from murcl_tpu_torch.preprocess.slide_io import ImageSlide
+    from murcl_tpu_torch.utils.general import dump_json
+
+    cols, rows = HEAT_GRID
+    rng = np.random.default_rng(11)
+    root = Path(root)
+    (root / "features").mkdir(parents=True)
+    (root / "coords").mkdir()
+    manifest, slides = [], {}
+    for n in HEAT_SLIDES:
+        case_id = f"slide_{n}"
+        cells = np.sort(rng.choice(cols * rows, size=n, replace=False))
+        grid = np.stack([cells // cols, cells % cols], axis=1)
+        feat_path = root / "features" / f"{case_id}.npz"
+        contract.save_features_npz(feat_path, case_id, rows, cols,
+                                   rng.standard_normal((n, FIN), dtype=np.float32), grid)
+        slide_path = str(root / f"{case_id}.svs")
+        slides[slide_path] = ImageSlide(slide_path, image=rng.integers(
+            0, 256, (rows * HEAT_PATCH, cols * HEAT_PATCH, 3), dtype=np.uint8))
+        dump_json({"slide_filepath": slide_path, "magnification": 20,
+                   "magnification_level0": 20, "num_row": rows, "num_col": cols,
+                   "patch_size": 224, "patch_size_level0": HEAT_PATCH, "num_patches": n,
+                   "coords": [{"row": int(r), "col": int(c), "x": int(c) * HEAT_PATCH,
+                               "y": int(r) * HEAT_PATCH} for r, c in grid]},
+                  root / "coords" / f"{case_id}.json")
+        manifest.append({"case_id": case_id, "features_filepath": str(feat_path), "label": 0})
+    contract.save_manifest(root / "slides.csv", manifest)
+    return slides
+
+
+def png_shape(path) -> tuple:
+    """(height, width, channels) from a PNG's header (8-bit RGB only)."""
+    import struct
+
+    head = Path(path).read_bytes()[:26]
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path}: not a PNG")
+    w, h, depth, colour = struct.unpack(">IIBB", head[16:26])
+    check(depth == 8 and colour == 2, f"{path}: not 8-bit RGB")
+    return h, w, 3
+
+
+def heatmap_path(dev, root, checkpoint):
+    """``run_heatmaps`` over 3 slides (2,000, 12,000 and 60,000 patches, dim
+    512, f32) from the CLAM_SB MuRCL stage-3 ``model_best``, launch counts
+    reset first: K2's forward once, K8 twice, nothing else; one PNG of the
+    thumbnail's shape per slide, finite scores. Then the same run through
+    the plain twins: the scores within 1e-4. Prints, per slide, the load,
+    score (CUDA events around the scorer's call: copies in and out and the
+    kernels), paint and write times. Returns the launch counts."""
+    import torch
+
+    from murcl_tpu_torch.create_heatmaps import parse_args
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.preprocess import heatmaps as hm
+
+    t0 = time.time()
+    slides = make_slides(root)
+    print(f"heatmap slides written in {time.time() - t0:.1f} s")
+    scores, device_ms = [], []
+
+    class TimedScorer(hm.AttentionScorer):
+        def __call__(self, feats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super().__call__(feats)
+            end.record()
+            end.synchronize()
+            device_ms.append(start.elapsed_time(end))
+            scores.append(torch.tensor(out))
+            return out
+
+    args = parse_args(["--data_csv", str(root / "slides.csv"), "--coord_dir",
+                       str(root / "coords"), "--save_dir", str(root / "heatmaps"),
+                       "--checkpoint", checkpoint, "--device", str(dev.index),
+                       "--bucket", str(BUCKET), "--exist_ok"])
+    saved = hm.open_slide, hm.AttentionScorer
+    hm.open_slide, hm.AttentionScorer = slides.__getitem__, TimedScorer
+    try:
+        _cuda.reset_launch_counts()
+        records = hm.run_heatmaps(args)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        _cuda.reset_launch_counts()
+        with plain_twins():
+            hm.run_heatmaps(args)
+        check(not any(_cuda.LAUNCHES.values()), f"plain heatmaps launched {_cuda.LAUNCHES}")
+    finally:
+        hm.open_slide, hm.AttentionScorer = saved
+    want = {k: 0 for k in launches}
+    want.update(fused_trunk_fwd=1, attention_pool_tiled=2)
+    check(launches == want, f"heatmap path launches {launches}")
+    cols, rows = HEAT_GRID
+    for rec, got, plain, ms in zip(records, scores, scores[3:], device_ms):
+        n = rec["num_patches"]
+        shape = png_shape(rec["path"])
+        check(shape == (rows * HEAT_PATCH, cols * HEAT_PATCH, 3), f"{rec['path']}: {shape}")
+        check(got.shape == (n,) and bool(torch.isfinite(got).all()), f"{rec['case_id']} scores")
+        err = rel_err(got, plain)
+        check(err <= 1e-4, f"{rec['case_id']}: kernel scores against plain, rel err {err}")
+        print(f"heatmap {rec['case_id']} ({n} patches, padded {-(-n // BUCKET) * BUCKET}): "
+              f"load {rec['load_ms']:.1f} ms, score {ms:.2f} ms on the device "
+              f"({rec['score_ms']:.2f} ms host), paint {rec['paint_ms']:.1f} ms, write "
+              f"{rec['write_ms']:.1f} ms; scores against plain twins rel err {err:.2e}, "
+              f"max abs {float((got - plain).abs().max()):.2e}")
+    check(len(records) == len(HEAT_SLIDES) and len(scores) == 2 * len(HEAT_SLIDES),
+          f"{len(records)} heatmaps, {len(scores)} scorings")
+    print(f"heatmap path launches {launches}")
+    return launches
 
 
 def rlmil_args(dev, ds, results, stage, pretrained, **extra):
@@ -854,9 +1127,10 @@ def main() -> int:
     print(f"kernels built and loaded in {time.time() - t0:.1f} s")
 
     k1 = check_compaction(dev, gen)
-    print(f"K1 compaction bitwise ok; {k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms at "
-          f"({B_MAIN}, {N_MAIN}, {FIN}); at K5's shape ({RL_BATCH}, {N_MAIN}, {FIN}) "
-          f"{k1['k5_ms']:.3f} ms vs plain {k1['k5_plain_ms']:.3f} ms ({card})")
+    print(f"K1 compaction bitwise ok; {k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms, "
+          f"bound {k1['bound_ms']:.4f} ms at ({B_MAIN}, {N_MAIN}, {FIN}); at K5's shape "
+          f"({RL_BATCH}, {N_MAIN}, {FIN}) {k1['k5_ms']:.3f} ms vs plain "
+          f"{k1['k5_plain_ms']:.3f} ms, bound {k1['k5_bound_ms']:.4f} ms ({card})")
     k4f, k4b = check_ntxent(dev, gen)
     print(f"K4 NT-Xent fwd {k4f['ms']:.4f} ms vs plain {k4f['plain_ms']:.4f} ms, "
           f"bwd {k4b['ms']:.4f} ms vs plain {k4b['plain_ms']:.4f} ms ({card})")
@@ -879,6 +1153,7 @@ def main() -> int:
           f"({B_MAIN}, {N_MAIN}, {FIN}) bf16 ({k6['gbps']:.0f} GB/s moved); "
           f"{k6['ms_f32']:.3f} ms vs plain {k6['plain_ms_f32']:.3f} ms at "
           f"({B_MAIN // 8}, {N_MAIN}, {FIN}) f32 ({card})")
+    k8 = check_tiled(dev, gen)
 
     work = REPO / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -888,6 +1163,7 @@ def main() -> int:
         ds = make_dataset(tmp / "data")
         print(f"synthetic dataset written in {time.time() - t0:.1f} s")
         clam_stages, pretrained = murcl_path(dev, ds, tmp / "murcl", "CLAM_SB")
+        heat = heatmap_path(dev, tmp / "slides", pretrained)
         abmil_stages, _ = murcl_path(dev, ds, tmp / "murcl", "ABMIL")
         abmil_step_check(dev, ds, tmp / "murcl")
         rl_stages = rlmil_path(dev, ds, tmp / "rlmil", pretrained)
@@ -896,10 +1172,9 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
-    for stages in (clam_stages, abmil_stages, rl_stages):
-        for counts in stages.values():
-            for k, v in counts.items():
-                launches[k] += v
+    for counts in [*clam_stages.values(), *abmil_stages.values(), *rl_stages.values(), heat]:
+        for k, v in counts.items():
+            launches[k] += v
 
     base = "murcl_tpu_torch/csrc/"
     rows = [
@@ -916,16 +1191,23 @@ def main() -> int:
          "murcl_tpu/ops/attention_pallas.py:177", k7f),
         ("attention_pool_bwd", base + "attention_pool.cu",
          "murcl_tpu/ops/attention_pallas.py:250", k7b),
+        ("attention_pool_tiled", base + "attention_tiled.cu",
+         "murcl_tpu/ops/attention_pallas.py:1115", k8),
     ]
+    # library_ms: no single PyTorch call computes any of these functions
+    # (PERF.md, section 6)
     kernels = [{"name": n, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[n], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]} for n, src, rep, r in rows]
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None} for n, src, rep, r in rows]
     for row in kernels:  # the modes each attention row was held in
         if row["name"].startswith("fused_trunk"):
             row["modes"] = ("gated and ungated, mixed and unmixed"
                             + ("; bags' gradient dh" if row["name"].endswith("bwd") else ""))
-        if row["name"].startswith("attention_pool"):
+        if row["name"] in ("attention_pool_fwd", "attention_pool_bwd"):
             row["modes"] = f"gated and ungated at D {D}; ungated at D {ABMIL_D} (ABMIL)"
+        if row["name"] == "attention_pool_tiled":
+            row["modes"] = "gated and ungated, f32 and bf16; timed f32 gated at (1, 60416, 512)"
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -156,7 +156,7 @@ def setup(args) -> SimpleNamespace:
         args.epochs = args.ppo_epochs
     else:
         if args.train_method == "linear":
-            freeze_for_linear_eval(model)
+            freeze_for_linear_eval(model, args.arch)
         optimizer = make_optimizer(model, fc, optimizer=args.optimizer,
                                    backbone_lr=args.backbone_lr, fc_lr=args.fc_lr,
                                    beta1=args.beta1, beta2=args.beta2, momentum=args.momentum,

@@ -43,18 +43,35 @@ def load_checkpoint(path, map_location="cpu") -> dict:
     return torch.load(path, map_location=map_location, weights_only=True)
 
 
+_GROUP = "instance_classifiers."  # one stacked leaf in the JAX package
+
+
 def transfer_state(module: torch.nn.Module, state_dict: dict, verbose: bool = True) -> list:
     """Load the entries of ``state_dict`` that match ``module`` by name and
     shape; the rest of ``module`` keeps its fresh init. ``module.`` prefixes
     are stripped, and ``encoder.`` too when every key carries it (the ``CL``
     wrapper). Returns, and prints, what was skipped (reference
-    ``train_RLMIL.py:124-135``; ``murcl_tpu/engine/torch_import.py:71-87``)."""
+    ``train_RLMIL.py:124-135``; ``murcl_tpu/engine/checkpoint.py:83-115``).
+
+    CLAM's ``instance_classifiers.*`` load as one group, as the JAX package's
+    stacked ``(C, L1, 2)`` leaf does: when the source's classifiers differ in
+    count or shape from the module's (a 128-class MuRCL checkpoint into a
+    2-class aggregator), the whole group keeps its fresh init and is reported
+    as one skipped entry."""
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in state_dict.items()}
     if sd and all(k.startswith("encoder.") for k in sd):
         sd = {k[len("encoder."):]: v for k, v in sd.items()}
     own = module.state_dict()
     merged, skipped = dict(own), []
+    group = {k: v for k, v in own.items() if k.startswith(_GROUP)}
+    src_group = {k: v for k, v in sd.items() if k.startswith(_GROUP)}
+    if group and (group.keys() != src_group.keys()
+                  or any(src_group[k].shape != v.shape for k, v in group.items())):
+        skipped.append(f"{_GROUP[:-1]} (count or shape: {len(group) // 2} classifiers, "
+                       f"{len(src_group) // 2} in source)")
+        sd = {k: v for k, v in sd.items() if not k.startswith(_GROUP)}
+        own = {k: v for k, v in own.items() if not k.startswith(_GROUP)}
     for k, v in own.items():
         if k not in sd:
             skipped.append(f"{k} (missing in source)")

@@ -46,6 +46,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from murcl_tpu_torch.engine import optim
 from murcl_tpu_torch.engine.config import PretrainConfig
 from murcl_tpu_torch.engine.losses import cosine_similarity
 from murcl_tpu_torch.models.rlmil import Rollout, act
@@ -237,5 +238,5 @@ class ContrastiveEngine:
         else:
             total, stats = self.rollout_batched(bank, slide_ids, generator, **draws)
         total.backward()
-        self.optimizer.step()
+        optim.step(self.optimizer)
         return stats

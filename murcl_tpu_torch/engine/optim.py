@@ -9,6 +9,12 @@ epoch's rates into the groups. Linear evaluation
 (:func:`freeze_for_linear_eval`) freezes the aggregator but its heads; frozen
 parameters stay out of the optimizer, so they take no step and no decay,
 like optax's ``set_to_zero`` group in the JAX package.
+
+The engines step through :func:`step`: a stepped parameter without a
+gradient (a dead head, such as CLAM's ``classifiers``) gets a zero one
+first, so the L2 decay and Adam's moments move it as optax's
+``add_decayed_weights`` + ``scale_by_adam`` move every leaf of its group;
+``torch.optim`` would skip it.
 """
 
 from __future__ import annotations
@@ -17,6 +23,12 @@ import math
 from typing import Optional
 
 import torch
+
+from murcl_tpu_torch.engine.weights import jax_leaf_path
+
+# JAX leaf names that stay trainable under linear eval
+# (``murcl_tpu/engine/optim.py:150``)
+_LINEAR_EVAL_HEADS = {"fc", "classifiers", "instance_kernel", "instance_bias"}
 
 
 def make_optimizer(model: torch.nn.Module, fc: torch.nn.Module, optimizer: str = "Adam",
@@ -35,13 +47,35 @@ def make_optimizer(model: torch.nn.Module, fc: torch.nn.Module, optimizer: str =
     raise NotImplementedError(f"optimizer {optimizer!r}")
 
 
-def freeze_for_linear_eval(model: torch.nn.Module) -> None:
-    """Linear evaluation (reference ``train_RLMIL.py:139-144``): every
-    aggregator parameter except the ``classifiers*`` / ``instance_classifiers*``
-    heads gets ``requires_grad_(False)``."""
+def freeze_for_linear_eval(model: torch.nn.Module, arch: str = "CLAM_SB") -> None:
+    """Linear evaluation: ``requires_grad_(False)`` on every aggregator
+    parameter whose JAX leaf path (:func:`~murcl_tpu_torch.engine.weights.jax_leaf_path`)
+    names none of ``fc``, ``classifiers``, ``instance_kernel`` and
+    ``instance_bias``, the predicate of ``murcl_tpu/engine/optim.py:141-155``.
+
+    The JAX package departs here from the torch reference
+    (``train_RLMIL.py:139-144``, a name test on torch keys): JAX's CLAM names
+    its trunk ``fc``, so CLAM's trunk ``attention_net.0`` trains under linear
+    eval besides ``classifiers`` and ``instance_classifiers``, and the
+    attention net is frozen. The port follows the JAX package. ABMIL's head
+    ``fc`` trains too."""
+    gated = any(".attention_b." in k for k, _ in model.named_parameters())
     for name, p in model.named_parameters():
-        if not name.startswith(("classifiers", "instance_classifiers")):
+        if not _LINEAR_EVAL_HEADS.intersection(jax_leaf_path(name, arch, gated)):
             p.requires_grad_(False)
+
+
+def fill_missing_grads(params) -> None:
+    """Give each of ``params`` that requires grad but has none a zero gradient."""
+    for p in params:
+        if p.requires_grad and p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
+def step(optimizer: torch.optim.Optimizer) -> None:
+    """``optimizer.step()`` after :func:`fill_missing_grads` over its groups."""
+    fill_missing_grads(p for group in optimizer.param_groups for p in group["params"])
+    optimizer.step()
 
 
 def set_learning_rates(opt: torch.optim.Optimizer, backbone_lr: float, fc_lr: float) -> None:

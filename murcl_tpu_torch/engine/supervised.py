@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from murcl_tpu_torch.engine import optim
 from murcl_tpu_torch.engine.config import RolloutConfig
 from murcl_tpu_torch.engine.losses import cross_entropy, label_confidence, masked_mean
 from murcl_tpu_torch.models.rlmil import Rollout, act
@@ -178,7 +179,7 @@ class SupervisedEngine:
         self.optimizer.zero_grad(set_to_none=True)
         total, stats, _ = self._rollout(bank, slide_ids, labels, valid, generator)
         total.backward()
-        self.optimizer.step()
+        optim.step(self.optimizer)
         return stats
 
     @torch.no_grad()

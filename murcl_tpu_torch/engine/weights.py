@@ -83,6 +83,18 @@ def _linears(arch: str, gated: bool) -> list:
     raise NotImplementedError(f"{arch} weights: ROADMAP queue 1, item 12")
 
 
+def jax_leaf_path(key: str, arch: str = "CLAM_SB", gated: bool = True) -> tuple:
+    """The JAX leaf path (under ``'params'``) of the aggregator's ``state_dict``
+    key ``key``; CLAM's ``instance_classifiers.*`` are the stacked leaves
+    ``instance_kernel`` / ``instance_bias``."""
+    for prefix, path, w, b in _linears(arch, gated):
+        if key in (f"{prefix}.weight", f"{prefix}.bias"):
+            return path + ((w,) if key.endswith(".weight") else (b,))
+    if arch == "CLAM_SB" and key.startswith("instance_classifiers."):
+        return ("instance_kernel",) if key.endswith(".weight") else ("instance_bias",)
+    raise KeyError(f"{key} has no JAX leaf in {arch}")
+
+
 def params_from_jax(model_tree: dict, fc_tree: Optional[dict] = None, arch: str = "CLAM_SB"
                     ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
     """JAX ``(model, fc)`` parameter trees -> the port's ``state_dict``s

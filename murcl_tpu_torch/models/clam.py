@@ -14,7 +14,12 @@ not:
   one op, with bag mixup folded in when ``mix`` is given. An unmixed bag
   that requires grad gets its gradient from K3 (the JAX model's
   ``attn_input_grad``, ``murcl_tpu/models/clam.py:234``, which autograd's
-  ``needs_input_grad`` decides here); the engines' bags are data and need none;
+  ``needs_input_grad`` decides here); the engines' bags are data and need none.
+  As in the JAX model (``clam.py:144-192``), a bag whose ``(N, max(in, L1))``
+  block is over 6 MiB (:func:`~murcl_tpu_torch.ops.attention.fused_trunk_resident`),
+  unmixed and without active dropout (a full slide in eval) takes the trunk
+  as a plain product and then :func:`~murcl_tpu_torch.ops.attention.gated_attention_pool`,
+  which streams it through K8 when the trunk's output is over 6 MiB;
 - ``instance_eval=True`` (supervised training): the trunk is plain torch,
   ``relu(h @ Wf + bf)`` in the bag dtype, because the instance losses gather
   its rows; the pool is :func:`murcl_tpu_torch.ops.attention.gated_attention_pool`
@@ -28,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from murcl_tpu_torch.ops.attention import fused_trunk_attention_pool, gated_attention_pool
+from murcl_tpu_torch.ops.attention import (fused_trunk_attention_pool, fused_trunk_resident,
+                                          gated_attention_pool)
 
 SIZE_DICT = {"small": (512, 256), "big": (512, 384)}
 
@@ -119,6 +125,16 @@ class CLAM_SB(nn.Module):
             seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
         trunk = self.attention_net[0]
         gates = self.attention_net[3].gates()
+        dt = h.dtype
+        if (not instance_eval and mix is None and rate == 0
+                and not fused_trunk_resident(h.shape[1], h.shape[2], trunk.out_features,
+                                             h.element_size())):
+            # JAX's unfused route for a bag that does not stay resident
+            # (murcl_tpu/models/clam.py:168-192): the trunk as a plain product,
+            # then the pool, which streams a bag over 6 MiB through K8
+            x = torch.relu(h @ trunk.weight.t().to(dt) + trunk.bias.to(dt))
+            m, _, s = gated_attention_pool(x, *gates, mask=mask, gated=self.gate)
+            return m, {"attention": s, "logits": self.classifiers(m)}
         if not instance_eval:
             m, _, s = fused_trunk_attention_pool(h, trunk.weight.t(), trunk.bias, *gates,
                                                  mask=mask, dropout=rate, seed=seed, mix=mix,
@@ -130,7 +146,6 @@ class CLAM_SB(nn.Module):
         if mix is not None:
             raise ValueError("mix is folded into the default route only; the supervised "
                              "instance route never mixes")
-        dt = h.dtype
         x = torch.relu(h @ trunk.weight.t().to(dt) + trunk.bias.to(dt))
         if rate > 0:
             gen = torch.Generator(device=x.device).manual_seed(seed)

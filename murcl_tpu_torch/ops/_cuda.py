@@ -38,6 +38,7 @@ LAUNCHES = {
     "ntxent_fwd": 0,
     "ntxent_bwd": 0,
     "mixup_rows": 0,
+    "attention_pool_tiled": 0,
 }
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -71,6 +72,9 @@ _SIGNATURES = {
     # dbc, B, N, F, D, stream
     "murcl_attention_pool_bwd": [_I, _I] + [_P] * 9 + [_I, _U, _U, _F] + [_P] * 14
     + [_I] * 4 + [_P],
+    # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, s, m_part, mx_part,
+    # l_part, m, B, N, F, D, chunk, stream
+    "murcl_attention_pool_tiled": [_I, _I] + [_P] * 13 + [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -47,6 +47,19 @@ _M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _TM, _TN, _KC = 32, 128, 32  # csrc/fused_trunk.cu tile constants
 
+# The JAX package's route rule (``murcl_tpu/ops/attention_pallas.py:483-490``
+# and ``:446-459``): a bag block over 6 MiB does not stay resident in the
+# TPU's VMEM, so such a bag leaves the fused kernel K2, and a dropout-free one
+# streams through K8. The port keeps the rule so that each bag takes the
+# counterpart of the kernel it takes in JAX; it is not a GPU limit.
+FUSED_RESIDENT_BUDGET = 6 * 1024 * 1024
+
+
+def fused_trunk_resident(n: int, fin: int, l1: int, itemsize: int) -> bool:
+    """True when an unmixed ``(N, max(Fin, L1))`` bag block fits the JAX
+    package's fused-kernel budget."""
+    return n * max(fin, l1) * itemsize <= FUSED_RESIDENT_BUDGET
+
 
 def _mul32(x, c: int):
     """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32) without overflow."""
@@ -344,9 +357,11 @@ def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
 # on its Pallas route (forward ``_make_fwd_kernel``, backward
 # ``_make_bwd_kernel``). Its rounding points differ from K2/K3: ``a``, ``g``,
 # ``u`` and the gate dropout scale stay f32, only Wa/Wb are rounded to the bag
-# dtype for the gate products, and wc stays f32. The TPU switched bags over
-# 6 MiB to its tiled kernel (a VMEM limit); the GPU kernel tiles rows, so any
-# N takes K7.
+# dtype for the gate products, and wc stays f32. K7f's softmax pass holds a
+# bag's N scores in shared memory, so K7 takes N up to about 58,000
+# (``4 (N + 32) <= 232,448`` bytes). A dropout-free bag over 6 MiB takes K8
+# instead (:func:`attention_pool_tiled`, at the end of the module), by the
+# JAX package's route rule.
 
 
 def gated_attention_pool_plain_fwd(x, wa, ba, wb, bb, wc, bc, mask, gated=True,
@@ -520,9 +535,133 @@ def gated_attention_pool(x, wa, ba, wb, bb, wc, bc, mask=None, gated: bool = Tru
     ``seed`` keys the gate dropout masks (hash streams 1 and 2, bag = index in
     the batch). The gradient flows to ``x`` as well as to the weights. CPU
     tensors take the plain twins; CUDA tensors always launch K7f (forward)
-    and K7b (backward).
+    and K7b (backward), except that a bag over 6 MiB at dropout 0 streams
+    through :func:`attention_pool_tiled` (K8), as
+    ``murcl_tpu/ops/attention_pallas.py:446-459`` routes it.
     """
     if mask is None:
         mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+    if dropout == 0 and x[0].numel() * x.element_size() > FUSED_RESIDENT_BUDGET:
+        return attention_pool_tiled(x, wa, ba, wb, bb, wc, bc, mask=mask, gated=gated)
     return _AttentionPool.apply(x, wa, ba, wb, bb, wc, bc, mask, bool(gated), float(dropout),
                                 int(seed))
+
+
+# ---------------------------------------------------------------------------
+# K8: streaming attention pool over a bag of any length (full-slide heatmaps)
+# ---------------------------------------------------------------------------
+# Counterpart of ``murcl_tpu/ops/attention_pallas.py`` ``attention_pool_tiled``
+# (forward ``_make_tiled_fwd_kernel``). The kernel (``csrc/attention_tiled.cu``)
+# splits each bag into chunks of ``_CHUNK`` rows, one block each, and walks a
+# chunk in ``_TM``-row tiles with an online max; a second kernel merges the
+# chunks. ``e = exp(s - running max)`` is rounded to the bag dtype before its
+# product with ``x``; the TPU kernel took the running max over 2048-row tiles
+# of the whole bag, so in bf16 the two round ``e`` at other maxima. ``p`` is
+# the masked softmax of ``s``, taken outside the kernel as JAX takes it in
+# XLA. The backward is K7b's (dropout 0), as JAX's is its XLA pool's.
+
+_CHUNK = 64  # rows per block of the kernel, a multiple of _TM
+
+
+def attention_pool_tiled_plain(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
+    """Plain PyTorch forward (mirror of K8): ``(M, p, s)``. Per chunk of
+    ``_CHUNK`` rows it takes the kernel's running max over ``_TM``-row tiles
+    and rounds ``e`` at it, so kernel and twin differ by summation order."""
+    dt = x.dtype
+    b, n, f = x.shape
+    xf = x.float()
+    u = torch.tanh(xf @ wa.to(dt).float() + ba)
+    if gated:
+        u = u * torch.sigmoid(xf @ wb.to(dt).float() + bb)
+    s = u @ wc.float() + bc
+    p = torch.softmax(torch.where(mask, s, torch.full_like(s, _NEG_INF)), dim=-1)
+
+    pad = (-n) % _CHUNK
+    nc, tiles = (n + pad) // _CHUNK, _CHUNK // _TM
+    live = torch.nn.functional.pad(mask, (0, pad)).reshape(b, nc, tiles, _TM)
+    st = torch.nn.functional.pad(s, (0, pad)).reshape(b, nc, tiles, _TM)
+    st = torch.where(live, st, torch.full_like(st, _NEG_INF))
+    run = st.amax(-1).cummax(-1).values  # (b, nc, tiles): the max after each tile
+    e = torch.where(live, torch.exp(st - run[..., None]), torch.zeros_like(st))
+    xt = torch.nn.functional.pad(xf, (0, 0, 0, pad)).reshape(b, nc, tiles, _TM, f)
+    mt = torch.einsum("bctr,bctrf->bctf", e.to(dt).float(), xt)
+    scale = torch.exp(run - run[..., -1:])  # each tile's rescale to the chunk's max
+    m_c = (scale[..., None] * mt).sum(2)
+    l_c = (scale * e.sum(-1)).sum(2)
+    mx_c = run[..., -1]
+    w = torch.exp(mx_c - mx_c.amax(-1, keepdim=True))
+    m = (w[..., None] * m_c).sum(1) / (w * l_c).sum(1)[:, None]
+    return m, p, s
+
+
+def _check_tiled_shapes(name, x, wa):
+    f, d = x.shape[2], wa.shape[1]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: bags must be float32 or bfloat16")
+    if f % _TN or d % _TN:
+        raise ValueError(f"{name}: needs F and D multiples of {_TN} (got {f}, {d})")
+    smem = 4 * (_TM * (f + 1) + _KC * _TN + f + 2 * _TM + 4)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: tiles need {smem} bytes of shared memory")
+
+
+def _tiled_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
+    """K8: ``(M, p, s)`` of :func:`attention_pool_tiled_plain`."""
+    name = "attention_pool_tiled"
+    _check_tiled_shapes(name, x, wa)
+    o, _ = _pool_args(x, wa, ba, wb, bb, wc, mask, 0.0, 0)
+    bc32 = bc.to(torch.float32).reshape(1).contiguous()
+    _cuda.require_cuda(name, *o.values(), bc32)
+    b, n, f = x.shape
+    chunks = -(-n // _CHUNK)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    m, s = torch.empty((b, f), **f32), torch.empty((b, n), **f32)
+    m_part = torch.empty((b, chunks, f), **f32)
+    mx_part, l_part = torch.empty((b, chunks), **f32), torch.empty((b, chunks), **f32)
+    err = _cuda.library().murcl_attention_pool_tiled(
+        int(x.dtype == torch.bfloat16), int(gated), _p(o["x"]), _p(o["wa"]), _p(o["ba"]),
+        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(bc32), _p(o["mask"]), _p(s), _p(m_part),
+        _p(mx_part), _p(l_part), _p(m), b, n, f, wa.shape[1], _CHUNK, _cuda.stream())
+    _cuda.check(err, name)
+    _cuda.LAUNCHES["attention_pool_tiled"] += 1
+    p = torch.softmax(torch.where(o["mask"], s, torch.full_like(s, _NEG_INF)), dim=-1)
+    return m, p, s
+
+
+class _AttentionPoolTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wa, ba, wb, bb, wc, bc, mask, gated):
+        if x.device.type == "cpu":
+            m, p, s = attention_pool_tiled_plain(x, wa, ba, wb, bb, wc, bc, mask, gated)
+        else:
+            m, p, s = _tiled_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated)
+        ctx.save_for_backward(x, wa, ba, wb, bb, wc, mask, p)
+        ctx.gated = gated
+        return m, p, s
+
+    @staticmethod
+    def backward(ctx, gm, gp, gs):
+        x, wa, ba, wb, bb, wc, mask, p = ctx.saved_tensors
+        args = (x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, ctx.gated, 0.0, 0)
+        if x.device.type == "cpu":
+            dx, dwa, dba, dwb, dbb, dwc, dbc = gated_attention_pool_plain_bwd(*args)
+        else:
+            if 4 * (x.shape[1] + 32) > _SMEM_LIMIT:
+                raise ValueError(
+                    f"attention_pool_tiled backward runs K7b, whose softmax pass holds a "
+                    f"bag's N scores in shared memory: N <= {_SMEM_LIMIT // 4 - 32}, "
+                    f"got {x.shape[1]}")
+            dx, dwa, dba, dwb, dbb, dwc, dbc = _pool_bwd_cuda(*args)
+        return dx, dwa, dba, dwb, dbb, dwc, dbc.reshape(()), None, None
+
+
+def attention_pool_tiled(x, wa, ba, wb, bb, wc, bc, mask=None, gated: bool = True):
+    """Streaming attention pooling over bags ``x (B, N, F)`` of any length,
+    without dropout: ``(M (B, F), p (B, N), s (B, N))`` in float32, with
+    :func:`gated_attention_pool`'s arguments. CPU tensors take the plain
+    twin; CUDA tensors always launch K8 (forward) and K7b (backward, which
+    holds N up to about 58,000). The TPU kernel's ``tile`` (a Mosaic knob) is
+    not carried over."""
+    if mask is None:
+        mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+    return _AttentionPoolTiled.apply(x, wa, ba, wb, bb, wc, bc, mask, bool(gated))

@@ -5,7 +5,7 @@ device (the kernels build with nvcc on first use and have no CPU mode). Run
 on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Shapes are small; ``chip_smoke.py`` checks the main path's full shapes.
 Tolerances: K1 and K6 bitwise; K4 1e-5; K2/K3 (gated or not, with or
-without the bags' gradient) and K7 relative Frobenius 1e-4 in f32 (sum
+without the bags' gradient), K7 and K8 relative Frobenius 1e-4 in f32 (sum
 order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32 sum
 in another order crosses a rounding boundary).
 """
@@ -15,7 +15,8 @@ import torch
 
 from murcl_tpu_torch.data.bank import bank_from_arrays
 from murcl_tpu_torch.ops import _cuda
-from murcl_tpu_torch.ops.attention import (fused_trunk_attention_pool, fused_trunk_plain_bwd,
+from murcl_tpu_torch.ops.attention import (attention_pool_tiled, attention_pool_tiled_plain,
+                                           fused_trunk_attention_pool, fused_trunk_plain_bwd,
                                            fused_trunk_plain_fwd, gated_attention_pool,
                                            gated_attention_pool_plain_bwd,
                                            gated_attention_pool_plain_fwd)
@@ -200,3 +201,35 @@ def test_fused_trunk_modes_match_plain(dev, gated, need_dh, dtype, rate, tol):
             assert not g.any(), name
             continue
         assert _rel(g, wv) <= tol, name
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,n", [(1, 3000), (4, 700)])
+def test_attention_pool_tiled_matches_plain(dev, gated, dtype, tol, b, n):
+    """K8 (chunks of 64 rows, a ragged last one) against its twin, with a
+    masked tail; one backward through the op (K7b) in f32."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    f, d = 256, 128
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * sc
+
+    w = [r(f, d, sc=f ** -0.5), r(d, sc=0.1), r(f, d, sc=f ** -0.5), r(d, sc=0.1),
+         r(d, sc=d ** -0.5), r((), sc=0.1)]
+    x = torch.relu(r(b, n, f)).to(dtype)
+    lengths = torch.tensor([n - 37, n // 3, 1, n][:b], device=dev)
+    mask = torch.arange(n, device=dev)[None, :] < lengths[:, None]
+    xg = x.clone().requires_grad_(dtype == torch.float32)
+    before = dict(_cuda.LAUNCHES)
+    outs = attention_pool_tiled(xg, *w, mask=mask, gated=gated)
+    assert _cuda.LAUNCHES["attention_pool_tiled"] == before["attention_pool_tiled"] + 1
+    want = attention_pool_tiled_plain(x, *w, mask, gated)
+    for name, g, wv in zip("Mps", outs, want):
+        assert _rel(g.detach(), wv) <= tol, name
+    if dtype == torch.float32:
+        cots = [r(b, f), r(b, n, sc=0.1), r(b, n, sc=0.01)]
+        torch.autograd.backward(outs, cots)
+        assert _cuda.LAUNCHES["attention_pool_bwd"] == before["attention_pool_bwd"] + 1
+        dx = gated_attention_pool_plain_bwd(x, *w[:5], mask, want[1], *cots, gated)[0]
+        assert _rel(xg.grad, dx) <= tol

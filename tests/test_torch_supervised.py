@@ -23,13 +23,15 @@ from murcl_tpu.data.bank import bank_from_arrays as jax_bank_from_arrays
 from murcl_tpu.engine import BankArrays
 from murcl_tpu.engine import RolloutConfig as JaxConfig
 from murcl_tpu.engine import SupervisedEngine as JaxEngine
+from murcl_tpu.engine.optim import linear_eval_frozen_paths
 from murcl_tpu.engine.optim import make_optimizer as jax_make_optimizer
 from murcl_tpu.models import CLAM_SB as JaxCLAM
 from murcl_tpu.models import FullLayer as JaxFullLayer
 from murcl_tpu.models.rlmil import PPO as JaxPPO
 from murcl_tpu_torch.data.bank import bank_from_arrays
 from murcl_tpu_torch.engine.config import RolloutConfig
-from murcl_tpu_torch.engine.optim import make_optimizer
+from murcl_tpu_torch.engine.optim import (fill_missing_grads, freeze_for_linear_eval,
+                                          make_optimizer, step)
 from murcl_tpu_torch.engine.supervised import SupervisedEngine
 from murcl_tpu_torch.engine.weights import params_from_jax, policy_from_jax
 from murcl_tpu_torch.models import CLAM_SB, PPO, FullLayer
@@ -61,12 +63,16 @@ def _data(seed):
     return feats, clusters, labels, ids, valid
 
 
-def _engines(stage, seed=0):
+def _engines(stage, seed=0, linear=False):
+    """Both engines on the same weights; ``linear`` freezes as
+    ``--train_method linear`` does, with lr 1e-3 on both sides."""
     feats, clusters, labels, ids, valid = _data(seed)
     jcfg = JaxConfig(arch="CLAM_SB", T=T, feat_size=FEAT, num_clusters=K, max_patches=256,
                      train_stage=stage, num_classes=2, bag_weight=0.7, remat="none")
     jppo = JaxPPO(state_dim=L1, **PPO_KW) if stage != 1 else None
-    tx = jax_make_optimizer("Adam", backbone_lr=1e-3, fc_lr=1e-3) if stage != 2 else None
+    frozen = linear_eval_frozen_paths("CLAM_SB") if linear else None
+    tx = (jax_make_optimizer("Adam", backbone_lr=1e-3, fc_lr=1e-3, frozen_model_paths=frozen)
+          if stage != 2 else None)
     jengine = JaxEngine(jcfg, JaxCLAM(**CLAM_KW),
                         JaxFullLayer(feature_num=L1, hidden_state_dim=HID, class_num=2),
                         ppo=jppo, tx=tx)
@@ -84,7 +90,10 @@ def _engines(stage, seed=0):
         ppo.load_policy(policy_from_jax(pstate.params))
     cfg = RolloutConfig(arch="CLAM_SB", T=T, feat_size=FEAT, num_clusters=K, train_stage=stage,
                         num_classes=2, bag_weight=0.7)
-    opt = make_optimizer(model, fc, "Adam") if stage != 2 else None
+    if linear:
+        freeze_for_linear_eval(model, "CLAM_SB")
+    lrs = dict(backbone_lr=1e-3, fc_lr=1e-3) if linear else {}
+    opt = make_optimizer(model, fc, "Adam", **lrs) if stage != 2 else None
     engine = SupervisedEngine(cfg, model, fc, ppo=ppo, optimizer=opt)
     jbank = BankArrays.from_bank(jax_bank_from_arrays(feats, clusters, labels).device())
     bank = bank_from_arrays(feats, clusters, labels)
@@ -97,10 +106,8 @@ def _compare_grads(engine, jgrads):
     gm, gf = params_from_jax(jgrads["model"], jgrads["fc"])
     named = [(k, p, gm[k]) for k, p in engine.model.named_parameters()]
     named += [(k, p, gf[k]) for k, p in engine.fc.named_parameters()]
+    fill_missing_grads(p for _, p, _ in named)  # the dead bag head: as engine.optim.step
     for name, p, want in named:
-        if name.startswith("classifiers."):  # dead bag head: no gradient in the port
-            assert p.grad is None and not want.any(), name
-            continue
         np.testing.assert_allclose(p.grad.numpy(), want.numpy(), rtol=1e-4, atol=1e-7,
                                    err_msg=name)
 
@@ -138,6 +145,47 @@ def test_stage1_batched_rollout_matches_jax(tiny_clam):
                                rtol=1e-5)
     _compare_grads(engine, jgrads)
     _compare_rollout(rollout, jrollout)
+
+
+def test_stage1_linear_eval_step_matches_jax(tiny_clam):
+    """One ``--train_method linear`` stage-1 step: the trunk (JAX's ``fc``),
+    ``classifiers`` and ``instance_classifiers`` move as JAX's Adam moves
+    them (the dead ``classifiers`` by the decay alone), the attention net
+    stays put, on both sides."""
+    e = _engines(1, seed=3, linear=True)
+    actions = np.random.default_rng(6).random((T, B, K)).astype(np.float32)
+    rng = jax.random.PRNGKey(5)
+
+    def loss_fn(p):
+        return e["jengine"]._rollout_batched(
+            p, e["jbank"], jnp.asarray(e["ids"]), jnp.asarray(e["labels"]),
+            jnp.asarray(e["valid"]), rng, True, actions=jnp.asarray(actions))
+
+    params = e["params"]
+    (_, (jstats, _)), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    updates, _ = e["jengine"].tx.update(jgrads, e["jengine"].init_state(params).opt_state,
+                                        params)
+    new = jax.tree_util.tree_map(lambda a, u: a + u, params, updates)
+    want_m, want_f = params_from_jax(new["model"], new["fc"])
+
+    engine = e["engine"]
+    before = {k: v.clone() for k, v in engine.model.state_dict().items()}
+    total, stats, _ = engine.rollout_batched(*_torch_args(e), actions=torch.tensor(actions))
+    total.backward()
+    step(engine.optimizer)
+    np.testing.assert_allclose(stats.step_losses.numpy(), np.asarray(jstats.step_losses),
+                               rtol=1e-5)
+    moved = set()
+    for name, p in engine.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want_m[name].numpy(), rtol=1e-5,
+                                   atol=2e-6, err_msg=name)
+        if not torch.equal(p.detach(), before[name]):
+            moved.add(name.rsplit(".", 1)[0])
+    assert moved == {"attention_net.0", "classifiers", "instance_classifiers.0",
+                     "instance_classifiers.1"}
+    for name, p in engine.fc.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want_f[name].numpy(), rtol=1e-5,
+                                   atol=2e-6, err_msg=name)
 
 
 def test_stage3_sequential_rollout_matches_jax(tiny_clam):
