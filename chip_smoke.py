@@ -3,7 +3,9 @@
 
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from ``murcl_tpu_torch/csrc`` (one nvcc
-   per source, in parallel).
+   per source, in parallel), and reads the library's SASS with
+   ``cuobjdump``: the bf16 K2/K3 kernels must hold tensor-core instructions
+   (HMMA or HGMMA).
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape and at the
@@ -16,9 +18,12 @@
    1e-4 in f32 and <= 2e-2 in bf16 at dropout 0 and 0.25, with the kernels'
    keep rates within 1% of 0.75; K2 and K3 timed gated and ungated, K3 also
    unmixed with and without dh, K7 in ABMIL's mode at (1536, 1024, 512),
-   each beside its plain twin. K8 (the streaming attention pool) at the
-   heatmap's largest bag (1, 60416, 512) f32 gated with a masked tail and at
-   (4, 12288, 512) gated and ungated in f32 and bf16, relative Frobenius
+   each beside its plain twin; K2's and K3's main-shape call split by
+   sub-kernel (forward trunk, gates and pool; backward trunk, gates, dx and
+   each weight-gradient contraction) with torch.profiler. K8 (the streaming
+   attention pool) at the heatmap's largest bag (1, 60416, 512) f32 gated
+   with a masked tail and at (4, 12288, 512) gated and ungated in f32 and
+   bf16, relative Frobenius
    error <= 1e-4 in f32 and <= 2e-2 in bf16, one backward through its op
    (K7b) at (4, 12288, 512) f32, and K8 timed at (1, 60416, 512) and (1,
    12288, 512) f32 beside its twin and its bound.
@@ -52,7 +57,8 @@
      ``final_res.csv``; compaction and K7f launched in every stage, K7b in
      stages 1 and 3 and not in stage 2.
 5. Times steady steps: supervised at batch 64 (stage 3, then stage 1), and
-   MuRCL ABMIL stage 1 and CLAM_SB stage 3 at batch 128: 2 warm-up steps,
+   MuRCL CLAM_SB stage 1 (the ``bench.py`` step), ABMIL stage 1 and CLAM_SB
+   stage 3 at batch 128: 2 warm-up steps,
    then a host clock around 5 synchronised steps; then ``torch.profiler``
    traces 3 more steps of each and prints device time by kernel and the
    device's busy share.
@@ -70,6 +76,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -324,6 +331,57 @@ def check_ntxent(dev, gen):
     return fwd, bwd
 
 
+def kernel_split(fn) -> list:
+    """``[(kernel, device ms)]`` of the port's kernels that one call of
+    ``fn`` launches, in launch order (torch.profiler; PyTorch's own copies
+    and memsets left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = []
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        name = re.search(r"anonymous namespace\)::([\w:]+)", e.name)
+        if name:
+            out.append((name.group(1), (e.time_range.end - e.time_range.start) / 1e3))
+    return out
+
+
+# the bf16 kernels of csrc/fused_trunk.cu (K2/K3) that must run on the tensor cores
+TC_KERNELS = ("trunk_tc", "gates_fwd_tc", "gates_bwd_tc", "dx_tc", "tc::wgrad_kernel")
+
+
+def check_sass() -> dict:
+    """``cuobjdump -sass`` (beside nvcc) over the built kernel library: each
+    bf16 K2/K3 kernel, all defined in ``csrc/fused_trunk.cu`` and the header
+    only it includes, must hold tensor-core instructions (HMMA or HGMMA).
+    Returns their counts per kernel."""
+    from murcl_tpu_torch.ops import _cuda
+
+    tool = Path(_cuda._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split(None, 1)[0]
+        for k in TC_KERNELS:
+            # the mangled name spells each part of k by its length: 2tc12wgrad_kernel
+            mangled = "".join(f"{len(part)}{part}" for part in k.split("::"))
+            if mangled in name:
+                counts[k] = counts.get(k, 0) + sum(
+                    1 for line in body.splitlines()
+                    if re.search(r"\bH(G)?MMA\b", line))
+    check(set(counts) == set(TC_KERNELS) and all(counts.values()),
+          f"bf16 K2/K3 kernels without tensor-core instructions: {counts}")
+    return counts
+
+
 def check_fused(dev, gen):
     import torch
 
@@ -371,6 +429,16 @@ def check_fused(dev, gen):
     k_fwd = median_ms(lambda: att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam), reps=3)
     k_bwd = median_ms(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77, perm, lam),
                       reps=3)
+    split_fwd = kernel_split(lambda: att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam))
+    split_bwd = kernel_split(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77, perm,
+                                                   lam))
+    grads = iter(("dWf", "dWa", "dWb"))  # the contractions, in launch order
+    split_bwd = [(f"{n} {next(grads)}" if n.endswith("wgrad_kernel") else n, ms)
+                 for n, ms in split_bwd]
+    for what, split, total in (("K2", split_fwd, k_fwd), ("K3", split_bwd, k_bwd)):
+        print(f"{what} at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, dropout 0.25: "
+              f"{total:.3f} ms (median of 3); one call by sub-kernel: "
+              + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split))
     modes = {
         "fwd_ungated": median_ms(lambda: att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam,
                                                        gated=False), reps=3),
@@ -408,10 +476,10 @@ def check_fused(dev, gen):
     bb = bound(2 * trunk + 3 * gates + 2 * r * L1,
                nbytes(h, mask, perm, lam, p, *cots), BF16_FLOPS)
     return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f,
-             "bound_ms": fb[0], "bound_by": fb[1],
+             "bound_ms": fb[0], "bound_by": fb[1], "split_ms": dict(split_fwd),
              "ungated_ms": modes["fwd_ungated"], "ungated_plain_ms": plain["fwd_ungated"]},
             {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b,
-             "bound_ms": bb[0], "bound_by": bb[1],
+             "bound_ms": bb[0], "bound_by": bb[1], "split_ms": dict(split_bwd),
              "ungated_ms": modes["bwd_ungated"], "ungated_plain_ms": plain["bwd_ungated"],
              "dh_ms": modes["bwd_dh"], "dh_plain_ms": plain["bwd_dh"],
              "unmixed_ms": modes["bwd_unmixed"], "unmixed_plain_ms": plain["bwd_unmixed"]})
@@ -1041,14 +1109,15 @@ def steady_steps(dev, ds, results, pretrained):
 
 
 def steady_murcl_steps(dev, ds, results):
-    """Steady MuRCL steps at batch 128: ABMIL stage 1, then CLAM_SB stage 3
-    (which chains on the CLAM_SB path's stage 2). Returns ``{name: ms}``."""
+    """Steady MuRCL steps at batch 128: CLAM_SB stage 1 (the ``bench.py``
+    step), ABMIL stage 1, then CLAM_SB stage 3 (which chains on the CLAM_SB
+    path's stage 2). Returns ``{name: ms}``."""
     import torch
 
     from murcl_tpu_torch.drivers.murcl import setup
 
     out = {}
-    for arch, stage in (("ABMIL", 1), ("CLAM_SB", 3)):
+    for arch, stage in (("CLAM_SB", 1), ("ABMIL", 1), ("CLAM_SB", 3)):
         s = setup(murcl_args(dev, ds, results, arch, stage, exist_ok=True))
         gen = torch.Generator().manual_seed(0)
         ids = torch.arange(BATCH, device=dev) % SLIDES
@@ -1125,6 +1194,9 @@ def main() -> int:
     t0 = time.time()
     _cuda.library()
     print(f"kernels built and loaded in {time.time() - t0:.1f} s")
+    counts = check_sass()
+    print("tensor-core instructions (HMMA/HGMMA) in the bf16 K2/K3 kernels' SASS: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
     k1 = check_compaction(dev, gen)
     print(f"K1 compaction bitwise ok; {k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms, "

@@ -45,7 +45,10 @@ from murcl_tpu_torch.ops.mixup import apply_mix
 _NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-_TM, _TN, _KC = 32, 128, 32  # csrc/fused_trunk.cu tile constants
+_TM, _TN, _KC = 32, 128, 32  # csrc/tiles.cuh tile constants (K2/K3 in f32, K7, K8)
+# csrc/mma_tiles.cuh: rows per block, bf16 padding of a shared row, and the
+# bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K2/K3 in bf16
+_TC_BM, _TC_PAD, _TC_RING = 64, 8, 2 * 2 * 64 * (128 + 8)
 
 # The JAX package's route rule (``murcl_tpu/ops/attention_pallas.py:483-490``
 # and ``:446-459``): a bag block over 6 MiB does not stay resident in the
@@ -199,6 +202,24 @@ def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
     return grads
 
 
+def trunk_tile_smem(n: int, fin: int, l1: int, d: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory the widest block of K2/K3 takes at bags of
+    ``n`` rows and widths ``fin -> l1 -> d``: the tiles of the trunk, gate
+    and dx kernels (``csrc/fused_trunk.cu``: ``tc_trunk_smem``,
+    ``tc_gates_smem`` and ``tc_dx_smem`` with dh in bf16; ``trunk_smem`` and
+    ``gates_smem`` in f32) and the pool pass's ``n + 32`` floats. The
+    weight-gradient contraction takes a fixed 39,936 or 52,224 bytes."""
+    if dtype == torch.bfloat16:
+        bm, pad = _TC_BM, _TC_PAD
+        tiles = max(2 * bm * (fin + pad) + _TC_RING + 4 * bm * 4,
+                    2 * bm * (l1 + pad) + _TC_RING + 4 * (bm * 4 + d + 32),
+                    2 * bm * (2 * (d + pad) + l1 + pad) + _TC_RING + 4 * bm)
+    else:
+        tiles = 4 * max(_TM * (fin + 1) + _TM * (l1 + 1) + _KC * _TN,
+                        _TM * (l1 + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + d + 32)
+    return max(tiles, 4 * (n + 32))
+
+
 def _check_shapes(name, h, wf, wa, need_dh=False):
     b, n, fin = h.shape
     l1, d = wf.shape[1], wa.shape[1]
@@ -209,9 +230,7 @@ def _check_shapes(name, h, wf, wa, need_dh=False):
                          f"(got {fin}, {l1}, {d})")
     if need_dh and fin % _TN:
         raise ValueError(f"{name}: the bags' gradient needs Fin % {_TN} == 0 (got {fin})")
-    smem = 4 * max(_TM * (fin + 1) + _TM * (l1 + 1) + _KC * _TN,
-                   _TM * (l1 + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + d + 32,
-                   n + 32)
+    smem = trunk_tile_smem(n, fin, l1, d, h.dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: tiles need {smem} bytes of shared memory")
 

@@ -94,16 +94,19 @@ def create_heatmap(coord_filepath, attention, slide_level: int = -1,
 
 class AttentionScorer:
     """CLAM_SB attention over full bags, padded to a multiple of ``bucket``
-    with a mask, in f32 and eval mode on ``device``."""
+    with a mask, in f32 and eval mode on ``device``: the card ``cuda:0`` by
+    default, ``"cpu"`` for the plain CPU path; resolved as the drivers'
+    ``--device`` is, so without a CUDA device only ``"cpu"`` runs."""
 
     def __init__(self, dim_patch: int, num_classes: int, size_arg: str = "small",
                  k_sample: int = 8, checkpoint: Optional[str] = None, bucket: int = 512,
-                 device="cpu"):
+                 device="cuda:0"):
+        from murcl_tpu_torch.drivers.murcl import resolve_device
         from murcl_tpu_torch.engine.checkpoint import load_checkpoint, transfer_state
         from murcl_tpu_torch.models.clam import CLAM_SB
 
         self.bucket = bucket
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = CLAM_SB(in_dim=dim_patch, gate=True, size_arg=size_arg, dropout=0.25,
                              k_sample=k_sample, n_classes=num_classes, subtyping=True)
         if checkpoint is not None:

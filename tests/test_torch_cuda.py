@@ -7,7 +7,10 @@ Shapes are small; ``chip_smoke.py`` checks the main path's full shapes.
 Tolerances: K1 and K6 bitwise; K4 1e-5; K2/K3 (gated or not, with or
 without the bags' gradient), K7 and K8 relative Frobenius 1e-4 in f32 (sum
 order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32 sum
-in another order crosses a rounding boundary).
+in another order crosses a rounding boundary; K2/K3's bf16 products run on
+the tensor cores, whose sums run in yet another order). K2/K3 also at the
+edges of their 64-row bf16 tiles: N = 1000 with live lengths 1, 63, 65 and
+1000, and D = 384.
 """
 
 import pytest
@@ -85,9 +88,15 @@ def test_ntxent_matches_plain(dev, zero_row):
 @pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
                                             (torch.bfloat16, 0.0, 2e-2),
                                             (torch.bfloat16, 0.25, 2e-2)])
-def test_fused_trunk_matches_plain(dev, dtype, rate, tol):
+@pytest.mark.parametrize("n,lengths,fin", [(100, [100, 90, 64, 33, 100, 1], 128),
+                                           # neither the 64-row tile nor the masked tail
+                                           # divides N
+                                           (1000, [1, 63, 65, 1000, 999, 640], 128),
+                                           # Fin % 128 != 0: dWf on 64-row output tiles
+                                           (100, [100, 90, 64, 33, 100, 1], 192)])
+def test_fused_trunk_matches_plain(dev, dtype, rate, tol, n, lengths, fin):
     gen = torch.Generator(device=dev).manual_seed(2)
-    b, n, fin, l1, d = 6, 100, 128, 128, 128
+    b, l1, d = 6, 128, 128
 
     def r(*s, sc=1.0):
         return torch.randn(*s, generator=gen, device=dev) * sc
@@ -95,8 +104,7 @@ def test_fused_trunk_matches_plain(dev, dtype, rate, tol):
     w = [r(fin, l1, sc=fin ** -0.5), r(l1, sc=0.1), r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1),
          r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1), r(d, sc=d ** -0.5), r((), sc=0.1)]
     h = r(b, n, fin).to(dtype)
-    mask = torch.arange(n, device=dev)[None, :] < torch.tensor([100, 90, 64, 33, 100, 1],
-                                                              device=dev)[:, None]
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
     perm = torch.randperm(b, generator=gen, device=dev)
     lam = 0.9 + 0.1 * torch.rand(b, generator=gen, device=dev)
     cots = [r(b, l1), r(b, n, sc=0.1), r(b, n, sc=0.01)]
@@ -169,9 +177,10 @@ def test_mixup_rows_bitwise(dev, dtype, view, shape):
 @pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
                                             (torch.bfloat16, 0.0, 2e-2),
                                             (torch.bfloat16, 0.25, 2e-2)])
-def test_fused_trunk_modes_match_plain(dev, gated, need_dh, dtype, rate, tol):
+@pytest.mark.parametrize("d", [128, 384])  # 384: CLAM "big"'s attention width
+def test_fused_trunk_modes_match_plain(dev, gated, need_dh, dtype, rate, tol, d):
     gen = torch.Generator(device=dev).manual_seed(5)
-    b, n, fin, l1, d = 5, 100, 128, 128, 128
+    b, n, fin, l1 = 5, 100, 128, 128
 
     def r(*s, sc=1.0):
         return torch.randn(*s, generator=gen, device=dev) * sc

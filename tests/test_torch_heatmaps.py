@@ -118,7 +118,7 @@ def test_scorer_matches_jax(tmp_path, monkeypatch):
     jscorer = jax_hm.AttentionScorer(dim_patch=16, num_classes=2, bucket=32,
                                      checkpoint=str(tmp_path / "jax.pkl"))
     scorer = hm.AttentionScorer(dim_patch=16, num_classes=2, bucket=32,
-                                checkpoint=str(tmp_path / "port.pth.tar"))
+                                checkpoint=str(tmp_path / "port.pth.tar"), device="cpu")
     want_sd = params_from_jax(jscorer.params)[0]
     for k, v in scorer.model.state_dict().items():
         if not k.startswith(("classifiers.", "instance_classifiers.")):
@@ -139,6 +139,15 @@ def test_scorer_matches_jax(tmp_path, monkeypatch):
         assert got.shape == (n,) and np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert tiled == [(1, 4000, 512)]
+
+
+def test_scorer_defaults_to_the_card(monkeypatch):
+    """Without a device the scorer takes the card ``cuda:0``: on a host
+    without CUDA it raises, naming it, and does not fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda:0 needs a CUDA device"):
+        hm.AttentionScorer(dim_patch=16, num_classes=2, bucket=32)
+    assert hm.AttentionScorer(dim_patch=16, num_classes=2, device="cpu").device.type == "cpu"
 
 
 def test_wsidataset_matches_jax(tmp_path):
