@@ -4,8 +4,8 @@
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from ``murcl_tpu_torch/csrc`` (one nvcc
    per source, in parallel), and reads the library's SASS with
-   ``cuobjdump``: the bf16 K2/K3 kernels must hold tensor-core instructions
-   (HMMA or HGMMA).
+   ``cuobjdump``: the bf16 K2/K3 and K7 kernels must hold tensor-core
+   instructions (HMMA or HGMMA).
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape and at the
@@ -13,14 +13,19 @@
    K6 mixup bitwise in bf16 at (1536, 1024, 512) and in f32 at (192, 1024,
    512); K4 NT-Xent loss and grads <= 1e-5 abs; K2/K3 fused trunk +
    attention (gated and mixed; ungated; gated and ungated with the bags'
-   gradient dh) and K7 attention pool (gated and ungated at D 256; ABMIL's
-   mode, ungated at D 128, at dropout 0 only) relative Frobenius error <=
-   1e-4 in f32 and <= 2e-2 in bf16 at dropout 0 and 0.25, with the kernels'
-   keep rates within 1% of 0.75; K2 and K3 timed gated and ungated, K3 also
-   unmixed with and without dh, K7 in ABMIL's mode at (1536, 1024, 512),
-   each beside its plain twin; K2's and K3's main-shape call split by
-   sub-kernel (forward trunk, gates and pool; backward trunk, gates, dx and
-   each weight-gradient contraction) with torch.profiler. K8 (the streaming
+   gradient dh) and K7 attention pool (gated and ungated at D 256; gated at
+   D 384 in bf16; gated at D 256 on bags of 1000 rows, not a multiple of
+   the 64-row tile; ABMIL's mode, ungated at D 128, at dropout 0 only)
+   relative Frobenius error <= 1e-4 in f32 and <= 2e-2 in bf16 at dropout 0
+   and 0.25, with the kernels' keep rates within 1% of 0.75; K2 and K3
+   timed gated and ungated, K3 also unmixed with and without dh, K7 at the
+   supervised shape and in ABMIL's mode at (1536, 1024, 512), each beside
+   its plain twin and its bound; K2's, K3's and K7's timed calls split by
+   sub-kernel (forward trunk or gates, and pool; backward trunk, dp, gates,
+   dx and each weight-gradient contraction) with torch.profiler; K3 (with
+   dh) and K7b run twice on the same inputs, the largest difference per
+   output printed (the split-K weight gradients add with atomics; dh and
+   K7's dx must be bitwise equal). K8 (the streaming
    attention pool) at the heatmap's largest bag (1, 60416, 512) f32 gated
    with a masked tail and at (4, 12288, 512) gated and ungated in f32 and
    bf16, relative Frobenius
@@ -92,7 +97,8 @@ CHECK_BAGS = 192  # bags in the K2/K3 comparisons
 RL_BATCH, RL_SPLITS = 64, (128, 32, 32)  # supervised batch; train / valid / test slides
 POOL_BAGS = T * RL_BATCH  # K7's bags in a supervised stage-1 step
 POOL_CHECK_BAGS = 48  # bags in the K7 comparisons
-ABMIL_D = 128  # ABMIL's attention width (MuRCL's default --D)
+ABMIL_D, CLAM_BIG_D = 128, 384  # ABMIL's attention width (MuRCL's --D); CLAM "big"
+TAIL_N = 1000  # K7's row-tail check: bags of N rows, not a multiple of 64
 # the heatmap path: slides of these many patches on a 300 x 200 grid of
 # 4-pixel patches (a 1,200 x 800 single-level slide), padded to multiples
 # of BUCKET; K8's checks at the largest padded bag and at (4, 12288)
@@ -348,20 +354,23 @@ def kernel_split(fn) -> list:
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start):
         name = re.search(r"anonymous namespace\)::([\w:]+)", e.name)
-        if name:
+        if name and "at::native" not in e.name:
             out.append((name.group(1), (e.time_range.end - e.time_range.start) / 1e3))
     return out
 
 
-# the bf16 kernels of csrc/fused_trunk.cu (K2/K3) that must run on the tensor cores
-TC_KERNELS = ("trunk_tc", "gates_fwd_tc", "gates_bwd_tc", "dx_tc", "tc::wgrad_kernel")
+# the bf16 kernels of csrc/fused_trunk.cu (K2/K3) and csrc/attention_pool.cu
+# (K7) that must run on the tensor cores; tc::wgrad_kernel serves both
+TC_KERNELS = ("trunk_tc", "gates_fwd_tc", "gates_bwd_tc", "dx_tc", "tc::wgrad_kernel",
+              "pool_gates_fwd_tc", "pool_gates_bwd_tc", "pool_dx_tc")
 
 
 def check_sass() -> dict:
     """``cuobjdump -sass`` (beside nvcc) over the built kernel library: each
-    bf16 K2/K3 kernel, all defined in ``csrc/fused_trunk.cu`` and the header
-    only it includes, must hold tensor-core instructions (HMMA or HGMMA).
-    Returns their counts per kernel."""
+    bf16 K2/K3 and K7 kernel (``TC_KERNELS``, defined in
+    ``csrc/fused_trunk.cu``, ``csrc/attention_pool.cu`` and the header they
+    share) must hold tensor-core instructions (HMMA or HGMMA). Returns their
+    counts per kernel."""
     from murcl_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).with_name("cuobjdump")
@@ -378,7 +387,7 @@ def check_sass() -> dict:
                     1 for line in body.splitlines()
                     if re.search(r"\bH(G)?MMA\b", line))
     check(set(counts) == set(TC_KERNELS) and all(counts.values()),
-          f"bf16 K2/K3 kernels without tensor-core instructions: {counts}")
+          f"bf16 K2/K3/K7 kernels without tensor-core instructions: {counts}")
     return counts
 
 
@@ -430,15 +439,18 @@ def check_fused(dev, gen):
     k_bwd = median_ms(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77, perm, lam),
                       reps=3)
     split_fwd = kernel_split(lambda: att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam))
-    split_bwd = kernel_split(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77, perm,
-                                                   lam))
-    grads = iter(("dWf", "dWa", "dWb"))  # the contractions, in launch order
-    split_bwd = [(f"{n} {next(grads)}" if n.endswith("wgrad_kernel") else n, ms)
-                 for n, ms in split_bwd]
+    split_bwd = name_wgrads(kernel_split(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25,
+                                                               77, perm, lam)),
+                            ("dWf", "dWa", "dWb"))
     for what, split, total in (("K2", split_fwd, k_fwd), ("K3", split_bwd, k_bwd)):
-        print(f"{what} at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, dropout 0.25: "
-              f"{total:.3f} ms (median of 3); one call by sub-kernel: "
-              + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split))
+        print_split(f"{what} at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, dropout 0.25",
+                    split, total)
+    # unmixed with dh: dh, like K7b's dx, has no atomics on its path
+    twice = determinism(f"K3 at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, unmixed, with dh, "
+                        "dropout 0.25",
+                        lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77, None, None,
+                                              need_dh=True),
+                        ["dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc", "dh"], ("dh",))
     modes = {
         "fwd_ungated": median_ms(lambda: att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam,
                                                        gated=False), reps=3),
@@ -479,7 +491,7 @@ def check_fused(dev, gen):
              "bound_ms": fb[0], "bound_by": fb[1], "split_ms": dict(split_fwd),
              "ungated_ms": modes["fwd_ungated"], "ungated_plain_ms": plain["fwd_ungated"]},
             {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b,
-             "bound_ms": bb[0], "bound_by": bb[1], "split_ms": dict(split_bwd),
+             "bound_ms": bb[0], "bound_by": bb[1], "split_ms": dict(split_bwd), "twice": twice,
              "ungated_ms": modes["bwd_ungated"], "ungated_plain_ms": plain["bwd_ungated"],
              "dh_ms": modes["bwd_dh"], "dh_plain_ms": plain["bwd_dh"],
              "unmixed_ms": modes["bwd_unmixed"], "unmixed_plain_ms": plain["bwd_unmixed"]})
@@ -519,7 +531,9 @@ def check_mixup(dev, gen):
     return res
 
 
-def pool_inputs(b, dtype, gen, dev, masked: bool, d: int = D):
+def pool_inputs(b, dtype, gen, dev, masked: bool, d: int = D, n: int = N_MAIN):
+    """K7's operands; masked bags are live for 600 (or n / 2) to n rows, and
+    the first four for 1, 63, 65 and n where n is not a multiple of 64."""
     import torch
 
     def r(*shape, sc=1.0):
@@ -527,12 +541,14 @@ def pool_inputs(b, dtype, gen, dev, masked: bool, d: int = D):
 
     w = [r(L1, d, sc=L1 ** -0.5), r(d, sc=0.1), r(L1, d, sc=L1 ** -0.5), r(d, sc=0.1),
          r(d, sc=d ** -0.5), r((), sc=0.1)]
-    x = torch.relu(r(b, N_MAIN, L1)).to(dtype)  # a trunk output: post-relu
-    lengths = torch.randint(600, N_MAIN + 1, (b,), generator=gen, device=dev)
-    mask = torch.arange(N_MAIN, device=dev)[None, :] < lengths[:, None]
+    x = torch.relu(r(b, n, L1)).to(dtype)  # a trunk output: post-relu
+    lengths = torch.randint(min(600, n // 2), n + 1, (b,), generator=gen, device=dev)
+    if n % 64:
+        lengths[:4] = torch.tensor([1, 63, 65, n], device=dev)
+    mask = torch.arange(n, device=dev)[None, :] < lengths[:, None]
     if not masked:
         mask = torch.ones_like(mask)
-    cots = [r(b, L1), r(b, N_MAIN, sc=0.1), r(b, N_MAIN, sc=0.01)]
+    cots = [r(b, L1), r(b, n, sc=0.1), r(b, n, sc=0.01)]
     return x, w, mask, cots
 
 
@@ -542,8 +558,7 @@ def gate_keep_rates(dev):
     ungated; streams 1 and 2 both gated, 0.75^2 = 0.5625)."""
     import torch
 
-    from murcl_tpu_torch.ops import _cuda
-    from murcl_tpu_torch.ops.attention import _pool_args, _pool_fwd_cuda
+    from murcl_tpu_torch.ops.attention import _pool_bwd_launch, _pool_fwd_cuda
 
     gen = torch.Generator(device=dev).manual_seed(11)
     b = 64
@@ -552,24 +567,42 @@ def gate_keep_rates(dev):
     rates = {}
     for gated in (False, True):
         _, p, _ = _pool_fwd_cuda(x, *w, mask, gated, 0.25, 4321)
-        o, drop = _pool_args(x, *w[:5], mask, 0.25, 4321)
-        f32 = dict(dtype=torch.float32, device=dev)
-        waT, wbT = w[0].T.contiguous(), w[2].T.contiguous()
-        dza = torch.empty(b, N_MAIN, D, dtype=torch.bfloat16, device=dev)
-        dzb = torch.empty_like(dza)
-        dx = torch.empty_like(x)
-        bufs = [torch.empty(b, N_MAIN, **f32), dza, dzb, dx, torch.empty(L1, D, **f32),
-                torch.empty(D, **f32), torch.empty(L1, D, **f32), torch.empty(D, **f32),
-                torch.empty(D, **f32), torch.empty((), **f32)]
-        ptr = lambda t: t.data_ptr()  # noqa: E731
-        err = _cuda.library().murcl_attention_pool_bwd(
-            1, int(gated), ptr(o["x"]), ptr(o["wa"]), ptr(o["ba"]), ptr(o["wb"]), ptr(o["bb"]),
-            ptr(o["wc"]), ptr(waT), ptr(wbT), ptr(o["mask"]), *drop, ptr(p), *map(ptr, cots),
-            *map(ptr, bufs), b, N_MAIN, L1, D, _cuda.stream())
-        _cuda.check(err, "gate keep-rate probe")
+        _, dza = _pool_bwd_launch(x, *w[:5], mask, p, *cots, gated, 0.25, 4321)
         torch.cuda.synchronize()
-        rates[gated] = float((dza != 0).float().mean())
+        rates[gated] = float((dza[0] != 0).float().mean())  # the hi plane, rnd(dza)
     return rates
+
+
+def name_wgrads(split, grads) -> list:
+    """``split`` (``kernel_split``'s list) with each weight-gradient
+    contraction named by its gradient, in launch order."""
+    grads = iter(grads)
+    return [(f"{n} {next(grads)}" if n.endswith("wgrad_kernel") else n, ms) for n, ms in split]
+
+
+def print_split(what, split, total) -> None:
+    print(f"{what}: {total:.3f} ms (median of 3); one call by sub-kernel: "
+          + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split))
+
+
+def determinism(what, fn, names, exact) -> dict:
+    """Runs ``fn`` twice on the same inputs and prints, per output, the
+    largest absolute difference between the runs and its relative Frobenius
+    size; fails unless the outputs named in ``exact`` (no atomics on their
+    path) are bitwise equal. Returns ``{name: (max abs, relative)}``."""
+    import torch
+
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    diffs = {n: (float((a.float() - b.float()).abs().max()), rel_err(a, b))
+             for n, a, b in zip(names, first, second)}
+    print(f"{what}, run twice on the same inputs: largest difference per output "
+          + ", ".join(f"{n} {d:.3e} (rel {r:.2e})" for n, (d, r) in diffs.items())
+          + "; bf16 tolerance 2e-2 rel")
+    for n, a, b in zip(names, first, second):
+        if n in exact:
+            check(torch.equal(a, b), f"{what}: {n} differs between two runs")
+    return diffs
 
 
 def check_pool(dev, gen):
@@ -581,12 +614,15 @@ def check_pool(dev, gen):
     err_f, err_b = 0.0, 0.0
     cases = [(torch.float32, 0.0, 1e-4), (torch.bfloat16, 0.0, 2e-2),
              (torch.bfloat16, 0.25, 2e-2)]
-    # (gated, D, cases): CLAM's pools at D 256, then ABMIL's mode (ungated,
-    # D 128, dropout 0) at its own width
-    modes = [(True, D, cases), (False, D, cases), (False, ABMIL_D, cases[:2])]
-    for gated, d, mode_cases in modes:
+    # (gated, D, N, cases): CLAM's pools at D 256, gated and ungated; CLAM
+    # "big" (gated, D 384) in bf16; bags of TAIL_N rows (K7's row tails);
+    # then ABMIL's mode (ungated, D 128, dropout 0) at its own width
+    modes = [(True, D, N_MAIN, cases), (False, D, N_MAIN, cases),
+             (True, CLAM_BIG_D, N_MAIN, cases[1:]), (True, D, TAIL_N, cases),
+             (False, ABMIL_D, N_MAIN, cases[:2])]
+    for gated, d, n, mode_cases in modes:
         for dtype, rate, tol in mode_cases:
-            x, w, mask, cots = pool_inputs(POOL_CHECK_BAGS, dtype, gen, dev, True, d)
+            x, w, mask, cots = pool_inputs(POOL_CHECK_BAGS, dtype, gen, dev, True, d, n)
             xg = x.clone().requires_grad_(True)
             ws = [v.clone().requires_grad_(True) for v in w]
             outs = att._AttentionPool.apply(xg, *ws, mask, gated, rate, 77)
@@ -595,10 +631,10 @@ def check_pool(dev, gen):
             m, p, s = att.gated_attention_pool_plain_fwd(x, *w, mask, gated, rate, 77)
             want = [m, p, s, *att.gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots,
                                                                   gated, rate, 77)]
-            rels = {n: rel_err(g, wv) for n, g, wv in zip(names, got, want)
-                    if gated or n not in ("dwb", "dbb")}
-            what = f"K7 gated={gated} D={d} {dtype} dropout {rate}"
-            print(f"{what}: rel err " + ", ".join(f"{n} {v:.2e}" for n, v in rels.items()))
+            rels = {nm: rel_err(g, wv) for nm, g, wv in zip(names, got, want)
+                    if gated or nm not in ("dwb", "dbb")}
+            what = f"K7 gated={gated} D={d} N={n} {dtype} dropout {rate}"
+            print(f"{what}: rel err " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
             check(max(rels.values()) <= tol, f"{what}: {rels}")
             err_f = max(err_f, *(float((g - wv).abs().max()) for g, wv in zip(got[:3], want[:3])))
             err_b = max(err_b, *(float((g.float() - wv.float()).abs().max())
@@ -610,45 +646,52 @@ def check_pool(dev, gen):
     check(abs(rates[False] - 0.75) <= 0.0075, f"gate keep rate {rates[False]}")
     check(abs(rates[True] - 0.5625) <= 0.005625, f"joint gate keep rate {rates[True]}")
 
-    # timing at the supervised stage-1 shape: bf16, dropout 0.25, gated
-    x, w, mask, cots = pool_inputs(POOL_BAGS, torch.bfloat16, gen, dev, False)
-    _, p, _ = att._pool_fwd_cuda(x, *w, mask, True, 0.25, 77)
-    k_fwd = median_ms(lambda: att._pool_fwd_cuda(x, *w, mask, True, 0.25, 77), reps=3)
-    k_bwd = median_ms(lambda: att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, True, 0.25, 77),
-                      reps=3)
-    torch.cuda.empty_cache()
-    p_fwd = median_ms(lambda: att.gated_attention_pool_plain_fwd(x, *w, mask, True, 0.25, 77),
-                      reps=3)
-    p_bwd = median_ms(lambda: att.gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots,
-                                                                 True, 0.25, 77), reps=3)
-    # gates 4 R F D (forward; recomputed, then dx and dWa/dWb in the
-    # backward), pool and dp 2 R F
-    r = POOL_BAGS * N_MAIN
-    gates = 4 * r * L1 * D
-    fb = bound(gates + 2 * r * L1, nbytes(x, mask) + r * 8 + POOL_BAGS * L1 * 4, BF16_FLOPS)
-    bb = bound(3 * gates + 2 * r * L1, 2 * nbytes(x) + nbytes(mask, p, *cots), BF16_FLOPS)
-    del x, p, cots
-    torch.cuda.empty_cache()
+    def timed(b, d, gated, rate):
+        """K7f and K7b at (b, N_MAIN, L1) bf16, unmasked: median ms of each
+        and of its plain twin, one call of each split by sub-kernel, and the
+        bounds (gate products 2 R F D per gate forward; recomputed, then dx
+        and dW in the backward; pool and dp 2 R F)."""
+        x, w, mask, cots = pool_inputs(b, torch.bfloat16, gen, dev, False, d)
+        _, p, _ = att._pool_fwd_cuda(x, *w, mask, gated, rate, 77)
+        fwd = lambda: att._pool_fwd_cuda(x, *w, mask, gated, rate, 77)  # noqa: E731
+        bwd = lambda: att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 77)  # noqa: E731
+        res = {"fwd": median_ms(fwd, reps=3), "bwd": median_ms(bwd, reps=3),
+               "split_fwd": kernel_split(fwd),
+               "split_bwd": name_wgrads(kernel_split(bwd), ("dWa", "dWb"))}
+        if gated:
+            res["twice"] = determinism(f"K7b at ({b}, {N_MAIN}, {L1}) bf16 gated, dropout {rate}",
+                                       bwd, names[3:], ("dx",))
+        torch.cuda.empty_cache()
+        res["fwd_plain"] = median_ms(lambda: att.gated_attention_pool_plain_fwd(
+            x, *w, mask, gated, rate, 77), reps=3)
+        res["bwd_plain"] = median_ms(lambda: att.gated_attention_pool_plain_bwd(
+            x, *w[:5], mask, p, *cots, gated, rate, 77), reps=3)
+        r = b * N_MAIN
+        gates = 2 * r * L1 * d * (2 if gated else 1)
+        res["fwd_bound"] = bound(gates + 2 * r * L1, nbytes(x, mask) + r * 8 + b * L1 * 4,
+                                 BF16_FLOPS)
+        res["bwd_bound"] = bound(3 * gates + 2 * r * L1, 2 * nbytes(x) + nbytes(mask, p, *cots),
+                                 BF16_FLOPS)
+        mode = f"({b}, {N_MAIN}, {L1}) bf16 {'gated' if gated else 'ungated'}, D {d}, " \
+               f"dropout {rate}"
+        print_split(f"K7f at {mode}", res["split_fwd"], res["fwd"])
+        print_split(f"K7b at {mode}", res["split_bwd"], res["bwd"])
+        del x, p, cots
+        torch.cuda.empty_cache()
+        return res
 
-    # ABMIL's mode at its stage-1 shape: bf16, ungated, D 128, dropout 0
-    x, w, mask, cots = pool_inputs(B_MAIN, torch.bfloat16, gen, dev, False, ABMIL_D)
-    _, p, _ = att._pool_fwd_cuda(x, *w, mask, False, 0.0, 0)
-    abmil = {
-        "fwd": median_ms(lambda: att._pool_fwd_cuda(x, *w, mask, False, 0.0, 0), reps=3),
-        "bwd": median_ms(lambda: att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, False, 0.0, 0),
-                         reps=3),
-    }
-    torch.cuda.empty_cache()
-    abmil["fwd_plain"] = median_ms(lambda: att.gated_attention_pool_plain_fwd(
-        x, *w, mask, False, 0.0, 0), reps=3)
-    abmil["bwd_plain"] = median_ms(lambda: att.gated_attention_pool_plain_bwd(
-        x, *w[:5], mask, p, *cots, False, 0.0, 0), reps=3)
-    del x, p, cots
-    torch.cuda.empty_cache()
-    return ({"ms": k_fwd, "plain_ms": p_fwd, "max_abs_err": err_f, "bound_ms": fb[0],
-             "bound_by": fb[1], "abmil_ms": abmil["fwd"], "abmil_plain_ms": abmil["fwd_plain"]},
-            {"ms": k_bwd, "plain_ms": p_bwd, "max_abs_err": err_b, "bound_ms": bb[0],
-             "bound_by": bb[1], "abmil_ms": abmil["bwd"], "abmil_plain_ms": abmil["bwd_plain"]})
+    sup = timed(POOL_BAGS, D, True, 0.25)  # the supervised stage-1 shape
+    abmil = timed(B_MAIN, ABMIL_D, False, 0.0)  # ABMIL's stage-1 shape
+    out = []
+    for k in ("fwd", "bwd"):
+        out.append({"ms": sup[k], "plain_ms": sup[k + "_plain"],
+                    "max_abs_err": err_f if k == "fwd" else err_b,
+                    "bound_ms": sup[k + "_bound"][0], "bound_by": sup[k + "_bound"][1],
+                    "split_ms": dict(sup["split_" + k]), "abmil_ms": abmil[k],
+                    "abmil_plain_ms": abmil[k + "_plain"], "abmil_bound_ms": abmil[k + "_bound"][0],
+                    "abmil_split_ms": dict(abmil["split_" + k])})
+    out[1]["twice"] = sup["twice"]
+    return tuple(out)
 
 
 def tiled_inputs(b, n, dtype, gen, dev, lengths):
@@ -1195,7 +1238,7 @@ def main() -> int:
     _cuda.library()
     print(f"kernels built and loaded in {time.time() - t0:.1f} s")
     counts = check_sass()
-    print("tensor-core instructions (HMMA/HGMMA) in the bf16 K2/K3 kernels' SASS: "
+    print("tensor-core instructions (HMMA/HGMMA) in the bf16 K2/K3 and K7 kernels' SASS: "
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
     k1 = check_compaction(dev, gen)
@@ -1214,12 +1257,14 @@ def main() -> int:
           f"unmixed {k3['unmixed_ms']:.2f} ms vs plain {k3['unmixed_plain_ms']:.2f} ms, "
           f"unmixed with dh {k3['dh_ms']:.2f} ms vs plain {k3['dh_plain_ms']:.2f} ms ({card})")
     k7f, k7b = check_pool(dev, gen)
-    print(f"K7 pool fwd {k7f['ms']:.2f} ms vs plain {k7f['plain_ms']:.2f} ms; "
-          f"K7 bwd {k7b['ms']:.2f} ms vs plain {k7b['plain_ms']:.2f} ms at "
-          f"({POOL_BAGS}, {N_MAIN}, {L1}) bf16, dropout 0.25 ({card})")
+    print(f"K7 pool fwd {k7f['ms']:.2f} ms vs plain {k7f['plain_ms']:.2f} ms, bound "
+          f"{k7f['bound_ms']:.4f} ms; K7 bwd {k7b['ms']:.2f} ms vs plain {k7b['plain_ms']:.2f} ms, "
+          f"bound {k7b['bound_ms']:.4f} ms at ({POOL_BAGS}, {N_MAIN}, {L1}) bf16 gated, D {D}, "
+          f"dropout 0.25 ({card})")
     print(f"K7 ABMIL mode (ungated, D {ABMIL_D}, dropout 0) at ({B_MAIN}, {N_MAIN}, {L1}) "
-          f"bf16: fwd {k7f['abmil_ms']:.2f} ms vs plain {k7f['abmil_plain_ms']:.2f} ms; "
-          f"bwd {k7b['abmil_ms']:.2f} ms vs plain {k7b['abmil_plain_ms']:.2f} ms ({card})")
+          f"bf16: fwd {k7f['abmil_ms']:.2f} ms vs plain {k7f['abmil_plain_ms']:.2f} ms, bound "
+          f"{k7f['abmil_bound_ms']:.4f} ms; bwd {k7b['abmil_ms']:.2f} ms vs plain "
+          f"{k7b['abmil_plain_ms']:.2f} ms, bound {k7b['abmil_bound_ms']:.4f} ms ({card})")
     k6 = check_mixup(dev, gen)
     print(f"K6 mixup bitwise ok; {k6['ms']:.3f} ms vs plain {k6['plain_ms']:.3f} ms at "
           f"({B_MAIN}, {N_MAIN}, {FIN}) bf16 ({k6['gbps']:.0f} GB/s moved); "
@@ -1277,7 +1322,8 @@ def main() -> int:
             row["modes"] = ("gated and ungated, mixed and unmixed"
                             + ("; bags' gradient dh" if row["name"].endswith("bwd") else ""))
         if row["name"] in ("attention_pool_fwd", "attention_pool_bwd"):
-            row["modes"] = f"gated and ungated at D {D}; ungated at D {ABMIL_D} (ABMIL)"
+            row["modes"] = (f"gated and ungated at D {D}; gated at D {CLAM_BIG_D} (bf16) and on "
+                            f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL)")
         if row["name"] == "attention_pool_tiled":
             row["modes"] = "gated and ungated, f32 and bf16; timed f32 gated at (1, 60416, 512)"
     print(json.dumps({"kernels": kernels}))

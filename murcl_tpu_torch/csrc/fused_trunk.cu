@@ -395,11 +395,11 @@ size_t gates_smem(int L1, int D) {
 // ---------------------------------------------------------------------------
 using tc::BM;
 using tc::bf16;
+using tc::gate_col;
 using tc::PAD;
-
-__device__ __forceinline__ bf16* ring_end(const tc::Ring& ring) {
-  return ring.buf + tc::STAGES * tc::KS * tc::LDB;
-}
+using tc::ring_end;
+using tc::row_partials;
+using tc::st2;
 
 size_t tc_trunk_smem(int Fin) {
   return sizeof(bf16) * BM * (Fin + PAD) + tc::RING_BYTES + sizeof(float) * BM * 4;
@@ -445,27 +445,6 @@ __device__ void tc_load_mixed(const bf16* __restrict__ h, const int64_t* __restr
     }
     *reinterpret_cast<uint4*>(Hs + r * (Fin + PAD) + c) = v;
   }
-}
-
-// Two adjacent bf16 values (already rounded) as one 4-byte store.
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Row sums kept per thread (rowp[mi][hh]: row frag_row(mi, 2 hh) of the
-// warp's tile) -> the block's BM sums in red[r * 4 + warp_n]; read after a
-// barrier.
-__device__ __forceinline__ void row_partials(const float (&rowp)[2][2], float* red) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float v = rowp[mi][hh];
-      v += __shfl_xor_sync(murcl::kFull, v, 1);  // over the 4 lanes of a row
-      v += __shfl_xor_sync(murcl::kFull, v, 2);
-      if ((threadIdx.x & 3) == 0) red[(tc::warp_m() * 32 + tc::frag_row(mi, 2 * hh)) * 4 +
-                                      tc::warp_n()] = v;
-    }
 }
 
 // Mix and trunk of one 64-row tile: xc = drop(relu(Hs @ Wf + bf)) to the
@@ -531,13 +510,6 @@ trunk_tc(const bf16* __restrict__ h, const int64_t* __restrict__ perm,
                                     red[r * 4 + 3] + gp[(size_t)bag * N + row];
 }
 
-// Gate column of element e of fragment j in a gate pass at n0: paired
-// (gated; fragments 0-1 are a, 2-3 g at the same columns) or plain.
-__device__ __forceinline__ int gate_col(int gated, int n0, int j, int e) {
-  return gated ? n0 + tc::warp_n() * 16 + tc::frag_col(j & 1, e)
-               : n0 + tc::warp_n() * 32 + tc::frag_col(j, e);
-}
-
 // The gates at one element, rounded to bf16 where gates_bwd_kernel<bf16>
 // rounds them: a = tanh(za), g = sigmoid(zb) (gated only), their keep
 // scales ka, kb, the kept a_eff, g_eff and u = a_eff * g_eff (or a_eff).
@@ -564,17 +536,6 @@ __device__ __forceinline__ Gates gates_at(float za, float zb, int gated, const D
   return t;
 }
 
-// The xc tile of rows r0.. into Xs with the gates' first slice of [Wa | Wb]
-// (or Wa); the ring comes back primed.
-__device__ tc::Ring gates_start(const bf16* __restrict__ xc, int bag, int r0, int N, int L1,
-                                const tc::BSrc& b, bf16* Xs) {
-  tc::Ring ring{Xs + BM * (L1 + PAD), 0, true};
-  tc::load_rows(xc + (size_t)bag * N * L1, L1, r0, N, Xs);
-  tc::load_b(b, 0, ring.buf);
-  tc::cp_commit();
-  return ring;
-}
-
 // Forward pass 2: the raw scores s of one 64-row tile from its xc.
 __global__ void __launch_bounds__(tc::THREADS, 2)
 gates_fwd_tc(const bf16* __restrict__ xc, const bf16* __restrict__ wa,
@@ -586,7 +547,7 @@ gates_fwd_tc(const bf16* __restrict__ xc, const bf16* __restrict__ wa,
   bf16* Xs = reinterpret_cast<bf16*>(tc_smem);
   const int bag = blockIdx.y, r0 = blockIdx.x * BM, wm = tc::warp_m();
   tc::BSrc b{wa, gated ? wb : nullptr, D, 0};
-  tc::Ring ring = gates_start(xc, bag, r0, N, L1, b, Xs);
+  tc::Ring ring = tc::tile_start(xc, bag, r0, N, L1, b, Xs);
   float* red = reinterpret_cast<float*>(ring_end(ring));  // BM x 4
 
   const uint32_t key_a = murcl::bag_key(dp.seed, bag, 1), key_b = murcl::bag_key(dp.seed, bag, 2);
@@ -636,7 +597,7 @@ gates_bwd_tc(const bf16* __restrict__ xc, const bf16* __restrict__ wa,
   const int bag = blockIdx.y, r0 = blockIdx.x * BM;
   const int lane = threadIdx.x & 31, wm = tc::warp_m();
   tc::BSrc b{wa, gated ? wb : nullptr, D, 0};
-  tc::Ring ring = gates_start(xc, bag, r0, N, L1, b, Xs);
+  tc::Ring ring = tc::tile_start(xc, bag, r0, N, L1, b, Xs);
   float* Ds = reinterpret_cast<float*>(ring_end(ring));  // BM: ds per row
   float* Wcs = Ds + BM * 4;                               // D: this block's dwc partial
   float* red = Wcs + D;                                   // 32

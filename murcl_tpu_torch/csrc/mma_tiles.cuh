@@ -1,6 +1,7 @@
-// bf16 tensor-core tiles for K2/K3's bf16 instantiation (fused_trunk.cu): a
-// 64-row x 128-column product over an A tile that sits in shared memory as
-// bf16, with B streamed in 64-deep k-slices through a two-stage cp.async
+// bf16 tensor-core tiles for the bf16 instantiations of K2/K3 (fused_trunk.cu)
+// and K7 (attention_pool.cu): a 64-row x 128-column product over an A tile
+// that sits in shared memory as bf16, with B streamed in 64-deep k-slices
+// through a two-stage cp.async
 // ring (a pass may prime the next pass's first slice), and the split-K
 // weight-gradient contraction dW += X^T @ Y on the same instructions.
 //
@@ -16,7 +17,8 @@
 // accumulator tile (2 m16 x 4 n8 fragments). Shared rows are padded by 8
 // bf16 (a row stride of 16 mod 128 bytes), so the 8 row addresses of one
 // ldmatrix fall in distinct bank groups. Everything sits in an anonymous
-// namespace, as tiles.cuh does.
+// namespace, as tiles.cuh does, so each source that includes it gets its own
+// copy.
 #pragma once
 
 #include "common.cuh"
@@ -146,14 +148,16 @@ __device__ __forceinline__ void load_rows(const bf16* __restrict__ src, int cols
 
 // acc = A[BM x K] @ B[K x 128 columns of b]: A bf16 in shared memory with row
 // stride lda (K % KS == 0). With TWO_A, a paired b's fragments 2-3 multiply
-// A1 instead (two products of the same shape, kept apart). With a next
-// (next.p0 set), the last k-step primes next's first slice. Every k-slice waits at a block
-// barrier, so A may have been written just before the call by any thread.
-template <bool TWO_A = false>
+// A1 instead (two products of the same shape, kept apart). With ACCUM, the
+// product adds to what acc holds. With a next (next.p0 set), the last k-step
+// primes next's first slice. Every k-slice waits at a block barrier, so A may
+// have been written (or its cp.async group committed) just before the call
+// by any thread.
+template <bool TWO_A = false, bool ACCUM = false>
 __device__ __forceinline__ void mma_pass(const bf16* A, const bf16* A1, int lda, int K,
                                          const BSrc& b, const BSrc& next, Ring& ring, Acc& acc) {
   const int lane = threadIdx.x & 31, wm = warp_m();
-  zero(acc);
+  if (!ACCUM) zero(acc);
   const int nk = K / KS;
   if (!ring.primed) {
     load_b(b, 0, ring.buf + ring.stage * KS * LDB);
@@ -206,6 +210,50 @@ __device__ __forceinline__ void mma_pass(const bf16* A, const bf16* A1, int lda,
   }
   ring.stage = (ring.stage + nk) & 1;
   ring.primed = next.p0 != nullptr;
+}
+
+// ---------------------------------------------------------------------------
+// Pieces the gate kernels of K2/K3 (fused_trunk.cu) and K7 (attention_pool.cu)
+// share: a block's shared memory is its BM-row A tile, then the ring, then
+// small arrays from ring_end.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ bf16* ring_end(const Ring& ring) { return ring.buf + STAGES * KS * LDB; }
+
+// The tile of rows r0.. of one bag (rows, cols) into Xs with b's first slice;
+// the ring, right after the tile, comes back primed.
+__device__ __forceinline__ Ring tile_start(const bf16* __restrict__ src, int bag, int r0, int rows,
+                                           int cols, const BSrc& b, bf16* Xs) {
+  Ring ring{Xs + BM * (cols + PAD), 0, true};
+  load_rows(src + (size_t)bag * rows * cols, cols, r0, rows, Xs);
+  load_b(b, 0, ring.buf);
+  cp_commit();
+  return ring;
+}
+
+// Two adjacent values, rounded to bf16, as one 4-byte store.
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// Row sums kept per thread (rowp[mi][hh]: row frag_row(mi, 2 hh) of the
+// warp's tile) -> the block's BM sums in red[r * 4 + warp_n]; read after a
+// barrier.
+__device__ __forceinline__ void row_partials(const float (&rowp)[2][2], float* red) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = rowp[mi][hh];
+      v += __shfl_xor_sync(murcl::kFull, v, 1);  // over the 4 lanes of a row
+      v += __shfl_xor_sync(murcl::kFull, v, 2);
+      if ((threadIdx.x & 3) == 0) red[(warp_m() * 32 + frag_row(mi, 2 * hh)) * 4 + warp_n()] = v;
+    }
+}
+
+// Gate column of element e of fragment j in a gate pass at n0: paired
+// (gated; fragments 0-1 are a, 2-3 g at the same columns) or plain.
+__device__ __forceinline__ int gate_col(int gated, int n0, int j, int e) {
+  return gated ? n0 + warp_n() * 16 + frag_col(j & 1, e) : n0 + warp_n() * 32 + frag_col(j, e);
 }
 
 // ---------------------------------------------------------------------------

@@ -44,6 +44,10 @@ def load_checkpoint(path, map_location="cpu") -> dict:
 
 
 _GROUP = "instance_classifiers."  # one stacked leaf in the JAX package
+# CLAM_SB's gated attention net without the Dropout before it (the reference
+# builds that Dropout only when dropout is on)
+_GATES_DROPOUT_OFF = ("attention_net.2.attention_a.0.", "attention_net.2.attention_b.0.",
+                      "attention_net.2.attention_c.")
 
 
 def transfer_state(module: torch.nn.Module, state_dict: dict, verbose: bool = True) -> list:
@@ -52,6 +56,11 @@ def transfer_state(module: torch.nn.Module, state_dict: dict, verbose: bool = Tr
     are stripped, and ``encoder.`` too when every key carries it (the ``CL``
     wrapper). Returns, and prints, what was skipped (reference
     ``train_RLMIL.py:124-135``; ``murcl_tpu/engine/checkpoint.py:83-115``).
+
+    A CLAM_SB saved with dropout off holds its gated attention net at
+    ``attention_net.2``; with no ``attention_net.3.`` key in the source, those
+    keys load as ``attention_net.3.*``, the port's layout, as
+    ``murcl_tpu/engine/torch_import.py:146`` reads either layout.
 
     CLAM's ``instance_classifiers.*`` load as one group, as the JAX package's
     stacked ``(C, L1, 2)`` leaf does: when the source's classifiers differ in
@@ -62,6 +71,9 @@ def transfer_state(module: torch.nn.Module, state_dict: dict, verbose: bool = Tr
           for k, v in state_dict.items()}
     if sd and all(k.startswith("encoder.") for k in sd):
         sd = {k[len("encoder."):]: v for k, v in sd.items()}
+    if not any(k.startswith("attention_net.3.") for k in sd):
+        sd = {"attention_net.3." + k[len("attention_net.2."):]
+              if k.startswith(_GATES_DROPOUT_OFF) else k: v for k, v in sd.items()}
     own = module.state_dict()
     merged, skipped = dict(own), []
     group = {k: v for k, v in own.items() if k.startswith(_GROUP)}

@@ -45,9 +45,9 @@ from murcl_tpu_torch.ops.mixup import apply_mix
 _NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-_TM, _TN, _KC = 32, 128, 32  # csrc/tiles.cuh tile constants (K2/K3 in f32, K7, K8)
+_TM, _TN, _KC = 32, 128, 32  # csrc/tiles.cuh tile constants (K2/K3, K7 in f32; K8)
 # csrc/mma_tiles.cuh: rows per block, bf16 padding of a shared row, and the
-# bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K2/K3 in bf16
+# bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K2/K3 and K7 in bf16
 _TC_BM, _TC_PAD, _TC_RING = 64, 8, 2 * 2 * 64 * (128 + 8)
 
 # The JAX package's route rule (``murcl_tpu/ops/attention_pallas.py:483-490``
@@ -376,11 +376,13 @@ def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
 # on its Pallas route (forward ``_make_fwd_kernel``, backward
 # ``_make_bwd_kernel``). Its rounding points differ from K2/K3: ``a``, ``g``,
 # ``u`` and the gate dropout scale stay f32, only Wa/Wb are rounded to the bag
-# dtype for the gate products, and wc stays f32. K7f's softmax pass holds a
-# bag's N scores in shared memory, so K7 takes N up to about 58,000
-# (``4 (N + 32) <= 232,448`` bytes). A dropout-free bag over 6 MiB takes K8
-# instead (:func:`attention_pool_tiled`, at the end of the module), by the
-# JAX package's route rule.
+# dtype for the gate products, and wc stays f32. In bf16 the kernels run on
+# the tensor cores, and K7b's dx, an f32 product in the TPU kernel, takes
+# three bf16 products of :func:`split_bf16`'s planes. K7f's softmax pass
+# holds a bag's N scores in shared memory, so K7 takes N up to about 58,000
+# (``4 (N + 32) <= 232,448`` bytes; :func:`pool_tile_smem`). A dropout-free
+# bag over 6 MiB takes K8 instead (:func:`attention_pool_tiled`, at the end
+# of the module), by the JAX package's route rule.
 
 
 def gated_attention_pool_plain_fwd(x, wa, ba, wb, bb, wc, bc, mask, gated=True,
@@ -451,17 +453,44 @@ def gated_attention_pool_plain_bwd(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, g
     return dx.to(dt), dwa, dba, dwb, dbb, dwc, dbc
 
 
+def split_bf16(t):
+    """``(hi, lo)`` in bfloat16 with ``hi = rnd(t)`` and ``lo = rnd(t - hi)``:
+    ``hi + lo`` holds ``t`` to about ``2**-16`` relative, so three bf16
+    products ``hi_a hi_b + hi_a lo_b + lo_a hi_b``, summed in f32, stand in
+    for one f32 product (K7b's dx, ``csrc/attention_pool.cu``)."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t.float() - hi.float()).to(torch.bfloat16)
+
+
+def pool_tile_smem(n: int, f: int, d: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory the widest block of K7 takes at bags of ``n``
+    rows and widths ``f -> d``: in bf16 the gate kernels' x tile, B ring and
+    partials (``tc_gates_smem`` in ``csrc/attention_pool.cu``) and the dx
+    kernel's ``[lo | hi]`` tile of one gate (``tc_dx_smem``); in f32 the FMA
+    backward's tiles (``bwd_smem``); and the pool pass's ``n + 32`` floats.
+    The weight-gradient contraction takes a fixed 52,224 bytes (bf16) or
+    none (f32)."""
+    if dtype == torch.bfloat16:
+        bm, pad = _TC_BM, _TC_PAD
+        tiles = max(2 * bm * (f + pad) + _TC_RING + 4 * (bm * 4 + 3 * d + 32),
+                    2 * bm * (2 * d + pad) + _TC_RING + 4 * bm)
+    else:
+        tiles = 4 * (_TM * (f + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + 3 * d + 32)
+    return max(tiles, 4 * (n + 32))
+
+
 def _check_pool_shapes(name, x, wa):
     b, n, f = x.shape
     d = wa.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: bags must be float32 or bfloat16")
     if f % _TN or d % _TN:
-        raise ValueError(f"{name}: needs F and D multiples of {_TN} (got {f}, {d})")
-    smem = 4 * max(_TM * (f + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + 3 * d + 32,
-                   n + 32)
+        raise ValueError(f"{name}: needs F and D multiples of {_TN}, F for dx's column passes "
+                         f"and D for the gate passes and dW's column tiles (got F {f}, D {d})")
+    smem = pool_tile_smem(n, f, d, x.dtype)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: tiles need {smem} bytes of shared memory")
+        raise ValueError(f"{name}: tiles need {smem} bytes of shared memory at (N, F, D) = "
+                         f"({n}, {f}, {d})")
 
 
 def _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed):
@@ -495,19 +524,32 @@ def _pool_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed):
 
 
 def _pool_bwd_cuda(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, seed):
+    """K7b: the grads of :func:`gated_attention_pool_plain_bwd`, in its order."""
+    return _pool_bwd_launch(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout,
+                            seed)[0]
+
+
+def _pool_bwd_launch(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, seed):
+    """K7b's launch: ``(grads, dza)``, ``dza`` its gate-a scratch. In bf16
+    the scratch holds two planes, ``rnd(dza)`` and the rest
+    (:func:`split_bf16`), and the dx products take W^T's two planes."""
     name = "gated_attention_pool backward"
     _check_pool_shapes(name, x, wa)
     o, drop = _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed)
-    waT, wbT = (w.to(torch.float32).T.contiguous() for w in (wa, wb))
+    dev, dt = x.device, x.dtype
+    planes = 2 if dt == torch.bfloat16 else 1
+    if planes == 2:
+        waT, wbT = (torch.cat(split_bf16(w.float().T)) for w in (wa, wb))
+    else:
+        waT, wbT = (w.to(torch.float32).T.contiguous() for w in (wa, wb))
     p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
     _cuda.require_cuda(name, *o.values(), waT, wbT, p, gm, gp, gs)
     b, n, f = x.shape
     d = wa.shape[1]
-    dev, dt = x.device, x.dtype
     f32 = dict(dtype=torch.float32, device=dev)
     dpv = torch.empty((b, n), **f32)
-    dza = torch.empty((b, n, d), dtype=dt, device=dev)
-    dzb = torch.empty((b, n, d), dtype=dt, device=dev) if gated else None
+    dza = torch.empty((planes, b, n, d), dtype=dt, device=dev)
+    dzb = torch.empty((planes, b, n, d), dtype=dt, device=dev) if gated else None
     dx = torch.empty((b, n, f), dtype=dt, device=dev)
     dwa, dba = torch.empty((f, d), **f32), torch.empty((d,), **f32)
     dwb, dbb = torch.empty((f, d), **f32), torch.empty((d,), **f32)
@@ -519,7 +561,7 @@ def _pool_bwd_cuda(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, s
         _p(dbb), _p(dwc), _p(dbc), b, n, f, d, _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["attention_pool_bwd"] += 1
-    return dx, dwa, dba, dwb, dbb, dwc, dbc
+    return (dx, dwa, dba, dwb, dbb, dwc, dbc), dza
 
 
 class _AttentionPool(torch.autograd.Function):

@@ -7,10 +7,10 @@ Shapes are small; ``chip_smoke.py`` checks the main path's full shapes.
 Tolerances: K1 and K6 bitwise; K4 1e-5; K2/K3 (gated or not, with or
 without the bags' gradient), K7 and K8 relative Frobenius 1e-4 in f32 (sum
 order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32 sum
-in another order crosses a rounding boundary; K2/K3's bf16 products run on
-the tensor cores, whose sums run in yet another order). K2/K3 also at the
-edges of their 64-row bf16 tiles: N = 1000 with live lengths 1, 63, 65 and
-1000, and D = 384.
+in another order crosses a rounding boundary; the bf16 products of K2/K3 and
+K7 run on the tensor cores, whose sums run in yet another order). K2/K3 and
+K7 also at the edges of their 64-row bf16 tiles: N = 1000 with live lengths
+1, 63, 65 and 1000, and D = 384; K7 also at ABMIL's D 128 with F 512.
 """
 
 import pytest
@@ -124,9 +124,15 @@ def test_fused_trunk_matches_plain(dev, dtype, rate, tol, n, lengths, fin):
 @pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
                                             (torch.bfloat16, 0.0, 2e-2),
                                             (torch.bfloat16, 0.25, 2e-2)])
-def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol):
+@pytest.mark.parametrize("n,f,d,lengths", [(100, 256, 128, [100, 90, 33, 64, 1]),
+                                           # CLAM "big"; neither the 64-row tile nor the
+                                           # masked tail divides N
+                                           (1000, 512, 384, [1000, 999, 63, 65, 640]),
+                                           # ABMIL's width
+                                           (200, 512, 128, [200, 130, 64, 1, 199])])
+def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol, n, f, d, lengths):
     gen = torch.Generator(device=dev).manual_seed(3)
-    b, n, f, d = 5, 100, 256, 128
+    b = len(lengths)
 
     def r(*s, sc=1.0):
         return torch.randn(*s, generator=gen, device=dev) * sc
@@ -134,8 +140,7 @@ def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol):
     w = [r(f, d, sc=f ** -0.5), r(d, sc=0.1), r(f, d, sc=f ** -0.5), r(d, sc=0.1),
          r(d, sc=d ** -0.5), r((), sc=0.1)]
     x = r(b, n, f).to(dtype)
-    mask = torch.arange(n, device=dev)[None, :] < torch.tensor([100, 90, 33, 64, 1],
-                                                              device=dev)[:, None]
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
     cots = [r(b, f), r(b, n, sc=0.1), r(b, n, sc=0.01)]
     xg = x.clone().requires_grad_(True)
     ws = [v.clone().requires_grad_(True) for v in w]

@@ -1,0 +1,73 @@
+"""K7's shape rules and dx's bf16 split on the CPU.
+
+``pool_tile_smem`` reckons the bytes of K7's widest block: in bf16 the
+tensor-core gate kernels (a 64-row x tile padded by 8, a 2-stage B ring,
+row and column partials) and the dx kernel (one gate's ``[lo | hi]`` scratch
+tile); every width the port gives K7 (ABMIL at D 128, CLAM "small" at 256,
+"big" at 384) must fit one H100 block's 232,448 bytes. ``_check_pool_shapes``
+raises, naming the shape, on what the tiles cannot take, on the meta device:
+no data and no card needed. ``split_bf16``: three bf16 products of the
+planes stand in for an f32 product to 1e-5, where one bf16 product does not.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from murcl_tpu_torch.ops import attention as tat
+
+NAME = "gated_attention_pool"
+
+
+def _operands(n, f, d, dtype):
+    return torch.empty(2, n, f, dtype=dtype, device="meta"), torch.empty(f, d, device="meta")
+
+
+@pytest.mark.parametrize("f", [512, 1024])
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_pool_tiles_fit(f, d):
+    smem = tat.pool_tile_smem(1024, f, d, torch.bfloat16)
+    assert smem <= tat._SMEM_LIMIT == 232448
+    # the gate kernels' x tile and ring, and the dx kernel's two planes of dz
+    assert smem >= 2 * 64 * (f + 8) + 2 * 2 * 64 * 136
+    assert smem >= 2 * 64 * (2 * d + 8) + 2 * 2 * 64 * 136
+    tat._check_pool_shapes(NAME, *_operands(1024, f, d, torch.bfloat16))
+
+
+def test_two_blocks_per_sm_at_clam_small():
+    """Two blocks of every bf16 K7 kernel fit an SM's 228 KB (1 KB each
+    reserved) at CLAM "small" (F 512, D 256)."""
+    assert 2 * (tat.pool_tile_smem(1024, 512, 256, torch.bfloat16) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("n,f,d,dtype,match", [
+    (1024, 448, 256, torch.bfloat16, r"multiples of 128.*\(got F 448, D 256\)"),
+    (1024, 512, 192, torch.bfloat16, r"multiples of 128.*\(got F 512, D 192\)"),
+    (1024, 512, 96, torch.float32, r"multiples of 128.*\(got F 512, D 96\)"),
+    (60000, 512, 256, torch.bfloat16, r"240128 bytes .* \(N, F, D\) = \(60000, 512, 256\)"),
+    (1024, 4096, 256, torch.bfloat16, r"bytes .* \(N, F, D\) = \(1024, 4096, 256\)"),
+    (1024, 512, 256, torch.float16, r"float32 or bfloat16"),
+])
+def test_check_pool_shapes_refuses(n, f, d, dtype, match):
+    with pytest.raises(ValueError, match=match):
+        tat._check_pool_shapes(NAME, *_operands(n, f, d, dtype))
+
+
+def test_split_bf16_three_products_match_f32():
+    rng = np.random.default_rng(0)
+    a = torch.tensor(rng.standard_normal((1024, 256), dtype=np.float32))
+    w = torch.tensor(rng.standard_normal((256, 512), dtype=np.float32))
+    want = a.double() @ w.double()
+    (ah, al), (wh, wl) = tat.split_bf16(a), tat.split_bf16(w)
+    for t in (ah, al, wh, wl):
+        assert t.dtype == torch.bfloat16
+    assert bool(((ah.float() + al.float() - a).abs() <= 2**-16 * a.abs()).all())
+    f = lambda t: t.float()  # noqa: E731  products of bf16 values are exact in f32
+    three = f(ah) @ f(wh) + f(ah) @ f(wl) + f(al) @ f(wh)
+    one = f(ah) @ f(wh)
+
+    def rel(x):
+        return float((x.double() - want).norm() / want.norm())
+
+    assert rel(three) <= 1e-5, rel(three)
+    assert rel(one) > 1e-3, rel(one)
