@@ -11,7 +11,10 @@
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape and at the
    supervised per-step shape (64 distinct slides, the JAX package's K5);
    K6 mixup bitwise in bf16 at (1536, 1024, 512) and in f32 at (192, 1024,
-   512); K4 NT-Xent loss and grads <= 1e-5 abs; K2/K3 fused trunk +
+   512); K4 NT-Xent loss, residual and grads <= 1e-5 at (128, 128), (256,
+   128) and (128, 100) x 2 f32, with and without a zero row, K4's loss and
+   dz bitwise in two runs, K4 timed by event and by device time beside its
+   plain pair; K2/K3 fused trunk +
    attention (gated and mixed; ungated; gated and ungated with the bags'
    gradient dh) and K7 attention pool (gated and ungated at D 256; gated at
    D 384 in bf16; gated at D 256 on bags of 1000 rows, not a multiple of
@@ -64,7 +67,8 @@
 5. Times steady steps: supervised at batch 64 (stage 3, then stage 1), and
    MuRCL CLAM_SB stage 1 (the ``bench.py`` step), ABMIL stage 1 and CLAM_SB
    stage 3 at batch 128: 2 warm-up steps,
-   then a host clock around 5 synchronised steps; then ``torch.profiler``
+   then a host clock around 5 synchronised steps, read also when the step
+   call returns (the host's enqueue time); then ``torch.profiler``
    traces 3 more steps of each and prints device time by kernel and the
    device's busy share.
 
@@ -292,71 +296,135 @@ def check_compaction(dev, gen):
     return res
 
 
+# K4's shapes: the main path's (B 128, projection width 128), then a batch
+# and a width the one-block design of PRs 1-6 refused
+NTXENT_SHAPES = ((BATCH, 128), (2 * BATCH, 128), (BATCH, 100))
+
+
 def check_ntxent(dev, gen):
+    """K4f and K4b against their plain pair at each of ``NTXENT_SHAPES``,
+    with and without a zero row: the loss and the residual (row max, row sum,
+    norm; relative to the larger of 1 and the value), the grads from the
+    kernel's residual with g = 1/T as the engine's ``sum / T`` gives it, and
+    the op's autograd against autograd of ``nt_xent_plain``, all within 1e-5
+    (a zero row's grads, ``dzn / 1e-8``, relative to the largest). The loss
+    and K4b's grads must be the same bits in two runs. Both timed at the main
+    shape: event ms of the wrapper call (mostly host dispatch at these
+    sizes) and device ms per launch (torch.profiler), each beside the plain
+    twin's, and the autograd calls as PRs 1-6 timed them."""
     import torch
 
-    from murcl_tpu_torch.ops.ntxent import _NTXent, nt_xent_plain
+    from murcl_tpu_torch.ops import ntxent as nt
 
+    g = torch.tensor(1 / T, device=dev)
     errs_f, errs_b = [], []
-    for zero_row in (False, True):
-        zi = torch.randn(BATCH, 128, generator=gen, device=dev)
-        zj = torch.randn(BATCH, 128, generator=gen, device=dev)
-        if zero_row:
-            zi[3] = 0.0
-        outs = []
-        for fn in (_NTXent.apply, nt_xent_plain):
-            a, b = zi.clone().requires_grad_(True), zj.clone().requires_grad_(True)
-            loss = fn(a, b, 0.5)
-            loss.backward()
-            outs.append((loss.detach(), a.grad, b.grad))
-        (lk, gik, gjk), (lp, gip, gjp) = outs
-        errs_f.append(float((lk - lp).abs()))
-        # the clamped zero row's gradient is dzn / 1e-8: held relatively
-        scale = max(1.0, float(gip.abs().max()), float(gjp.abs().max()))
-        errs_b.append(max(float((gik - gip).abs().max()), float((gjk - gjp).abs().max()))
-                      / (scale if zero_row else 1.0))
+    for b, d in NTXENT_SHAPES:
+        for zero_row in (False, True):
+            zi = torch.randn(b, d, generator=gen, device=dev)
+            zj = torch.randn(b, d, generator=gen, device=dev)
+            if zero_row:
+                zi[3] = 0.0
+            loss, stats = nt._fwd_cuda(zi, zj, 0.5)
+            want, want_stats = nt.nt_xent_plain_fwd(zi, zj, 0.5)
+            dk = nt._bwd_cuda(zi, zj, 0.5, stats, g)
+            dp = nt.nt_xent_plain_bwd(zi, zj, 0.5, stats, g)
+            outs = []
+            for fn in (nt._NTXent.apply, nt.nt_xent_plain):
+                a, c = zi.clone().requires_grad_(True), zj.clone().requires_grad_(True)
+                lv = fn(a, c, 0.5)
+                lv.backward()
+                outs.append((lv.detach(), a.grad, c.grad))
+            (lk, gik, gjk), (lp, gip, gjp) = outs
+            ef = max(abs(float(loss - want)), abs(float(lk - lp)),
+                     float(((stats - want_stats).abs() / want_stats.abs().clamp_min(1)).max()))
+            scale = (max(1.0, *(float(x.abs().max()) for x in (*dp, gip, gjp)))
+                     if zero_row else 1.0)
+            eb = max(float((x - y).abs().max())
+                     for x, y in zip((*dk, gik, gjk), (*dp, gip, gjp))) / scale
+            print(f"K4 at ({b}, {d}) x 2 f32{' with a zero row' if zero_row else ''}: "
+                  f"loss and residual err {ef:.2e}, grads err {eb:.2e}")
+            errs_f.append(ef)
+            errs_b.append(eb)
+            if zero_row and (b, d) == (BATCH, 128):
+                again = nt._fwd_cuda(zi, zj, 0.5)[0], nt._bwd_cuda(zi, zj, 0.5, stats, g)
+                check(torch.equal(again[0], loss), "K4f: the loss differs between two runs")
+                check(all(torch.equal(x, y) for x, y in zip(again[1], dk)),
+                      "K4b: dz differs between two runs")
     check(max(errs_f) <= 1e-5, f"K4 forward error {errs_f}")
     check(max(errs_b) <= 1e-5, f"K4 backward error {errs_b}")
-    zi = torch.randn(BATCH, 128, generator=gen, device=dev, requires_grad=True)
-    zj = torch.randn(BATCH, 128, generator=gen, device=dev, requires_grad=True)
-    g = torch.ones((), device=dev)
-    # sim = zn zn^T over 2B rows: 2 (2B)^2 d flops forward, twice that for
-    # the two products of the backward after recomputing it
+    print("K4f's loss and K4b's dz_i, dz_j bitwise equal in two runs")
+
+    zi = torch.randn(BATCH, 128, generator=gen, device=dev)
+    zj = torch.randn(BATCH, 128, generator=gen, device=dev)
+    _, stats = nt._fwd_cuda(zi, zj, 0.5)
+    calls = {"fwd": (lambda: nt._fwd_cuda(zi, zj, 0.5),
+                     lambda: nt.nt_xent_plain_fwd(zi, zj, 0.5)),
+             "bwd": (lambda: nt._bwd_cuda(zi, zj, 0.5, stats, g),
+                     lambda: nt.nt_xent_plain_bwd(zi, zj, 0.5, stats, g))}
+    a, c = zi.clone().requires_grad_(True), zj.clone().requires_grad_(True)
+    lk, lp = nt._NTXent.apply(a, c, 0.5), nt.nt_xent_plain(a, c, 0.5)
+    autograd = {"fwd": (lambda: nt._NTXent.apply(a, c, 0.5), lambda: nt.nt_xent_plain(a, c, 0.5)),
+                "bwd": (lambda: torch.autograd.grad(lk, (a, c), g, retain_graph=True),
+                        lambda: torch.autograd.grad(lp, (a, c), g, retain_graph=True))}
+    # sim = zn zn^T over 2B rows: 2 (2B)^2 d flops; the backward's two
+    # products (sim once, then (G + G^T) zn) twice that
     sim_flops = 2 * (2 * BATCH) ** 2 * 128
-    fwd = {"ms": median_ms(lambda: _NTXent.apply(zi, zj, 0.5), reps=20),
-           "plain_ms": median_ms(lambda: nt_xent_plain(zi, zj, 0.5), reps=20),
-           "max_abs_err": max(errs_f)}
-    fwd["bound_ms"], fwd["bound_by"] = bound(sim_flops, nbytes(zi, zj) + 4, F32_FLOPS)
-    lk, lp = _NTXent.apply(zi, zj, 0.5), nt_xent_plain(zi, zj, 0.5)
-    bwd = {"ms": median_ms(lambda: torch.autograd.grad(lk, (zi, zj), g, retain_graph=True),
-                           reps=20),
-           "plain_ms": median_ms(lambda: torch.autograd.grad(lp, (zi, zj), g,
-                                                             retain_graph=True), reps=20),
-           "max_abs_err": max(errs_b)}
-    bwd["bound_ms"], bwd["bound_by"] = bound(3 * sim_flops, 2 * nbytes(zi, zj) + 4, F32_FLOPS)
-    return fwd, bwd
+    bounds = {"fwd": bound(sim_flops, nbytes(zi, zj) + 4, F32_FLOPS),
+              "bwd": bound(2 * sim_flops, 2 * nbytes(zi, zj) + 4, F32_FLOPS)}
+    out = []
+    for k, name in (("fwd", "K4f"), ("bwd", "K4b")):
+        kernel, plain = calls[k]
+        res = {"ms": median_ms(kernel, reps=20), "plain_ms": median_ms(plain, reps=20),
+               "device_ms": device_ms(kernel), "plain_device_ms": device_ms(plain, own=False),
+               "split_ms": dict(kernel_split(kernel)),
+               "autograd_ms": median_ms(autograd[k][0], reps=20),
+               "autograd_plain_ms": median_ms(autograd[k][1], reps=20),
+               "max_abs_err": max(errs_f if k == "fwd" else errs_b),
+               "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+        print(f"{name} at ({BATCH}, 128) x 2 f32: event {res['ms']:.4f} ms (plain "
+              f"{res['plain_ms']:.4f}), device {res['device_ms']:.4f} ms per launch (plain "
+              f"{res['plain_device_ms']:.4f}; "
+              + ", ".join(f"{n} {ms:.4f}" for n, ms in res["split_ms"].items())
+              + f"), autograd call {res['autograd_ms']:.4f} ms (plain "
+              f"{res['autograd_plain_ms']:.4f}); bound {res['bound_ms']:.5f} ms "
+              f"({res['bound_by']}), below one launch's latency")
+        check(res["ms"] < res["plain_ms"] and res["device_ms"] < res["plain_device_ms"],
+              f"{name} not faster than its plain twin: {res}")
+        out.append(res)
+    return tuple(out)
 
 
-def kernel_split(fn) -> list:
-    """``[(kernel, device ms)]`` of the port's kernels that one call of
-    ``fn`` launches, in launch order (torch.profiler; PyTorch's own copies
-    and memsets left out)."""
+def kernel_split(fn, own: bool = True, reps: int = 1) -> list:
+    """``[(kernel, device ms)]`` of the port's kernels that ``reps`` calls
+    of ``fn`` launch, in launch order (torch.profiler; PyTorch's own copies
+    and memsets left out); with ``own=False`` every device event, PyTorch's
+    included, by its full name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     out = []
     for e in sorted((e for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=lambda e: e.time_range.start):
+        ms = (e.time_range.end - e.time_range.start) / 1e3
         name = re.search(r"anonymous namespace\)::([\w:]+)", e.name)
-        if name and "at::native" not in e.name:
-            out.append((name.group(1), (e.time_range.end - e.time_range.start) / 1e3))
+        if not own:
+            out.append((e.name, ms))
+        elif name and "at::native" not in e.name:
+            out.append((name.group(1), ms))
     return out
+
+
+def device_ms(fn, own: bool = True, reps: int = 20) -> float:
+    """Device ms per call of ``fn``: ``kernel_split``'s events of ``reps``
+    calls, summed, over ``reps``."""
+    return sum(ms for _, ms in kernel_split(fn, own, reps)) / reps
 
 
 # the bf16 kernels of csrc/fused_trunk.cu (K2/K3) and csrc/attention_pool.cu
@@ -1136,15 +1204,17 @@ def steady_steps(dev, ds, results, pretrained):
         for _ in range(2):
             step()
         torch.cuda.synchronize()
-        times = []
+        times, host = [], []
         for _ in range(5):
             t0 = time.perf_counter()
             step()
+            host.append((time.perf_counter() - t0) * 1e3)  # enqueued, not yet synced
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         out[stage] = statistics.median(times)
         print(f"supervised stage {stage}, batch {RL_BATCH}: median step {out[stage]:.2f} ms "
-              f"({1e3 / out[stage]:.3f} steps/s), steps {[round(t, 2) for t in times]}")
+              f"({1e3 / out[stage]:.3f} steps/s), host enqueue {statistics.median(host):.2f} "
+              f"ms, steps {[round(t, 2) for t in times]}")
         profile_steps(step, f"stage {stage}", out[stage])
         del s
         torch.cuda.empty_cache()
@@ -1172,16 +1242,18 @@ def steady_murcl_steps(dev, ds, results):
             step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times = []
+        times, host = [], []
         for _ in range(5):
             t0 = time.perf_counter()
             step()
+            host.append((time.perf_counter() - t0) * 1e3)  # enqueued, not yet synced
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         name = f"MuRCL {arch} stage {stage}"
         out[name] = statistics.median(times)
         print(f"{name}, batch {BATCH}: median step {out[name]:.2f} ms "
-              f"({1e3 / out[name]:.3f} steps/s), steps {[round(t, 2) for t in times]}, "
+              f"({1e3 / out[name]:.3f} steps/s), host enqueue {statistics.median(host):.2f} ms, "
+              f"steps {[round(t, 2) for t in times]}, "
               f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         profile_steps(step, name, out[name])
         del s
@@ -1247,8 +1319,11 @@ def main() -> int:
           f"({RL_BATCH}, {N_MAIN}, {FIN}) {k1['k5_ms']:.3f} ms vs plain "
           f"{k1['k5_plain_ms']:.3f} ms, bound {k1['k5_bound_ms']:.4f} ms ({card})")
     k4f, k4b = check_ntxent(dev, gen)
-    print(f"K4 NT-Xent fwd {k4f['ms']:.4f} ms vs plain {k4f['plain_ms']:.4f} ms, "
-          f"bwd {k4b['ms']:.4f} ms vs plain {k4b['plain_ms']:.4f} ms ({card})")
+    print(f"K4 NT-Xent at ({BATCH}, 128) x 2 f32: fwd {k4f['ms']:.4f} ms vs plain "
+          f"{k4f['plain_ms']:.4f} ms (device {k4f['device_ms']:.4f} vs "
+          f"{k4f['plain_device_ms']:.4f}), bwd {k4b['ms']:.4f} ms vs plain "
+          f"{k4b['plain_ms']:.4f} ms (device {k4b['device_ms']:.4f} vs "
+          f"{k4b['plain_device_ms']:.4f}) ({card})")
     k2, k3 = check_fused(dev, gen)
     print(f"K2 fused fwd {k2['ms']:.2f} ms vs plain {k2['plain_ms']:.2f} ms; "
           f"K3 bwd {k3['ms']:.2f} ms vs plain {k3['plain_ms']:.2f} ms ({card})")
@@ -1326,6 +1401,12 @@ def main() -> int:
                             f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL)")
         if row["name"] == "attention_pool_tiled":
             row["modes"] = "gated and ungated, f32 and bf16; timed f32 gated at (1, 60416, 512)"
+        if row["name"].startswith("ntxent"):
+            r = k4f if row["name"] == "ntxent_fwd" else k4b
+            row.update({k: r[k] for k in ("device_ms", "plain_device_ms", "autograd_ms",
+                                          "autograd_plain_ms")})
+            row["modes"] = (f"{', '.join(f'({b}, {d})' for b, d in NTXENT_SHAPES)} x 2 f32, with "
+                            f"and without a zero row; timed at ({BATCH}, 128)")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

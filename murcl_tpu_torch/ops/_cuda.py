@@ -48,10 +48,10 @@ _SIGNATURES = {
     "murcl_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # is_bf16, x, perm, lam, out, B, per_bag, vec, stream
     "murcl_mixup_rows": [_I, _P, _P, _P, _P, _I, _L, _I, _P],
-    # zi, zj, temp, loss, B, d, stream
-    "murcl_ntxent_fwd": [_P, _P, _F, _P, _I, _I, _P],
-    # zi, zj, temp, g, dzi, dzj, B, d, stream
-    "murcl_ntxent_bwd": [_P, _P, _F, _P, _P, _P, _I, _I, _P],
+    # zi, zj, temp, loss, stats, terms, ticket, zn, B, d, stream
+    "murcl_ntxent_fwd": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _P],
+    # zi, zj, temp, stats, g, dzi, dzj, zn, B, d, stream
+    "murcl_ntxent_bwd": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _P],
     # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask,
     # use_dropout, seed, thresh, scale, xc_scratch, m, p, s, B, N, Fin, L1, D,
     # stream

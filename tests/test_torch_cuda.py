@@ -4,8 +4,9 @@ Marked ``cuda``: each test skips, with its reason, where there is no CUDA
 device (the kernels build with nvcc on first use and have no CPU mode). Run
 on a GPU machine with ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 Shapes are small; ``chip_smoke.py`` checks the main path's full shapes.
-Tolerances: K1 and K6 bitwise; K4 1e-5; K2/K3 (gated or not, with or
-without the bags' gradient), K7 and K8 relative Frobenius 1e-4 in f32 (sum
+Tolerances: K1 and K6 bitwise; K4 1e-5 (also at 256 x 128 and d = 100),
+K4b's dz bitwise between two runs; K2/K3 (gated or not, with or without the
+bags' gradient), K7 and K8 relative Frobenius 1e-4 in f32 (sum
 order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32 sum
 in another order crosses a rounding boundary; the bf16 products of K2/K3 and
 K7 run on the tensor cores, whose sums run in yet another order). K2/K3 and
@@ -25,7 +26,8 @@ from murcl_tpu_torch.ops.attention import (attention_pool_tiled, attention_pool_
                                            gated_attention_pool_plain_fwd)
 from murcl_tpu_torch.ops.compact import gather_compact, gather_compact_plain
 from murcl_tpu_torch.ops.mixup import apply_mix, mixup_rows
-from murcl_tpu_torch.ops.ntxent import nt_xent, nt_xent_plain
+from murcl_tpu_torch.ops.ntxent import (_bwd_cuda, _fwd_cuda, nt_xent, nt_xent_plain,
+                                        nt_xent_plain_bwd, nt_xent_plain_fwd)
 from murcl_tpu_torch.ops.select import select_ranks
 
 pytestmark = pytest.mark.cuda
@@ -66,23 +68,53 @@ def test_compaction_bitwise(dev, dtype, view):
     assert torch.equal(got.view(view), want.view(view))
 
 
-@pytest.mark.parametrize("zero_row", [False, True])
-def test_ntxent_matches_plain(dev, zero_row):
-    gen = torch.Generator(device=dev).manual_seed(1)
-    zi = torch.randn(32, 64, generator=gen, device=dev)
-    zj = torch.randn(32, 64, generator=gen, device=dev)
+def _ntxent_views(dev, b, d, zero_row, seed=1):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    zi = torch.randn(b, d, generator=gen, device=dev)
+    zj = torch.randn(b, d, generator=gen, device=dev)
     if zero_row:
-        zi[2] = 0.0
+        zi[b // 2] = 0.0
+    return zi, zj
+
+
+@pytest.mark.parametrize("zero_row", [False, True])
+@pytest.mark.parametrize("b,d", [(1, 8), (32, 64), (128, 128), (256, 128), (100, 100)])
+def test_ntxent_matches_plain(dev, b, d, zero_row):
+    """K4f and K4b against the plain pair (the backward from the kernel's
+    residual, g = 1/6 as the engine's sum / T), then the op's autograd
+    against autograd of nt_xent_plain."""
+    zi, zj = _ntxent_views(dev, b, d, zero_row)
+    before = dict(_cuda.LAUNCHES)
+    loss, stats = _fwd_cuda(zi, zj, 0.5)
+    want, want_stats = nt_xent_plain_fwd(zi, zj, 0.5)
+    assert _cuda.LAUNCHES["ntxent_fwd"] == before["ntxent_fwd"] + 1
+    assert abs(float(loss - want)) <= 1e-5
+    torch.testing.assert_close(stats, want_stats, atol=1e-5, rtol=1e-5)
+    g = torch.tensor(1 / 6, device=dev)
+    got = _bwd_cuda(zi, zj, 0.5, stats, g)
+    assert _cuda.LAUNCHES["ntxent_bwd"] == before["ntxent_bwd"] + 1
+    for gk, gp in zip(got, nt_xent_plain_bwd(zi, zj, 0.5, stats, g)):
+        torch.testing.assert_close(gk, gp, atol=1e-5, rtol=1e-5)
+
     outs = []
     for fn in (nt_xent, nt_xent_plain):
-        a, b = zi.clone().requires_grad_(True), zj.clone().requires_grad_(True)
-        loss = fn(a, b, 0.5)
-        loss.backward()
-        outs.append((loss, a.grad, b.grad))
+        a, c = zi.clone().requires_grad_(True), zj.clone().requires_grad_(True)
+        lv = fn(a, c, 0.5)
+        lv.backward()
+        outs.append((lv, a.grad, c.grad))
     (lk, gik, gjk), (lp, gip, gjp) = outs
     assert abs(float((lk - lp).detach())) <= 1e-5
-    for g, w in ((gik, gip), (gjk, gjp)):
-        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    for gk, gp in ((gik, gip), (gjk, gjp)):
+        torch.testing.assert_close(gk, gp, atol=1e-5, rtol=1e-5)
+
+
+def test_ntxent_backward_bitwise_twice(dev):
+    """K4b sums in a fixed order, without atomics: two runs, the same bits."""
+    zi, zj = _ntxent_views(dev, 128, 128, True, seed=2)
+    _, stats = _fwd_cuda(zi, zj, 0.5)
+    g = torch.tensor(1 / 6, device=dev)
+    first, second = _bwd_cuda(zi, zj, 0.5, stats, g), _bwd_cuda(zi, zj, 0.5, stats, g)
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
 
 
 @pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
