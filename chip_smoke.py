@@ -4,12 +4,13 @@
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from ``murcl_tpu_torch/csrc`` (one nvcc
    per source, in parallel), and reads the library's SASS with
-   ``cuobjdump``: the bf16 K2/K3 and K7 kernels must hold tensor-core
-   instructions (HMMA or HGMMA).
+   ``cuobjdump``: the bf16 K2/K3 and K7 kernels and both instantiations of
+   K8's kernel must hold tensor-core instructions (HMMA or HGMMA).
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
-   K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape and at the
-   supervised per-step shape (64 distinct slides, the JAX package's K5);
+   K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape (one block
+   per bag) and at the supervised per-step shape (64 distinct slides, the
+   JAX package's K5; each bag's slots split over slot slices), both timed;
    K6 mixup bitwise in bf16 at (1536, 1024, 512) and in f32 at (192, 1024,
    512); K4 NT-Xent loss, residual and grads <= 1e-5 at (128, 128), (256,
    128) and (128, 100) x 2 f32, with and without a zero row, K4's loss and
@@ -28,13 +29,16 @@
    dx and each weight-gradient contraction) with torch.profiler; K3 (with
    dh) and K7b run twice on the same inputs, the largest difference per
    output printed (the split-K weight gradients add with atomics; dh and
-   K7's dx must be bitwise equal). K8 (the streaming
-   attention pool) at the heatmap's largest bag (1, 60416, 512) f32 gated
-   with a masked tail and at (4, 12288, 512) gated and ungated in f32 and
-   bf16, relative Frobenius
-   error <= 1e-4 in f32 and <= 2e-2 in bf16, one backward through its op
-   (K7b) at (4, 12288, 512) f32, and K8 timed at (1, 60416, 512) and (1,
-   12288, 512) f32 beside its twin and its bound.
+   K7's dx must be bitwise equal). K8 (the streaming attention pool, on
+   the tensor cores; in f32 three bf16 products per product) at the
+   heatmap's largest bag (1, 60416, 512) f32 gated with a masked tail and
+   at (4, 12288, 512) gated and ungated in f32 and bf16 (a bag ending
+   mid-tile, one with whole masked chunks), relative Frobenius error <=
+   1e-4 in f32 and <= 2e-2 in bf16; one backward through its op (K7b) at
+   (1, 60416, 512) f32 within 1e-4 of the plain backward, timed; K8 timed
+   at (1, 60416, 512) and (1, 12288, 512) f32 and (1, 60416, 512) bf16
+   beside its twin, its bound and the FMA tiles' old bound, split by
+   sub-kernel, and failing unless faster than the twin in f32.
 4. Drives the paths on one synthetic dataset of 192 slides x 2048 patches
    (dim 512, K 10), every launch count set to 0 before a stage and read
    after it:
@@ -108,8 +112,9 @@ TAIL_N = 1000  # K7's row-tail check: bags of N rows, not a multiple of 64
 # of BUCKET; K8's checks at the largest padded bag and at (4, 12288)
 HEAT_SLIDES, HEAT_GRID, HEAT_PATCH, BUCKET = (2000, 12000, 60000), (300, 200), 4, 512
 K8_MAIN, K8_CHECK = (1, 60416), (4, 12288)
-# published H100 SXM peaks: HBM bytes/s, f32 outside the tensor cores, bf16
-HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+# published H100 SXM peaks: HBM bytes/s, f32 outside the tensor cores, bf16,
+# and TF32 (the tensor cores' fastest rate for f32 operands)
+HBM_BPS, F32_FLOPS, BF16_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 989e12, 495e12
 
 
 def bound(flops: float, nbytes: float, peak: float):
@@ -244,7 +249,8 @@ def check_compaction(dev, gen):
     import torch
 
     from murcl_tpu_torch.data.bank import bank_from_arrays
-    from murcl_tpu_torch.ops.compact import _gather_compact_cuda, gather_compact_plain
+    from murcl_tpu_torch.ops.compact import (_gather_compact_cuda, compact_slot_slice,
+                                             gather_compact_plain)
     from murcl_tpu_torch.ops.select import select_ranks
     import numpy as np
 
@@ -281,6 +287,9 @@ def check_compaction(dev, gen):
     ranks, offs, _ = select_ranks(ids, bank.offsets, bank.num_patches, bank.cluster_sizes,
                                   actions, bank.patch_cluster, bank.patch_pos, N_MAIN)
     nump = bank.num_patches[ids]
+    res["k5_slices"] = -(-N_MAIN // compact_slot_slice(RL_BATCH, N_MAIN))
+    check(res["k5_slices"] > 1 and compact_slot_slice(B_MAIN, N_MAIN) == N_MAIN,
+          f"K1's slot slices: {res['k5_slices']} at {RL_BATCH} bags")
     for dtype, view in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
         feats_dt = bank.feats.to(dtype)
         got = _gather_compact_cuda(feats_dt, offs, ranks, N_MAIN, nump)
@@ -367,10 +376,11 @@ def check_ntxent(dev, gen):
                 "bwd": (lambda: torch.autograd.grad(lk, (a, c), g, retain_graph=True),
                         lambda: torch.autograd.grad(lp, (a, c), g, retain_graph=True))}
     # sim = zn zn^T over 2B rows: 2 (2B)^2 d flops; the backward's two
-    # products (sim once, then (G + G^T) zn) twice that
+    # products (sim once, then (G + G^T) zn) twice that; f32 products at
+    # TF32's rate, the card's fastest for f32 operands
     sim_flops = 2 * (2 * BATCH) ** 2 * 128
-    bounds = {"fwd": bound(sim_flops, nbytes(zi, zj) + 4, F32_FLOPS),
-              "bwd": bound(2 * sim_flops, 2 * nbytes(zi, zj) + 4, F32_FLOPS)}
+    bounds = {"fwd": bound(sim_flops, nbytes(zi, zj) + 4, TF32_FLOPS),
+              "bwd": bound(2 * sim_flops, 2 * nbytes(zi, zj) + 4, TF32_FLOPS)}
     out = []
     for k, name in (("fwd", "K4f"), ("bwd", "K4b")):
         kernel, plain = calls[k]
@@ -427,18 +437,33 @@ def device_ms(fn, own: bool = True, reps: int = 20) -> float:
     return sum(ms for _, ms in kernel_split(fn, own, reps)) / reps
 
 
-# the bf16 kernels of csrc/fused_trunk.cu (K2/K3) and csrc/attention_pool.cu
-# (K7) that must run on the tensor cores; tc::wgrad_kernel serves both
+# the kernels that must run on the tensor cores: the bf16 kernels of
+# csrc/fused_trunk.cu (K2/K3) and csrc/attention_pool.cu (K7), where
+# tc::wgrad_kernel serves both, and K8's kernel (csrc/attention_tiled.cu) in
+# both of its instantiations
 TC_KERNELS = ("trunk_tc", "gates_fwd_tc", "gates_bwd_tc", "dx_tc", "tc::wgrad_kernel",
-              "pool_gates_fwd_tc", "pool_gates_bwd_tc", "pool_dx_tc")
+              "pool_gates_fwd_tc", "pool_gates_bwd_tc", "pool_dx_tc", "tiled_pool_tc<float>",
+              "tiled_pool_tc<__nv_bfloat16>")
+
+
+def mangled(kernel: str) -> str:
+    """The part of a kernel's mangled name that spells ``kernel``: each part
+    of the name by its length (``2tc12wgrad_kernel``), then a template
+    argument (``13tiled_pool_tcIfE``)."""
+    base, _, arg = kernel.partition("<")
+    out = "".join(f"{len(part)}{part}" for part in base.split("::"))
+    if arg:
+        arg = arg.rstrip(">")
+        out += "I" + ("f" if arg == "float" else f"{len(arg)}{arg}") + "E"
+    return out
 
 
 def check_sass() -> dict:
     """``cuobjdump -sass`` (beside nvcc) over the built kernel library: each
-    bf16 K2/K3 and K7 kernel (``TC_KERNELS``, defined in
-    ``csrc/fused_trunk.cu``, ``csrc/attention_pool.cu`` and the header they
-    share) must hold tensor-core instructions (HMMA or HGMMA). Returns their
-    counts per kernel."""
+    kernel of ``TC_KERNELS`` (defined in ``csrc/fused_trunk.cu``,
+    ``csrc/attention_pool.cu``, ``csrc/attention_tiled.cu`` and the header
+    they share) must hold tensor-core instructions (HMMA or HGMMA). Returns
+    their counts per kernel."""
     from murcl_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).with_name("cuobjdump")
@@ -448,14 +473,12 @@ def check_sass() -> dict:
     for body in sass.split("Function : ")[1:]:
         name = body.split(None, 1)[0]
         for k in TC_KERNELS:
-            # the mangled name spells each part of k by its length: 2tc12wgrad_kernel
-            mangled = "".join(f"{len(part)}{part}" for part in k.split("::"))
-            if mangled in name:
+            if mangled(k) in name:
                 counts[k] = counts.get(k, 0) + sum(
                     1 for line in body.splitlines()
                     if re.search(r"\bH(G)?MMA\b", line))
     check(set(counts) == set(TC_KERNELS) and all(counts.values()),
-          f"bf16 K2/K3/K7 kernels without tensor-core instructions: {counts}")
+          f"kernels without tensor-core instructions: {counts}")
     return counts
 
 
@@ -775,11 +798,32 @@ def tiled_inputs(b, n, dtype, gen, dev, lengths):
     return x, w, mask
 
 
+def tiled_bound(n: int, dtype) -> tuple:
+    """K8's bound at (1, n, L1) gated: the function's own work (the gate
+    products, 4 n L1 D, and the rest) at the card's fastest rate for its
+    operands (TF32 for f32, bf16 for bf16), x read once. Returns ``((ms,
+    side), flops, mma_flops, fma_ms)``; ``mma_flops``, the bf16 products the
+    kernel issues (three per f32 product), and ``fma_ms``, the bound of the
+    earlier FMA tiles (f32 at 67 TFLOP/s), are notes for the text line."""
+    import torch
+
+    gates = 4 * n * L1 * D
+    rest = 2 * n * D + 2 * n * L1
+    f32 = dtype == torch.float32
+    io = n * L1 * (4 if f32 else 2) + n + n * 4 + L1 * 4
+    return (bound(gates + rest, io, TF32_FLOPS if f32 else BF16_FLOPS), gates + rest,
+            (3 if f32 else 1) * gates + rest, bound(gates + rest, io, F32_FLOPS)[0])
+
+
 def check_tiled(dev, gen):
     """K8 against its twin: the heatmap's largest bag (1, 60416, 512) f32
     gated with a masked tail, and (4, 12288, 512) gated and ungated in f32
-    and bf16; one backward through the op (K7b) at (4, 12288, 512) f32.
-    Both timed at (1, 60416, 512) and (1, 12288, 512) f32."""
+    and bf16 (bags live for 12288 rows, 11288 (ending mid-tile), 12000 and
+    5000 (later chunks all masked)). One backward through the op (K7b) at
+    (1, 60416, 512) f32 against the plain backward, timed. K8 timed at (1,
+    60416, 512) and (1, 12288, 512) f32 and at (1, 60416, 512) bf16 beside
+    its twin and its bound, split by sub-kernel; fails unless faster than
+    the twin in f32 at both lengths."""
     import torch
 
     from murcl_tpu_torch.ops import attention as att
@@ -801,10 +845,11 @@ def check_tiled(dev, gen):
         err = max(err, *(float((g - wv).abs().max()) for g, wv in zip(got, want)))
         del x, got, want
 
-    x, w, mask = tiled_inputs(b4, n4, torch.float32, gen, dev, [n4, 11000, 9000, 3000])
-    cots = [torch.randn(b4, L1, generator=gen, device=dev),
-            0.1 * torch.randn(b4, n4, generator=gen, device=dev),
-            0.01 * torch.randn(b4, n4, generator=gen, device=dev)]
+    # the op's backward (K7b) at the heatmap's largest bag, past K7f's pool pass
+    x, w, mask = tiled_inputs(b1, n1, torch.float32, gen, dev, [HEAT_SLIDES[-1]])
+    cots = [torch.randn(b1, L1, generator=gen, device=dev),
+            0.1 * torch.randn(b1, n1, generator=gen, device=dev),
+            0.01 * torch.randn(b1, n1, generator=gen, device=dev)]
     xg = x.clone().requires_grad_(True)
     ws = [v.clone().requires_grad_(True) for v in w]
     outs = att._AttentionPoolTiled.apply(xg, *ws, mask, True)
@@ -814,26 +859,40 @@ def check_tiled(dev, gen):
     names = ["dx", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
     rels = {nm: rel_err(g, wv) for nm, g, wv in zip(names, [xg.grad] + [v.grad for v in ws],
                                                      want)}
-    print(f"K8's op backward (K7b) gated ({b4}, {n4}, {L1}) f32: rel err "
-          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    bwd = lambda: att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, True, 0.0, 0)  # noqa: E731
+    bwd_ms = median_ms(bwd, reps=3)
+    bwd_plain_ms = median_ms(lambda: att.gated_attention_pool_plain_bwd(
+        x, *w[:5], mask, p, *cots, True), reps=3)
+    print(f"K8's op backward (K7b) gated ({b1}, {n1}, {L1}) f32: rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+          + f"; {bwd_ms:.3f} ms vs plain {bwd_plain_ms:.3f} ms (median of 3)")
     check(max(rels.values()) <= 1e-4, f"K8's op backward: {rels}")
-    del x, xg, ws, outs, cots, want
+    del x, xg, ws, outs, cots, want, p
     torch.cuda.empty_cache()
 
-    res = {"max_abs_err": err}
-    for n in (n1, n4):
-        x, w, mask = tiled_inputs(1, n, torch.float32, gen, dev, [n - 416])
-        ms = median_ms(lambda: att._tiled_fwd_cuda(x, *w, mask, True))
+    res = {"max_abs_err": err, "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms}
+    for n, dtype in ((n1, torch.float32), (n4, torch.float32), (n1, torch.bfloat16)):
+        x, w, mask = tiled_inputs(1, n, dtype, gen, dev, [n - 416])
+        fwd = lambda: att._tiled_fwd_cuda(x, *w, mask, True)  # noqa: E731
+        ms = median_ms(fwd)
         plain_ms = median_ms(lambda: att.attention_pool_tiled_plain(x, *w, mask, True))
-        flops = 4 * n * L1 * D + 2 * n * D + 2 * n * L1
-        b_ms, b_by = bound(flops, nbytes(x, mask) + n * 4 + L1 * 4, F32_FLOPS)
-        print(f"K8 at (1, {n}, {L1}) f32 gated: {ms:.3f} ms vs plain {plain_ms:.3f} ms; bound "
-              f"{b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP at 67 TFLOP/s, "
-              f"{nbytes(x) / 1e6:.1f} MB at 3.35 TB/s); {flops / ms / 1e9:.2f} TFLOP/s")
-        if n == n1:
-            res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        else:
-            res.update(ms_12288=ms, plain_ms_12288=plain_ms, bound_ms_12288=b_ms)
+        split = kernel_split(fwd)
+        (b_ms, b_by), flops, mma_flops, fma_ms = tiled_bound(n, dtype)
+        what = f"K8 at (1, {n}, {L1}) {str(dtype).split('.')[-1]} gated"
+        rate = "495 TFLOP/s (TF32)" if dtype == torch.float32 else "989 TFLOP/s (bf16)"
+        print(f"{what}: {ms:.3f} ms vs plain {plain_ms:.3f} ms; one call by sub-kernel: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in split)
+              + f"; bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.2f} GFLOP at {rate}), "
+              f"{flops / ms / 1e9:.1f} TFLOP/s of the function's work; the kernel issues "
+              f"{mma_flops / 1e9:.2f} GFLOP of bf16 products; the FMA tiles' bound was "
+              f"{fma_ms:.4f} ms")
+        if dtype == torch.float32:
+            check(ms < plain_ms, f"{what}: {ms} ms, not faster than the plain twin's {plain_ms}")
+        tag = {n1: "", n4: "_12288"}[n] if dtype == torch.float32 else "_bf16"
+        res.update({"ms" + tag: ms, "plain_ms" + tag: plain_ms, "bound_ms" + tag: b_ms,
+                    "split_ms" + tag: dict(split)})
+        if not tag:
+            res.update(bound_by=b_by, fma_bound_ms=fma_ms)
         del x
         torch.cuda.empty_cache()
     return res
@@ -1310,14 +1369,15 @@ def main() -> int:
     _cuda.library()
     print(f"kernels built and loaded in {time.time() - t0:.1f} s")
     counts = check_sass()
-    print("tensor-core instructions (HMMA/HGMMA) in the bf16 K2/K3 and K7 kernels' SASS: "
+    print("tensor-core instructions (HMMA/HGMMA) in the K2/K3, K7 and K8 kernels' SASS: "
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
     k1 = check_compaction(dev, gen)
     print(f"K1 compaction bitwise ok; {k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms, "
           f"bound {k1['bound_ms']:.4f} ms at ({B_MAIN}, {N_MAIN}, {FIN}); at K5's shape "
           f"({RL_BATCH}, {N_MAIN}, {FIN}) {k1['k5_ms']:.3f} ms vs plain "
-          f"{k1['k5_plain_ms']:.3f} ms, bound {k1['k5_bound_ms']:.4f} ms ({card})")
+          f"{k1['k5_plain_ms']:.3f} ms, bound {k1['k5_bound_ms']:.4f} ms, "
+          f"{k1['k5_slices']} slot slices per bag ({card})")
     k4f, k4b = check_ntxent(dev, gen)
     print(f"K4 NT-Xent at ({BATCH}, 128) x 2 f32: fwd {k4f['ms']:.4f} ms vs plain "
           f"{k4f['plain_ms']:.4f} ms (device {k4f['device_ms']:.4f} vs "
@@ -1346,6 +1406,12 @@ def main() -> int:
           f"{k6['ms_f32']:.3f} ms vs plain {k6['plain_ms_f32']:.3f} ms at "
           f"({B_MAIN // 8}, {N_MAIN}, {FIN}) f32 ({card})")
     k8 = check_tiled(dev, gen)
+    print(f"K8 gated f32 at (1, 60416, {L1}) {k8['ms']:.3f} ms vs plain {k8['plain_ms']:.3f} ms, "
+          f"bound {k8['bound_ms']:.4f} ms (TF32; FMA tiles' bound {k8['fma_bound_ms']:.4f}); at (1, "
+          f"12288, {L1}) {k8['ms_12288']:.3f} vs {k8['plain_ms_12288']:.3f} ms; bf16 at (1, "
+          f"60416, {L1}) {k8['ms_bf16']:.3f} vs {k8['plain_ms_bf16']:.3f} ms; the op's backward "
+          f"(K7b) at (1, 60416, {L1}) f32 {k8['bwd_ms']:.3f} vs {k8['bwd_plain_ms']:.3f} ms "
+          f"({card})")
 
     work = REPO / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -1400,7 +1466,13 @@ def main() -> int:
             row["modes"] = (f"gated and ungated at D {D}; gated at D {CLAM_BIG_D} (bf16) and on "
                             f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL)")
         if row["name"] == "attention_pool_tiled":
-            row["modes"] = "gated and ungated, f32 and bf16; timed f32 gated at (1, 60416, 512)"
+            row["modes"] = ("gated and ungated, f32 and bf16; timed f32 gated at (1, 60416, 512); "
+                            "bound of the function's f32 products at the TF32 rate")
+            row.update({k: k8[k] for k in ("ms_12288", "plain_ms_12288",
+                                           "bound_ms_12288", "ms_bf16", "plain_ms_bf16",
+                                           "bound_ms_bf16", "bwd_ms", "bwd_plain_ms")})
+        if row["name"] == "compact":
+            row.update({k: k1[k] for k in ("k5_ms", "k5_plain_ms", "k5_bound_ms")})
         if row["name"].startswith("ntxent"):
             r = k4f if row["name"] == "ntxent_fwd" else k4b
             row.update({k: r[k] for k in ("device_ms", "plain_device_ms", "autograd_ms",

@@ -23,7 +23,9 @@
 // besides s); the backward writes dp in a pass of its own (dp_kernel, a GEMV
 // that reads x once: ds needs each bag's sum of p dp before any gate
 // gradient), recomputes the gates, writes dza/dzb to scratch, forms dx, and
-// contracts x^T @ rnd(dza) and x^T @ rnd(dzb) split-K with f32 atomics.
+// contracts x^T @ rnd(dza) and x^T @ rnd(dzb) split-K with f32 atomics. No
+// backward block holds a term in N, so K7b takes any bag length (K7f's
+// softmax pass holds N scores).
 // Two instantiations:
 //  * bf16 (supervised CLAM and ABMIL), on the tensor cores (mma_tiles.cuh:
 //    mma.sync m16n8k16, x's 64-row tile in shared memory as bf16, weights

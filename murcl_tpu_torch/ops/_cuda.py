@@ -28,6 +28,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "murcl_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
+# SMs of the H100 SXM the kernels are built for; the grid planners of
+# ops/compact.py and ops/attention.py size their grids by it (a plain
+# number, so that the CPU twins plan the same chunks)
+H100_SMS = 132
 
 LAUNCHES = {
     "compact": 0,
@@ -44,8 +48,9 @@ LAUNCHES = {
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # bank, offsets, ranks, num_patches, out, B, nmax, F, row_bytes, stream
-    "murcl_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # bank, offsets, ranks, num_patches, out, B, nmax, F, row_bytes,
+    # slot_slice, stream
+    "murcl_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # is_bf16, x, perm, lam, out, B, per_bag, vec, stream
     "murcl_mixup_rows": [_I, _P, _P, _P, _P, _I, _L, _I, _P],
     # zi, zj, temp, loss, stats, terms, ticket, zn, B, d, stream
@@ -73,8 +78,10 @@ _SIGNATURES = {
     "murcl_attention_pool_bwd": [_I, _I] + [_P] * 9 + [_I, _U, _U, _F] + [_P] * 14
     + [_I] * 4 + [_P],
     # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, s, m_part, mx_part,
-    # l_part, m, B, N, F, D, chunk, stream
-    "murcl_attention_pool_tiled": [_I, _I] + [_P] * 13 + [_I] * 5 + [_P],
+    # l_part, m, B, N, F, D, slab, chunk, stream
+    "murcl_attention_pool_tiled": [_I, _I] + [_P] * 13 + [_I] * 6 + [_P],
+    # w, out, F, D, slab, stream
+    "murcl_split_planes": [_P, _P, _I, _I, _I, _P],
 }
 
 _lib = None

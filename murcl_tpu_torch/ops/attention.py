@@ -379,8 +379,9 @@ def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
 # dtype for the gate products, and wc stays f32. In bf16 the kernels run on
 # the tensor cores, and K7b's dx, an f32 product in the TPU kernel, takes
 # three bf16 products of :func:`split_bf16`'s planes. K7f's softmax pass
-# holds a bag's N scores in shared memory, so K7 takes N up to about 58,000
-# (``4 (N + 32) <= 232,448`` bytes; :func:`pool_tile_smem`). A dropout-free
+# holds a bag's N scores in shared memory, so K7f takes N up to about 58,000
+# (``4 (N + 32) <= 232,448`` bytes; :func:`pool_tile_smem`); K7b holds no
+# term in N (:func:`pool_bwd_tile_smem`) and takes any bag. A dropout-free
 # bag over 6 MiB takes K8 instead (:func:`attention_pool_tiled`, at the end
 # of the module), by the JAX package's route rule.
 
@@ -479,7 +480,27 @@ def pool_tile_smem(n: int, f: int, d: int, dtype: torch.dtype) -> int:
     return max(tiles, 4 * (n + 32))
 
 
-def _check_pool_shapes(name, x, wa):
+def pool_bwd_tile_smem(f: int, d: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory the widest block of K7b takes at widths
+    ``f -> d``, at any bag length: in bf16 the tensor-core gate kernel's x
+    tile, B ring and partials (``tc_gates_smem``) and the dx kernel's
+    ``[lo | hi]`` tile (``tc_dx_smem``); in f32 the FMA backward's tiles
+    (``bwd_smem``); and the weight-gradient stage, 52,224 bytes in bf16
+    (``tc::wgrad``, three stages of 32 x (128 + 8) x 2 bf16) and 16,640 in
+    f32 (``tiles.cuh`` ``wgrad_kernel``). Both backward gate kernels sum
+    the bag's ``p dp`` over rows read from global memory, so no term grows
+    with N."""
+    if dtype == torch.bfloat16:
+        bm, pad = _TC_BM, _TC_PAD
+        return max(2 * bm * (f + pad) + _TC_RING + 4 * (bm * 4 + 3 * d + 32),
+                   2 * bm * (2 * d + pad) + _TC_RING + 4 * bm, 2 * 3 * 32 * 2 * (128 + pad))
+    return max(4 * (_TM * (f + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + 3 * d + 32),
+               4 * 2 * 32 * 65)
+
+
+def _check_pool_shapes(name, x, wa, backward=False):
+    """K7's rule: K7f's blocks, its softmax pass included; with ``backward``
+    K7b's own blocks, which take any bag length."""
     b, n, f = x.shape
     d = wa.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -487,7 +508,7 @@ def _check_pool_shapes(name, x, wa):
     if f % _TN or d % _TN:
         raise ValueError(f"{name}: needs F and D multiples of {_TN}, F for dx's column passes "
                          f"and D for the gate passes and dW's column tiles (got F {f}, D {d})")
-    smem = pool_tile_smem(n, f, d, x.dtype)
+    smem = pool_bwd_tile_smem(f, d, x.dtype) if backward else pool_tile_smem(n, f, d, x.dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: tiles need {smem} bytes of shared memory at (N, F, D) = "
                          f"({n}, {f}, {d})")
@@ -534,7 +555,7 @@ def _pool_bwd_launch(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout,
     the scratch holds two planes, ``rnd(dza)`` and the rest
     (:func:`split_bf16`), and the dx products take W^T's two planes."""
     name = "gated_attention_pool backward"
-    _check_pool_shapes(name, x, wa)
+    _check_pool_shapes(name, x, wa, backward=True)
     o, drop = _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed)
     dev, dt = x.device, x.dtype
     planes = 2 if dt == torch.bfloat16 else 1
@@ -613,21 +634,55 @@ def gated_attention_pool(x, wa, ba, wb, bb, wc, bc, mask=None, gated: bool = Tru
 # ---------------------------------------------------------------------------
 # Counterpart of ``murcl_tpu/ops/attention_pallas.py`` ``attention_pool_tiled``
 # (forward ``_make_tiled_fwd_kernel``). The kernel (``csrc/attention_tiled.cu``)
-# splits each bag into chunks of ``_CHUNK`` rows, one block each, and walks a
-# chunk in ``_TM``-row tiles with an online max; a second kernel merges the
-# chunks. ``e = exp(s - running max)`` is rounded to the bag dtype before its
-# product with ``x``; the TPU kernel took the running max over 2048-row tiles
-# of the whole bag, so in bf16 the two round ``e`` at other maxima. ``p`` is
-# the masked softmax of ``s``, taken outside the kernel as JAX takes it in
-# XLA. The backward is K7b's (dropout 0), as JAX's is its XLA pool's.
+# splits each bag into chunks of :func:`tiled_chunk` rows, one block each,
+# takes the gate products of a chunk's 64-row tiles on the tensor cores, and
+# walks each tile's rows in ``_TM``-row halves with an online max; a second
+# kernel merges the chunks. ``e = exp(s - running max)`` is rounded to the
+# bag dtype before its product with ``x``; the TPU kernel took the running
+# max over 2048-row tiles of the whole bag, so in bf16 the two round ``e`` at
+# other maxima. In f32 the gate products take f32 operands in the TPU
+# kernel; here they are three bf16 products of :func:`split_bf16`'s planes
+# (``hi hi + hi lo + lo hi``, about ``2**-16`` relative), over slabs of at
+# most 256 columns of F (:func:`tiled_slab`). ``p`` is the masked softmax of
+# ``s``, taken outside the kernel as JAX takes it in XLA. The backward is
+# K7b's (dropout 0), as JAX's is its XLA pool's.
 
-_CHUNK = 64  # rows per block of the kernel, a multiple of _TM
+
+def tiled_chunk(b: int, n: int) -> int:
+    """Rows per block of K8 for ``b`` bags of ``n`` rows: whole 64-row tiles,
+    one per block until the grid holds more than 8 blocks per H100 SM (four
+    waves at two blocks per SM), then as many per block as keep it near
+    that. The twin takes the same chunks, so in bf16 both round ``e`` at the
+    same running maxima."""
+    tiles = -(-n // _TC_BM)
+    return _TC_BM * max(1, b * tiles // (8 * _cuda.H100_SMS))
+
+
+def tiled_slab(f: int, dtype: torch.dtype) -> int:
+    """Columns of F that one K8 block holds at a time: all of F in bf16; in
+    f32, whose tile sits in shared memory as two bf16 planes, the largest
+    multiple of 64 that divides F and is at most 256, so that two blocks
+    share an SM."""
+    if dtype == torch.bfloat16 or f <= 256:
+        return f
+    return next((w for w in range(256, 63, -64) if f % w == 0), f)
+
+
+def tiled_tile_smem(f: int, dtype: torch.dtype) -> int:
+    """Bytes of shared memory a K8 block takes at width ``f`` (``tiled_smem``
+    in ``csrc/attention_tiled.cu``): the 64-row x tile (bf16; in f32 its
+    ``[lo | hi]`` planes of one slab) padded by 8, the B ring, and the row
+    partials, scores, weights and the chunk's F running sums in f32."""
+    planes = 1 if dtype == torch.bfloat16 else 2
+    fs = tiled_slab(f, dtype)
+    return 2 * _TC_BM * (planes * fs + _TC_PAD) + _TC_RING + 4 * (6 * _TC_BM + 4 + f)
 
 
 def attention_pool_tiled_plain(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
     """Plain PyTorch forward (mirror of K8): ``(M, p, s)``. Per chunk of
-    ``_CHUNK`` rows it takes the kernel's running max over ``_TM``-row tiles
-    and rounds ``e`` at it, so kernel and twin differ by summation order."""
+    :func:`tiled_chunk` rows it takes the kernel's running max over
+    ``_TM``-row tiles and rounds ``e`` at it, so kernel and twin differ by
+    summation order (and, in f32, by the kernel's three bf16 products)."""
     dt = x.dtype
     b, n, f = x.shape
     xf = x.float()
@@ -637,8 +692,9 @@ def attention_pool_tiled_plain(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
     s = u @ wc.float() + bc
     p = torch.softmax(torch.where(mask, s, torch.full_like(s, _NEG_INF)), dim=-1)
 
-    pad = (-n) % _CHUNK
-    nc, tiles = (n + pad) // _CHUNK, _CHUNK // _TM
+    chunk = tiled_chunk(b, n)
+    pad = (-n) % chunk
+    nc, tiles = (n + pad) // chunk, chunk // _TM
     live = torch.nn.functional.pad(mask, (0, pad)).reshape(b, nc, tiles, _TM)
     st = torch.nn.functional.pad(s, (0, pad)).reshape(b, nc, tiles, _TM)
     st = torch.where(live, st, torch.full_like(st, _NEG_INF))
@@ -656,36 +712,70 @@ def attention_pool_tiled_plain(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
 
 
 def _check_tiled_shapes(name, x, wa):
-    f, d = x.shape[2], wa.shape[1]
+    b, n, f = x.shape
+    d = wa.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: bags must be float32 or bfloat16")
     if f % _TN or d % _TN:
-        raise ValueError(f"{name}: needs F and D multiples of {_TN} (got {f}, {d})")
-    smem = 4 * (_TM * (f + 1) + _KC * _TN + f + 2 * _TM + 4)
+        raise ValueError(f"{name}: needs F and D multiples of {_TN} (got F {f}, D {d})")
+    smem = tiled_tile_smem(f, x.dtype)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: tiles need {smem} bytes of shared memory")
+        raise ValueError(f"{name}: tiles need {smem} bytes of shared memory at (N, F, D) = "
+                         f"({n}, {f}, {d})")
+
+
+def _slab_planes(w, fs: int):
+    """``w (F, D)`` as K8's f32 B operand: per slab of ``fs`` rows of F, its
+    :func:`split_bf16` hi rows, then its lo rows, ``(2 F, D)`` bf16: the
+    plain twin of ``murcl_split_planes``, which writes it on the card."""
+    f, d = w.shape
+    hi, lo = split_bf16(w.float())
+    return torch.stack((hi.reshape(f // fs, fs, d), lo.reshape(f // fs, fs, d)),
+                       1).reshape(2 * f, d).contiguous()
+
+
+def _split_planes_cuda(name, w, fs: int):
+    """:func:`_slab_planes` on the card, in one launch where the plain twin
+    takes five."""
+    w = w.to(torch.float32).contiguous()
+    _cuda.require_cuda(name, w)
+    f, d = w.shape
+    out = torch.empty((2 * f, d), dtype=torch.bfloat16, device=w.device)
+    _cuda.check(_cuda.library().murcl_split_planes(_p(w), _p(out), f, d, fs, _cuda.stream()),
+                name)
+    return out
 
 
 def _tiled_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
     """K8: ``(M, p, s)`` of :func:`attention_pool_tiled_plain`."""
     name = "attention_pool_tiled"
     _check_tiled_shapes(name, x, wa)
-    o, _ = _pool_args(x, wa, ba, wb, bb, wc, mask, 0.0, 0)
-    bc32 = bc.to(torch.float32).reshape(1).contiguous()
-    _cuda.require_cuda(name, *o.values(), bc32)
     b, n, f = x.shape
-    chunks = -(-n // _CHUNK)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    m, s = torch.empty((b, f), **f32), torch.empty((b, n), **f32)
-    m_part = torch.empty((b, chunks, f), **f32)
-    mx_part, l_part = torch.empty((b, chunks), **f32), torch.empty((b, chunks), **f32)
+    dt, f32 = x.dtype, torch.float32
+    fs, chunk = tiled_slab(f, dt), tiled_chunk(b, n)
+    if dt == torch.bfloat16:
+        wa_k, wb_k = (w.to(dt).contiguous() for w in (wa, wb))
+    else:
+        wa_k = _split_planes_cuda(name, wa, fs)
+        wb_k = _split_planes_cuda(name, wb, fs) if gated else wa_k
+    x = x.contiguous()
+    ops = [x, wa_k, ba.to(f32).contiguous(), wb_k, bb.to(f32).contiguous(),
+           wc.to(f32).contiguous(), bc.to(f32).reshape(1).contiguous(),
+           mask.to(torch.bool).contiguous()]
+    _cuda.require_cuda(name, *ops)
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the bags must start on a 16-byte boundary")
+    chunks = -(-n // chunk)
+    out = dict(dtype=f32, device=x.device)
+    m, s = torch.empty((b, f), **out), torch.empty((b, n), **out)
+    m_part = torch.empty((b, chunks, f), **out)
+    mx_part, l_part = torch.empty((b, chunks), **out), torch.empty((b, chunks), **out)
     err = _cuda.library().murcl_attention_pool_tiled(
-        int(x.dtype == torch.bfloat16), int(gated), _p(o["x"]), _p(o["wa"]), _p(o["ba"]),
-        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(bc32), _p(o["mask"]), _p(s), _p(m_part),
-        _p(mx_part), _p(l_part), _p(m), b, n, f, wa.shape[1], _CHUNK, _cuda.stream())
+        int(dt == torch.bfloat16), int(gated), *map(_p, ops), _p(s), _p(m_part), _p(mx_part),
+        _p(l_part), _p(m), b, n, f, wa.shape[1], fs, chunk, _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["attention_pool_tiled"] += 1
-    p = torch.softmax(torch.where(o["mask"], s, torch.full_like(s, _NEG_INF)), dim=-1)
+    p = torch.softmax(torch.where(ops[-1], s, _NEG_INF), dim=-1)
     return m, p, s
 
 
@@ -707,11 +797,6 @@ class _AttentionPoolTiled(torch.autograd.Function):
         if x.device.type == "cpu":
             dx, dwa, dba, dwb, dbb, dwc, dbc = gated_attention_pool_plain_bwd(*args)
         else:
-            if 4 * (x.shape[1] + 32) > _SMEM_LIMIT:
-                raise ValueError(
-                    f"attention_pool_tiled backward runs K7b, whose softmax pass holds a "
-                    f"bag's N scores in shared memory: N <= {_SMEM_LIMIT // 4 - 32}, "
-                    f"got {x.shape[1]}")
             dx, dwa, dba, dwb, dbb, dwc, dbc = _pool_bwd_cuda(*args)
         return dx, dwa, dba, dwb, dbb, dwc, dbc.reshape(()), None, None
 
@@ -720,9 +805,8 @@ def attention_pool_tiled(x, wa, ba, wb, bb, wc, bc, mask=None, gated: bool = Tru
     """Streaming attention pooling over bags ``x (B, N, F)`` of any length,
     without dropout: ``(M (B, F), p (B, N), s (B, N))`` in float32, with
     :func:`gated_attention_pool`'s arguments. CPU tensors take the plain
-    twin; CUDA tensors always launch K8 (forward) and K7b (backward, which
-    holds N up to about 58,000). The TPU kernel's ``tile`` (a Mosaic knob) is
-    not carried over."""
+    twin; CUDA tensors always launch K8 (forward) and K7b (backward, at any
+    N). The TPU kernel's ``tile`` (a Mosaic knob) is not carried over."""
     if mask is None:
         mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
     return _AttentionPoolTiled.apply(x, wa, ba, wb, bb, wc, bc, mask, bool(gated))

@@ -32,6 +32,21 @@ def gather_compact_plain(bank_feats, row_offsets, ranks, feat_size: int,
     return out
 
 
+def compact_slot_slice(batch: int, feat_size: int) -> int:
+    """Output slots per block of K1: the bag's ``feat_size`` slots split
+    into a power-of-two number of slices, so that ``batch`` x slices reaches
+    two blocks per H100 SM where the sub-bag allows, each slice a multiple
+    of 32 slots (a word of the kernel's bitmap) and at least 32. The last
+    slice takes what is left: ``ceil(feat_size / slice)`` slices tile the
+    slots exactly."""
+    want = -(-2 * _cuda.H100_SMS // max(batch, 1))
+    slices = 1
+    while slices < want:
+        slices *= 2
+    per = -(-feat_size // slices)
+    return max(32, -(-per // 32) * 32)
+
+
 def _gather_compact_cuda(bank_feats, row_offsets, ranks, feat_size: int,
                          num_patches):
     name = "gather_compact"
@@ -53,7 +68,8 @@ def _gather_compact_cuda(bank_feats, row_offsets, ranks, feat_size: int,
     lib = _cuda.library()
     err = lib.murcl_compact(
         bank_feats.data_ptr(), offs.data_ptr(), ranks.data_ptr(), nump.data_ptr(),
-        out.data_ptr(), b, n_max, feat_size, row_bytes, _cuda.stream())
+        out.data_ptr(), b, n_max, feat_size, row_bytes, compact_slot_slice(b, feat_size),
+        _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["compact"] += 1
     return out

@@ -11,7 +11,12 @@ order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32 sum
 in another order crosses a rounding boundary; the bf16 products of K2/K3 and
 K7 run on the tensor cores, whose sums run in yet another order). K2/K3 and
 K7 also at the edges of their 64-row bf16 tiles: N = 1000 with live lengths
-1, 63, 65 and 1000, and D = 384; K7 also at ABMIL's D 128 with F 512.
+1, 63, 65 and 1000, and D = 384; K7 also at ABMIL's D 128 with F 512. K8
+(whose f32 gate products are three bf16 products on the tensor cores) also
+at F 1024 (two f32 slabs) and D 384, with a bag that ends mid-tile and one
+whose later chunks are all masked; one backward through K8's op at the
+heatmap's largest bag, (1, 60416, 512) f32, past K7f's softmax pass. K1 also
+at 64 bags of 1000 slots, split over slot slices whose last is partial.
 """
 
 import pytest
@@ -66,6 +71,29 @@ def test_compaction_bitwise(dev, dtype, view):
     assert _cuda.LAUNCHES["compact"] == before + 1
     want = gather_compact_plain(bank.feats, offs, ranks, 128, nump)
     assert torch.equal(got.view(view), want.view(view))
+
+
+def test_compaction_slot_slices_bitwise(dev):
+    """64 bags of 1000 slots: 8 slices of 128 slots per bag, the last of 104."""
+    from murcl_tpu_torch.ops.compact import compact_slot_slice
+
+    gen = torch.Generator().manual_seed(1)
+    feats, clusters = [], []
+    for _ in range(8):
+        n = int(torch.randint(900, 2000, (), generator=gen))
+        feats.append(torch.randn(n, 256, generator=gen).numpy())
+        a = torch.randint(0, 5, (n,), generator=gen)
+        clusters.append([torch.nonzero(a == c)[:, 0].tolist() for c in range(5)])
+    bank = bank_from_arrays(feats, clusters, [0] * 8).to(dev, torch.bfloat16)
+    ids = torch.arange(64, device=dev) % 8
+    actions = torch.rand(64, 5, generator=gen).to(dev)
+    ranks, offs, _ = select_ranks(ids, bank.offsets, bank.num_patches, bank.cluster_sizes,
+                                  actions, bank.patch_cluster, bank.patch_pos, 1000)
+    assert compact_slot_slice(64, 1000) == 128
+    nump = bank.num_patches[ids]
+    got = gather_compact(bank.feats, offs, ranks, 1000, nump)
+    want = gather_compact_plain(bank.feats, offs, ranks, 1000, nump)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def _ntxent_views(dev, b, d, zero_row, seed=1):
@@ -279,3 +307,62 @@ def test_attention_pool_tiled_matches_plain(dev, gated, dtype, tol, b, n):
         assert _cuda.LAUNCHES["attention_pool_bwd"] == before["attention_pool_bwd"] + 1
         dx = gated_attention_pool_plain_bwd(x, *w[:5], mask, want[1], *cots, gated)[0]
         assert _rel(xg.grad, dx) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("f,d,gated", [(1024, 128, True), (512, 384, True), (1024, 256, False)])
+def test_attention_pool_tiled_widths(dev, dtype, tol, f, d, gated):
+    """K8 at F 1024 (two f32 slabs, reloaded per column step) and D 384:
+    bags of 5000 rows (78 full tiles and a 8-row one), one live for 4100
+    rows (mid-tile), one for 65 (its later chunks all masked)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * sc
+
+    n = 5000
+    w = [r(f, d, sc=f ** -0.5), r(d, sc=0.1), r(f, d, sc=f ** -0.5), r(d, sc=0.1),
+         r(d, sc=d ** -0.5), r((), sc=0.1)]
+    x = torch.relu(r(3, n, f)).to(dtype)
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor([n, 4100, 65], device=dev)[:, None]
+    got = attention_pool_tiled(x, *w, mask=mask, gated=gated)
+    want = attention_pool_tiled_plain(x, *w, mask, gated)
+    for name, g, wv in zip("Mps", got, want):
+        assert _rel(g, wv) <= tol, name
+
+
+def test_attention_pool_tiled_backward_at_the_largest_heatmap_bag(dev):
+    """(1, 60416, 512) f32: K7b's blocks hold no term in N, so the op's
+    backward runs where K7f's softmax pass could not."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, f, d = 60416, 512, 256
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * sc
+
+    w = [r(f, d, sc=f ** -0.5), r(d, sc=0.1), r(f, d, sc=f ** -0.5), r(d, sc=0.1),
+         r(d, sc=d ** -0.5), r((), sc=0.1)]
+    x = torch.relu(r(1, n, f))
+    mask = torch.arange(n, device=dev)[None, :] < 60000
+    xg = x.clone().requires_grad_(True)
+    ws = [v.clone().requires_grad_(True) for v in w]
+    before = _cuda.LAUNCHES["attention_pool_bwd"]
+    outs = attention_pool_tiled(xg, *ws, mask=mask)
+    cots = [r(1, f), r(1, n, sc=0.1), r(1, n, sc=0.01)]
+    torch.autograd.backward(outs, cots)
+    assert _cuda.LAUNCHES["attention_pool_bwd"] == before + 1
+    p = attention_pool_tiled_plain(x, *w, mask)[1]
+    want = gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots)
+    for name, g, wv in zip(["dx", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"],
+                           [xg.grad] + [v.grad for v in ws], want):
+        assert _rel(g, wv) <= 1e-4, name
+
+
+@pytest.mark.parametrize("f,fs", [(512, 256), (1024, 256), (256, 256)])
+def test_split_planes_bitwise(dev, f, fs):
+    """K8's f32 weights split on the card: the bits of ``_slab_planes``."""
+    from murcl_tpu_torch.ops.attention import _slab_planes, _split_planes_cuda
+
+    w = torch.randn(f, 256, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    got = _split_planes_cuda("split", w, fs)
+    assert torch.equal(got.view(torch.int16), _slab_planes(w, fs).view(torch.int16))

@@ -6,8 +6,11 @@ row and column partials) and the dx kernel (one gate's ``[lo | hi]`` scratch
 tile); every width the port gives K7 (ABMIL at D 128, CLAM "small" at 256,
 "big" at 384) must fit one H100 block's 232,448 bytes. ``_check_pool_shapes``
 raises, naming the shape, on what the tiles cannot take, on the meta device:
-no data and no card needed. ``split_bf16``: three bf16 products of the
-planes stand in for an f32 product to 1e-5, where one bf16 product does not.
+no data and no card needed. K7b's own rule (``pool_bwd_tile_smem``,
+``_check_pool_shapes(backward=True)``) counts only its blocks' tiles, so it takes the
+heatmap's largest bag and longer ones, which K7f's softmax pass refuses.
+``split_bf16``: three bf16 products of the planes stand in for an f32
+product to 1e-5, where one bf16 product does not.
 """
 
 import numpy as np
@@ -51,6 +54,33 @@ def test_two_blocks_per_sm_at_clam_small():
 def test_check_pool_shapes_refuses(n, f, d, dtype, match):
     with pytest.raises(ValueError, match=match):
         tat._check_pool_shapes(NAME, *_operands(n, f, d, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(1, 60416), (2, 100000)])
+def test_backward_check_takes_long_bags(b, n, dtype):
+    """K8's op differentiates the heatmap's largest bag (and longer) on the
+    card, as the JAX package's XLA backward does."""
+    x, wa = torch.empty(b, n, 512, dtype=dtype, device="meta"), torch.empty(512, 256,
+                                                                          device="meta")
+    tat._check_pool_shapes(NAME + " backward", x, wa, backward=True)
+    assert tat.pool_bwd_tile_smem(512, 256, dtype) <= tat._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_check_still_refuses_past_its_pool_pass(dtype):
+    x, wa = torch.empty(1, 60416, 512, dtype=dtype, device="meta"), torch.empty(512, 256,
+                                                                              device="meta")
+    with pytest.raises(ValueError, match=r"241792 bytes .* \(N, F, D\) = \(60416, 512, 256\)"):
+        tat._check_pool_shapes(NAME, x, wa)
+
+
+@pytest.mark.parametrize("f,d,dtype", [(4096, 256, torch.bfloat16),
+                                       (2048, 256, torch.float32)])
+def test_backward_check_refuses_wide_tiles(f, d, dtype):
+    x, wa = _operands(1024, f, d, dtype)
+    with pytest.raises(ValueError, match=rf"bytes .* \(N, F, D\) = \(1024, {f}, {d}\)"):
+        tat._check_pool_shapes(NAME + " backward", x, wa, backward=True)
 
 
 def test_split_bf16_three_products_match_f32():
