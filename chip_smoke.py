@@ -61,20 +61,26 @@
      nothing else; one PNG of the thumbnail's shape per slide; the scores
      equal to those through the plain twins within 1e-4; per slide the
      load, score, paint and write times;
-   - supervised RLMIL, ``murcl_tpu_torch.drivers.rlmil.run``, finetune
-     stages 1 -> 2 -> 3 from the CLAM_SB MuRCL stage-3 ``model_best`` on
-     128 / 32 / 32 slides, batch 64, feat_size 1024, T 6, bf16, one epoch
-     each (2 steps; stage 2 one PPO epoch): finite losses, each stage's
-     checkpoints (with the policy in stages 2 and 3), ``pred.csv`` and
-     ``final_res.csv``; compaction and K7f launched in every stage, K7b in
-     stages 1 and 3 and not in stage 2.
-5. Times steady steps: supervised at batch 64 (stage 3, then stage 1), and
-   MuRCL CLAM_SB stage 1 (the ``bench.py`` step), ABMIL stage 1 and CLAM_SB
-   stage 3 at batch 128: 2 warm-up steps,
-   then a host clock around 5 synchronised steps, read also when the step
-   call returns (the host's enqueue time); then ``torch.profiler``
-   traces 3 more steps of each and prints device time by kernel and the
-   device's busy share.
+   - supervised RLMIL, ``murcl_tpu_torch.drivers.rlmil.run``, stages 1 ->
+     2 -> 3 on 128 / 32 / 32 slides, batch 64, feat_size 1024, T 6, bf16,
+     one epoch each (2 steps; stage 2 one PPO epoch), three times: CLAM_SB
+     finetune from the CLAM_SB MuRCL stage-3 ``model_best``, ABMIL finetune
+     from the ABMIL one, and DSMIL from scratch. Per stage finite losses,
+     the checkpoints (with the policy in stages 2 and 3), ``pred.csv`` and
+     ``final_res.csv``, and the kernels: CLAM_SB and ABMIL launch
+     compaction and K7f in every stage and K7b in stages 1 and 3 only;
+     ABMIL never K2, K3 or K6; DSMIL compaction in every stage and no
+     attention-pool or trunk kernel (its products are plain matmuls, as in
+     the JAX package). Then one supervised ABMIL stage-1 step through the
+     kernels and through their plain twins, compared as
+     ``abmil_step_check`` compares (``supervised_step_check``).
+5. Times steady steps: supervised at batch 64 (CLAM_SB stage 3 and stage
+   1, ABMIL stage 1, DSMIL stage 1), and MuRCL CLAM_SB stage 1 (the
+   ``bench.py`` step), ABMIL stage 1 and CLAM_SB stage 3 at batch 128: 2
+   warm-up steps, then a host clock around 5 synchronised steps, read also
+   when the step call returns (the host's enqueue time), and the peak
+   device memory; then ``torch.profiler`` traces 3 more steps of each and
+   prints device time by kernel and the device's busy share.
 
 Every kernel's row carries its bound at the timed shape (``bound``: the
 larger of its operations at the published H100 SXM peak for their type and
@@ -1006,20 +1012,60 @@ def plain_twins():
             setattr(mod, name, fn)
 
 
+def twin_step(what, grads, kernels):
+    """Run ``grads()`` (``(step losses, {name: gradient})``) through the
+    kernels, which must launch each of ``kernels``, then through their plain
+    twins, which launch nothing. Step losses must agree within 1e-4
+    absolute and every gradient within a Frobenius error of 2e-2 relative to
+    the larger of its norm and 1e-4 of the largest gradient's norm (the
+    floor holds the gradients that cancel: the score bias's is zero in exact
+    arithmetic, as softmax ignores a shift). Returns ``(loss_err, {name: rel
+    err}, kernels' gradients)``."""
+    from murcl_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    k_loss, k_grads = grads()
+    check(all(_cuda.LAUNCHES[k] > 0 for k in kernels), f"{what}, kernels: {_cuda.LAUNCHES}")
+    _cuda.reset_launch_counts()
+    with plain_twins():
+        p_loss, p_grads = grads()
+    check(not any(_cuda.LAUNCHES.values()), f"{what}, plain: launched {_cuda.LAUNCHES}")
+    loss_err = float((k_loss - p_loss).abs().max())
+    check(k_grads.keys() == p_grads.keys() and len(k_grads) >= 10,
+          f"{what}: gradients of {sorted(k_grads)} against {sorted(p_grads)}")
+    floor = 1e-4 * max(float(g.norm()) for g in p_grads.values())
+    rels = {k: float((k_grads[k].double() - p_grads[k].double()).norm()
+                     / max(float(p_grads[k].norm()), floor)) for k in k_grads}
+    worst = max(rels, key=rels.get)
+    print(f"{what}, kernels against plain twins: step losses "
+          f"{[round(float(v), 6) for v in k_loss]} (max abs diff {loss_err:.2e}); "
+          f"{len(rels)} gradients, worst rel err {rels[worst]:.2e} ({worst}), "
+          f"norms {min(float(g.norm()) for g in k_grads.values()):.3e} to "
+          f"{max(float(g.norm()) for g in k_grads.values()):.3e}")
+    check(loss_err <= 1e-4, f"{what}: step losses {k_loss} against plain {p_loss}")
+    check(rels[worst] <= 2e-2, f"{what}: gradients against plain: {rels}")
+    return loss_err, rels, k_grads
+
+
+def check_step_moves(what, train_step, named, grads) -> None:
+    """One optimizer step must move every weight that has a gradient."""
+    import torch
+
+    before = {k: v.detach().clone() for k, v in named}
+    train_step()
+    still = [k for k in grads if torch.equal(before[k], dict(named)[k])]
+    check(not still, f"{what} left {still} unchanged")
+
+
 def abmil_step_check(dev, ds, results):
     """One ABMIL stage-1 step at the bench.py shape through the kernels, then
-    through their plain twins on the card, from the same weights and draws:
-    step losses within 1e-4 absolute, every gradient within a Frobenius error
-    of 2e-2 relative to the larger of its norm and 1e-4 of the largest
-    gradient's norm (the floor holds the gradients that cancel: the score
-    bias's is zero in exact arithmetic, as softmax ignores a shift). Then one
-    optimizer step must move every weight that has a gradient. Prints the
-    embeddings' spread across bags (norm of the std over bags / norm of the
-    mean)."""
+    through their plain twins on the card, from the same weights and draws
+    (``twin_step``); then one optimizer step must move every weight that has
+    a gradient. Prints the embeddings' spread across bags (norm of the std
+    over bags / norm of the mean)."""
     import torch
 
     from murcl_tpu_torch.drivers.murcl import setup
-    from murcl_tpu_torch.ops import _cuda
 
     s = setup(murcl_args(dev, ds, results, "ABMIL", 1, exist_ok=True))
     eng = s.engine
@@ -1039,41 +1085,58 @@ def abmil_step_check(dev, ds, results):
         return stats.step_losses.clone(), {k: v.grad.clone() for k, v in named
                                            if v.grad is not None}
 
-    _cuda.reset_launch_counts()
-    k_loss, k_grads = grads()
-    check(all(_cuda.LAUNCHES[k] > 0 for k in ("compact", "mixup_rows", "attention_pool_fwd",
-                                              "attention_pool_bwd", "ntxent_fwd",
-                                              "ntxent_bwd")), f"kernel step: {_cuda.LAUNCHES}")
-    _cuda.reset_launch_counts()
-    with plain_twins():
-        p_loss, p_grads = grads()
-    check(not any(_cuda.LAUNCHES.values()), f"plain step launched {_cuda.LAUNCHES}")
+    loss_err, rels, k_grads = twin_step(
+        "ABMIL stage-1 step", grads, ("compact", "mixup_rows", "attention_pool_fwd",
+                                      "attention_pool_bwd", "ntxent_fwd", "ntxent_bwd"))
     hook.remove()
-    loss_err = float((k_loss - p_loss).abs().max())
-    check(k_grads.keys() == p_grads.keys() and len(k_grads) >= 10,
-          f"gradients of {sorted(k_grads)} against {sorted(p_grads)}")
-    floor = 1e-4 * max(float(g.norm()) for g in p_grads.values())
-    rels = {k: float((k_grads[k].double() - p_grads[k].double()).norm()
-                     / max(float(p_grads[k].norm()), floor)) for k in k_grads}
-    worst = max(rels, key=rels.get)
     emb_k, emb_p = embs[0].float(), embs[1].float()
     spread = float(emb_k.std(dim=0).norm() / emb_k.mean(dim=0).norm())
-    print(f"ABMIL stage-1 step, kernels against plain twins: step losses "
-          f"{[round(float(v), 6) for v in k_loss]} (max abs diff {loss_err:.2e}); "
-          f"embedding rel err {rel_err(emb_k, emb_p):.2e}, spread across bags {spread:.3e}; "
-          f"{len(rels)} gradients, worst rel err {rels[worst]:.2e} ({worst}), "
-          f"norms {min(float(g.norm()) for g in k_grads.values()):.3e} to "
-          f"{max(float(g.norm()) for g in k_grads.values()):.3e}")
-    check(loss_err <= 1e-4, f"ABMIL step losses {k_loss} against plain {p_loss}")
-    check(rels[worst] <= 2e-2, f"ABMIL gradients against plain: {rels}")
-
-    before = {k: v.detach().clone() for k, v in named}
-    eng.train_step(s.bank, ids, torch.Generator().manual_seed(0))
-    still = [k for k in k_grads if torch.equal(before[k], dict(named)[k])]
-    check(not still, f"ABMIL stage-1 step left {still} unchanged")
-    del s, eng, before, k_grads, p_grads
+    print(f"ABMIL stage-1 step: embedding rel err {rel_err(emb_k, emb_p):.2e}, spread across "
+          f"bags {spread:.3e}")
+    check_step_moves("ABMIL stage-1 step",
+                     lambda: eng.train_step(s.bank, ids, torch.Generator().manual_seed(0)),
+                     named, k_grads)
+    del s, eng, k_grads
     torch.cuda.empty_cache()
-    return {"loss_err": loss_err, "grad_rel_err": rels[worst], "spread": spread}
+    return {"loss_err": loss_err, "grad_rel_err": max(rels.values()), "spread": spread}
+
+
+def supervised_step_check(dev, ds, results, pretrained):
+    """One supervised ABMIL stage-1 step at batch 64 (finetune from the ABMIL
+    MuRCL checkpoint) through the kernels (K1, K7f, K7b), then through their
+    plain twins, from the same weights and draws (``twin_step``); then one
+    optimizer step must move every weight that has a gradient."""
+    import torch
+
+    from murcl_tpu_torch.drivers.rlmil import setup
+
+    s = setup(rlmil_args(dev, ds, results, 1, pretrained, arch="ABMIL", exist_ok=True))
+    eng, bank = s.engine, s.banks["train"]
+    named = ([(f"model.{k}", v) for k, v in eng.model.named_parameters()]
+             + [(f"fc.{k}", v) for k, v in eng.fc.named_parameters()])
+    ids = torch.arange(RL_BATCH, device=dev)
+    labels, valid = bank.labels[ids], torch.ones(RL_BATCH, dtype=torch.bool, device=dev)
+
+    def grads():
+        eng.model.train()
+        eng.fc.train()
+        eng.optimizer.zero_grad(set_to_none=True)
+        total, stats, _ = eng.rollout_batched(bank, ids, labels, valid,
+                                              torch.Generator().manual_seed(0))
+        total.backward()
+        torch.cuda.synchronize()
+        return stats.step_losses.clone(), {k: v.grad.clone() for k, v in named
+                                           if v.grad is not None}
+
+    loss_err, rels, k_grads = twin_step(
+        "supervised ABMIL stage-1 step", grads,
+        ("compact", "attention_pool_fwd", "attention_pool_bwd"))
+    check_step_moves("supervised ABMIL stage-1 step",
+                     lambda: eng.train_step(bank, ids, torch.Generator().manual_seed(0)),
+                     named, k_grads)
+    del s, eng, k_grads
+    torch.cuda.empty_cache()
+    return {"loss_err": loss_err, "grad_rel_err": max(rels.values())}
 
 
 def make_slides(root):
@@ -1195,27 +1258,43 @@ def heatmap_path(dev, root, checkpoint):
     return launches
 
 
-def rlmil_args(dev, ds, results, stage, pretrained, **extra):
+def rlmil_args(dev, ds, results, stage, pretrained, arch="CLAM_SB", **extra):
+    """Supervised args: finetune from ``pretrained``, or scratch without one."""
     from murcl_tpu_torch.drivers.rlmil import default_args
 
     return default_args(data_csv=ds["data_csv"], data_split_json=ds["rlmil_split_json"],
-                        device=str(dev), train_method="finetune", train_stage=stage,
+                        device=str(dev), arch=arch,
+                        train_method="finetune" if pretrained else "scratch",
+                        train_stage=stage,
                         checkpoint_pretrained=pretrained if stage < 3 else None,
                         batch_size=RL_BATCH, feat_size=N_MAIN, T=T, compute_dtype="bfloat16",
                         epochs=1, ppo_epochs=1, save_model=True,
                         base_save_dir=str(results), **extra)
 
 
-def rlmil_path(dev, ds, results, pretrained):
-    """Supervised stages 1 -> 2 -> 3; per stage the launch counts."""
+# per arch, the kernels each supervised stage launches: in every stage, in
+# stages 1 and 3 only (never in stage 2), and never
+RLMIL_KERNELS = {
+    "CLAM_SB": (("compact", "attention_pool_fwd"), ("attention_pool_bwd",), ()),
+    "ABMIL": (("compact", "attention_pool_fwd"), ("attention_pool_bwd",),
+              ("fused_trunk_fwd", "fused_trunk_bwd", "mixup_rows")),
+    "DSMIL": (("compact",), (), ("attention_pool_fwd", "attention_pool_bwd",
+                                 "fused_trunk_fwd", "fused_trunk_bwd", "mixup_rows")),
+}
+
+
+def rlmil_path(dev, ds, results, pretrained, arch="CLAM_SB"):
+    """Supervised stages 1 -> 2 -> 3 of ``arch``; per stage the launch counts."""
     import torch
 
     from murcl_tpu_torch.drivers.rlmil import run
     from murcl_tpu_torch.ops import _cuda
 
+    every, trained, never = RLMIL_KERNELS[arch]
     per_stage = {}
     for stage in (1, 2, 3):
-        args = rlmil_args(dev, ds, results, stage, pretrained)
+        args = rlmil_args(dev, ds, results, stage, pretrained, arch=arch)
+        what = f"RLMIL {arch} {args.train_method} stage {stage}"
         _cuda.reset_launch_counts()
         t0 = time.time()
         out = run(args)
@@ -1224,35 +1303,35 @@ def rlmil_path(dev, ds, results, pretrained):
         launches = dict(_cuda.LAUNCHES)
         per_stage[stage] = launches
         run_dir = Path(out["save_dir"])
-        check(run_dir.name == f"stage_{stage}", f"stage {stage} ran in {run_dir}")
+        check(run_dir.name == f"stage_{stage}", f"{what} ran in {run_dir}")
         check(all(math.isfinite(v) for v in out["final"] + tuple(out["train_losses"])),
-              f"stage {stage}: {out['final']} {out['train_losses']}")
+              f"{what}: {out['final']} {out['train_losses']}")
         for name in ("checkpoint.pth.tar", "model_best.pth.tar", "pred.csv", "final_res.csv"):
-            check((run_dir / name).exists(), f"stage {stage}: no {name}")
+            check((run_dir / name).exists(), f"{what}: no {name}")
         ckpt = torch.load(run_dir / "checkpoint.pth.tar", map_location="cpu", weights_only=True)
-        check((ckpt["policy"] is not None) == (stage > 1), f"stage {stage}: policy entry")
-        check(launches["compact"] > 0 and launches["attention_pool_fwd"] > 0,
-              f"stage {stage}: compaction or K7f never launched: {launches}")
-        check((launches["attention_pool_bwd"] > 0) == (stage != 2),
-              f"stage {stage}: K7b launches {launches['attention_pool_bwd']}")
-        print(f"RLMIL stage {stage}: train loss {out['train_losses'][0]:.6f}, final test "
+        check((ckpt["policy"] is not None) == (stage > 1), f"{what}: policy entry")
+        check(all(launches[k] > 0 for k in every)
+              and all((launches[k] > 0) == (stage != 2) for k in trained)
+              and all(launches[k] == 0 for k in never), f"{what}: launches {launches}")
+        print(f"{what}: train loss {out['train_losses'][0]:.6f}, final test "
               f"(loss, acc, auc, precision, recall, f1) {out['final']}, "
               f"{out['steps_per_sec']:.4f} steps/s over the epoch (first step included), "
               f"run() wall {wall:.2f} s, launches {launches}")
     return per_stage
 
 
-def steady_steps(dev, ds, results, pretrained):
-    """Steady supervised steps at batch 64, stage 3 then stage 1: 2 warm-up
-    steps, a host clock around 5 synchronised steps, then a torch.profiler
-    trace of 3 more. Returns ``{stage: ms per step}``."""
+def steady_steps(dev, ds, results, runs):
+    """Steady supervised steps at batch 64, one per ``(arch, stage,
+    pretrained)`` of ``runs`` (a stage 3 chains on its path's stage 2): 2
+    warm-up steps, a host clock around 5 synchronised steps, then a
+    torch.profiler trace of 3 more. Returns ``{name: ms per step}``."""
     import torch
 
     from murcl_tpu_torch.drivers.rlmil import setup
 
     out = {}
-    for stage in (3, 1):
-        s = setup(rlmil_args(dev, ds, results, stage, pretrained, exist_ok=True))
+    for arch, stage, pretrained in runs:
+        s = setup(rlmil_args(dev, ds, results, stage, pretrained, arch=arch, exist_ok=True))
         bank = s.banks["train"]
         gen = torch.Generator().manual_seed(0)
         ids = torch.arange(RL_BATCH, device=dev)
@@ -1263,6 +1342,7 @@ def steady_steps(dev, ds, results, pretrained):
         for _ in range(2):
             step()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         times, host = [], []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -1270,11 +1350,13 @@ def steady_steps(dev, ds, results, pretrained):
             host.append((time.perf_counter() - t0) * 1e3)  # enqueued, not yet synced
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        out[stage] = statistics.median(times)
-        print(f"supervised stage {stage}, batch {RL_BATCH}: median step {out[stage]:.2f} ms "
-              f"({1e3 / out[stage]:.3f} steps/s), host enqueue {statistics.median(host):.2f} "
-              f"ms, steps {[round(t, 2) for t in times]}")
-        profile_steps(step, f"stage {stage}", out[stage])
+        name = f"supervised {arch} stage {stage}"
+        out[name] = statistics.median(times)
+        print(f"{name}, batch {RL_BATCH}: median step {out[name]:.2f} ms "
+              f"({1e3 / out[name]:.3f} steps/s), host enqueue {statistics.median(host):.2f} "
+              f"ms, steps {[round(t, 2) for t in times]}, "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_steps(step, name, out[name])
         del s
         torch.cuda.empty_cache()
     return out
@@ -1422,15 +1504,22 @@ def main() -> int:
         print(f"synthetic dataset written in {time.time() - t0:.1f} s")
         clam_stages, pretrained = murcl_path(dev, ds, tmp / "murcl", "CLAM_SB")
         heat = heatmap_path(dev, tmp / "slides", pretrained)
-        abmil_stages, _ = murcl_path(dev, ds, tmp / "murcl", "ABMIL")
+        abmil_stages, abmil_pretrained = murcl_path(dev, ds, tmp / "murcl", "ABMIL")
         abmil_step_check(dev, ds, tmp / "murcl")
-        rl_stages = rlmil_path(dev, ds, tmp / "rlmil", pretrained)
-        steady_steps(dev, ds, tmp / "rlmil", pretrained)
+        rl_stages = [rlmil_path(dev, ds, tmp / "rlmil", pretrained),
+                     rlmil_path(dev, ds, tmp / "rlmil", abmil_pretrained, "ABMIL"),
+                     rlmil_path(dev, ds, tmp / "rlmil", None, "DSMIL")]
+        supervised_step_check(dev, ds, tmp / "rlmil", abmil_pretrained)
+        steady_steps(dev, ds, tmp / "rlmil", [("CLAM_SB", 3, pretrained),
+                                              ("CLAM_SB", 1, pretrained),
+                                              ("ABMIL", 1, abmil_pretrained),
+                                              ("DSMIL", 1, None)])
         steady_murcl_steps(dev, ds, tmp / "murcl")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
-    for counts in [*clam_stages.values(), *abmil_stages.values(), *rl_stages.values(), heat]:
+    for counts in [*clam_stages.values(), *abmil_stages.values(), heat,
+                   *(c for path in rl_stages for c in path.values())]:
         for k, v in counts.items():
             launches[k] += v
 
@@ -1464,7 +1553,8 @@ def main() -> int:
                             + ("; bags' gradient dh" if row["name"].endswith("bwd") else ""))
         if row["name"] in ("attention_pool_fwd", "attention_pool_bwd"):
             row["modes"] = (f"gated and ungated at D {D}; gated at D {CLAM_BIG_D} (bf16) and on "
-                            f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL)")
+                            f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL: MuRCL and "
+                            "supervised)")
         if row["name"] == "attention_pool_tiled":
             row["modes"] = ("gated and ungated, f32 and bf16; timed f32 gated at (1, 60416, 512); "
                             "bound of the function's f32 products at the TF32 rate")

@@ -31,7 +31,8 @@ import torch
 from murcl_tpu_torch.data.bank import build_bank
 from murcl_tpu_torch.data.contract import load_split
 from murcl_tpu_torch.drivers.common import epoch_batches, load_policy, murcl_save_dir
-from murcl_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint, transfer_state
+from murcl_tpu_torch.engine.checkpoint import (JAX_FORMAT, load_checkpoint, save_checkpoint,
+                                               transfer_state)
 from murcl_tpu_torch.engine.config import PretrainConfig
 from murcl_tpu_torch.engine.contrastive import ContrastiveEngine
 from murcl_tpu_torch.engine.optim import (lr_schedule_factory, make_optimizer,
@@ -146,7 +147,14 @@ def setup(args) -> SimpleNamespace:
     resume_path = save_dir / "checkpoint.pth.tar"
     if args.resume and resume_path.exists():
         ckpt = load_checkpoint(resume_path, map_location=device)
-        model.load_state_dict(ckpt["model_state_dict"])
+        if ckpt.get("format") == JAX_FORMAT:
+            # a JAX run's file: the bare aggregator tree, and no optimizer
+            # state that torch.optim can take
+            transfer_state(model.encoder, ckpt["model_state_dict"])
+            print(f"resume: {resume_path} is a JAX checkpoint; the optimizer's and the "
+                  "PPO optimizer's states start fresh")
+        else:
+            model.load_state_dict(ckpt["model_state_dict"])
         fc.load_state_dict(ckpt["fc"])
         if optimizer is not None and ckpt.get("optimizer") is not None:
             optimizer.load_state_dict(ckpt["optimizer"])

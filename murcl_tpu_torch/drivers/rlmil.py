@@ -1,7 +1,8 @@
 """Supervised RLMIL driver (counterpart of ``murcl_tpu/drivers/rlmil.py``).
 
 ``train_method`` scratch | finetune | linear x ``train_stage`` 1 | 2 | 3 for
-CLAM_SB, with the reference's checkpoint chaining and weight surgery:
+``--arch`` ABMIL, CLAM_SB or DSMIL, with the reference's checkpoint chaining
+and weight surgery:
 
 - stage 1 (finetune/linear) loads the aggregator from a MuRCL checkpoint
   (``--checkpoint_pretrained``), skipping what does not fit (the projection
@@ -9,6 +10,8 @@ CLAM_SB, with the reference's checkpoint chaining and weight surgery:
 - stages 2 and 3 load aggregator and head from ``../stage_{N-1}/model_best.pth.tar``
   (or ``--checkpoint_stage``). Stage 2 takes its policy from the pretrained
   checkpoint if it has one, stage 3 from the stage-2 checkpoint;
+- every checkpoint may also be one the JAX package wrote
+  (:func:`~murcl_tpu_torch.engine.checkpoint.load_checkpoint`);
 - stage 2 freezes the aggregator and trains the PPO policy for
   ``--ppo_epochs``; stages 1 and 3 train the aggregator and the head.
 
@@ -43,8 +46,7 @@ from murcl_tpu_torch.engine.config import RolloutConfig
 from murcl_tpu_torch.engine.optim import (freeze_for_linear_eval, lr_schedule_factory,
                                           make_optimizer, set_learning_rates)
 from murcl_tpu_torch.engine.supervised import SupervisedEngine
-from murcl_tpu_torch.models import CLAM_SB, PPO, FullLayer
-from murcl_tpu_torch.models.clam import SIZE_DICT
+from murcl_tpu_torch.models import PPO, FullLayer, build_aggregator
 from murcl_tpu_torch.ops.metrics import get_metrics, get_score
 from murcl_tpu_torch.utils.general import (BestVariable, CSVWriter, EarlyStop, increment_path,
                                            init_seeds)
@@ -52,7 +54,6 @@ from murcl_tpu_torch.utils.general import (BestVariable, CSVWriter, EarlyStop, i
 
 def _reject_unported(args) -> None:
     todo = [
-        (args.arch != "CLAM_SB", f"--arch {args.arch} in RLMIL: ROADMAP queue 1, item 12"),
         (not args.fc_rnn, "the cascaded-FC head (fc_rnn false): ROADMAP queue 1, item 10"),
         (args.policy_conv, "--policy_conv: ROADMAP queue 1, item 10"),
         (args.streaming, "--streaming: ROADMAP queue 1, item 13"),
@@ -85,6 +86,19 @@ def _pretrained(args, device) -> dict:
     return load_checkpoint(args.checkpoint_pretrained, map_location=device)
 
 
+def _arch_setting(args) -> dict:
+    """``build_aggregator``'s settings (``murcl_tpu/drivers/rlmil.py:80-93``)."""
+    if args.arch == "ABMIL":
+        return {"L": args.L, "D": args.D, "dropout": args.dropout,
+                "dim_out": args.num_classes}
+    if args.arch == "CLAM_SB":
+        # gate/dropout(0.25)/subtyping are hardcoded in the reference
+        # (train_RLMIL.py:104-112)
+        return {"gate": True, "size_arg": args.size_arg, "dropout": 0.25,
+                "k_sample": args.k_sample, "subtyping": True}
+    return {}
+
+
 def setup(args) -> SimpleNamespace:
     """Banks, modules, optimizer, engine and the weight surgery of one
     stage: ``SimpleNamespace(device, banks, model, fc, ppo, optimizer,
@@ -111,11 +125,9 @@ def setup(args) -> SimpleNamespace:
     print(f"train_length: {train.num_slides}, epoch_step: {args.num_data}, "
           f"eval_step: {args.eval_step}")
 
-    # gate/dropout(0.25)/subtyping are hardcoded in the reference (train_RLMIL.py:104-112)
-    model = CLAM_SB(in_dim=train.patch_dim, gate=True, size_arg=args.size_arg, dropout=0.25,
-                    k_sample=args.k_sample, n_classes=args.num_classes,
-                    subtyping=True).to(device)
-    args.feature_num = SIZE_DICT[args.size_arg][0]
+    model, args.feature_num = build_aggregator(args.arch, train.patch_dim, args.num_classes,
+                                               _arch_setting(args))
+    model = model.to(device)
     fc = FullLayer(feature_num=args.feature_num, hidden_state_dim=args.fc_hidden_dim,
                    fc_rnn=args.fc_rnn, class_num=args.num_classes).to(device)
     ppo = None

@@ -7,14 +7,25 @@ model_state_dict, fc, optimizer, ppo_optimizer, policy}`` -- and copies it to
 ``model_state_dict`` is the ``CL`` wrapper's (keys under ``encoder.``); an
 RLMIL one is the bare aggregator's. :func:`transfer_state` is the
 ``strict=False`` surgery that moves weights between the two.
+
+:func:`load_checkpoint` also reads the JAX package's checkpoints
+(``murcl_tpu/engine/checkpoint.py:35-77``): a pickle of numpy trees with
+``"format": "murcl_tpu/v1"``. A restricted unpickler takes numpy's arrays,
+stands a stub in for every optax, flax, jax and chex class of the optimizer
+states, and refuses any other global, so the read needs none of those
+packages; the trees become the port's ``state_dict`` layout.
 """
 
 from __future__ import annotations
 
+import importlib
+import pickle
 import shutil
 from pathlib import Path
 
 import torch
+
+from murcl_tpu_torch.engine.weights import jax_tree_arch, params_from_jax, policy_from_jax
 
 
 def save_checkpoint(save_dir, epoch: int, model, fc, optimizer=None, ppo=None,
@@ -38,9 +49,73 @@ def save_checkpoint(save_dir, epoch: int, model, fc, optimizer=None, ppo=None,
     return path
 
 
+JAX_FORMAT = "murcl_tpu/v1"
+# numpy's array reconstruction, under numpy 2's (numpy._core) and numpy 1's
+# (numpy.core) module names
+_NUMPY_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype"),
+                  ("numpy.core.multiarray", "_reconstruct"),
+                  ("numpy._core.multiarray", "_reconstruct")}
+_STUBBED = ("optax", "flax", "jax", "chex")
+
+
+class _Stub:
+    """Stands in for an optax/flax/jax/chex object of a JAX checkpoint's
+    optimizer states, which the reader drops."""
+
+    def __new__(cls, *args, **kwargs):
+        return super().__new__(cls)
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        pass
+
+
+class _JaxUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _NUMPY_GLOBALS:
+            if module == "numpy":
+                return getattr(importlib.import_module("numpy"), name)
+            try:
+                core = importlib.import_module("numpy._core.multiarray")
+            except ImportError:
+                core = importlib.import_module("numpy.core.multiarray")
+            return getattr(core, name)
+        if module.split(".")[0] in _STUBBED:
+            return type(name, (_Stub,), {"__module__": module})
+        raise pickle.UnpicklingError(f"global {module}.{name} is not allowed in a checkpoint")
+
+
+def _load_jax(path, map_location) -> dict:
+    """A JAX package checkpoint: ``model_state_dict``, ``fc`` and ``policy``
+    in the port's layouts, converted by the aggregator the tree's leaves
+    show; ``optimizer`` and ``ppo_optimizer`` are ``None``, since optax's
+    moments do not map onto ``torch.optim`` (the JAX drivers' ``--resume``
+    restores them, so a caller that resumes says what it drops), and
+    ``format`` is kept to tell such a dict from a torch file's."""
+    with open(path, "rb") as fp:
+        state = _JaxUnpickler(fp).load()
+    if not isinstance(state, dict) or state.get("format") != JAX_FORMAT:
+        raise ValueError(f"{path} is neither a torch file nor a {JAX_FORMAT} checkpoint")
+    model, fc = params_from_jax(state["model_state_dict"], state["fc"],
+                                arch=jax_tree_arch(state["model_state_dict"]))
+    policy = policy_from_jax(state["policy"]) if state.get("policy") is not None else None
+    move = lambda sd: {k: v.to(map_location) for k, v in sd.items()}  # noqa: E731
+    return {"epoch": state["epoch"], "model_state_dict": move(model), "fc": move(fc),
+            "optimizer": None, "ppo_optimizer": None,
+            "policy": move(policy) if policy is not None else None, "format": JAX_FORMAT}
+
+
 def load_checkpoint(path, map_location="cpu") -> dict:
-    """Load a checkpoint this package wrote (tensors and plain containers)."""
-    return torch.load(path, map_location=map_location, weights_only=True)
+    """Load a checkpoint: a ``torch.save`` file this package wrote (a zip,
+    magic ``PK``: tensors and plain containers), or a JAX package pickle
+    (any aggregator: its tree names its arch)."""
+    with open(path, "rb") as fp:
+        magic = fp.read(2)
+    if magic == b"PK":
+        return torch.load(path, map_location=map_location, weights_only=True)
+    return _load_jax(path, map_location)
 
 
 _GROUP = "instance_classifiers."  # one stacked leaf in the JAX package

@@ -16,7 +16,7 @@ from dataclasses import dataclass
 class RolloutConfig:
     """Shape + schedule of the T-step cluster-window rollout."""
 
-    arch: str  # ABMIL | CLAM_SB (DSMIL: ROADMAP queue 1, item 12)
+    arch: str  # ABMIL | CLAM_SB | DSMIL (supervised); ABMIL | CLAM_SB (MuRCL)
     T: int = 6
     feat_size: int = 1024
     num_clusters: int = 10

@@ -74,7 +74,8 @@ class ContrastiveEngine:
     def __init__(self, cfg: PretrainConfig, model, fc, optimizer=None, ppo=None):
         if cfg.arch not in ARCHS:
             raise NotImplementedError(
-                f"{cfg.arch} is not ported yet: ROADMAP queue 1, item 12")
+                f"{cfg.arch} has no MuRCL pretraining: the JAX package's MuRCL CLI offers "
+                "ABMIL and CLAM_SB only (train_MuRCL.py:13; ROADMAP, the MuRCL archs)")
         if cfg.uses_policy and ppo is None:
             raise ValueError(f"stage {cfg.train_stage} requires a PPO policy")
         if cfg.train_stage != 2 and optimizer is None:

@@ -38,6 +38,8 @@ def make_optimizer(model: torch.nn.Module, fc: torch.nn.Module, optimizer: str =
     groups = [{"params": [p for p in model.parameters() if p.requires_grad],
                "lr": backbone_lr, "name": "model"},
               {"params": list(fc.parameters()), "lr": fc_lr, "name": "fc"}]
+    # a wholly frozen aggregator (DSMIL under linear eval) leaves its group out
+    groups = [g for g in groups if g["params"]]
     if optimizer == "Adam":
         return torch.optim.Adam(groups, betas=(beta1, beta2), eps=1e-8,
                                 weight_decay=wdecay)
@@ -58,7 +60,8 @@ def freeze_for_linear_eval(model: torch.nn.Module, arch: str = "CLAM_SB") -> Non
     its trunk ``fc``, so CLAM's trunk ``attention_net.0`` trains under linear
     eval besides ``classifiers`` and ``instance_classifiers``, and the
     attention net is frozen. The port follows the JAX package. ABMIL's head
-    ``fc`` trains too."""
+    ``fc`` trains too; DSMIL has no such leaf, so its whole aggregator is
+    frozen and only the GRU head trains."""
     gated = any(".attention_b." in k for k, _ in model.named_parameters())
     for name, p in model.named_parameters():
         if not _LINEAR_EVAL_HEADS.intersection(jax_leaf_path(name, arch, gated)):

@@ -1,14 +1,23 @@
-"""Supervised RLMIL engine for CLAM_SB (counterpart of ``murcl_tpu/engine/supervised.py``).
+"""Supervised RLMIL engine for ABMIL, CLAM_SB and DSMIL (counterpart of
+``murcl_tpu/engine/supervised.py``).
 
 Per batch, a T-step rollout over sub-bags selected from each slide's cluster
 windows, with the GRU head ``fc`` accumulating across steps. The step loss
-is ``bag_weight * CE + (1 - bag_weight) * masked_mean(instance_loss)`` and
-the reward is the change of the true class's confidence between steps.
+is ``w * CE(fc logits)`` plus the arch's extra term, and the reward is the
+change of the true class's confidence between steps:
+
+- ABMIL: ``w = 1``, no extra; its t=0 forward trains, as every command
+  line of the reference gets (``--train_model_prime`` is ``store_true``
+  with default ``True``, so no command line turns it off);
+- CLAM_SB: ``w = bag_weight``, extra ``(1 - bag_weight) *
+  masked_mean(instance_loss)``;
+- DSMIL: ``w = 0.5``, extra ``0.5 * CE`` of the max over N of the instance
+  logits; ``fc``'s input is the mean over classes of the bag tensor.
 
 - Stage 1 draws every action uniformly at random, so :meth:`rollout_batched`
   selects, compacts and encodes all ``T * B`` sub-bags in one batch (K1
-  compaction, then the CLAM trunk and K7); only the GRU head runs step by
-  step.
+  compaction, then the aggregator: CLAM's trunk and K7, ABMIL's encoder and
+  K7, or DSMIL's plain products); only the GRU head runs step by step.
 - Stages 2 and 3 (and their evaluation) run :meth:`rollout_sequential`: t=0
   takes uniform actions and a fresh GRU; from t=1 the actions come from
   ``policy_old`` acting on the previous step's ``fc`` input (no gradient),
@@ -47,15 +56,16 @@ class StepStats(NamedTuple):
 
 
 class SupervisedEngine:
-    """Train and eval steps of one stage. ``model`` is the bare CLAM_SB,
-    ``fc`` the GRU head, ``ppo`` a :class:`~murcl_tpu_torch.models.rlmil.PPO`
-    (stages 2 and 3), ``optimizer`` over model and fc (stages 1 and 3)."""
+    """Train and eval steps of one stage. ``model`` is the bare aggregator
+    (``cfg.arch``), ``fc`` the GRU head, ``ppo`` a
+    :class:`~murcl_tpu_torch.models.rlmil.PPO` (stages 2 and 3),
+    ``optimizer`` over model and fc (stages 1 and 3)."""
 
     def __init__(self, cfg: RolloutConfig, model, fc, ppo=None, optimizer=None):
-        if cfg.arch != "CLAM_SB":
-            raise NotImplementedError(
-                f"{cfg.arch} in the supervised engine is not ported yet: ROADMAP queue 1, "
-                "item 12")
+        # the weight of the fc head's CE in each arch's step loss
+        ce_weight = {"ABMIL": 1.0, "CLAM_SB": cfg.bag_weight, "DSMIL": 0.5}
+        if cfg.arch not in ce_weight:
+            raise ValueError(f"unknown arch {cfg.arch!r}; expected ABMIL | CLAM_SB | DSMIL")
         if cfg.uses_policy and ppo is None:
             raise ValueError(f"stage {cfg.train_stage} requires a PPO policy")
         if cfg.train_stage != 2 and optimizer is None:
@@ -66,13 +76,21 @@ class SupervisedEngine:
         self.ppo = ppo
         self.optimizer = optimizer
         self.cdtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+        self.ce_weight = ce_weight[cfg.arch]
 
     def _encode(self, feats, labels, generator):
-        """``(fc_in (B, F) f32, extra (B,))``: the pooled embedding and the
-        weighted instance loss of each bag."""
-        m, aux = self.model(feats.to(self.cdtype), instance_eval=True, label=labels,
-                            generator=generator)
-        return m.float(), (1.0 - self.cfg.bag_weight) * aux["instance_loss"].float()
+        """``(fc_in (B, F) f32, extra (B,))``: the bag embedding and the
+        weighted extra loss of each bag."""
+        x = feats.to(self.cdtype)
+        if self.cfg.arch == "ABMIL":
+            out, _ = self.model(x, generator=generator)
+            return out.float(), torch.zeros(x.shape[0], device=x.device)
+        if self.cfg.arch == "CLAM_SB":
+            m, aux = self.model(x, instance_eval=True, label=labels, generator=generator)
+            return m.float(), (1.0 - self.cfg.bag_weight) * aux["instance_loss"].float()
+        inst, bag, _ = self.model(x, generator=generator)
+        logp = torch.log_softmax(inst.amax(dim=1).float(), dim=-1)
+        return bag.mean(dim=1).float(), -0.5 * logp.gather(1, labels[:, None])[:, 0]
 
     def rollout_batched(self, bank, slide_ids, labels, valid, generator: torch.Generator,
                         actions: Optional[torch.Tensor] = None):
@@ -97,7 +115,7 @@ class SupervisedEngine:
             logits.append(lg)
         logits_all = torch.stack(logits)  # (T, B, C)
         step_ce = torch.stack([cross_entropy(lg, labels, valid) for lg in logits])
-        step_losses = cfg.bag_weight * step_ce + extra_step
+        step_losses = self.ce_weight * step_ce + extra_step
         total = step_losses.sum() / t_steps
 
         conf = label_confidence(logits_all.detach(), labels)  # (T, B)
@@ -122,7 +140,7 @@ class SupervisedEngine:
             x = select_feats(bank, slide_ids, actions.to(dev), cfg.feat_size)
             fc_in, extra = self._encode(x, labels, generator)
             logits, carry = self.fc(fc_in, carry)
-            loss = cfg.bag_weight * cross_entropy(logits, labels, valid) + \
+            loss = self.ce_weight * cross_entropy(logits, labels, valid) + \
                 masked_mean(extra, valid)
             return logits, carry, fc_in.detach(), loss
 

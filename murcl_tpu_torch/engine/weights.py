@@ -1,14 +1,16 @@
 """Move weights between the JAX package's parameter trees and the port.
 
 The JAX trees (``murcl_tpu`` ``ABMIL``, ``CLAM_SB`` gated or not,
-``FullLayer`` and ``ActorCritic``) are nested dicts of arrays, optionally
-under ``'params'``, with flax kernels stored ``(in, out)``; the port's
-modules keep the reference torch layout (weights ``(out, in)``), the same
-mapping as ``murcl_tpu/engine/torch_import.py`` (``ABMIL_MAP``,
-``clam_map``, ``ACTOR_CRITIC_MAP``). Ungated CLAM keeps the reference
-``Attn_Net`` keys (``attention_net.3.module.0`` and ``.3``), which
-``clam_map`` does not cover; they map to the JAX leaves ``attn/wa, ba, wc,
-bc``. Arrays pass through numpy, so this module needs no JAX.
+``MILNet`` (DSMIL), ``FullLayer`` and ``ActorCritic``) are nested dicts of
+arrays, optionally under ``'params'``, with flax kernels stored ``(in,
+out)``; the port's modules keep the reference torch layout (weights ``(out,
+in)``), the same mapping as ``murcl_tpu/engine/torch_import.py``
+(``ABMIL_MAP``, ``clam_map``, ``DSMIL_MAP``, ``ACTOR_CRITIC_MAP``). Ungated
+CLAM keeps the reference ``Attn_Net`` keys (``attention_net.3.module.0``
+and ``.3``), which ``clam_map`` does not cover; they map to the JAX leaves
+``attn/wa, ba, wc, bc``. DSMIL's dead conv head ``b_classifier.fcc`` is the
+pair of leaves ``fcc_kernel`` (its ``(C, C, D)`` weight as it is) and
+``fcc_bias``. Arrays pass through numpy, so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -41,6 +43,13 @@ _ABMIL_LINEARS = [
     ("decoder.0", ("decoder",), "kernel", "bias"),
     ("fc", ("fc",), "kernel", "bias"),
 ]
+_DSMIL_LINEARS = [
+    ("i_classifier.fc.0", ("i_classifier",), "kernel", "bias"),
+    ("b_classifier.q", ("q",), "kernel", "bias"),
+    ("b_classifier.v.1", ("v",), "kernel", "bias"),
+]
+# DSMIL's conv head: (torch key, JAX leaf), taken as they are
+_DSMIL_FCC = [("b_classifier.fcc.weight", "fcc_kernel"), ("b_classifier.fcc.bias", "fcc_bias")]
 _GRU = [("weight_ih_l0", "w_ih", True), ("weight_hh_l0", "w_hh", True),
         ("bias_ih_l0", "b_ih", False), ("bias_hh_l0", "b_hh", False)]
 # ActorCritic: (torch prefix, JAX module) of its linears; its GRU is "gru"
@@ -80,7 +89,21 @@ def _linears(arch: str, gated: bool) -> list:
         return _ABMIL_LINEARS
     if arch == "CLAM_SB":
         return _CLAM_LINEARS if gated else _CLAM_UNGATED_LINEARS
-    raise NotImplementedError(f"{arch} weights: ROADMAP queue 1, item 12")
+    if arch == "DSMIL":
+        return _DSMIL_LINEARS
+    raise ValueError(f"unknown arch {arch!r}; expected ABMIL | CLAM_SB | DSMIL")
+
+
+def jax_tree_arch(model_tree: dict) -> str:
+    """The aggregator a JAX model tree holds, read from its leaves."""
+    mt = _unwrap(model_tree)
+    if "i_classifier" in mt:
+        return "DSMIL"
+    if "decoder" in mt:
+        return "ABMIL"
+    if "instance_kernel" in mt or "classifiers" in mt:
+        return "CLAM_SB"
+    raise KeyError(f"no ABMIL, CLAM_SB or DSMIL leaves in a tree of {sorted(mt)}")
 
 
 def jax_leaf_path(key: str, arch: str = "CLAM_SB", gated: bool = True) -> tuple:
@@ -92,6 +115,10 @@ def jax_leaf_path(key: str, arch: str = "CLAM_SB", gated: bool = True) -> tuple:
             return path + ((w,) if key.endswith(".weight") else (b,))
     if arch == "CLAM_SB" and key.startswith("instance_classifiers."):
         return ("instance_kernel",) if key.endswith(".weight") else ("instance_bias",)
+    if arch == "DSMIL":
+        for torch_key, leaf in _DSMIL_FCC:
+            if key == torch_key:
+                return (leaf,)
     raise KeyError(f"{key} has no JAX leaf in {arch}")
 
 
@@ -100,7 +127,7 @@ def params_from_jax(model_tree: dict, fc_tree: Optional[dict] = None, arch: str 
     """JAX ``(model, fc)`` parameter trees -> the port's ``state_dict``s
     (aggregator keys without the ``encoder.`` prefix, ``FullLayer`` keys;
     ``None`` for a missing ``fc_tree``). ``arch`` is ``CLAM_SB`` (gated or
-    not, read from the tree) or ``ABMIL``."""
+    not, read from the tree), ``ABMIL`` or ``DSMIL``."""
     mt = _unwrap(model_tree)
     model = {}
     for prefix, path, w, b in _linears(arch, "wb" in mt.get("attn", {})):
@@ -112,6 +139,8 @@ def params_from_jax(model_tree: dict, fc_tree: Optional[dict] = None, arch: str 
         for i in range(kernels.shape[0]):
             model[f"instance_classifiers.{i}.weight"] = _t(kernels[i].T)
             model[f"instance_classifiers.{i}.bias"] = _t(biases[i])
+    if arch == "DSMIL":
+        model.update({k: _t(mt[leaf]) for k, leaf in _DSMIL_FCC})
     if fc_tree is None:
         return model, None
     ft = _unwrap(fc_tree)
@@ -144,6 +173,8 @@ def jax_from_params(model_sd: Dict[str, torch.Tensor],
             [sd[f"instance_classifiers.{i}.weight"].T for i in range(n)])
         model["instance_bias"] = np.stack(
             [sd[f"instance_classifiers.{i}.bias"] for i in range(n)])
+    if arch == "DSMIL":
+        model.update({leaf: sd[k].copy() for k, leaf in _DSMIL_FCC})
     if fc_sd is None:
         return {"params": model}, None
     f = _numpy(fc_sd)

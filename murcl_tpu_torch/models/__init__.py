@@ -1,5 +1,5 @@
 """Models: the MIL aggregators (ABMIL, CLAM_SB on its fused and instance-eval
-routes), the CL wrapper, the GRU head and the PPO policy."""
+routes, DSMIL), the CL wrapper, the GRU head and the PPO policy."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Optional
 from murcl_tpu_torch.models.abmil import ABMIL
 from murcl_tpu_torch.models.cl import CL
 from murcl_tpu_torch.models.clam import CLAM_SB, SIZE_DICT
+from murcl_tpu_torch.models.dsmil import MILNet
 from murcl_tpu_torch.models.rlmil import PPO, ActorCritic, FullLayer
 
 
@@ -17,7 +18,7 @@ def build_aggregator(arch: str, dim_in: int, num_classes: int = 2,
     being its bag-embedding width, what ``FullLayer`` consumes (counterpart
     of ``murcl_tpu/models/__init__.py:34-74``). ``arch_setting``: ABMIL
     ``{L, D, K, dim_out, dropout}``; CLAM_SB ``{gate, size_arg, dropout,
-    k_sample, subtyping}``."""
+    k_sample, subtyping}``; DSMIL ``{dropout_v}``."""
     s = dict(arch_setting or {})
     if arch == "ABMIL":
         model = ABMIL(dim_in=dim_in, L=s.get("L", 512), D=s.get("D", 128), K=s.get("K", 1),
@@ -30,8 +31,11 @@ def build_aggregator(arch: str, dim_in: int, num_classes: int = 2,
                         n_classes=num_classes, subtyping=s.get("subtyping", False))
         return model, SIZE_DICT[size_arg][0]
     if arch == "DSMIL":
-        raise NotImplementedError("DSMIL is not ported yet: ROADMAP queue 1, item 12")
+        model = MILNet(dim_feat=dim_in, num_classes=num_classes,
+                       dropout_v=s.get("dropout_v", 0.0))
+        return model, dim_in
     raise ValueError(f"unknown arch {arch!r}; expected ABMIL | CLAM_SB | DSMIL")
 
 
-__all__ = ["ABMIL", "CL", "CLAM_SB", "ActorCritic", "FullLayer", "PPO", "build_aggregator"]
+__all__ = ["ABMIL", "CL", "CLAM_SB", "MILNet", "ActorCritic", "FullLayer", "PPO",
+           "build_aggregator"]

@@ -18,7 +18,7 @@ from murcl_tpu.engine.torch_import import FULL_LAYER_MAP, export_model_state, fl
 from murcl_tpu.models import CLAM_SB as JaxCLAM
 from murcl_tpu.models import FullLayer as JaxFullLayer
 from murcl_tpu_torch.engine.weights import jax_from_params, params_from_jax
-from murcl_tpu_torch.models import CL, CLAM_SB, ActorCritic, FullLayer, build_aggregator
+from murcl_tpu_torch.models import CL, CLAM_SB, ActorCritic, FullLayer
 
 DIM, N, B, PROJ, HID = 16, 12, 3, 8, 32
 
@@ -91,9 +91,8 @@ def test_params_round_trip(tiny_clam):
 
 
 def test_unported_options_raise():
-    # ungated CLAM is ported (tests/test_torch_fused_modes.py); DSMIL is not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_aggregator("DSMIL", dim_in=DIM)
+    # ungated CLAM (tests/test_torch_fused_modes.py) and DSMIL (tests/test_torch_dsmil.py)
+    # are ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FullLayer(32, fc_rnn=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
