@@ -39,7 +39,21 @@
    at (1, 60416, 512) and (1, 12288, 512) f32 and (1, 60416, 512) bf16
    beside its twin, its bound and the FMA tiles' old bound, split by
    sub-kernel, and failing unless faster than the twin in f32.
-4. Drives the paths on one synthetic dataset of 192 slides x 2048 patches
+4. Preprocesses two synthetic 16,384 x 12,288 slides at 40x, held in
+   memory, through the three entry points (``preprocess_path``):
+   ``create_patches`` at 20x with 256-pixel patches (read at 512 px and
+   resized on the host; ``rgb``, and slide 0 also ``otsu`` and
+   ``adaptive``; host ms per phase), ``extract_features`` on the card with
+   random ResNet18 weights at batch 256, once with the host resize and once
+   with ``--resize_on_device`` (patches/s, host ms per patch, the device's
+   idle share under torch.profiler; 64 patches' features within 1e-4 of
+   the port's CPU f32 forward), the encoder alone over 4,096 patches in f32
+   (TF32 off) and bf16 beside its bound, ``features_clustering`` on the
+   card (K 10; inertia within 1e-4 of the port's CPU k-means; ms and
+   iterations per slide); then ``WSIWithCluster`` loads the output and
+   MuRCL CLAM_SB stage 1 (batch 2, feat_size 1024, bf16) trains on it,
+   launching K1, K2/K3 and K4.
+5. Drives the paths on one synthetic dataset of 192 slides x 2048 patches
    (dim 512, K 10), every launch count set to 0 before a stage and read
    after it:
    - MuRCL pretraining, ``murcl_tpu_torch.drivers.murcl.run``, stages 1 ->
@@ -74,7 +88,7 @@
      the JAX package). Then one supervised ABMIL stage-1 step through the
      kernels and through their plain twins, compared as
      ``abmil_step_check`` compares (``supervised_step_check``).
-5. Times steady steps: supervised at batch 64 (CLAM_SB stage 3 and stage
+6. Times steady steps: supervised at batch 64 (CLAM_SB stage 3 and stage
    1, ABMIL stage 1, DSMIL stage 1), and MuRCL CLAM_SB stage 1 (the
    ``bench.py`` step), ABMIL stage 1 and CLAM_SB stage 3 at batch 128: 2
    warm-up steps, then a host clock around 5 synchronised steps, read also
@@ -904,6 +918,265 @@ def check_tiled(dev, gen):
     return res
 
 
+# the preprocessing path: synthetic 40x slides of this (height, width), tiled
+# at 20x with 256-pixel patches (each read at 512 px and resized, as
+# Camelyon16's 40x slides are cut) and a 1/32 mask; ResNet18 at batch 256;
+# its encoder timed alone over PRE_TIMED patches; k-means K 10 per slide
+PRE_SLIDES, PRE_HW, PRE_MAG, PRE_PATCH, PRE_SCALE = 2, (12288, 16384), 20, 256, 32
+PRE_BATCH, PRE_TIMED, PRE_CHECK = 256, 4096, 64
+
+
+def encoder_flops(name: str, size: int) -> float:
+    """The encoder's multiply-adds x 2 for one ``size``-pixel patch, counted
+    from its convolutions' and products' output shapes."""
+    import torch
+
+    from murcl_tpu_torch.preprocess.resnet import create_encoder
+
+    model, _ = create_encoder(name)
+    total = [0]
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+            total[0] += 2 * out.numel() * k
+        elif isinstance(mod, torch.nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(torch.zeros(1, 3, size, size))
+    for h in handles:
+        h.remove()
+    return float(total[0])
+
+
+def preprocess_path(dev, root):
+    """The preprocessing path through its three entry points, on
+    ``PRE_SLIDES`` synthetic slides held in memory: ``create_patches``
+    (``rgb``; slide 0 also ``otsu`` and ``adaptive``; host ms per phase),
+    ``extract_features`` on the card twice (host resize, then
+    ``--resize_on_device``; random weights, as without ``--weights``),
+    each under torch.profiler for the device's idle share, with 64 patches'
+    features held against the port's CPU f32 forward (relative error <=
+    1e-4: TF32 is off); the encoder alone timed over 4,096 patches in f32
+    and bf16; ``features_clustering`` on the card, each slide's inertia
+    within 1e-4 of the port's CPU k-means; then ``WSIWithCluster`` loads the
+    output and MuRCL CLAM_SB stage 1 (feat_size 1024, bf16) trains on it,
+    launch counts reset first. Returns those launch counts."""
+    import collections
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from murcl_tpu_torch import create_patches, extract_features, features_clustering
+    from murcl_tpu_torch.data import contract
+    from murcl_tpu_torch.data.datasets import WSIWithCluster
+    from murcl_tpu_torch.data.synthetic import synthetic_slide
+    from murcl_tpu_torch.drivers.murcl import run
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.preprocess import extract, filters, tiling
+    from murcl_tpu_torch.preprocess.kmeans import kmeans_torch
+    from murcl_tpu_torch.preprocess.slide_io import ImageSlide
+    from murcl_tpu_torch.utils.general import dump_json, load_json
+
+    root = Path(root)
+    slide_dir = root / "slides"
+    slide_dir.mkdir(parents=True)
+    t0 = time.time()
+    slides = {}
+    for i in range(PRE_SLIDES):
+        path = slide_dir / f"wsi_{i}.svs"
+        path.touch()  # the tiling walks the directory; the pixels are in memory
+        slides[str(path)] = ImageSlide(path, image=synthetic_slide(*PRE_HW, seed=i),
+                                       properties={"aperio.AppMag": "40"})
+    print(f"preprocess: {PRE_SLIDES} slides of {PRE_HW[1]} x {PRE_HW[0]} RGB at 40x drawn in "
+          f"{time.time() - t0:.1f} s")
+
+    ms = collections.defaultdict(float)
+
+    def timed(key, fn):
+        def wrapped(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                ms[key] += 1e3 * (time.perf_counter() - t)
+        return wrapped
+
+    def tiling_ms(n):
+        mask = ms["mask"] - ms["downsample"]
+        grid = ms["tiling"] - ms["mask"] - ms["json"]
+        return (f"downsample {ms['downsample'] / n:.1f}, mask {mask / n:.1f}, grid "
+                f"{grid / n:.1f}, json {ms['json'] / n:.1f} ms (host) per slide")
+
+    saved = (tiling.open_slide, extract.open_slide, filters.downsample_image,
+             tiling.save_coord_json, tiling.tiling, dict(filters.MASK_ALGORITHMS))
+    tiling.open_slide = extract.open_slide = lambda p: slides[str(p)]
+    filters.downsample_image = timed("downsample", filters.downsample_image)
+    filters.MASK_ALGORITHMS.update({k: timed("mask", f)
+                                    for k, f in filters.MASK_ALGORITHMS.items()})
+    tiling.save_coord_json = timed("json", tiling.save_coord_json)
+    tiling.tiling = timed("tiling", tiling.tiling)
+    try:
+        create_patches.main(["--slide_dir", str(slide_dir), "--save_dir", str(root / "patches"),
+                             "--magnification", str(PRE_MAG), "--patch_size", str(PRE_PATCH),
+                             "--scale_factor", str(PRE_SCALE), "--method", "rgb"])
+        coords = [load_json(root / "patches" / "coord" / f"wsi_{i}.json")
+                  for i in range(PRE_SLIDES)]
+        counts = [c["num_patches"] for c in coords]
+        check(all(c["patch_size_level0"] == 2 * PRE_PATCH for c in coords)
+              and min(counts) >= PRE_CHECK, f"tiling: {counts} patches")
+        print(f"tiling rgb: {counts} patches of {2 * PRE_PATCH} px at level 0 on "
+              f"{coords[0]['num_row']} x {coords[0]['num_col']} grids; {tiling_ms(PRE_SLIDES)}")
+        for method in ("otsu", "adaptive"):
+            ms.clear()
+            (root / method).mkdir()
+            out = tiling.tiling(str(slide_dir / "wsi_0.svs"), magnification=PRE_MAG,
+                                patch_size=PRE_PATCH, scale_factor=PRE_SCALE, method=method,
+                                coord_dir=root / method, filename="wsi_0")
+            check(out["num_patches"] > 0, f"tiling {method}: no patch")
+            print(f"tiling {method} (slide 0): {out['num_patches']} patches; {tiling_ms(1)}")
+
+        feats = {}
+        for mode, extra in (("host resize", []), ("device resize", ["--resize_on_device"])):
+            save = root / ("feat_device" if extra else "feat_host")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                records = extract_features.main(
+                    ["--patch_dir", str(root / "patches"), "--save_dir", str(save),
+                     "--device", str(dev), "--batch_size", str(PRE_BATCH),
+                     "--num_workers", "8", *extra])
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t)
+            busy = busy_union_ms(device_events(prof))
+            n = sum(r["num_patches"] for r in records)
+            check(n == sum(counts), f"extract {mode}: {n} patches")
+            feats[mode] = {i: np.load(save / "resnet18" / f"wsi_{i}.npz")["img_features"]
+                           for i in range(PRE_SLIDES)}
+            check(all(np.isfinite(f).all() and f.shape == (c, 512)
+                      for f, c in zip(feats[mode].values(), counts)), f"extract {mode} output")
+            print(f"extract ({mode}, {PRE_SLIDES} slides, first call included): {n} patches in "
+                  f"{wall_ms:.1f} ms = {1e3 * n / wall_ms:.1f} patches/s; host read "
+                  f"(crop{' + resize' if not extra else ''}) "
+                  f"{sum(r['read_ms'] for r in records) / n:.3f} ms per patch on 8 threads; "
+                  f"encode {sum(r['encode_ms'] for r in records):.1f} ms; device busy "
+                  f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f} (traced)")
+
+        # the card's features against the port's CPU f32 forward on the same patches
+        first = coords[0]["coords"][:PRE_CHECK]
+        for mode, on_device in (("host resize", False), ("device resize", True)):
+            patches = extract._read_patches(slides[str(slide_dir / "wsi_0.svs")], first,
+                                            2 * PRE_PATCH, PRE_PATCH, 8,
+                                            resize_on_host=not on_device)
+            cpu = extract.PatchEncoder("resnet18", batch_size=PRE_CHECK, patch_size=PRE_PATCH,
+                                       resize_on_device=on_device,
+                                       device="cpu").encode_patches(patches)
+            got = torch.from_numpy(feats[mode][0][:PRE_CHECK])
+            err = rel_err(got, torch.from_numpy(cpu))
+            check(err <= 1e-4, f"extract {mode}: card against CPU, rel err {err}")
+            print(f"extract ({mode}): {PRE_CHECK} patches' features on the card against the "
+                  f"CPU f32 forward, rel err {err:.2e}, max abs "
+                  f"{float((got - torch.from_numpy(cpu)).abs().max()):.2e}")
+        a, b = (torch.from_numpy(feats[m][0]) for m in ("host resize", "device resize"))
+        print(f"host (bicubic) against device (bilinear) resize: features rel diff "
+              f"{rel_err(b, a):.3e}")
+
+        # the encoder alone
+        flops = encoder_flops("resnet18", PRE_PATCH)
+        x = torch.randint(0, 256, (PRE_TIMED, PRE_PATCH, PRE_PATCH, 3), dtype=torch.uint8,
+                          device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+        for dtype, peak in (("float32", F32_FLOPS), ("bfloat16", BF16_FLOPS)):
+            enc = extract.PatchEncoder("resnet18", batch_size=PRE_BATCH, patch_size=PRE_PATCH,
+                                       dtype=dtype, device=str(dev))
+
+            def encode_all():
+                with torch.no_grad(), extract.full_f32():
+                    for s in range(0, PRE_TIMED, PRE_BATCH):
+                        enc._encode(x[s:s + PRE_BATCH])
+
+            bound_ms = PRE_TIMED * flops / peak * 1e3
+            for autotune in (False, True):  # cuDNN's heuristics, then its autotuner
+                saved_bench = torch.backends.cudnn.benchmark
+                torch.backends.cudnn.benchmark = autotune
+                try:
+                    total = median_ms(encode_all, reps=3)
+                finally:
+                    torch.backends.cudnn.benchmark = saved_bench
+                print(f"encoder resnet18 {dtype} ({'TF32 off' if dtype == 'float32' else 'bf16'}"
+                      f", cudnn.benchmark {autotune}), {PRE_TIMED} patches of {PRE_PATCH}^2 at "
+                      f"batch {PRE_BATCH}: {total:.1f} ms, "
+                      f"{total / (PRE_TIMED // PRE_BATCH):.2f} ms per batch, "
+                      f"{1e3 * PRE_TIMED / total:.0f} patches/s; bound {bound_ms:.1f} ms "
+                      f"({flops / 1e9:.2f} GFLOP per patch at {peak / 1e12:.0f} TFLOP/s, "
+                      f"{1e3 * PRE_TIMED / bound_ms:.0f} patches/s)")
+            del enc
+        del x
+        torch.cuda.empty_cache()
+
+        # k-means on the card, held against the port's CPU k-means
+        feat_dir = root / "feat_host" / "resnet18"
+        records = features_clustering.main(["--feat_dir", str(feat_dir), "--num_clusters",
+                                            str(K), "--device", str(dev)])
+        check(len(records) == PRE_SLIDES, f"clustering: {records}")
+        for i, rec in enumerate(records):
+            f = feats["host resize"][i]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            card = kmeans_torch(torch.from_numpy(f).to(dev), K)
+            card_ms = 1e3 * (time.perf_counter() - t)
+            cpu = kmeans_torch(torch.from_numpy(f), K)
+            err = abs(card["inertia"] - cpu["inertia"]) / cpu["inertia"]
+            check(err <= 1e-4, f"k-means {rec['case_id']}: inertia {card['inertia']} against "
+                  f"CPU {cpu['inertia']}")
+            with np.load(feat_dir / f"k-means-{K}" / f"{rec['case_id']}.npz") as z:
+                labels = z["features_cluster_indices"][:, 0]
+            check(np.array_equal(labels, card["labels"].cpu().numpy()),
+                  f"k-means {rec['case_id']}: the CLI's labels")
+            print(f"k-means {rec['case_id']} ({rec['num_features']} x 512, K {K}, n_init 10): "
+                  f"CLI {rec['ms']:.1f} ms, again {card_ms:.1f} ms on the card, "
+                  f"{card['iterations']} iterations (CPU {cpu['iterations']}), inertia "
+                  f"{card['inertia']:.6g} against CPU {cpu['inertia']:.6g} (rel {err:.1e})")
+
+        # MuRCL stage 1 on the features and clusters made here
+        rows = [{"case_id": f"wsi_{i}", "features_filepath": str(feat_dir / f"wsi_{i}.npz"),
+                 "label": i % 2,
+                 "clusters_filepath": str(feat_dir / f"k-means-{K}" / f"wsi_{i}.npz"),
+                 "clusters_json_filepath": str(feat_dir / f"k-means-{K}" / f"wsi_{i}.json")}
+                for i in range(PRE_SLIDES)]
+        csv = root / f"preprocessed_{K}.csv"
+        contract.save_manifest(csv, rows)
+        ids = [r["case_id"] for r in rows]
+        dump_json({"train": ids, "valid": ids, "test": ids}, root / "split.json")
+        ds = WSIWithCluster(csv)
+        for i in range(len(ds)):
+            f, clusters, _, case = ds[i]
+            check(f.shape == (counts[i], 512) and len(clusters) == K
+                  and sorted(j for c in clusters for j in c) == list(range(counts[i])),
+                  f"WSIWithCluster {case}")
+        args = murcl_args(dev, {"data_csv": str(csv), "data_split_json": str(root / "split.json")},
+                          root / "murcl", "CLAM_SB", 1)
+        args.batch_size, args.data_repeat = PRE_SLIDES, 4
+        _cuda.reset_launch_counts()
+        out = run(args)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        check(math.isfinite(out["best_loss"]), f"MuRCL on preprocessed features: {out}")
+        used, unused = MURCL_KERNELS["CLAM_SB"][1]
+        check(all(launches[k] > 0 for k in used) and all(launches[k] == 0 for k in unused),
+              f"MuRCL on preprocessed features: launches {launches}")
+        print(f"MuRCL CLAM_SB stage 1 on the preprocessed slides (batch {PRE_SLIDES}, "
+              f"feat_size {N_MAIN}, bf16): loss {out['best_loss']:.6f}, launches {launches}")
+    finally:
+        (tiling.open_slide, extract.open_slide, filters.downsample_image,
+         tiling.save_coord_json, tiling.tiling, masks) = saved
+        filters.MASK_ALGORITHMS.update(masks)
+    return launches
+
+
 def make_dataset(root):
     """192 synthetic slides x 2048 patches; split files for MuRCL (the
     first 64 slides) and for RLMIL (128 / 32 / 32; labels alternate)."""
@@ -1402,6 +1675,22 @@ def steady_murcl_steps(dev, ds, results):
     return out
 
 
+def device_events(prof) -> list:
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_union_ms(kernels) -> float:
+    """The union of the kernels' device intervals, ms."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if b > end:  # us
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
 def profile_steps(step, what: str, step_ms: float, n: int = 3) -> None:
     """Device time by kernel over ``n`` traced steps, and the union of the
     kernel intervals per step against the untraced step time ``step_ms``."""
@@ -1415,16 +1704,11 @@ def profile_steps(step, what: str, step_ms: float, n: int = 3) -> None:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     by_name = collections.defaultdict(float)
     for e in kernels:
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / n
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        if b > end:  # union of kernel intervals, us
-            busy += b - max(a, end)
-            end = b
-    busy_ms = busy / 1e3 / n
+    busy_ms = busy_union_ms(kernels) / n
     print(f"profile {what}: device busy {busy_ms:.2f} ms per step, "
           f"{100 * busy_ms / step_ms:.2f}% of the untraced {step_ms:.2f} ms step; "
           f"device ms per step by kernel ({len(kernels) / n:.0f} launches per step):")
@@ -1500,6 +1784,9 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(dir=work))
     try:
         t0 = time.time()
+        pre = preprocess_path(dev, tmp / "preprocess")
+        print(f"preprocessing phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
         ds = make_dataset(tmp / "data")
         print(f"synthetic dataset written in {time.time() - t0:.1f} s")
         clam_stages, pretrained = murcl_path(dev, ds, tmp / "murcl", "CLAM_SB")
@@ -1518,7 +1805,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
-    for counts in [*clam_stages.values(), *abmil_stages.values(), heat,
+    for counts in [pre, *clam_stages.values(), *abmil_stages.values(), heat,
                    *(c for path in rl_stages for c in path.values())]:
         for k, v in counts.items():
             launches[k] += v

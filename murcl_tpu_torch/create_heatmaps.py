@@ -4,7 +4,8 @@
 Run as ``python -m murcl_tpu_torch.create_heatmaps``. The flags are those of
 ``scripts/create_heatmaps.py``. ``--device`` is a CUDA device index (the
 default ``0``: kernels K2 and K8) or ``cpu`` (the plain PyTorch path).
-``--draw_contours`` is not ported yet and raises.
+``--draw_contours`` outlines the Camelyon16 annotation polygons of
+``--annotation_dir/<case_id>.xml``.
 """
 
 import argparse
@@ -23,7 +24,7 @@ def parse_args(argv=None):
     parser.add_argument('--annotation_dir', type=str, default=None,
                         help="Camelyon16 annotation XML directory (for --draw_contours)")
     parser.add_argument('--draw_contours', action='store_true', default=False,
-                        help="not ported yet: ROADMAP queue 1, item 15")
+                        help="outline the annotation XML's ROI polygons")
     parser.add_argument('--arch', type=str, default='CLAM_SB', choices=['CLAM_SB'])
     parser.add_argument('--num_classes', type=int, default=2)
     parser.add_argument('--size_arg', type=str, default='small', choices=['small', 'big'])

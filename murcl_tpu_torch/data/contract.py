@@ -8,6 +8,9 @@
 - Cluster ``.npz`` with ``features_cluster_indices (N, 1)`` and a cluster
   ``.json`` holding K lists of patch indices.
 - Split ``.json``: dict of case-id lists keyed ``train / valid / test``.
+- Coord ``.json`` per slide, as tiling writes it: the slide's path,
+  magnifications, grid and patch sizes, and the kept patches' ``row, col,
+  x, y``.
 
 The manifest is read with :mod:`csv`, not pandas.
 """
@@ -98,3 +101,24 @@ def save_cluster_npz_json(labels: np.ndarray, num_clusters: int,
 def load_split(path) -> Dict[str, List[str]]:
     """Load the split json (keys ``train/valid/test``, optionally more)."""
     return load_json(path)
+
+
+def save_coord_json(path, slide_filepath: str, magnification: int,
+                    magnification_level0: int, num_row: int, num_col: int,
+                    patch_size: int, patch_size_level0: int,
+                    coords: List[dict]) -> None:
+    """Write a per-slide coord json (``wsi_processing/create_patches.py:108-121``)."""
+    dump_json(
+        {
+            "slide_filepath": str(slide_filepath),
+            "magnification": magnification,
+            "magnification_level0": magnification_level0,
+            "num_row": num_row,
+            "num_col": num_col,
+            "patch_size": patch_size,
+            "patch_size_level0": patch_size_level0,
+            "num_patches": len(coords),
+            "coords": coords,
+        },
+        path,
+    )

@@ -4,7 +4,9 @@ Counterpart of ``murcl_tpu/data/synthetic.py`` (``make_synthetic_slide``,
 ``generate_synthetic_dataset``): fake slides with random patch features,
 class-dependent signal and clusters by construction. ``slide_patches``
 fixes every slide's patch count (the benchmark shape); otherwise counts are
-drawn from ``[min_patches, max_patches]``.
+drawn from ``[min_patches, max_patches]``. :func:`synthetic_slide` draws
+a slide image (tissue blobs and pen strokes on white) for the
+preprocessing path.
 """
 
 from __future__ import annotations
@@ -92,3 +94,33 @@ def generate_synthetic_dataset(root, num_slides: int = 8, dim: int = 64,
         "num_clusters": num_clusters,
         "dim": dim,
     }
+
+
+def synthetic_slide(height: int, width: int, seed: int = 0, cell: int = 32) -> np.ndarray:
+    """An ``(height, width, 3)`` uint8 RGB slide: white, with a few elliptic
+    blobs of pink tissue texture (a 256-pixel random tile repeated) and red
+    and blue pen strokes, drawn on a grid of ``cell`` pixels so that a
+    gigapixel slide takes seconds; ``height`` and ``width`` are multiples of
+    ``cell``."""
+    rng = np.random.default_rng(seed)
+    gh, gw = height // cell, width // cell
+    yy, xx = np.mgrid[0:gh, 0:gw]
+    tissue = np.zeros((gh, gw), dtype=bool)
+    for _ in range(4):
+        cy, cx = rng.uniform(0.2, 0.8) * gh, rng.uniform(0.2, 0.8) * gw
+        ry, rx = rng.uniform(0.12, 0.3) * gh, rng.uniform(0.12, 0.3) * gw
+        tissue |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
+    pen = np.zeros((gh, gw), dtype=np.uint8)  # 1 red, 2 blue
+    for colour in (1, 2):
+        row = int(rng.integers(gh // 10, gh - gh // 10))
+        c0 = int(rng.integers(0, gw // 4))
+        pen[row:row + max(gh // 40, 1), c0:c0 + gw // 2] = colour
+    tile = np.stack([rng.integers(180, 230, (256, 256)), rng.integers(120, 170, (256, 256)),
+                     rng.integers(160, 210, (256, 256))], axis=-1).astype(np.uint8)
+    up = lambda m: np.repeat(np.repeat(m, cell, axis=0), cell, axis=1)  # noqa: E731
+    img = np.where(up(tissue)[..., None], np.tile(tile, (-(-height // 256), -(-width // 256), 1))
+                   [:height, :width], np.uint8(255))
+    pens = up(pen)
+    img[pens == 1] = (230, 30, 40)
+    img[pens == 2] = (40, 50, 220)
+    return img

@@ -1,1 +1,2 @@
-"""Slide IO and full-slide attention heatmaps."""
+"""Slide preprocessing (tiling, tissue masks, patch features, k-means) and
+full-slide attention heatmaps."""

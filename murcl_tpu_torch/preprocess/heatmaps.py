@@ -12,7 +12,9 @@ slides take the fused K2 (see ``murcl_tpu_torch/models/clam.py``).
 The painting is numpy and equals OpenCV's bitwise: :data:`JET` is
 ``cv2.COLORMAP_JET``, rectangles are filled with inclusive corners and
 clipped to the image, and the blend rounds half to even as
-``cv2.addWeighted`` does. ROI contours (``cv2.drawContours``) are not ported.
+``cv2.addWeighted`` does. ROI contours (``cv2.drawContours`` at thickness
+5) are :func:`murcl_tpu_torch.preprocess.cvcompat.polylines`, which differs
+from OpenCV's on a few pixels of slanted segments.
 """
 
 from __future__ import annotations
@@ -25,11 +27,10 @@ from xml.dom import minidom
 import numpy as np
 import torch
 
-from murcl_tpu_torch.preprocess.slide_io import get_three_points, open_slide
+from murcl_tpu_torch.preprocess import cvcompat
+from murcl_tpu_torch.preprocess.slide_io import as_rgb, get_three_points, open_slide
 from murcl_tpu_torch.utils.general import load_json
 from murcl_tpu_torch.utils.png import write_png
-
-_CONTOURS = "ROI contours (--draw_contours) are not ported yet: ROADMAP queue 1, item 15"
 
 # cv2.COLORMAP_JET as (level, value) knots per BGR channel; it is linear
 # between them in steps of 4
@@ -60,23 +61,18 @@ def blend(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                    + b.astype(np.float32) * np.float32(0.5)).astype(np.uint8)
 
 
-def _rgb(image) -> np.ndarray:
-    """An OpenSlide (PIL) or port thumbnail as an RGB uint8 array."""
-    return np.asarray(image.convert("RGB") if hasattr(image, "convert") else image)
-
-
 def create_heatmap(coord_filepath, attention, slide_level: int = -1,
                    contours: Optional[list] = None) -> np.ndarray:
-    """Paint per-patch attention onto the slide thumbnail; returns BGR uint8."""
-    if contours is not None:
-        raise NotImplementedError(_CONTOURS)
+    """Paint per-patch attention onto the slide thumbnail, with the ROI
+    ``contours`` (level-0 polygons) outlined in yellow; returns BGR uint8."""
     coord_dict = load_json(coord_filepath)
     coords = coord_dict["coords"]
     num_patches = coord_dict["num_patches"]
     slide = open_slide(coord_dict["slide_filepath"])
     thumbnail = np.ascontiguousarray(
-        _rgb(slide.get_thumbnail(slide.level_dimensions[slide_level]))[..., ::-1])
-    size = coord_dict["patch_size_level0"] / slide.level_downsamples[slide_level]
+        as_rgb(slide.get_thumbnail(slide.level_dimensions[slide_level]))[..., ::-1])
+    level_downsample = slide.level_downsamples[slide_level]
+    size = coord_dict["patch_size_level0"] / level_downsample
     assert num_patches == len(coords) == len(attention), \
         f"{num_patches}-{len(coords)}-{len(attention)}"
 
@@ -89,7 +85,11 @@ def create_heatmap(coord_filepath, attention, slide_level: int = -1,
     for c, color in zip(coords, colors):  # in patch order: a later patch paints over
         (x0, y0), (x1, y1), _ = get_three_points(c["col"], c["row"], size)
         heatmap[y0:y1 + 1, x0:x1 + 1] = color
-    return blend(heatmap, thumbnail)
+    heatmap = blend(heatmap, thumbnail)
+    for contour in contours or ():
+        cvcompat.polylines(heatmap, np.asarray(contour / level_downsample).astype(np.int32),
+                           (0, 255, 255), thickness=5)
+    return heatmap
 
 
 class AttentionScorer:
@@ -137,8 +137,6 @@ def run_heatmaps(args) -> List[dict]:
     from murcl_tpu_torch.data.datasets import WSIDataset
     from murcl_tpu_torch.drivers.murcl import resolve_device
 
-    if args.draw_contours:
-        raise NotImplementedError(_CONTOURS)
     device = resolve_device(args.device)
     dataset = WSIDataset(data_csv=args.data_csv, shuffle=False, preload=args.preload)
     scorer = AttentionScorer(dim_patch=dataset.patch_dim, num_classes=args.num_classes,
@@ -158,8 +156,13 @@ def run_heatmaps(args) -> List[dict]:
         t1 = time.perf_counter()
         attention = scorer(feat)
         t2 = time.perf_counter()
+        contours = None
+        if args.annotation_dir is not None and args.draw_contours:
+            xml = Path(args.annotation_dir) / f"{case_id}.xml"
+            if xml.exists():
+                contours = load_annotations_xml(xml)
         heatmap = create_heatmap(Path(args.coord_dir) / f"{case_id}.json", attention,
-                                 slide_level=args.slide_level)
+                                 slide_level=args.slide_level, contours=contours)
         t3 = time.perf_counter()
         write_png(out_path, heatmap)
         t4 = time.perf_counter()

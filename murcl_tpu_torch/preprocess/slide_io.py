@@ -1,6 +1,7 @@
 """Slide IO: OpenSlide when importable, a single-level numpy slide otherwise
 (counterpart of ``murcl_tpu/preprocess/slide_io.py``: ``ImageSlide``,
-``open_slide``, ``get_three_points``).
+``open_slide``, ``downsample_image``, ``get_three_points``, ``keep_patch``,
+``out_of_bound``).
 
 The port's :class:`ImageSlide` holds an RGB uint8 array and returns numpy
 arrays where the JAX class returns PIL images (``read_region`` RGBA,
@@ -16,6 +17,8 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+from murcl_tpu_torch.preprocess.resample import resize_u8
 
 try:  # pragma: no cover - depends on environment
     import openslide as _openslide
@@ -104,3 +107,33 @@ def get_three_points(x_step: int, y_step: int, size) -> tuple:
     bottom_right = (int(top_left[0] + size), int(top_left[1] + size))
     center = ((top_left[0] + bottom_right[0]) // 2, (top_left[1] + bottom_right[1]) // 2)
     return top_left, bottom_right, center
+
+
+def as_rgb(image) -> np.ndarray:
+    """An OpenSlide (PIL) image or a port array (RGB or RGBA) as an RGB uint8
+    array."""
+    if hasattr(image, "convert"):
+        return np.asarray(image.convert("RGB"))
+    return np.asarray(image)[..., :3]
+
+
+def downsample_image(slide, downsampling_factor: float = 16):
+    """``(RGB array, level)``: the best pyramid level for the factor, read as
+    RGBA and resized to ``dims // downsampling_factor`` with
+    :func:`resize_u8` (reference ``wsi_processing/utils.py:12-26``). The JAX
+    package resizes the RGBA region premultiplied; where a pixel is opaque,
+    or transparent black as OpenSlide returns it, that is the same."""
+    level = slide.get_best_level_for_downsample(downsampling_factor + 0.1)
+    rgba = np.asarray(slide.read_region((0, 0), level, slide.level_dimensions[level]))
+    target = tuple(int(x // downsampling_factor) for x in slide.dimensions)
+    return np.ascontiguousarray(resize_u8(rgba, target)[..., :3]), level
+
+
+def keep_patch(mask_patch: np.ndarray, thresh: float, bg_color: np.ndarray) -> bool:
+    """True when the mask tile's background proportion is <= 1 - thresh."""
+    bg = np.all(mask_patch == bg_color, axis=2)
+    return (bg.sum() / bg.size) <= (1 - thresh)
+
+
+def out_of_bound(w: int, h: int, x: int, y: int) -> bool:
+    return x >= w or y >= h

@@ -84,8 +84,11 @@ def test_create_heatmap_bitwise_with_jax(tmp_path, monkeypatch):
         want = jax_hm.create_heatmap(tmp_path / "fake.json", attention, slide_level=level)
         assert got.shape == (1536, 2048, 3) and got.dtype == np.uint8
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        hm.create_heatmap(tmp_path / "fake.json", attention, contours=[])
+    # an empty ROI list draws nothing (the outline itself:
+    # tests/test_torch_preprocess_tiling.py::test_draw_contours_against_jax)
+    np.testing.assert_array_equal(
+        hm.create_heatmap(tmp_path / "fake.json", attention, contours=[]),
+        hm.create_heatmap(tmp_path / "fake.json", attention))
 
 
 def test_thumbnail_equals_jax_image_slide():
