@@ -39,21 +39,40 @@
    at (1, 60416, 512) and (1, 12288, 512) f32 and (1, 60416, 512) bf16
    beside its twin, its bound and the FMA tiles' old bound, split by
    sub-kernel, and failing unless faster than the twin in f32.
-4. Preprocesses two synthetic 16,384 x 12,288 slides at 40x, held in
-   memory, through the three entry points (``preprocess_path``):
-   ``create_patches`` at 20x with 256-pixel patches (read at 512 px and
-   resized on the host; ``rgb``, and slide 0 also ``otsu`` and
-   ``adaptive``; host ms per phase), ``extract_features`` on the card with
-   random ResNet18 weights at batch 256, once with the host resize and once
-   with ``--resize_on_device`` (patches/s, host ms per patch, the device's
-   idle share under torch.profiler; 64 patches' features within 1e-4 of
-   the port's CPU f32 forward), the encoder alone over 4,096 patches in f32
-   (TF32 off) and bf16 beside its bound, ``features_clustering`` on the
-   card (K 10; inertia within 1e-4 of the port's CPU k-means; ms and
-   iterations per slide); then ``WSIWithCluster`` loads the output and
-   MuRCL CLAM_SB stage 1 (batch 2, feat_size 1024, bf16) trains on it,
-   launching K1, K2/K3 and K4.
-5. Drives the paths on one synthetic dataset of 192 slides x 2048 patches
+4. Decodes JPEG tiles on the card with nvJPEG (``nvjpeg_path``): the
+   committed fixture's tiles against PIL's decode, within
+   ``FIXTURE_BOUND``, their rate, and a JPEG-tiled TIFF read through
+   ``TiffSlide`` on the card. Fails where libnvjpeg does not load.
+5. Preprocesses two synthetic 16,384 x 12,288 slides at 40x, written as
+   deflate TIFF pyramids (downsamples 1, 4, 16) with an Aperio description
+   and read through ``open_slide``, through the three entry points
+   (``preprocess_path``): ``create_patches`` at 20x with 256-pixel patches
+   (read at 512 px; ``rgb``, and slide 0 also ``otsu`` and ``adaptive``,
+   and ``rgb`` from a single-level file of the same pixels, whose
+   downsample runs on the card; host ms per phase), ``extract_features`` on
+   the card with random ResNet18 weights at batch 256: threads with the
+   exact resize (PIL's bicubic on the card, bit for bit with the host's
+   ``resize_u8`` on 64 patches and on a 4,096 x 3,072 region downsampled
+   16 times), threads with ``--resize_on_device``, and the process decode
+   pool (patches/s, host ms per patch, the device's idle share under
+   torch.profiler; the pool's features equal the threads'; 64 patches'
+   features within 1e-4 of the port's CPU f32 forward), the encoder alone
+   over 4,096 patches in f32 (TF32 off) and bf16 beside its bound,
+   ``features_clustering`` on the card (K 10; inertia within 1e-4 of the
+   port's CPU k-means; ms and iterations per slide); then
+   ``WSIWithCluster`` loads the output and MuRCL CLAM_SB stage 1 (batch 2,
+   feat_size 1024, bf16, ``--profile 2``, whose trace must name
+   ``trunk_tc``) trains on it, launching K1, K2/K3 and K4.
+   Then slides as Aperio's and Camelyon16's scanners write them
+   (``jpeg_slide_path``): two JPEG-tiled pyramids of the same size, each
+   level made of the four 256-pixel YCbCr 4:2:0 tiles of
+   ``preprocess/fixtures/jpeg_tiles_256.npz``, tiled by ``create_patches``
+   and read by ``extract_features``' 8 threads, their tiles decoded by
+   nvJPEG and converted by ``csrc/ycc_rgb.cu`` (bitwise with its plain twin;
+   patches/s, the device's idle share, the cost of opening a decoder per
+   slide); 64 patches of slide 0 held against PIL's decode of the same
+   tiles: pixels within ``FIXTURE_BOUND``, features within 1e-2.
+6. Drives the paths on one synthetic dataset of 192 slides x 2048 patches
    (dim 512, K 10), every launch count set to 0 before a stage and read
    after it:
    - MuRCL pretraining, ``murcl_tpu_torch.drivers.murcl.run``, stages 1 ->
@@ -71,7 +90,7 @@
    - full-slide heatmaps, ``murcl_tpu_torch.preprocess.heatmaps.run_heatmaps``,
      from the CLAM_SB stage-3 ``model_best`` over 3 slides of 2,000, 12,000
      and 60,000 patches (dim 512, f32, a 300 x 200 grid of 4-pixel patches
-     on a 1,200 x 800 slide held in memory): K2's forward once and K8 twice,
+     on a 1,200 x 800 slide read from a TIFF file): K2's forward once and K8 twice,
      nothing else; one PNG of the thumbnail's shape per slide; the scores
      equal to those through the plain twins within 1e-4; per slide the
      load, score, paint and write times;
@@ -88,7 +107,7 @@
      the JAX package). Then one supervised ABMIL stage-1 step through the
      kernels and through their plain twins, compared as
      ``abmil_step_check`` compares (``supervised_step_check``).
-6. Times steady steps: supervised at batch 64 (CLAM_SB stage 3 and stage
+7. Times steady steps: supervised at batch 64 (CLAM_SB stage 3 and stage
    1, ABMIL stage 1, DSMIL stage 1), and MuRCL CLAM_SB stage 1 (the
    ``bench.py`` step), ABMIL stage 1 and CLAM_SB stage 3 at batch 128: 2
    warm-up steps, then a host clock around 5 synchronised steps, read also
@@ -116,6 +135,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -924,6 +944,9 @@ def check_tiled(dev, gen):
 # its encoder timed alone over PRE_TIMED patches; k-means K 10 per slide
 PRE_SLIDES, PRE_HW, PRE_MAG, PRE_PATCH, PRE_SCALE = 2, (12288, 16384), 20, 256, 32
 PRE_BATCH, PRE_TIMED, PRE_CHECK = 256, 4096, 64
+# the slide files: deflate TIFF pyramids of 256-pixel tiles at downsamples 1, 4 and 16
+PRE_TILE, PRE_LEVELS = 256, (1, 4, 16)
+PRE_JPEG_SLIDES = 2  # JPEG-tiled pyramids of the same size and levels
 
 
 def encoder_flops(name: str, size: int) -> float:
@@ -952,19 +975,111 @@ def encoder_flops(name: str, size: int) -> float:
     return float(total[0])
 
 
+def nvjpeg_path(dev, root):
+    """nvJPEG on the card against PIL: the committed fixture's tiles
+    (``preprocess/fixtures/jpeg_tiles.npz``: 48 x 48 tiles with their
+    JPEGTables split out, YCbCr 4:4:4 and 4:2:0, and RGB without an Adobe
+    marker) decoded and held to ``FIXTURE_BOUND`` (max and mean absolute
+    difference from PIL's decode), then decoded for half a second on one
+    thread (tiles/s, MB/s of JPEG in and of pixels out); and per variant a
+    JPEG-tiled TIFF of those tiles (2 x 16 tiles) read whole through
+    ``TiffSlide`` on the card, held to the same bound. Fails where
+    libnvjpeg cannot be loaded."""
+    import numpy as np
+
+    from murcl_tpu_torch.data.synthetic import write_jpeg_fixture_tiff
+    from murcl_tpu_torch.preprocess.nvjpeg import (FIXTURE_BOUND, NvJpegDecoder,
+                                                   library_candidates, load_fixture)
+    from murcl_tpu_torch.preprocess.slide_io import TiffSlide
+
+    root = Path(root)
+    root.mkdir(parents=True)
+    dec = NvJpegDecoder(dev)
+    print(f"nvJPEG: libnvjpeg from {[str(p) for p in library_candidates()][:1]}")
+    try:
+        for variant, fx in load_fixture().items():
+            top, mean = FIXTURE_BOUND[variant]
+            streams = [fx["tables"][:-2] + s[2:] for s in fx["streams"]]
+            diffs = [np.abs(dec(st, fx["photometric"]).astype(int) - want)
+                     for st, want in zip(streams, fx["decoded"])]
+            worst = max(int(d.max()) for d in diffs)
+            avg = float(np.mean([d.mean() for d in diffs]))
+            check(worst <= top and avg <= mean,
+                  f"nvJPEG {variant}: max {worst}, mean {avg:.4f} against PIL; bound {top}, "
+                  f"{mean}")
+            n, t = 0, time.perf_counter()
+            while time.perf_counter() - t < 0.5:
+                for st in streams:
+                    dec(st, fx["photometric"])
+                n += len(streams)
+            dt = time.perf_counter() - t
+            nbytes_in = sum(len(st) for st in streams) * n / len(streams)
+            nbytes_out = fx["decoded"][0].nbytes * n
+            path = root / f"{variant}.tif"
+            img = write_jpeg_fixture_tiff(path, variant, repeat=8)
+            slide = TiffSlide(path, device=dev)
+            got = slide.read_region((0, 0), 0, slide.dimensions)[..., :3]
+            tiles = slide._jpeg.decoded
+            slide.close()
+            d = np.abs(got.astype(int) - img)
+            check(d.max() <= top and d.mean() <= mean and tiles == 32,
+                  f"TiffSlide {variant} on the card: max {d.max()}, mean {d.mean():.4f}, "
+                  f"{tiles} tiles decoded")
+            print(f"nvJPEG {variant} (Photometric {fx['photometric']}): 4 fixture tiles against "
+                  f"PIL max {worst}, mean {avg:.4f} (bound {top}, {mean}); "
+                  f"{n / dt:.0f} tiles/s of 48 x 48 on one thread, {nbytes_in / dt / 1e6:.2f} "
+                  f"MB/s of JPEG in, {nbytes_out / dt / 1e6:.2f} MB/s of RGB out; TiffSlide of "
+                  f"{img.shape[1]} x {img.shape[0]} ({tiles} tiles) on the card: max {d.max()}, "
+                  f"mean {d.mean():.4f} ({card_line()})")
+    finally:
+        dec.close()
+
+
+def write_pre_slides(root) -> Path:
+    """``PRE_SLIDES`` synthetic slides as ``.svs`` files: deflate TIFF
+    pyramids (``PRE_LEVELS``, tiles of ``PRE_TILE``) with an Aperio
+    description at 40x; slide 0 also as a single-level file under
+    ``single/``. Returns the slides' directory."""
+    import numpy as np
+
+    from murcl_tpu_torch.data.synthetic import aperio_description, synthetic_slide, write_tiff
+
+    root = Path(root)
+    slide_dir, single = root / "slides", root / "single"
+    slide_dir.mkdir(parents=True)
+    single.mkdir()
+    desc = aperio_description(PRE_HW[1], PRE_HW[0], PRE_TILE, app_mag=40)
+    t0 = time.time()
+    for i in range(PRE_SLIDES):
+        img = synthetic_slide(*PRE_HW, seed=i)
+        levels = [img] + [np.ascontiguousarray(img[::d, ::d]) for d in PRE_LEVELS[1:]]
+        write_tiff(slide_dir / f"wsi_{i}.svs", levels, tile=PRE_TILE, description=desc)
+        if i == 0:
+            write_tiff(single / "wsi_0.svs", [img], tile=PRE_TILE, description=desc)
+    size = sum(f.stat().st_size for f in slide_dir.iterdir()) / 2**20
+    print(f"preprocess: {PRE_SLIDES} slides of {PRE_HW[1]} x {PRE_HW[0]} RGB at 40x written as "
+          f"deflate TIFF pyramids (downsamples {PRE_LEVELS}, {PRE_TILE}-pixel tiles, "
+          f"{size:.0f} MiB) and slide 0 single-level, in {time.time() - t0:.1f} s")
+    return slide_dir
+
+
 def preprocess_path(dev, root):
     """The preprocessing path through its three entry points, on
-    ``PRE_SLIDES`` synthetic slides held in memory: ``create_patches``
-    (``rgb``; slide 0 also ``otsu`` and ``adaptive``; host ms per phase),
-    ``extract_features`` on the card twice (host resize, then
-    ``--resize_on_device``; random weights, as without ``--weights``),
-    each under torch.profiler for the device's idle share, with 64 patches'
-    features held against the port's CPU f32 forward (relative error <=
-    1e-4: TF32 is off); the encoder alone timed over 4,096 patches in f32
+    ``PRE_SLIDES`` synthetic slides written as TIFF pyramids and read
+    through ``open_slide``: ``create_patches`` (``rgb``; slide 0 also
+    ``otsu`` and ``adaptive``, and ``rgb`` from its single-level file; host
+    ms per phase), ``extract_features`` on the card three times (threads
+    with the exact resize on the card, threads with ``--resize_on_device``,
+    and the process decode pool; random weights, as without
+    ``--weights``), each under torch.profiler for the device's idle share,
+    with 64 patches' features held against the port's CPU f32 forward
+    (relative error <= 1e-4: TF32 is off) and the card's resize held
+    bitwise against the host's; the encoder alone timed over 4,096 patches in f32
     and bf16; ``features_clustering`` on the card, each slide's inertia
     within 1e-4 of the port's CPU k-means; then ``WSIWithCluster`` loads the
-    output and MuRCL CLAM_SB stage 1 (feat_size 1024, bf16) trains on it,
-    launch counts reset first. Returns those launch counts."""
+    output and MuRCL CLAM_SB stage 1 (feat_size 1024, bf16, ``--profile
+    2``: the trace must name ``trunk_tc``) trains on it, launch counts reset
+    first. Returns those launch counts."""
     import collections
 
     import numpy as np
@@ -974,26 +1089,15 @@ def preprocess_path(dev, root):
     from murcl_tpu_torch import create_patches, extract_features, features_clustering
     from murcl_tpu_torch.data import contract
     from murcl_tpu_torch.data.datasets import WSIWithCluster
-    from murcl_tpu_torch.data.synthetic import synthetic_slide
     from murcl_tpu_torch.drivers.murcl import run
     from murcl_tpu_torch.ops import _cuda
     from murcl_tpu_torch.preprocess import extract, filters, tiling
     from murcl_tpu_torch.preprocess.kmeans import kmeans_torch
-    from murcl_tpu_torch.preprocess.slide_io import ImageSlide
+    from murcl_tpu_torch.preprocess.slide_io import open_slide
     from murcl_tpu_torch.utils.general import dump_json, load_json
 
     root = Path(root)
-    slide_dir = root / "slides"
-    slide_dir.mkdir(parents=True)
-    t0 = time.time()
-    slides = {}
-    for i in range(PRE_SLIDES):
-        path = slide_dir / f"wsi_{i}.svs"
-        path.touch()  # the tiling walks the directory; the pixels are in memory
-        slides[str(path)] = ImageSlide(path, image=synthetic_slide(*PRE_HW, seed=i),
-                                       properties={"aperio.AppMag": "40"})
-    print(f"preprocess: {PRE_SLIDES} slides of {PRE_HW[1]} x {PRE_HW[0]} RGB at 40x drawn in "
-          f"{time.time() - t0:.1f} s")
+    slide_dir = write_pre_slides(root)
 
     ms = collections.defaultdict(float)
 
@@ -1012,9 +1116,8 @@ def preprocess_path(dev, root):
         return (f"downsample {ms['downsample'] / n:.1f}, mask {mask / n:.1f}, grid "
                 f"{grid / n:.1f}, json {ms['json'] / n:.1f} ms (host) per slide")
 
-    saved = (tiling.open_slide, extract.open_slide, filters.downsample_image,
-             tiling.save_coord_json, tiling.tiling, dict(filters.MASK_ALGORITHMS))
-    tiling.open_slide = extract.open_slide = lambda p: slides[str(p)]
+    saved = (filters.downsample_image, tiling.save_coord_json, tiling.tiling,
+             dict(filters.MASK_ALGORITHMS))
     filters.downsample_image = timed("downsample", filters.downsample_image)
     filters.MASK_ALGORITHMS.update({k: timed("mask", f)
                                     for k, f in filters.MASK_ALGORITHMS.items()})
@@ -1023,26 +1126,37 @@ def preprocess_path(dev, root):
     try:
         create_patches.main(["--slide_dir", str(slide_dir), "--save_dir", str(root / "patches"),
                              "--magnification", str(PRE_MAG), "--patch_size", str(PRE_PATCH),
-                             "--scale_factor", str(PRE_SCALE), "--method", "rgb"])
+                             "--scale_factor", str(PRE_SCALE), "--method", "rgb",
+                             "--device", str(dev)])
         coords = [load_json(root / "patches" / "coord" / f"wsi_{i}.json")
                   for i in range(PRE_SLIDES)]
         counts = [c["num_patches"] for c in coords]
         check(all(c["patch_size_level0"] == 2 * PRE_PATCH for c in coords)
               and min(counts) >= PRE_CHECK, f"tiling: {counts} patches")
-        print(f"tiling rgb: {counts} patches of {2 * PRE_PATCH} px at level 0 on "
-              f"{coords[0]['num_row']} x {coords[0]['num_col']} grids; {tiling_ms(PRE_SLIDES)}")
+        print(f"tiling rgb from the pyramids: {counts} patches of {2 * PRE_PATCH} px at level 0 "
+              f"on {coords[0]['num_row']} x {coords[0]['num_col']} grids; "
+              f"{tiling_ms(PRE_SLIDES)} ({card_line()})")
+        ms.clear()
+        (root / "single_coord").mkdir()
+        out = tiling.tiling(str(root / "single" / "wsi_0.svs"), magnification=PRE_MAG,
+                            patch_size=PRE_PATCH, scale_factor=PRE_SCALE, method="rgb",
+                            coord_dir=root / "single_coord", filename="wsi_0", device=dev)
+        check(out["num_patches"] > 0, "tiling the single-level file: no patch")
+        print(f"tiling rgb (slide 0) from its single-level file: {out['num_patches']} patches "
+              f"(pyramid: {counts[0]}); {tiling_ms(1)} ({card_line()})")
         for method in ("otsu", "adaptive"):
             ms.clear()
             (root / method).mkdir()
             out = tiling.tiling(str(slide_dir / "wsi_0.svs"), magnification=PRE_MAG,
                                 patch_size=PRE_PATCH, scale_factor=PRE_SCALE, method=method,
-                                coord_dir=root / method, filename="wsi_0")
+                                coord_dir=root / method, filename="wsi_0", device=dev)
             check(out["num_patches"] > 0, f"tiling {method}: no patch")
             print(f"tiling {method} (slide 0): {out['num_patches']} patches; {tiling_ms(1)}")
 
         feats = {}
-        for mode, extra in (("host resize", []), ("device resize", ["--resize_on_device"])):
-            save = root / ("feat_device" if extra else "feat_host")
+        for mode, extra in (("exact resize", []), ("device resize", ["--resize_on_device"]),
+                            ("process pool", ["--decode_pool", "process"])):
+            save = root / ("feat_" + mode.split()[0])
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t = time.perf_counter()
@@ -1061,16 +1175,47 @@ def preprocess_path(dev, root):
                       for f, c in zip(feats[mode].values(), counts)), f"extract {mode} output")
             print(f"extract ({mode}, {PRE_SLIDES} slides, first call included): {n} patches in "
                   f"{wall_ms:.1f} ms = {1e3 * n / wall_ms:.1f} patches/s; host read "
-                  f"(crop{' + resize' if not extra else ''}) "
-                  f"{sum(r['read_ms'] for r in records) / n:.3f} ms per patch on 8 threads; "
+                  f"(crop) {sum(r['read_ms'] for r in records) / n:.3f} ms per patch on 8 "
+                  f"{'processes' if mode == 'process pool' else 'threads'}; "
                   f"encode {sum(r['encode_ms'] for r in records):.1f} ms; device busy "
-                  f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f} (traced)")
+                  f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f} (traced) ({card_line()})")
+        for i in range(PRE_SLIDES):  # the same pixels through processes as through threads
+            err = rel_err(torch.from_numpy(feats["process pool"][i]),
+                          torch.from_numpy(feats["exact resize"][i]))
+            check(err <= 1e-5, f"extract wsi_{i}: process pool against threads, rel err {err}")
 
         # the card's features against the port's CPU f32 forward on the same patches
         first = coords[0]["coords"][:PRE_CHECK]
-        for mode, on_device in (("host resize", False), ("device resize", True)):
-            patches = extract._read_patches(slides[str(slide_dir / "wsi_0.svs")], first,
-                                            2 * PRE_PATCH, PRE_PATCH, 8,
+        slide0 = open_slide(slide_dir / "wsi_0.svs", device=dev)
+        t = time.perf_counter()
+        one = extract._read_patches(slide0, first, 2 * PRE_PATCH, PRE_PATCH, 1)
+        t_read = (time.perf_counter() - t) / PRE_CHECK
+        crops = extract._read_patches(slide0, first, 2 * PRE_PATCH, PRE_PATCH, 1,
+                                      resize_on_host=False).numpy()
+        from murcl_tpu_torch.preprocess.resample import resize_u8, resize_u8_torch
+
+        t = time.perf_counter()
+        host = np.stack([resize_u8(c, (PRE_PATCH, PRE_PATCH)) for c in crops])
+        t_resize = (time.perf_counter() - t) / PRE_CHECK
+        check(one.shape == (PRE_CHECK, PRE_PATCH, PRE_PATCH, 3), "one-thread read")
+        on_card = torch.from_numpy(crops).to(dev)
+        card_ms = median_ms(lambda: resize_u8_torch(on_card, (PRE_PATCH, PRE_PATCH)))
+        same = np.array_equal(resize_u8_torch(on_card, (PRE_PATCH, PRE_PATCH)).cpu().numpy(), host)
+        check(same, "the card's exact resize against the host's")
+        region = slide0.read_rgb((0, 0), (4096, 3072))
+        small = resize_u8_torch(torch.from_numpy(region).to(dev)[None], (256, 192))[0]
+        check(np.array_equal(small.cpu().numpy(), resize_u8(region, (256, 192))),
+              "the card's downsample of a 4096 x 3072 region against the host's")
+        print(f"host, one thread, {PRE_CHECK} patches of slide 0 freshly opened: read (tiles "
+              f"inflated into the tile cache) + resize {1e3 * t_read:.3f} ms per patch; the "
+              f"exact bicubic {2 * PRE_PATCH} -> {PRE_PATCH} resize alone "
+              f"{1e3 * t_resize:.3f} ms per patch on the host, {card_ms:.3f} ms for the "
+              f"{PRE_CHECK} on the card ({card_ms / PRE_CHECK:.4f} ms per patch), bit for bit "
+              f"the same, and a 4096 x 3072 region downsampled 16 times on the card equal to "
+              f"the host's; tile cache {slide0.cache.hits} hits, {slide0.cache.misses} misses "
+              f"({card_line()})")
+        for mode, on_device in (("exact resize", False), ("device resize", True)):
+            patches = extract._read_patches(slide0, first, 2 * PRE_PATCH, PRE_PATCH, 8,
                                             resize_on_host=not on_device)
             cpu = extract.PatchEncoder("resnet18", batch_size=PRE_CHECK, patch_size=PRE_PATCH,
                                        resize_on_device=on_device,
@@ -1081,8 +1226,8 @@ def preprocess_path(dev, root):
             print(f"extract ({mode}): {PRE_CHECK} patches' features on the card against the "
                   f"CPU f32 forward, rel err {err:.2e}, max abs "
                   f"{float((got - torch.from_numpy(cpu)).abs().max()):.2e}")
-        a, b = (torch.from_numpy(feats[m][0]) for m in ("host resize", "device resize"))
-        print(f"host (bicubic) against device (bilinear) resize: features rel diff "
+        a, b = (torch.from_numpy(feats[m][0]) for m in ("exact resize", "device resize"))
+        print(f"exact (bicubic) against device (bilinear) resize: features rel diff "
               f"{rel_err(b, a):.3e}")
 
         # the encoder alone
@@ -1118,12 +1263,12 @@ def preprocess_path(dev, root):
         torch.cuda.empty_cache()
 
         # k-means on the card, held against the port's CPU k-means
-        feat_dir = root / "feat_host" / "resnet18"
+        feat_dir = root / "feat_exact" / "resnet18"
         records = features_clustering.main(["--feat_dir", str(feat_dir), "--num_clusters",
                                             str(K), "--device", str(dev)])
         check(len(records) == PRE_SLIDES, f"clustering: {records}")
         for i, rec in enumerate(records):
-            f = feats["host resize"][i]
+            f = feats["exact resize"][i]
             torch.cuda.synchronize()
             t = time.perf_counter()
             card = kmeans_torch(torch.from_numpy(f).to(dev), K)
@@ -1159,22 +1304,175 @@ def preprocess_path(dev, root):
                   f"WSIWithCluster {case}")
         args = murcl_args(dev, {"data_csv": str(csv), "data_split_json": str(root / "split.json")},
                           root / "murcl", "CLAM_SB", 1)
-        args.batch_size, args.data_repeat = PRE_SLIDES, 4
+        args.batch_size, args.data_repeat, args.profile = PRE_SLIDES, 4, 2
         _cuda.reset_launch_counts()
         out = run(args)
         torch.cuda.synchronize()
         launches = dict(_cuda.LAUNCHES)
         check(math.isfinite(out["best_loss"]), f"MuRCL on preprocessed features: {out}")
+        trace = Path(out["save_dir"]) / "profile" / "steps_1-2.pt.trace.json"
+        check(trace.exists() and "trunk_tc" in trace.read_text(),
+              f"--profile 2: no trace naming trunk_tc at {trace}")
+        print(f"--profile 2: {trace.name} ({trace.stat().st_size / 2**20:.1f} MiB) names "
+              "trunk_tc")
         used, unused = MURCL_KERNELS["CLAM_SB"][1]
         check(all(launches[k] > 0 for k in used) and all(launches[k] == 0 for k in unused),
               f"MuRCL on preprocessed features: launches {launches}")
         print(f"MuRCL CLAM_SB stage 1 on the preprocessed slides (batch {PRE_SLIDES}, "
               f"feat_size {N_MAIN}, bf16): loss {out['best_loss']:.6f}, launches {launches}")
     finally:
-        (tiling.open_slide, extract.open_slide, filters.downsample_image,
-         tiling.save_coord_json, tiling.tiling, masks) = saved
+        (filters.downsample_image, tiling.save_coord_json, tiling.tiling, masks) = saved
         filters.MASK_ALGORITHMS.update(masks)
     return launches
+
+
+def jpeg_slide_path(dev, root):
+    """Slides as Aperio's and Camelyon16's scanners write them: JPEG-tiled
+    pyramids whose tiles nvJPEG decodes on the card. ``PRE_JPEG_SLIDES``
+    files of ``PRE_HW`` at 40x (downsamples ``PRE_LEVELS``), each level made
+    of the four 256-pixel YCbCr 4:2:0 tiles of
+    ``preprocess/fixtures/jpeg_tiles_256.npz`` with their JPEGTables split
+    out; ``create_patches`` on them (``rgb``, host ms per slide); the cost
+    of opening a decoder (``nvjpegCreateSimple``, once per slide opened)
+    and of a thread's first and later decodes of one tile, and the tiles/s
+    of one decoder on 1 and 8 threads; ``csrc/ycc_rgb.cu`` (libjpeg's
+    upsampling and colour conversion on nvJPEG's planes) bitwise with its
+    plain twin on a tile, both timed; then ``extract_features`` by 8
+    threads under torch.profiler (patches/s, the host's read per patch, the
+    device's idle share), which must launch that kernel. ``PRE_CHECK`` patches
+    of slide 0 are held against PIL's decode of the same tiles (the
+    fixture's): their pixels within ``FIXTURE_BOUND``, and their features
+    on the card within 1e-2 relative (the pixels' differences, through the
+    random encoder) and the CLI's within 1e-4 of those."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from murcl_tpu_torch import create_patches, extract_features
+    from murcl_tpu_torch.data.synthetic import aperio_description, write_jpeg_fixture_tiff
+    from murcl_tpu_torch.preprocess import extract
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.preprocess.nvjpeg import (FIXTURE_256, FIXTURE_BOUND, NvJpegDecoder,
+                                                   load_fixture, ycc_to_rgb, ycc_to_rgb_plain)
+    from murcl_tpu_torch.preprocess.slide_io import ImageSlide, open_slide
+    from murcl_tpu_torch.utils.general import load_json
+
+    root = Path(root)
+    slide_dir = root / "slides"
+    slide_dir.mkdir(parents=True)
+    h, w = PRE_HW
+    t0 = time.time()
+    mosaic = write_jpeg_fixture_tiff(slide_dir / "jpeg_0.svs", "ycbcr420", fixture=FIXTURE_256,
+                                     size=(w, h), downsamples=PRE_LEVELS,
+                                     description=aperio_description(w, h, 256, app_mag=40))
+    for i in range(1, PRE_JPEG_SLIDES):
+        shutil.copy(slide_dir / "jpeg_0.svs", slide_dir / f"jpeg_{i}.svs")
+    size = (slide_dir / "jpeg_0.svs").stat().st_size / 2**20
+    print(f"JPEG slides: {PRE_JPEG_SLIDES} of {w} x {h} at 40x, JPEG-tiled pyramids (YCbCr "
+          f"4:2:0, JPEGTables, 256-pixel tiles, downsamples {PRE_LEVELS}, {size:.1f} MiB each), "
+          f"written in {time.time() - t0:.1f} s")
+
+    t = time.perf_counter()
+    create_patches.main(["--slide_dir", str(slide_dir), "--save_dir", str(root / "patches"),
+                         "--magnification", str(PRE_MAG), "--patch_size", str(PRE_PATCH),
+                         "--scale_factor", str(PRE_SCALE), "--method", "rgb",
+                         "--device", str(dev)])
+    tiling_ms = 1e3 * (time.perf_counter() - t) / PRE_JPEG_SLIDES
+    coords = [load_json(root / "patches" / "coord" / f"jpeg_{i}.json")
+              for i in range(PRE_JPEG_SLIDES)]
+    counts = [c["num_patches"] for c in coords]
+    check(min(counts) >= PRE_CHECK, f"tiling the JPEG slides: {counts} patches")
+    print(f"tiling rgb from the JPEG pyramids: {counts} patches; {tiling_ms:.1f} ms (host) per "
+          f"slide, the 16x level's tiles decoded by nvJPEG ({card_line()})")
+
+    fx = load_fixture(FIXTURE_256)["ycbcr420"]
+    stream = fx["tables"][:-2] + fx["streams"][0][2:]
+    opened, first, later = [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dec = NvJpegDecoder(dev)
+        opened.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        dec(stream, fx["photometric"])
+        first.append(1e3 * (time.perf_counter() - t))
+        t = time.perf_counter()
+        for _ in range(20):
+            dec(stream, fx["photometric"])
+        later.append(1e3 * (time.perf_counter() - t) / 20)
+        dec.close()
+    rates = {}
+    dec = NvJpegDecoder(dev)
+    try:
+        for threads in (1, 8):
+            with ThreadPoolExecutor(threads) as pool:  # each thread's state made first
+                list(pool.map(lambda _: dec(stream, fx["photometric"]), range(threads)))
+                t = time.perf_counter()
+                list(pool.map(lambda _: dec(stream, fx["photometric"]), range(400)))
+                rates[threads] = 400 / (time.perf_counter() - t)
+    finally:
+        dec.close()
+    print(f"nvJPEG decoder: opened in {statistics.median(opened):.2f} ms (median of 5; one per "
+          f"slide opened), a thread's first 256 x 256 tile {statistics.median(first):.2f} ms "
+          f"(its state and stream made), later tiles {statistics.median(later):.3f} ms each on "
+          f"one thread ({len(stream)} bytes of JPEG); one decoder {rates[1]:.0f} tiles/s on 1 "
+          f"thread, {rates[8]:.0f} on 8 ({card_line()})")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    y = torch.randint(0, 256, (256, 256), generator=gen, device=dev, dtype=torch.uint8)
+    cb, cr = (torch.randint(0, 256, (128, 128), generator=gen, device=dev, dtype=torch.uint8)
+              for _ in range(2))
+    check(torch.equal(ycc_to_rgb(y, cb, cr), ycc_to_rgb_plain(y, cb, cr)),
+          "ycc_to_rgb kernel against its plain twin")
+    k_ms = median_ms(lambda: ycc_to_rgb(y, cb, cr))
+    plain_ms = median_ms(lambda: ycc_to_rgb_plain(y, cb, cr))
+    print(f"ycc_to_rgb (csrc/ycc_rgb.cu) on a 256 x 256 4:2:0 tile: bitwise with its plain twin; "
+          f"{k_ms:.4f} ms against {plain_ms:.4f} ms ({card_line()})")
+
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        records = extract_features.main(
+            ["--patch_dir", str(root / "patches"), "--save_dir", str(root / "feat"),
+             "--device", str(dev), "--batch_size", str(PRE_BATCH), "--num_workers", "8"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    busy = busy_union_ms(device_events(prof))
+    n = sum(r["num_patches"] for r in records)
+    ycc_launches = _cuda.LAUNCHES["ycc_to_rgb"]
+    check(n == sum(counts) and ycc_launches > 0,
+          f"extract (JPEG): {n} patches, ycc_to_rgb launched {ycc_launches} times")
+    feats = np.load(root / "feat" / "resnet18" / "jpeg_0.npz")["img_features"]
+    check(np.isfinite(feats).all() and feats.shape == (counts[0], 512), "extract (JPEG) output")
+    print(f"extract (JPEG pyramids, exact resize, {PRE_JPEG_SLIDES} slides, first call "
+          f"included): {n} patches in {wall_ms:.1f} ms = {1e3 * n / wall_ms:.1f} patches/s; host "
+          f"read (crop, tiles decoded by nvJPEG) {sum(r['read_ms'] for r in records) / n:.3f} "
+          f"ms per patch on 8 threads; encode {sum(r['encode_ms'] for r in records):.1f} ms; "
+          f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f} (traced); "
+          f"ycc_to_rgb launched {ycc_launches} times ({card_line()})")
+
+    # against PIL's decode of the same tiles
+    near = coords[0]["coords"][:PRE_CHECK]
+    slide = open_slide(slide_dir / "jpeg_0.svs", device=dev)
+    got = extract._read_patches(slide, near, 2 * PRE_PATCH, PRE_PATCH, 8,
+                                resize_on_host=False).numpy()
+    slide.close()
+    want = extract._read_patches(ImageSlide("pil.png", image=mosaic), near, 2 * PRE_PATCH,
+                                 PRE_PATCH, 8, resize_on_host=False).numpy()
+    d = np.abs(got.astype(int) - want)
+    top, mean = FIXTURE_BOUND["ycbcr420"]
+    check(d.max() <= top and d.mean() <= mean,
+          f"JPEG slide on the card against PIL: max {d.max()}, mean {d.mean():.4f}")
+    enc = extract.PatchEncoder("resnet18", batch_size=PRE_CHECK, patch_size=PRE_PATCH,
+                               device=str(dev))
+    a, b = (torch.from_numpy(enc.encode_patches(x)) for x in (got, want))
+    err, cli = rel_err(a, b), rel_err(torch.from_numpy(feats[:PRE_CHECK]), a)
+    check(err <= 1e-2 and cli <= 1e-4,
+          f"JPEG slide features: nvJPEG against PIL rel err {err}, CLI against the same "
+          f"pixels {cli}")
+    print(f"JPEG slide 0, {PRE_CHECK} patches on the card against PIL's decode of the same "
+          f"tiles: pixels max {d.max()}, mean {d.mean():.4f} (bound {top}, {mean}); features "
+          f"rel err {err:.2e}; the CLI's features against these pixels' {cli:.2e}")
 
 
 def make_dataset(root):
@@ -1415,12 +1713,12 @@ def supervised_step_check(dev, ds, results, pretrained):
 def make_slides(root):
     """The heatmap path's data: one feature npz per slide (dim 512, f32) in
     the data contract, a manifest, coord JSONs as the tiling step writes
-    them, and each slide as an in-memory ``ImageSlide`` (the GPU machine
-    has no PIL), keyed by its path."""
+    them, and each slide as a single-level deflate TIFF file that
+    ``open_slide`` reads."""
     import numpy as np
 
     from murcl_tpu_torch.data import contract
-    from murcl_tpu_torch.preprocess.slide_io import ImageSlide
+    from murcl_tpu_torch.data.synthetic import write_tiff
     from murcl_tpu_torch.utils.general import dump_json
 
     cols, rows = HEAT_GRID
@@ -1428,7 +1726,7 @@ def make_slides(root):
     root = Path(root)
     (root / "features").mkdir(parents=True)
     (root / "coords").mkdir()
-    manifest, slides = [], {}
+    manifest = []
     for n in HEAT_SLIDES:
         case_id = f"slide_{n}"
         cells = np.sort(rng.choice(cols * rows, size=n, replace=False))
@@ -1437,8 +1735,8 @@ def make_slides(root):
         contract.save_features_npz(feat_path, case_id, rows, cols,
                                    rng.standard_normal((n, FIN), dtype=np.float32), grid)
         slide_path = str(root / f"{case_id}.svs")
-        slides[slide_path] = ImageSlide(slide_path, image=rng.integers(
-            0, 256, (rows * HEAT_PATCH, cols * HEAT_PATCH, 3), dtype=np.uint8))
+        write_tiff(slide_path, [rng.integers(0, 256, (rows * HEAT_PATCH, cols * HEAT_PATCH, 3),
+                                             dtype=np.uint8)], tile=256)
         dump_json({"slide_filepath": slide_path, "magnification": 20,
                    "magnification_level0": 20, "num_row": rows, "num_col": cols,
                    "patch_size": 224, "patch_size_level0": HEAT_PATCH, "num_patches": n,
@@ -1447,7 +1745,6 @@ def make_slides(root):
                   root / "coords" / f"{case_id}.json")
         manifest.append({"case_id": case_id, "features_filepath": str(feat_path), "label": 0})
     contract.save_manifest(root / "slides.csv", manifest)
-    return slides
 
 
 def png_shape(path) -> tuple:
@@ -1476,7 +1773,7 @@ def heatmap_path(dev, root, checkpoint):
     from murcl_tpu_torch.preprocess import heatmaps as hm
 
     t0 = time.time()
-    slides = make_slides(root)
+    make_slides(root)
     print(f"heatmap slides written in {time.time() - t0:.1f} s")
     scores, device_ms = [], []
 
@@ -1496,8 +1793,8 @@ def heatmap_path(dev, root, checkpoint):
                        str(root / "coords"), "--save_dir", str(root / "heatmaps"),
                        "--checkpoint", checkpoint, "--device", str(dev.index),
                        "--bucket", str(BUCKET), "--exist_ok"])
-    saved = hm.open_slide, hm.AttentionScorer
-    hm.open_slide, hm.AttentionScorer = slides.__getitem__, TimedScorer
+    saved = hm.AttentionScorer
+    hm.AttentionScorer = TimedScorer
     try:
         _cuda.reset_launch_counts()
         records = hm.run_heatmaps(args)
@@ -1508,7 +1805,7 @@ def heatmap_path(dev, root, checkpoint):
             hm.run_heatmaps(args)
         check(not any(_cuda.LAUNCHES.values()), f"plain heatmaps launched {_cuda.LAUNCHES}")
     finally:
-        hm.open_slide, hm.AttentionScorer = saved
+        hm.AttentionScorer = saved
     want = {k: 0 for k in launches}
     want.update(fused_trunk_fwd=1, attention_pool_tiled=2)
     check(launches == want, f"heatmap path launches {launches}")
@@ -1784,7 +2081,11 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(dir=work))
     try:
         t0 = time.time()
+        nvjpeg_path(dev, tmp / "nvjpeg")
+        print(f"nvJPEG phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
         pre = preprocess_path(dev, tmp / "preprocess")
+        jpeg_slide_path(dev, tmp / "jpeg")
         print(f"preprocessing phase in {time.time() - t0:.1f} s")
         t0 = time.time()
         ds = make_dataset(tmp / "data")

@@ -1,10 +1,12 @@
 #!/usr/bin/env python
 """WSI tiling CLI of the PyTorch/CUDA port (``wsi_processing/create_patches.py``).
 
-Run as ``python -m murcl_tpu_torch.create_patches``; the same flags. Host
-only, as in the JAX package: numpy, scipy and PyTorch's CPU resize, no
-OpenCV or PIL (PIL only opens a slide that is an image file and OpenSlide
-is absent). Writes ``<save_dir>/coord/<slide>.json`` and, on request, the
+Run as ``python -m murcl_tpu_torch.create_patches``; the same flags, and
+``--device`` (``0`` by default, the card; ``cpu``), which decodes the
+slides' JPEG tiles (nvJPEG on the card, PIL on the CPU). The rest is host
+work, as in the JAX package: numpy and scipy, no OpenCV or PIL. Slides are
+read by ``open_slide``: ``.tif``/``.svs`` pyramids by the port's TIFF
+reader. Writes ``<save_dir>/coord/<slide>.json`` and, on request, the
 overview, mask and patch PNGs.
 """
 
@@ -34,6 +36,8 @@ def parse_args(argv=None):
     parser.add_argument('--filename_r', type=int, default=12)
     parser.add_argument('--method', type=str, default='rgb', choices=['otsu', 'adaptive', 'rgb'])
     parser.add_argument('--overview_level', type=int, default=-1)
+    parser.add_argument('--device', default='0',
+                        help="decodes JPEG tiles: cpu (PIL), N or cuda:N (nvJPEG)")
     return parser.parse_args(argv)
 
 

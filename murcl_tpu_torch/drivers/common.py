@@ -1,6 +1,7 @@
 """Driver plumbing (counterpart of ``murcl_tpu/drivers/common.py``): the
-reference save-dir schemes, the per-epoch batch order, epoch metrics and
-the policy loading both drivers share."""
+reference save-dir schemes, the per-epoch batch order, epoch metrics, the
+policy loading both drivers share, the TensorBoard writer
+(``--use_tensorboard``) and the profiler hook (``--profile N``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from murcl_tpu_torch.engine.checkpoint import transfer_state
 from murcl_tpu_torch.ops.metrics import get_metrics
@@ -46,6 +48,62 @@ def rlmil_save_dir(args) -> str:
         Path(args.base_save_dir) / f"{args.dataset}_np_{args.feat_size}" / "RLMIL" / rl
         / args.arch / arch_setting / args.train_method / exp / f"seed{args.seed}"
         / f"stage_{args.train_stage}")
+
+
+def make_tb_writer(save_dir, enabled: bool):
+    """A ``torch.utils.tensorboard`` writer into ``save_dir`` for
+    ``--use_tensorboard``; where it cannot be imported, a notice that the
+    logging is off, and None (``murcl_tpu/drivers/common.py:111-121``)."""
+    if not enabled:
+        return None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(str(save_dir))
+    except Exception as e:  # tensorboard not installed, or its import fails
+        print(f"tensorboard unavailable ({type(e).__name__}: {e}); logging disabled")
+        return None
+
+
+class ProfilerHook:
+    """``torch.profiler`` over the first ``num_steps`` steps of the run
+    (``--profile N``; the JAX drivers' ``jax.profiler`` hook): host activity,
+    and the card's kernels when ``device`` is CUDA. Call :meth:`step` before
+    each step and :meth:`close` at the end; the trace goes to
+    ``<dir>/steps_1-N.pt.trace.json`` (Chrome's trace format, which
+    TensorBoard's profiler plugin and Perfetto read)."""
+
+    def __init__(self, save_dir, num_steps: int = 0, device=None):
+        self.dir = Path(save_dir)
+        self.num_steps = self.remaining = int(num_steps or 0)
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self._prof = None
+        self.trace_path = None
+
+    def step(self) -> None:
+        if self.remaining > 0 and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.cuda else [])
+            self._prof = profile(activities=activities)
+            self._prof.start()
+        elif self.remaining == 0 and self._prof is not None:
+            self._stop()
+        if self.remaining > 0:
+            self.remaining -= 1
+
+    def _stop(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+        self._prof.stop()
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.trace_path = self.dir / f"steps_1-{self.num_steps - self.remaining}.pt.trace.json"
+        self._prof.export_chrome_trace(str(self.trace_path))
+        self._prof = None
+
+    def close(self) -> None:
+        if self._prof is not None:
+            self._stop()
 
 
 def load_policy(ppo, state_dict) -> None:

@@ -20,6 +20,7 @@ naming their ROADMAP item.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -30,7 +31,8 @@ import torch
 
 from murcl_tpu_torch.data.bank import build_bank
 from murcl_tpu_torch.data.contract import load_split
-from murcl_tpu_torch.drivers.common import epoch_batches, load_policy, murcl_save_dir
+from murcl_tpu_torch.drivers.common import (ProfilerHook, epoch_batches, load_policy,
+                                           make_tb_writer, murcl_save_dir)
 from murcl_tpu_torch.engine.checkpoint import (JAX_FORMAT, load_checkpoint, save_checkpoint,
                                                transfer_state)
 from murcl_tpu_torch.engine.config import PretrainConfig
@@ -62,8 +64,6 @@ def _reject_unported(args) -> None:
         (not args.fc_rnn, "the cascaded-FC head (fc_rnn false): ROADMAP queue 1, item 10"),
         (args.streaming, "--streaming: ROADMAP queue 1, item 13"),
         (int(args.dp_devices or 0) > 1, "--dp_devices > 1: ROADMAP queue 1, item 14"),
-        (args.use_tensorboard, "--use_tensorboard: ROADMAP queue 1, item 16"),
-        (int(args.profile or 0) > 0, "--profile: ROADMAP queue 1, item 16"),
     ]
     for unported, what in todo:
         if unported:
@@ -191,40 +191,48 @@ def run(args) -> dict:
     backbone_lr_fn = lr_schedule_factory(args.scheduler, args.backbone_lr, args.epochs,
                                          int(args.warmup))
     fc_lr_fn = lr_schedule_factory(args.scheduler, args.fc_lr, args.epochs, int(args.warmup))
+    with contextlib.ExitStack() as stack:
+        tb_writer = make_tb_writer(save_dir, args.use_tensorboard)
+        if tb_writer is not None:
+            stack.callback(tb_writer.close)
+        profiler = ProfilerHook(save_dir / "profile", args.profile, s.device)
+        stack.callback(profiler.close)
+        steps_per_sec = None
+        for epoch in range(s.start_epoch, args.epochs):
+            t0 = time.time()
+            if s.optimizer is not None:  # stage 2 has no aggregator optimizer
+                set_learning_rates(s.optimizer, backbone_lr_fn(epoch), fc_lr_fn(epoch))
+            loss_meter = AverageMeter()
+            # per-step losses stay on the device until the epoch ends (no sync per step)
+            step_losses, step_counts = [], []
+            for ids, _ in epoch_batches(s.bank.num_slides, args.num_data, args.batch_size, np_rng,
+                                        drop_partial=True):
+                profiler.step()
+                stats = s.engine.train_step(s.bank, torch.as_tensor(ids, device=s.device),
+                                            generator)
+                step_losses.append(stats.step_losses[-1])
+                step_counts.append(len(ids))
+            for loss, cnt in zip(step_losses, step_counts):
+                loss_meter.update(float(loss), cnt)
+            train_loss = loss_meter.avg
+            dt = time.time() - t0
+            steps_per_sec = len(step_losses) / dt if dt > 0 else None
+            if tb_writer is not None:
+                tb_writer.add_scalar("train/1.train_loss", train_loss, epoch)
 
-    steps_per_sec = None
-    for epoch in range(s.start_epoch, args.epochs):
-        t0 = time.time()
-        if s.optimizer is not None:  # stage 2 has no aggregator optimizer
-            set_learning_rates(s.optimizer, backbone_lr_fn(epoch), fc_lr_fn(epoch))
-        loss_meter = AverageMeter()
-        # per-step losses stay on the device until the epoch ends (no sync per step)
-        step_losses, step_counts = [], []
-        for ids, _ in epoch_batches(s.bank.num_slides, args.num_data, args.batch_size, np_rng,
-                                    drop_partial=True):
-            stats = s.engine.train_step(s.bank, torch.as_tensor(ids, device=s.device),
-                                        generator)
-            step_losses.append(stats.step_losses[-1])
-            step_counts.append(len(ids))
-        for loss, cnt in zip(step_losses, step_counts):
-            loss_meter.update(float(loss), cnt)
-        train_loss = loss_meter.avg
-        dt = time.time() - t0
-        steps_per_sec = len(step_losses) / dt if dt > 0 else None
-
-        is_best = best_train_loss.compare(train_loss, epoch + 1, inplace=True)
-        save_checkpoint(save_dir, epoch + 1, s.model, s.fc, s.optimizer, s.ppo,
-                        is_best=is_best)
-        losses_csv.write_row([epoch + 1, train_loss, best_train_loss.epoch,
-                              best_train_loss.best])
-        results_csv.write_row([epoch + 1, best_train_loss.epoch, best_train_loss.best])
-        print(f"Epoch {epoch + 1}/{args.epochs} [{dt:.1f}s, {steps_per_sec:.3f} steps/s] "
-              f"Loss: {train_loss:.4f}, Best: {best_train_loss.best:.4f} "
-              f"@ {best_train_loss.epoch}")
-        if early_stop is not None:
-            early_stop.update(best_train_loss.best)
-            if early_stop.is_stop():
-                break
+            is_best = best_train_loss.compare(train_loss, epoch + 1, inplace=True)
+            save_checkpoint(save_dir, epoch + 1, s.model, s.fc, s.optimizer, s.ppo,
+                            is_best=is_best)
+            losses_csv.write_row([epoch + 1, train_loss, best_train_loss.epoch,
+                                  best_train_loss.best])
+            results_csv.write_row([epoch + 1, best_train_loss.epoch, best_train_loss.best])
+            print(f"Epoch {epoch + 1}/{args.epochs} [{dt:.1f}s, {steps_per_sec:.3f} steps/s] "
+                  f"Loss: {train_loss:.4f}, Best: {best_train_loss.best:.4f} "
+                  f"@ {best_train_loss.epoch}")
+            if early_stop is not None:
+                early_stop.update(best_train_loss.best)
+                if early_stop.is_stop():
+                    break
 
     return {
         "save_dir": args.save_dir,

@@ -28,6 +28,7 @@ naming their ROADMAP item.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -38,8 +39,8 @@ import torch
 
 from murcl_tpu_torch.data.bank import build_bank
 from murcl_tpu_torch.data.contract import load_split
-from murcl_tpu_torch.drivers.common import (EpochOutputs, epoch_batches, load_policy,
-                                           rlmil_save_dir)
+from murcl_tpu_torch.drivers.common import (EpochOutputs, ProfilerHook, epoch_batches,
+                                           load_policy, make_tb_writer, rlmil_save_dir)
 from murcl_tpu_torch.drivers.murcl import resolve_device
 from murcl_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint, transfer_state
 from murcl_tpu_torch.engine.config import RolloutConfig
@@ -58,8 +59,6 @@ def _reject_unported(args) -> None:
         (args.policy_conv, "--policy_conv: ROADMAP queue 1, item 10"),
         (args.streaming, "--streaming: ROADMAP queue 1, item 13"),
         (int(args.dp_devices or 0) > 1, "--dp_devices > 1: ROADMAP queue 1, item 14"),
-        (args.use_tensorboard, "--use_tensorboard: ROADMAP queue 1, item 16"),
-        (int(args.profile or 0) > 0, "--profile: ROADMAP queue 1, item 16"),
     ]
     for unported, what in todo:
         if unported:
@@ -214,7 +213,13 @@ def run(args) -> dict:
     with open(save_dir / "args.json", "w", encoding="utf-8") as fp:
         json.dump(vars(args), fp, indent=1, default=str)
     generator = torch.Generator().manual_seed(args.seed)
-    result = _train_loop(args, s, generator)
+    with contextlib.ExitStack() as stack:
+        tb_writer = make_tb_writer(save_dir, args.use_tensorboard)
+        if tb_writer is not None:
+            stack.callback(tb_writer.close)
+        profiler = ProfilerHook(save_dir / "profile", args.profile, s.device)
+        stack.callback(profiler.close)
+        result = _train_loop(args, s, generator, tb_writer, profiler)
 
     # final test on the best model
     best = result["best"]
@@ -239,7 +244,8 @@ def run(args) -> dict:
             "train_losses": result["train_losses"], "steps_per_sec": result["steps_per_sec"]}
 
 
-def _train_loop(args, s: SimpleNamespace, generator: torch.Generator) -> dict:
+def _train_loop(args, s: SimpleNamespace, generator: torch.Generator, tb_writer=None,
+                profiler=None) -> dict:
     save_dir = Path(args.save_dir)
     bests = {f"{split}_{m}": BestVariable(order="min" if m == "loss" else "max")
              for split in ("train", "valid", "test") for m in ("loss", "acc", "auc")}
@@ -269,6 +275,8 @@ def _train_loop(args, s: SimpleNamespace, generator: torch.Generator) -> dict:
         pending = []
         for ids, valid in epoch_batches(train.num_slides, args.num_data, args.batch_size,
                                         np_rng, drop_partial=False):
+            if profiler is not None:
+                profiler.step()
             stats = s.engine.train_step(train, torch.as_tensor(ids, device=s.device), generator,
                                         valid=torch.as_tensor(valid, device=s.device))
             pending.append((stats.logits, ids, valid, stats.step_losses[-1]))
@@ -286,6 +294,9 @@ def _train_loop(args, s: SimpleNamespace, generator: torch.Generator) -> dict:
         test_loss, test_metrics = _evaluate(s, s.banks["test"], generator)
         valid_acc, valid_auc, valid_p, valid_r, valid_f1 = valid_metrics
         test_acc, test_auc, test_p, test_r, test_f1 = test_metrics
+        if tb_writer is not None:
+            tb_writer.add_scalar("train/1.train_loss", train_loss, epoch)
+            tb_writer.add_scalar("test/2.test_loss", valid_loss, epoch)
 
         # model selection (train_RLMIL.py:902-917)
         if args.picked_method == "acc":

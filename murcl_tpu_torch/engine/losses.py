@@ -1,7 +1,7 @@
 """Loss helpers of the supervised engine (counterpart of ``murcl_tpu/engine/losses.py``).
 
 Single-device: the JAX package's ``axis_name`` (a global mean across a data
-mesh) comes with the multi-device slice (ROADMAP queue 1, slice 5).
+mesh) comes with multi-device training (ROADMAP queue 1, item 14).
 """
 
 from __future__ import annotations

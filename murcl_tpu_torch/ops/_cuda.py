@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -43,6 +44,9 @@ LAUNCHES = {
     "ntxent_bwd": 0,
     "mixup_rows": 0,
     "attention_pool_tiled": 0,
+    # not the port of a TPU kernel: libjpeg's upsampling and colour
+    # conversion on nvJPEG's planes (preprocess/nvjpeg.py)
+    "ycc_to_rgb": 0,
 }
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -82,9 +86,12 @@ _SIGNATURES = {
     "murcl_attention_pool_tiled": [_I, _I] + [_P] * 13 + [_I] * 6 + [_P],
     # w, out, F, D, slab, stream
     "murcl_split_planes": [_P, _P, _I, _I, _I, _P],
+    # y, cb, cr, out, h, w, ch, cw, fv, fh, stream
+    "murcl_ycc_to_rgb": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 _lib = None
+_lib_lock = threading.Lock()  # one build when several threads first need a kernel
 
 
 def reset_launch_counts() -> None:
@@ -154,15 +161,16 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.murcl_error_string.argtypes = [ctypes.c_int]
-        lib.murcl_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.murcl_error_string.argtypes = [ctypes.c_int]
+            lib.murcl_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

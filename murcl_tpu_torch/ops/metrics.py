@@ -17,7 +17,6 @@ package computes them with scikit-learn, without it:
 from __future__ import annotations
 
 import numpy as np
-from scipy.stats import rankdata
 
 
 def _softmax(x: np.ndarray) -> np.ndarray:
@@ -41,6 +40,8 @@ def _binary_auc(positive: np.ndarray, score: np.ndarray) -> float:
     n_neg = positive.size - n_pos
     if n_pos == 0 or n_neg == 0:
         raise ValueError("ROC AUC needs both classes among the targets")
+    from scipy.stats import rankdata  # here: importing scipy.stats takes seconds
+
     ranks = rankdata(score)  # average ranks for ties
     return float((ranks[positive].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
 

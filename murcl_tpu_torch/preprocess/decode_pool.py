@@ -9,8 +9,11 @@ cores do. This pool scales with processes: a persistent spawn-context
 unsafe) whose workers write decoded patches straight into a
 ``SharedMemory`` block, so pixels cross the process boundary once; tasks
 are row ranges of one slide's coord list, and each worker keeps its opened
-slides by path. A worker imports the slide reader and the resize (torch on
-the CPU) and nothing that initialises CUDA.
+slides by path. A worker imports the slide reader and the resize and
+nothing that initialises CUDA, so it decodes every tile on the host: a
+slide whose tiles are JPEG, read for a CUDA device, is refused by name
+(its tiles are the card's to decode, by the threaded read); read for the
+CPU, its workers decode JPEG with PIL.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ def _get_slide(path: str):
 
 def _decode_chunk(task) -> int:
     from murcl_tpu_torch.preprocess.resample import resize_u8
-    from murcl_tpu_torch.preprocess.slide_io import as_rgb
+    from murcl_tpu_torch.preprocess.slide_io import read_patch
 
     (path, shm_name, shape, lo, coords, patch_size_level0, patch_size,
      resize_on_host) = task
@@ -46,14 +49,27 @@ def _decode_chunk(task) -> int:
         out = np.ndarray(shape, dtype=np.uint8, buffer=shm.buf)
         slide = _get_slide(path)
         for j, c in enumerate(coords):
-            img = as_rgb(slide.read_region(location=(c["x"], c["y"]), level=0,
-                                           size=(patch_size_level0, patch_size_level0)))
+            img = read_patch(slide, (c["x"], c["y"]), (patch_size_level0, patch_size_level0))
             if resize_on_host and patch_size_level0 != patch_size:
                 img = resize_u8(img, (patch_size, patch_size))
             out[lo + j] = img
     finally:
         shm.close()
     return len(coords)
+
+
+def _jpeg_tiled(path: str) -> bool:
+    """Whether the port's TIFF reader would meet JPEG tiles in ``path``."""
+    from murcl_tpu_torch.preprocess.slide_io import TIFF_SUFFIXES
+    from murcl_tpu_torch.preprocess.tiff import TiffFile
+
+    if not path.lower().endswith(TIFF_SUFFIXES):
+        return False
+    tf = TiffFile(path)
+    try:
+        return any(page.compression == 7 for page in tf.levels)
+    finally:
+        tf.close()
 
 
 class ProcessDecodePool:
@@ -68,8 +84,13 @@ class ProcessDecodePool:
 
     def read_patches(self, slide_path: str, coords: List[dict],
                      patch_size_level0: int, patch_size: int,
-                     resize_on_host: bool = True) -> np.ndarray:
-        """Decode one slide's patch regions into ``(N, S, S, 3) uint8``."""
+                     resize_on_host: bool = True, device="cpu") -> np.ndarray:
+        """Decode one slide's patch regions into ``(N, S, S, 3) uint8``;
+        refuse a JPEG-tiled slide read for a CUDA ``device``."""
+        if str(device) != "cpu" and _jpeg_tiled(slide_path):
+            raise ValueError(f"{slide_path}: JPEG tiles are decoded on the card, which the "
+                             "process decode pool's workers do not open; use --decode_pool "
+                             "thread (the default), or --device cpu")
         n = len(coords)
         out_size = patch_size if resize_on_host else patch_size_level0
         shape = (n, out_size, out_size, 3)

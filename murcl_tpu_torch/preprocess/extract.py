@@ -2,13 +2,19 @@
 ``murcl_tpu/preprocess/extract.py``; reference
 ``wsi_processing/extract_features.py:47-102``, one patch per forward).
 
-A producer thread reads one slide's patches (threaded crops and
-:func:`resize_u8` into a pinned host buffer, or a
+A producer thread reads a slide's patches, up to ``READ_CHUNK`` at a time
+(threaded crops into a pinned host buffer, the slide's JPEG tiles decoded
+on the encoder's device, or a
 :class:`~murcl_tpu_torch.preprocess.decode_pool.ProcessDecodePool`) while
-the device encodes the previous slide; a queue of depth 2 holds the slides
+the device encodes the previous chunk; a queue of depth 2 holds the chunks
 between them. :class:`PatchEncoder` queues every fixed-size batch (host to
-device copy, optional resize, ``/255``, optional ImageNet normalisation,
-the encoder) before it reads any back. Preprocessing is the reference's:
+device copy, the resize, ``/255``, optional ImageNet normalisation, the
+encoder) before it reads any back.
+
+The resize is PIL's bicubic, bit for bit: on the card the host threads
+only crop at level 0 and :func:`resize_u8_torch` resizes each batch there;
+on the CPU the threads resize with :func:`resize_u8`. ``--resize_on_device``
+asks instead for the JAX package's bilinear device resize. Preprocessing is the reference's:
 ``ToTensor`` scaling only, no ImageNet normalisation unless
 ``imagenet_norm``.
 
@@ -37,14 +43,15 @@ import torch
 import torch.nn.functional as F
 
 from murcl_tpu_torch.data.contract import save_features_npz
-from murcl_tpu_torch.preprocess.resample import resize_u8
+from murcl_tpu_torch.preprocess.resample import resize_u8, resize_u8_torch
 from murcl_tpu_torch.preprocess.resnet import (create_encoder, load_params_npz,
                                               load_torchvision_weights, state_dict_from_jax)
-from murcl_tpu_torch.preprocess.slide_io import as_rgb, open_slide
+from murcl_tpu_torch.preprocess.slide_io import open_slide, read_patch
 from murcl_tpu_torch.utils.general import load_json
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+READ_CHUNK = 1024  # patches per host buffer (about 800 MB of 512-pixel crops)
 
 
 @contextlib.contextmanager
@@ -97,6 +104,8 @@ class PatchEncoder:
 
     def _encode(self, batch_u8: torch.Tensor) -> torch.Tensor:
         """``(B, H, W, 3)`` uint8 on the device -> ``(B, feature_dim)`` f32."""
+        if batch_u8.shape[1] != self.patch_size and not self.resize_on_device:
+            batch_u8 = resize_u8_torch(batch_u8, (self.patch_size, self.patch_size))
         x = batch_u8.permute(0, 3, 1, 2).to(self.dtype)  # NCHW over NHWC memory, no copy
         if self.resize_on_device and x.shape[2] != self.patch_size:
             # host threads then only crop; the bilinear (antialiased) downscale
@@ -139,8 +148,7 @@ def _read_patches(slide, coords: List[dict], patch_size_level0: int, patch_size:
 
     def work(i):
         c = coords[i]
-        img = as_rgb(slide.read_region(location=(c["x"], c["y"]), level=0,
-                                       size=(patch_size_level0, patch_size_level0)))
+        img = read_patch(slide, (c["x"], c["y"]), (patch_size_level0, patch_size_level0))
         view[i] = resize_u8(img, (patch_size, patch_size)) if size != patch_size_level0 else img
 
     if num_workers <= 1 or n < 4:
@@ -162,8 +170,9 @@ def extract_features(patch_dir, save_dir, image_encoder: str = "resnet18",
     and slides without patches. Returns, per slide written, ``{case_id,
     num_patches, read_ms, encode_ms}``: the producer's host time to read the
     slide's patches and the consumer's time to encode them (read back
-    included). ``resize_on_device`` resizes to the coord jsons' patch size
-    (the JAX package's encoder resizes to 256 whatever the tiling's size)."""
+    included), summed over its chunks. ``resize_on_device`` resizes to the
+    coord jsons' patch size (the JAX package's encoder resizes to 256
+    whatever the tiling's size)."""
     patch_dir, save_dir = Path(patch_dir), Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
     todo = []
@@ -180,6 +189,9 @@ def extract_features(patch_dir, save_dir, image_encoder: str = "resnet18",
                            imagenet_norm=imagenet_norm, resize_on_device=resize_on_device,
                            device=device)
     pin = encoder.device.type == "cuda"
+    # the host resizes only for an encoder on the CPU; the card resizes its own
+    resize_on_host = not pin and not resize_on_device
+    chunk = batch_size * max(1, READ_CHUNK // batch_size)
     q: "queue.Queue" = queue.Queue(maxsize=2)
     pool = None
     if decode_pool == "process":
@@ -194,17 +206,28 @@ def extract_features(patch_dir, save_dir, image_encoder: str = "resnet18",
                 if coord["num_patches"] == 0:  # extract_features.py:69-71
                     print(f"{cp.stem}'s num_patches is 0, skip!")
                     continue
-                t0 = time.perf_counter()
-                if pool is not None:
-                    patches = pool.read_patches(
-                        coord["slide_filepath"], coord["coords"], coord["patch_size_level0"],
-                        coord["patch_size"], resize_on_host=not resize_on_device)
-                else:
-                    patches = _read_patches(
-                        open_slide(coord["slide_filepath"]), coord["coords"],
-                        coord["patch_size_level0"], coord["patch_size"], num_workers,
-                        resize_on_host=not resize_on_device, pin_memory=pin)
-                q.put((cp.stem, coord, patches, 1e3 * (time.perf_counter() - t0)))
+                slide = None
+                if pool is None:
+                    slide = open_slide(coord["slide_filepath"], device=encoder.device)
+                try:
+                    cs = coord["coords"]
+                    for lo in range(0, len(cs), chunk):
+                        t0 = time.perf_counter()
+                        if slide is None:
+                            patches = pool.read_patches(
+                                coord["slide_filepath"], cs[lo:lo + chunk],
+                                coord["patch_size_level0"], coord["patch_size"],
+                                resize_on_host=resize_on_host, device=encoder.device)
+                        else:
+                            patches = _read_patches(
+                                slide, cs[lo:lo + chunk], coord["patch_size_level0"],
+                                coord["patch_size"], num_workers,
+                                resize_on_host=resize_on_host, pin_memory=pin)
+                        q.put((cp.stem, coord, patches, 1e3 * (time.perf_counter() - t0),
+                               lo + chunk >= len(cs)))
+                finally:
+                    if slide is not None:
+                        slide.close()
         except Exception as e:  # handed to the consumer, which raises it
             q.put(e)
         q.put(None)
@@ -212,24 +235,30 @@ def extract_features(patch_dir, save_dir, image_encoder: str = "resnet18",
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
     records, total, t_start = [], 0, time.perf_counter()
+    parts, read_ms, encode_ms = [], 0.0, 0.0
     try:
         while (item := q.get()) is not None:
             if isinstance(item, Exception):
                 raise item
-            stem, coord, patches, read_ms = item
+            stem, coord, patches, chunk_read_ms, last = item
             t0 = time.perf_counter()
-            feats = encoder.encode_patches(patches)
-            encode_ms = 1e3 * (time.perf_counter() - t0)
+            parts.append(encoder.encode_patches(patches))
+            encode_ms += 1e3 * (time.perf_counter() - t0)
+            read_ms += chunk_read_ms
+            if not last:
+                continue
+            feats = np.concatenate(parts)
             coords_rc = np.asarray([[c["row"], c["col"]] for c in coord["coords"]],
                                    dtype=np.int64)
             save_features_npz(save_dir / f"{stem}.npz", filename=stem,
                               num_row=coord["num_row"], num_col=coord["num_col"],
                               img_features=feats, coords=coords_rc)
-            total += patches.shape[0]
-            print(f"{stem}: {patches.shape[0]} patches -> {tuple(feats.shape)} "
+            total += feats.shape[0]
+            print(f"{stem}: {feats.shape[0]} patches -> {tuple(feats.shape)} "
                   f"({total / (time.perf_counter() - t_start):.1f} patches/sec cumulative)")
-            records.append({"case_id": stem, "num_patches": int(patches.shape[0]),
+            records.append({"case_id": stem, "num_patches": int(feats.shape[0]),
                             "read_ms": read_ms, "encode_ms": encode_ms})
+            parts, read_ms, encode_ms = [], 0.0, 0.0
     finally:
         while thread.is_alive():  # a consumer that failed drains the producer
             with contextlib.suppress(queue.Empty):

@@ -62,16 +62,20 @@ def blend(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def create_heatmap(coord_filepath, attention, slide_level: int = -1,
-                   contours: Optional[list] = None) -> np.ndarray:
+                   contours: Optional[list] = None, device="cpu") -> np.ndarray:
     """Paint per-patch attention onto the slide thumbnail, with the ROI
-    ``contours`` (level-0 polygons) outlined in yellow; returns BGR uint8."""
+    ``contours`` (level-0 polygons) outlined in yellow; returns BGR uint8.
+    ``device`` decodes the slide's JPEG tiles (``open_slide``)."""
     coord_dict = load_json(coord_filepath)
     coords = coord_dict["coords"]
     num_patches = coord_dict["num_patches"]
-    slide = open_slide(coord_dict["slide_filepath"])
-    thumbnail = np.ascontiguousarray(
-        as_rgb(slide.get_thumbnail(slide.level_dimensions[slide_level]))[..., ::-1])
-    level_downsample = slide.level_downsamples[slide_level]
+    slide = open_slide(coord_dict["slide_filepath"], device=device)
+    try:
+        thumbnail = np.ascontiguousarray(
+            as_rgb(slide.get_thumbnail(slide.level_dimensions[slide_level]))[..., ::-1])
+        level_downsample = slide.level_downsamples[slide_level]
+    finally:
+        slide.close()
     size = coord_dict["patch_size_level0"] / level_downsample
     assert num_patches == len(coords) == len(attention), \
         f"{num_patches}-{len(coords)}-{len(attention)}"
@@ -162,7 +166,8 @@ def run_heatmaps(args) -> List[dict]:
             if xml.exists():
                 contours = load_annotations_xml(xml)
         heatmap = create_heatmap(Path(args.coord_dir) / f"{case_id}.json", attention,
-                                 slide_level=args.slide_level, contours=contours)
+                                 slide_level=args.slide_level, contours=contours,
+                                 device=device)
         t3 = time.perf_counter()
         write_png(out_path, heatmap)
         t4 = time.perf_counter()

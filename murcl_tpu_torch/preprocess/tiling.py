@@ -22,8 +22,9 @@ import numpy as np
 from murcl_tpu_torch.data.contract import save_coord_json
 from murcl_tpu_torch.preprocess import cvcompat
 from murcl_tpu_torch.preprocess import filters as _filters
+from murcl_tpu_torch.preprocess.nvjpeg import DecoderUnavailable
 from murcl_tpu_torch.preprocess.resample import resize_u8
-from murcl_tpu_torch.preprocess.slide_io import as_rgb, get_three_points, open_slide
+from murcl_tpu_torch.preprocess.slide_io import as_rgb, get_three_points, open_slide, read_patch
 from murcl_tpu_torch.utils.png import write_png
 
 
@@ -51,9 +52,22 @@ def tiling(
     mask_dir: Optional[Path] = None,
     patch_dir: Optional[Path] = None,
     filename: Optional[str] = None,
+    device="cpu",
 ) -> Optional[dict]:
-    """Tile one slide; write the coord json; return the coord dict."""
-    slide = open_slide(str(slide_filepath))
+    """Tile one slide; write the coord json; return the coord dict.
+    ``device`` decodes the slide's JPEG tiles (``open_slide``)."""
+    slide = open_slide(str(slide_filepath), device=device)
+    try:
+        return _tile_slide(slide, slide_filepath, magnification, patch_size, scale_factor,
+                           tissue_thresh, method, overview_level, coord_dir, overview_dir,
+                           mask_dir, patch_dir, filename)
+    finally:
+        slide.close()
+
+
+def _tile_slide(slide, slide_filepath, magnification, patch_size, scale_factor, tissue_thresh,
+                method, overview_level, coord_dir, overview_dir, mask_dir, patch_dir,
+                filename) -> Optional[dict]:
     mag0 = infer_level0_magnification(slide)
     if mag0 < magnification:
         print(f"{mag0}<{magnification}? magnification should <= level0_magnification.")
@@ -105,8 +119,7 @@ def tiling(
             tl, br, _ = get_three_points(int(col), int(row), patch_size_level0 / scale)
             cvcompat.rectangle(thumbnail, tl, br, (0, 0, 255), thickness=3)
         if patch_dir is not None:
-            patch = as_rgb(slide.read_region(location=(top_left[0], top_left[1]), level=0,
-                                             size=(patch_size_level0, patch_size_level0)))
+            patch = read_patch(slide, top_left, (patch_size_level0, patch_size_level0))
             write_png(patch_dir / f"{row}_{col}.png",
                       resize_u8(patch, (patch_size, patch_size))[..., ::-1])
 
@@ -147,6 +160,9 @@ def run_tiling(args) -> None:
         patch_dir = save_dir / "patch"
         patch_dir.mkdir(parents=True, exist_ok=True)
 
+    from murcl_tpu_torch.drivers.murcl import resolve_device
+
+    device = resolve_device(getattr(args, "device", "cpu"))
     slide_dir = Path(args.slide_dir)
     paths = sorted(slide_dir.rglob(f"*{args.wsi_format}"))
     print(f"tiling {len(paths)} slides from {slide_dir}")
@@ -167,6 +183,9 @@ def run_tiling(args) -> None:
                 method=args.method, overview_level=args.overview_level,
                 coord_dir=coord_dir, overview_dir=overview_dir,
                 mask_dir=mask_dir, patch_dir=patch_dir, filename=filename,
+                device=device,
             )
+        except DecoderUnavailable:  # every JPEG slide would fail alike
+            raise
         except Exception as e:  # per-slide resilience (create_patches.py:171-188)
             print(f"{filename} Error! {type(e).__name__}: {e}")

@@ -66,8 +66,11 @@ def parse_args(argv=None):
     parser.add_argument('--size_arg', type=str, default='small', choices=['small', 'big'])
     parser.add_argument('--k_sample', type=int, default=8)
     # Logging
-    parser.add_argument('--use_tensorboard', action='store_true', default=False)
-    parser.add_argument('--profile', type=int, default=0)
+    parser.add_argument('--use_tensorboard', action='store_true', default=False,
+                        help="log the loss with torch.utils.tensorboard where it imports")
+    parser.add_argument('--profile', type=int, default=0,
+                        help="trace the first N steps with torch.profiler into "
+                             "<save_dir>/profile")
     # Save
     parser.add_argument('--base_save_dir', type=str, default='./results')
     parser.add_argument('--save_dir', type=str, default=None)

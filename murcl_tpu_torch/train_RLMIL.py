@@ -79,9 +79,11 @@ def parse_args(argv=None):
     parser.add_argument('--bag_weight', type=float, default=0.7)
     # Loss
     parser.add_argument('--loss', default='CrossEntropyLoss', type=str, choices=LOSSES)
-    parser.add_argument('--use_tensorboard', action='store_true', default=False)
+    parser.add_argument('--use_tensorboard', action='store_true', default=False,
+                        help="log losses with torch.utils.tensorboard where it imports")
     parser.add_argument('--profile', type=int, default=0,
-                        help="not ported yet (ROADMAP queue 1, slice 6)")
+                        help="trace the first N steps with torch.profiler into "
+                             "<save_dir>/profile")
     # Save
     parser.add_argument('--base_save_dir', type=str, default='./results')
     parser.add_argument('--save_dir', type=str, default=None)
@@ -95,12 +97,12 @@ def parse_args(argv=None):
                         help="'cpu' (plain PyTorch path) or a CUDA device index")
     parser.add_argument('--seed', type=int, default=985)
     parser.add_argument('--streaming', action='store_true', default=False,
-                        help="not ported yet (ROADMAP queue 1, slice 4)")
+                        help="not ported yet (ROADMAP queue 1, item 13)")
     parser.add_argument('--compute_dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16'],
                         help="aggregator compute dtype (losses stay float32)")
     parser.add_argument('--dp_devices', type=int, default=0,
-                        help="> 1 is not ported yet (ROADMAP queue 1, slice 5)")
+                        help="> 1 is not ported yet (ROADMAP queue 1, item 14)")
     return parser.parse_args(argv)
 
 

@@ -366,3 +366,99 @@ def test_split_planes_bitwise(dev, f, fs):
     w = torch.randn(f, 256, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
     got = _split_planes_cuda("split", w, fs)
     assert torch.equal(got.view(torch.int16), _slab_planes(w, fs).view(torch.int16))
+
+
+@pytest.mark.parametrize("variant", ["ycbcr444", "ycbcr420", "rgb"])
+def test_nvjpeg_against_the_fixture(dev, variant):
+    """nvJPEG's decode of the committed tiles against PIL's, within
+    ``FIXTURE_BOUND``; then a JPEG-tiled TIFF of those tiles through
+    ``TiffSlide`` on the card, within the same bound of PIL's pixels."""
+    import numpy as np
+
+    from murcl_tpu_torch.data.synthetic import write_jpeg_fixture_tiff
+    from murcl_tpu_torch.preprocess.nvjpeg import FIXTURE_BOUND, NvJpegDecoder, load_fixture
+    from murcl_tpu_torch.preprocess.slide_io import TiffSlide
+
+    fx = load_fixture()[variant]
+    top, mean = FIXTURE_BOUND[variant]
+    dec = NvJpegDecoder(dev)
+    try:
+        for stream, want in zip(fx["streams"], fx["decoded"]):
+            got = dec(fx["tables"][:-2] + stream[2:], fx["photometric"])
+            diff = np.abs(got.astype(int) - want)
+            assert got.shape == want.shape
+            assert diff.max() <= top and diff.mean() <= mean, (diff.max(), diff.mean())
+        assert dec.decoded == 4
+    finally:
+        dec.close()
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / f"{variant}.tif"
+        img = write_jpeg_fixture_tiff(path, variant, repeat=2)
+        slide = TiffSlide(path, device=dev)
+        got = slide.read_region((10, 5), 0, (170, 100))
+        diff = np.abs(got[:91, :, :3].astype(int) - img[5:, 10:180])
+        assert diff.max() <= top and diff.mean() <= mean, (diff.max(), diff.mean())
+        assert (got[91:] == 0).all() and slide._jpeg.decoded == 8
+        slide.close()
+
+
+def test_nvjpeg_against_the_256_fixture(dev):
+    """nvJPEG's decode of the committed 256-pixel YCbCr 4:2:0 tiles (a
+    slide's tile size) against PIL's, within ``FIXTURE_BOUND``; then a
+    JPEG-tiled pyramid of them through ``TiffSlide`` on the card, every
+    level within the same bound."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from murcl_tpu_torch.data.synthetic import write_jpeg_fixture_tiff
+    from murcl_tpu_torch.preprocess.nvjpeg import (FIXTURE_256, FIXTURE_BOUND, NvJpegDecoder,
+                                                   load_fixture)
+    from murcl_tpu_torch.preprocess.slide_io import TiffSlide
+
+    fx = load_fixture(FIXTURE_256)["ycbcr420"]
+    top, mean = FIXTURE_BOUND["ycbcr420"]
+    dec = NvJpegDecoder(dev)
+    try:
+        for stream, want in zip(fx["streams"], fx["decoded"]):
+            got = dec(fx["tables"][:-2] + stream[2:], fx["photometric"])
+            diff = np.abs(got.astype(int) - want)
+            assert got.shape == want.shape == (256, 256, 3)
+            assert diff.max() <= top and diff.mean() <= mean, (diff.max(), diff.mean())
+    finally:
+        dec.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "pyramid.svs"
+        img = write_jpeg_fixture_tiff(path, "ycbcr420", fixture=FIXTURE_256, size=(2048, 1024),
+                                      downsamples=(1, 4))
+        slide = TiffSlide(path, device=dev)
+        assert slide.level_dimensions == ((2048, 1024), (512, 256))
+        for level, want in ((0, img), (1, img[:256, :512])):
+            got = slide.read_region((0, 0), level, slide.level_dimensions[level])[..., :3]
+            diff = np.abs(got.astype(int) - want)
+            assert diff.max() <= top and diff.mean() <= mean, (level, diff.max(), diff.mean())
+        slide.close()
+
+
+@pytest.mark.parametrize("h, w, fv, fh", [(256, 256, 2, 2), (255, 97, 2, 2), (64, 33, 1, 2),
+                                          (31, 64, 2, 1), (48, 40, 1, 1), (1, 7, 2, 2)])
+def test_ycc_to_rgb_kernel_against_its_twin(dev, h, w, fv, fh):
+    """``csrc/ycc_rgb.cu`` (libjpeg's upsampling and colour conversion on
+    nvJPEG's planes) bit for bit with its plain twin, over every chroma
+    layout and odd sizes, one launch counted per call."""
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.preprocess.nvjpeg import ycc_to_rgb, ycc_to_rgb_plain
+
+    g = torch.Generator(device=dev).manual_seed(h * w)
+    ch, cw = -(-h // fv), -(-w // fh)
+    y = torch.randint(0, 256, (h, w), generator=g, device=dev, dtype=torch.uint8)
+    cb, cr = (torch.randint(0, 256, (ch, cw), generator=g, device=dev, dtype=torch.uint8)
+              for _ in range(2))
+    before = _cuda.LAUNCHES["ycc_to_rgb"]
+    got = ycc_to_rgb(y, cb, cr)
+    assert _cuda.LAUNCHES["ycc_to_rgb"] == before + 1
+    assert torch.equal(got, ycc_to_rgb_plain(y, cb, cr))

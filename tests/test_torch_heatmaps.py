@@ -74,7 +74,7 @@ def test_create_heatmap_bitwise_with_jax(tmp_path, monkeypatch):
     monkeypatch.setattr(tiling, "open_slide", lambda _: jslide)
     monkeypatch.setattr(jax_hm, "open_slide", lambda _: jslide)
     monkeypatch.setattr(hm, "open_slide",
-                        lambda _: ImageSlide("fake.png", image=img,
+                        lambda _, **__: ImageSlide("fake.png", image=img,
                                              properties={"aperio.AppMag": "20"}))
     coord = tiling.tiling("fake.png", magnification=20, patch_size=64, scale_factor=8,
                           coord_dir=tmp_path, filename="fake")

@@ -1,12 +1,16 @@
 """The three preprocessing entry points of the port, end to end on the CPU,
-in a subprocess where ``cv2``, ``PIL``, ``torchvision``, ``sklearn``,
-``jax`` (with ``jaxlib``, ``flax``, ``optax``) and ``murcl_tpu`` cannot be
-imported: four synthetic slides (``synthetic_slide``, 768 x 1024 at 40x,
-supplied as in-memory ``ImageSlide``s) go through ``create_patches`` (20x,
-patch 32: each patch read at 64 px and resized), ``extract_features
---device cpu`` (ResNet18, random weights) and ``features_clustering
---device cpu`` (K 10); the output loads through ``WSIWithCluster`` and
-trains one port MuRCL stage-1 epoch (CLAM_SB, feat_size 32, T 3).
+in a subprocess where ``cv2``, ``PIL``, ``openslide``, ``torchvision``,
+``sklearn``, ``jax`` (with ``jaxlib``, ``flax``, ``optax``) and
+``murcl_tpu`` cannot be imported: four synthetic slides
+(``synthetic_slide``, 768 x 1024 at 40x) written as ``.svs`` files by
+``write_tiff`` (pyramids of levels 1 and 4 with an Aperio description; the
+four differ in layout and codec: Aperio's extra IFDs with deflate, LZW with
+Predictor 2 in BigTIFF, PackBits, stripped deflate) go through
+``create_patches --device cpu`` (20x, patch 32: each patch read at 64 px
+and resized), ``extract_features --device cpu`` (ResNet18, random weights)
+and ``features_clustering --device cpu`` (K 10); the output loads through
+``WSIWithCluster`` and trains one port MuRCL stage-1 epoch (CLAM_SB,
+feat_size 32, T 3).
 """
 
 import json
@@ -15,8 +19,8 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("cv2", "PIL", "torchvision", "sklearn", "jax", "jaxlib", "flax", "optax",
-           "murcl_tpu")
+BLOCKED = ("cv2", "PIL", "openslide", "torchvision", "sklearn", "jax", "jaxlib", "flax",
+           "optax", "murcl_tpu")
 
 SCRIPT = r'''
 import json, math, sys
@@ -30,25 +34,23 @@ import numpy as np
 from murcl_tpu_torch import create_patches, extract_features, features_clustering
 from murcl_tpu_torch.data import contract
 from murcl_tpu_torch.data.datasets import WSIWithCluster
-from murcl_tpu_torch.data.synthetic import synthetic_slide
+from murcl_tpu_torch.data.synthetic import aperio_description, synthetic_slide, write_tiff
 from murcl_tpu_torch.drivers.murcl import default_args, run
-from murcl_tpu_torch.preprocess import extract, tiling
-from murcl_tpu_torch.preprocess.slide_io import ImageSlide
 from murcl_tpu_torch.utils.general import dump_json
 
 root = Path(sys.argv[1])
 slide_dir = root / "slides"
 slide_dir.mkdir()
-slides = {{}}
-for i in range(4):
-    path = slide_dir / f"slide_{{i}}.svs"
-    path.touch()  # the tiling walks the directory; the pixels are in memory
-    slides[str(path)] = ImageSlide(path, image=synthetic_slide(768, 1024, seed=i),
-                                   properties={{"aperio.AppMag": "40"}})
-tiling.open_slide = extract.open_slide = lambda p: slides[str(p)]
+layouts = [dict(svs_extras=True), dict(compression="lzw", predictor=2, bigtiff=True),
+           dict(compression="packbits"), dict(stripped=True)]
+for i, layout in enumerate(layouts):
+    img = synthetic_slide(768, 1024, seed=i)
+    write_tiff(slide_dir / f"slide_{{i}}.svs", [img, np.ascontiguousarray(img[::4, ::4])],
+               tile=128, description=aperio_description(1024, 768, 128, 40), **layout)
 
 create_patches.main(["--slide_dir", str(slide_dir), "--save_dir", str(root / "patches"),
-                     "--patch_size", "32", "--scale_factor", "8", "--overview", "--save_mask"])
+                     "--patch_size", "32", "--scale_factor", "8", "--overview", "--save_mask",
+                     "--device", "cpu"])
 records = extract_features.main(["--patch_dir", str(root / "patches"), "--device", "cpu",
                                  "--batch_size", "64", "--num_workers", "2"])
 feat_dir = root / "patches" / "features" / "resnet18"

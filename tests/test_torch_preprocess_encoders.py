@@ -16,8 +16,8 @@
   pixels; a decode worker has not initialised CUDA.
 - ``extract_features`` over the blob slide's coord json: the same
   ``coords``, ``num_row`` and ``num_col`` as the JAX package's npz, and
-  ``img_features`` within rtol 1e-3 / atol 1e-3 (the patches are resized
-  64 -> 32 on the host, where the port's resize is within 1 of PIL's).
+  ``img_features`` within rtol 1e-3 / atol 1e-3 (the patches, resized
+  64 -> 32 on the host, equal PIL's; the convolutions' sums differ).
 """
 
 import pickle
@@ -38,7 +38,9 @@ from murcl_tpu.preprocess.slide_io import ImageSlide as JaxImageSlide
 from murcl_tpu_torch.preprocess import extract as tx
 from murcl_tpu_torch.preprocess import resnet as tr
 from murcl_tpu_torch.preprocess.decode_pool import ProcessDecodePool
+from murcl_tpu_torch.preprocess.resample import resize_u8
 from murcl_tpu_torch.preprocess.slide_io import ImageSlide
+from murcl_tpu_torch.utils.general import dump_json
 from test_torch_preprocess_cv import blob_slide
 
 REPO = Path(__file__).resolve().parents[1]
@@ -168,7 +170,7 @@ def test_read_patches_thread_and_process_pools(tmp_path):
     np.testing.assert_array_equal(tx._read_patches(slide, coords, 128, 64, num_workers=1).numpy(),
                                   got)
     want = jx._read_patches(jslide, coords, 128, 64, num_workers=1)
-    assert np.abs(got.astype(int) - want).max() <= 1
+    np.testing.assert_array_equal(got, want)
     raw = tx._read_patches(slide, coords, 128, 64, num_workers=4, resize_on_host=False).numpy()
     np.testing.assert_array_equal(raw, jx._read_patches(jslide, coords, 128, 64, num_workers=1,
                                                         resize_on_host=False))
@@ -191,7 +193,7 @@ def test_extract_features_matches_jax(tmp_path, monkeypatch, weights_file):
     jslide = JaxImageSlide("fake.png", image=Image.fromarray(img), properties=props)
     monkeypatch.setattr(jt, "open_slide", lambda _: jslide)
     monkeypatch.setattr(jx, "open_slide", lambda _: jslide)
-    monkeypatch.setattr(tx, "open_slide", lambda _: ImageSlide("fake.png", image=img,
+    monkeypatch.setattr(tx, "open_slide", lambda _, **__: ImageSlide("fake.png", image=img,
                                                                properties=props))
     (tmp_path / "coord").mkdir()
     coord = jt.tiling("fake.png", magnification=10, patch_size=32, scale_factor=16,
@@ -208,3 +210,39 @@ def test_extract_features_matches_jax(tmp_path, monkeypatch, weights_file):
             np.testing.assert_array_equal(b[k], a[k])
         np.testing.assert_allclose(b["img_features"], a["img_features"], rtol=1e-3, atol=1e-3)
     assert tx.extract_features(tmp_path, tmp_path / "port", device="cpu") == []  # npz exists
+
+
+def test_patch_encoder_resizes_level0_crops_exactly(weights_file):
+    """Given level-0 crops, the encoder resizes them with PIL's bicubic, bit
+    for bit as ``resize_u8`` on the host: the card's extraction path
+    (``resize_u8_torch`` in float64), run here on the CPU."""
+    rng = np.random.default_rng(5)
+    crops = rng.integers(0, 256, (6, 64, 64, 3), dtype=np.uint8)
+    enc = tx.PatchEncoder("resnet18", batch_size=4, patch_size=32, weights=weights_file,
+                          device="cpu")
+    host = np.stack([resize_u8(c, (32, 32)) for c in crops])
+    np.testing.assert_array_equal(enc.encode_patches(crops), enc.encode_patches(host))
+
+
+def test_extract_features_in_chunks(tmp_path, monkeypatch, weights_file):
+    """A slide read in chunks of ``READ_CHUNK`` patches gives the features of
+    one read, and one record."""
+    img = blob_slide()
+    props = {"aperio.AppMag": "20"}
+    monkeypatch.setattr(tx, "open_slide", lambda _, **__: ImageSlide("fake.png", image=img,
+                                                               properties=props))
+    coords = [{"x": x, "y": y, "row": i, "col": j} for i, y in enumerate(range(0, 1400, 100))
+              for j, x in enumerate(range(0, 1900, 100))]
+    (tmp_path / "coord").mkdir()
+    dump_json({"slide_filepath": "fake.png", "patch_size": 32, "patch_size_level0": 64,
+               "num_patches": len(coords), "num_row": 14, "num_col": 19, "coords": coords},
+              tmp_path / "coord" / "fake.json")
+    kw = dict(batch_size=32, num_workers=2, weights=weights_file, device="cpu")
+    tx.extract_features(tmp_path, tmp_path / "one", **kw)
+    monkeypatch.setattr(tx, "READ_CHUNK", 64)
+    records = tx.extract_features(tmp_path, tmp_path / "chunks", **kw)
+    assert [r["num_patches"] for r in records] == [len(coords)] and len(coords) > 4 * 64
+    with np.load(tmp_path / "one" / "fake.npz") as a, \
+            np.load(tmp_path / "chunks" / "fake.npz") as b:
+        np.testing.assert_array_equal(b["img_features"], a["img_features"])
+        np.testing.assert_array_equal(b["coords"], a["coords"])
