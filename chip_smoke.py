@@ -114,6 +114,25 @@
    when the step call returns (the host's enqueue time), and the peak
    device memory; then ``torch.profiler`` traces 3 more steps of each and
    prints device time by kernel and the device's busy share.
+8. The streaming feature feed (``streaming_path``), on 128 synthetic
+   slides of 3,000-10,240 patches x 512 (K 10; about 1.7 GB of f32 npz,
+   drawn as the JAX package's ``scripts/bench_tcga_scale.py`` draws its
+   TCGA-sized slides): MuRCL CLAM_SB stage 1 (batch 128, feat_size 1024, T 6, bf16, 3
+   steps) with and without ``--streaming`` must write the same
+   ``losses.csv``, and RLMIL CLAM_SB (scratch, batch 64) stages 1 and 3 the
+   same ``final_res.csv`` and ``pred.csv``, all at an aggregator and head
+   learning rate of 0 (K3's and K7b's atomics make two training runs differ
+   in their last bits whatever feeds them; at lr 0 each step's outputs
+   depend on its batch's data alone); the streaming runs' launch counts go
+   into the kernels line. Then ``--policy_conv`` with ``--streaming``: a
+   MuRCL stage 2 and an RLMIL stage 2 whose checkpoints' conv policies load
+   back; K1 bitwise against its twin on a staged mini-bank at ranks (1536,
+   10240) in f32 and bf16, timed beside its bound (the ``tcga_*`` fields of
+   the ``compact`` row); and steady stage-1 steps in turns, streaming and
+   resident, twice round, each batch 128 distinct slides as at TCGA's
+   10,000+ slides: step ms, the host's staging ms per batch, the copy's
+   bytes and GB/s (the feed's ``stage_log``), the peak device memory and,
+   over 3 traced steps, the device's busy share.
 
 Every kernel's row carries its bound at the timed shape (``bound``: the
 larger of its operations at the published H100 SXM peak for their type and
@@ -1650,7 +1669,8 @@ def abmil_step_check(dev, ds, results):
         eng.model.train()
         eng.fc.train()
         eng.optimizer.zero_grad(set_to_none=True)
-        total, stats = eng.rollout_batched(s.bank, ids, torch.Generator().manual_seed(0))
+        total, stats = eng.rollout_batched(s.source.bank, ids,
+                                           torch.Generator().manual_seed(0))
         total.backward()
         torch.cuda.synchronize()
         return stats.step_losses.clone(), {k: v.grad.clone() for k, v in named
@@ -1665,7 +1685,8 @@ def abmil_step_check(dev, ds, results):
     print(f"ABMIL stage-1 step: embedding rel err {rel_err(emb_k, emb_p):.2e}, spread across "
           f"bags {spread:.3e}")
     check_step_moves("ABMIL stage-1 step",
-                     lambda: eng.train_step(s.bank, ids, torch.Generator().manual_seed(0)),
+                     lambda: eng.train_step(s.source.bank, ids,
+                                           torch.Generator().manual_seed(0)),
                      named, k_grads)
     del s, eng, k_grads
     torch.cuda.empty_cache()
@@ -1682,7 +1703,7 @@ def supervised_step_check(dev, ds, results, pretrained):
     from murcl_tpu_torch.drivers.rlmil import setup
 
     s = setup(rlmil_args(dev, ds, results, 1, pretrained, arch="ABMIL", exist_ok=True))
-    eng, bank = s.engine, s.banks["train"]
+    eng, bank = s.engine, s.sources["train"].bank
     named = ([(f"model.{k}", v) for k, v in eng.model.named_parameters()]
              + [(f"fc.{k}", v) for k, v in eng.fc.named_parameters()])
     ids = torch.arange(RL_BATCH, device=dev)
@@ -1902,7 +1923,7 @@ def steady_steps(dev, ds, results, runs):
     out = {}
     for arch, stage, pretrained in runs:
         s = setup(rlmil_args(dev, ds, results, stage, pretrained, arch=arch, exist_ok=True))
-        bank = s.banks["train"]
+        bank = s.sources["train"].bank
         gen = torch.Generator().manual_seed(0)
         ids = torch.arange(RL_BATCH, device=dev)
 
@@ -1947,7 +1968,7 @@ def steady_murcl_steps(dev, ds, results):
         ids = torch.arange(BATCH, device=dev) % SLIDES
 
         def step():
-            s.engine.train_step(s.bank, ids, gen)
+            s.engine.train_step(s.source.bank, ids, gen)
 
         for _ in range(2):
             step()
@@ -2011,6 +2032,295 @@ def profile_steps(step, what: str, step_ms: float, n: int = 3) -> None:
           f"device ms per step by kernel ({len(kernels) / n:.0f} launches per step):")
     for name, ms in sorted(by_name.items(), key=lambda r: -r[1])[:12]:
         print(f"  {ms:9.3f}  {name[:110]}")
+
+
+# the streaming phase: a corpus of TCGA-sized slides drawn as the JAX
+# package's scripts/bench_tcga_scale.py:41-49 draws them (patch counts uniform
+# in 3,000-10,240; dim 512, K 10); the K1 check stages its tables at
+# the JAX bench's Nmax of 10,240; as many slides as a batch, so that a
+# batch can hold as many distinct slides as one drawn from TCGA's 10,000+
+STREAM_SLIDES, STREAM_PATCHES, STREAM_NMAX = 128, (3000, 10240), 10240
+STREAM_REPEAT = 3  # MuRCL's data_repeat: 384 bags, 3 steps of 128
+STREAM_WARM, STREAM_TIMED, STREAM_TRACED = 2, 5, 3
+
+
+def make_stream_dataset(root):
+    """128 synthetic slides of 3,000-10,240 patches (about 1.7 GB of f32
+    npz); MuRCL trains on all of them, RLMIL on the generator's 64 / 32 / 32
+    split."""
+    from murcl_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from murcl_tpu_torch.utils.general import dump_json
+
+    ds = generate_synthetic_dataset(root, num_slides=STREAM_SLIDES, dim=FIN, num_clusters=K,
+                                    min_patches=STREAM_PATCHES[0],
+                                    max_patches=STREAM_PATCHES[1], seed=985)
+    ds["murcl_split_json"] = str(Path(root) / "murcl_split.json")
+    dump_json({"train": ds["case_ids"], "valid": ds["case_ids"][:2],
+               "test": ds["case_ids"][:2]}, ds["murcl_split_json"])
+    return ds
+
+
+def _same_files(run_a, run_b, names) -> None:
+    for name in names:
+        a, b = (Path(r) / name for r in (run_a, run_b))
+        check(a.read_bytes() == b.read_bytes(),
+              f"streaming: {name} differs from the resident run's ({a} vs {b})")
+
+
+def _run_counted(run, args, used):
+    """``run(args)`` with every launch count set to 0 before and read after;
+    fails unless each kernel of ``used`` was launched."""
+    from murcl_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    out = run(args)
+    launches = dict(_cuda.LAUNCHES)
+    check(all(launches[k] > 0 for k in used), f"{args.save_dir}: launches {launches}")
+    return out, launches
+
+
+def stream_equality(dev, sds, results):
+    """The CLIs with and without ``--streaming`` on the same seed, at a
+    learning rate of 0 for the aggregator and the head: K3's and K7b's
+    split-K weight gradients add with atomics, so two runs that train
+    differ in their last bits after the first update whatever feeds them;
+    at lr 0 every step's loss depends on its batch's data alone, which is
+    what the feed must get right. MuRCL CLAM_SB stage 1 (3 steps): equal
+    ``losses.csv``. RLMIL CLAM_SB scratch, batch 64: stage 1, stage 2 once
+    (its PPO trains), stage 3 from that stage 2: equal ``final_res.csv`` and
+    ``pred.csv``. Returns the streaming runs' launch counts."""
+    from murcl_tpu_torch.drivers import murcl, rlmil
+
+    counts, frozen = [], dict(backbone_lr=0.0, fc_lr=0.0)
+    runs = {}
+    for streaming in (False, True):
+        args = murcl.default_args(
+            data_csv=sds["data_csv"], data_split_json=sds["murcl_split_json"],
+            device=str(dev), batch_size=BATCH, feat_size=N_MAIN, T=T,
+            compute_dtype="bfloat16", data_repeat=STREAM_REPEAT, epochs=1,
+            base_save_dir=str(results / "murcl" / ("stream" if streaming else "resident")),
+            streaming=streaming, **frozen)
+        t0 = time.time()
+        out, launches = _run_counted(murcl.run, args, MURCL_KERNELS["CLAM_SB"][1][0])
+        runs[streaming] = out["save_dir"]
+        if streaming:
+            counts.append(launches)
+        print(f"MuRCL CLAM_SB stage 1 {'streaming' if streaming else 'resident'} at lr 0: "
+              f"loss {out['best_loss']:.6f}, {out['steps_per_sec']:.3f} steps/s, run() "
+              f"{time.time() - t0:.2f} s")
+    _same_files(runs[False], runs[True], ["losses.csv"])
+    print("MuRCL CLAM_SB stage 1: losses.csv equal with and without --streaming")
+
+    rl_runs = {}
+    for stage in (1, 2, 3):
+        for streaming in ((False, True) if stage != 2 else (False,)):
+            side = "stream" if streaming else "resident"
+            args = rlmil.default_args(
+                data_csv=sds["data_csv"], data_split_json=sds["data_split_json"],
+                device=str(dev), train_method="scratch", train_stage=stage,
+                batch_size=RL_BATCH, feat_size=N_MAIN, T=T, compute_dtype="bfloat16",
+                epochs=1, ppo_epochs=1, save_model=True, streaming=streaming,
+                base_save_dir=str(results / "rlmil" / side), **frozen)
+            if stage == 3:  # both from the one stage 2
+                args.checkpoint_stage = str(Path(rl_runs["stage2"]) / "model_best.pth.tar")
+            used = RLMIL_KERNELS["CLAM_SB"][0] + (RLMIL_KERNELS["CLAM_SB"][1]
+                                                  if stage != 2 else ())
+            t0 = time.time()
+            out, launches = _run_counted(rlmil.run, args, used)
+            if streaming:
+                counts.append(launches)
+            key = "stage2" if stage == 2 else (stage, streaming)
+            rl_runs[key] = out["save_dir"]
+            print(f"RLMIL CLAM_SB stage {stage} {side} at lr 0: final test {out['final']}, "
+                  f"run() {time.time() - t0:.2f} s")
+        if stage != 2:
+            _same_files(rl_runs[stage, False], rl_runs[stage, True], ["final_res.csv",
+                                                                       "pred.csv"])
+            print(f"RLMIL CLAM_SB stage {stage}: final_res.csv and pred.csv equal with and "
+                  "without --streaming")
+    return counts, runs[True], rl_runs[1, True]
+
+
+def policy_conv_runs(dev, sds, results, murcl_stage1, rlmil_stage1):
+    """``--policy_conv`` (and ``--streaming``): one MuRCL stage 2 from the
+    streaming stage-1 run, one RLMIL stage 2 (finetune, its policy from that
+    MuRCL stage 2); each checkpoint's conv policy loads back into a fresh
+    policy with nothing skipped."""
+    import torch
+
+    from murcl_tpu_torch.drivers import murcl, rlmil
+    from murcl_tpu_torch.engine.checkpoint import load_checkpoint, transfer_state
+    from murcl_tpu_torch.models import ActorCritic
+
+    args = murcl.default_args(
+        data_csv=sds["data_csv"], data_split_json=sds["murcl_split_json"], device=str(dev),
+        batch_size=BATCH, feat_size=N_MAIN, T=T, compute_dtype="bfloat16", data_repeat=1,
+        epochs=1, ppo_epochs=1, train_stage=2, policy_conv=True, streaming=True,
+        checkpoint=str(Path(murcl_stage1) / "model_best.pth.tar"),
+        base_save_dir=str(results / "conv_murcl"))
+    out, _ = _run_counted(murcl.run, args, MURCL_KERNELS["CLAM_SB"][2][0])
+    murcl_best = Path(out["save_dir"]) / "model_best.pth.tar"
+    args = rlmil.default_args(
+        data_csv=sds["data_csv"], data_split_json=sds["data_split_json"], device=str(dev),
+        train_method="finetune", train_stage=2, batch_size=RL_BATCH, feat_size=N_MAIN, T=T,
+        compute_dtype="bfloat16", epochs=1, ppo_epochs=1, save_model=True, policy_conv=True,
+        streaming=True, checkpoint_pretrained=str(murcl_best),
+        checkpoint_stage=str(Path(rlmil_stage1) / "model_best.pth.tar"),
+        base_save_dir=str(results / "conv_rlmil"))
+    out, _ = _run_counted(rlmil.run, args, RLMIL_KERNELS["CLAM_SB"][0])
+    for what, path in (("MuRCL", murcl_best), ("RLMIL", Path(out["save_dir"])
+                                                / "model_best.pth.tar")):
+        policy = load_checkpoint(path)["policy"]
+        fresh = ActorCritic(L1, 512, action_size=K, policy_conv=True)
+        skipped = transfer_state(fresh, policy)
+        check(not skipped and policy["state_encoder.0.weight"].shape == (32, L1, 1, 1)
+              and all(torch.equal(v, policy[k]) for k, v in fresh.state_dict().items()),
+              f"{what} --policy_conv stage 2: its checkpoint's policy did not load back "
+              f"({skipped})")
+        print(f"{what} CLAM_SB stage 2 with --policy_conv: finished, {path.name} holds the "
+              "conv policy (state_encoder.0 (32, 512, 1, 1), state_encoder.3) and loads back")
+
+
+def check_compaction_tcga(dev, sds):
+    """K1 against its twin on a staged mini-bank at the TCGA shape: a batch of
+    128 distinct slides of the corpus, patch tables 10,240 wide, ranks
+    (1536, 10240); bitwise in f32 and bf16, timed in bf16."""
+    import numpy as np
+    import torch
+
+    from murcl_tpu_torch.data.streaming import StreamingBank
+    from murcl_tpu_torch.ops.compact import _gather_compact_cuda, gather_compact_plain
+    from murcl_tpu_torch.ops.select import select_ranks
+
+    stream = StreamingBank(sds["data_csv"], device=dev, max_patches=STREAM_NMAX)
+    ids = np.random.default_rng(1).permutation(STREAM_SLIDES)[:BATCH]
+    bank, sid = stream.stage(ids)
+    flat = torch.cat([sid, sid]).repeat(T)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    actions = torch.rand(flat.shape[0], K, generator=gen, device=dev)
+    ranks, offs, _ = select_ranks(flat, bank.offsets, bank.num_patches, bank.cluster_sizes,
+                                  actions, bank.patch_cluster, bank.patch_pos, N_MAIN)
+    check(tuple(ranks.shape) == (B_MAIN, STREAM_NMAX), f"K1 TCGA ranks {tuple(ranks.shape)}")
+    nump = bank.num_patches[flat]
+    res = {"tcga_slides": bank.num_slides, "tcga_rows": int(bank.feats.shape[0])}
+    for dtype, view in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+        feats = bank.feats.to(dtype)
+        got = _gather_compact_cuda(feats, offs, ranks, N_MAIN, nump)
+        want = gather_compact_plain(feats, offs, ranks, N_MAIN, nump)
+        check(torch.equal(got.view(view), want.view(view)),
+              f"K1 at ({B_MAIN}, {STREAM_NMAX}) on a staged mini-bank ({dtype})")
+        del got, want
+    res["tcga_ms"] = median_ms(lambda: _gather_compact_cuda(feats, offs, ranks, N_MAIN, nump))
+    res["tcga_plain_ms"] = median_ms(lambda: gather_compact_plain(feats, offs, ranks, N_MAIN,
+                                                                  nump))
+    res["tcga_bound_ms"] = compact_bound(ranks, offs, nump)[0]
+    return res
+
+
+def steady_stream_steps(dev, sds, results):
+    """Steady MuRCL CLAM_SB stage-1 steps (the ``bench.py`` step) on the
+    corpus, streaming and resident in turns, twice round, each turn 2
+    warm-up steps and 5 timed (a host clock around each synchronised step,
+    the producer's wait included); the second round also traces 3 steps of
+    each. Each batch is 128 distinct slides, as a batch drawn from TCGA's
+    10,000+ slides nearly always is. Per side the step, the host's staging
+    time per batch (reading the slides' rows into the pinned buffer), the
+    bytes and rate of the copy to the card (CUDA events on the side
+    stream), and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from murcl_tpu_torch.data.streaming import StreamingBank
+    from murcl_tpu_torch.drivers.murcl import default_args, setup
+
+    s = setup(default_args(data_csv=sds["data_csv"], data_split_json=sds["murcl_split_json"],
+                           device=str(dev), batch_size=BATCH, feat_size=N_MAIN, T=T,
+                           compute_dtype="bfloat16", base_save_dir=str(results / "steady")))
+    resident = s.source.bank
+    stream = StreamingBank(sds["data_csv"], device=dev, dtype=torch.bfloat16)
+    per_turn = STREAM_WARM + STREAM_TIMED + STREAM_TRACED
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    stats = {name: {"ms": [], "host": [], "staging": [], "bytes": [], "copy_ms": [],
+                    "peak": 0.0} for name in ("streaming", "resident")}
+    for rnd in range(2):
+        for name in stats:
+            batches = [rng.permutation(STREAM_SLIDES)[:BATCH] for _ in range(per_turn)]
+            if name == "resident":
+                feed = iter([(resident, torch.as_tensor(b, device=dev)) for b in batches])
+            else:
+                stream.stage_log.clear()
+                feed = stream.iter_epoch(batches)
+
+            def step():
+                bank, sid = next(feed)
+                s.engine.train_step(bank, sid, gen)
+
+            for _ in range(STREAM_WARM):
+                step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(STREAM_TIMED):
+                t0 = time.perf_counter()
+                step()
+                stats[name]["host"].append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                stats[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+            stats[name]["peak"] = max(stats[name]["peak"],
+                                      torch.cuda.max_memory_allocated() / 2**30)
+            if rnd == 1:
+                profile_steps(step, f"MuRCL CLAM_SB stage 1, {name}, TCGA corpus",
+                              statistics.median(stats[name]["ms"]))
+            if name != "resident":
+                for _ in feed:  # the producer's staged-ahead batch
+                    pass
+                torch.cuda.synchronize()
+                for rec in stream.stage_log:
+                    start, ready = rec["events"]
+                    stats[name]["staging"].append(rec["host_ms"])
+                    stats[name]["bytes"].append(rec["bytes"])
+                    stats[name]["copy_ms"].append(start.elapsed_time(ready))
+    out = {}
+    for name, r in stats.items():
+        ms = statistics.median(r["ms"])
+        line = (f"steady MuRCL CLAM_SB stage 1 on the TCGA corpus, {name}: median step "
+                f"{ms:.2f} ms, steps {[round(t, 2) for t in r['ms']]}, host enqueue "
+                f"{statistics.median(r['host']):.2f} ms, peak device memory "
+                f"{r['peak']:.2f} GiB")
+        if r["staging"]:
+            gbps = [b / c / 1e6 for b, c in zip(r["bytes"], r["copy_ms"])]
+            line += (f"; host staging {statistics.median(r['staging']):.2f} ms per batch "
+                     f"(range {min(r['staging']):.2f}-{max(r['staging']):.2f}), copy to the "
+                     f"card {statistics.median(r['bytes']) / 1e9:.3f} GB per batch in "
+                     f"{statistics.median(r['copy_ms']):.2f} ms ("
+                     f"{statistics.median(gbps):.2f} GB/s, side stream incl. the cast)")
+        print(line)
+        out[name] = ms
+    del s, stream
+    torch.cuda.empty_cache()
+    return out
+
+
+def streaming_path(dev, root):
+    """The streaming phase: the corpus, the CLIs' equality, ``--policy_conv``,
+    K1 at the TCGA shape and the steady steps in turns. Returns ``(launch
+    counts of the streaming runs, K1's TCGA fields, steady ms)``."""
+    t0 = time.time()
+    sds = make_stream_dataset(root / "data")
+    size = sum(p.stat().st_size for p in (root / "data" / "features").iterdir())
+    print(f"streaming corpus: {STREAM_SLIDES} slides of {STREAM_PATCHES[0]}-"
+          f"{STREAM_PATCHES[1]} patches x {FIN}, {size / 1e9:.3f} GB of npz, written in "
+          f"{time.time() - t0:.1f} s")
+    counts, murcl_stage1, rlmil_stage1 = stream_equality(dev, sds, root / "eq")
+    policy_conv_runs(dev, sds, root, murcl_stage1, rlmil_stage1)
+    k1 = check_compaction_tcga(dev, sds)
+    print(f"K1 on a staged mini-bank ({k1['tcga_slides']} distinct slides, {k1['tcga_rows']} "
+          f"rows) at ranks ({B_MAIN}, {STREAM_NMAX}) bitwise ok; bf16 {k1['tcga_ms']:.3f} ms vs "
+          f"plain {k1['tcga_plain_ms']:.3f} ms, bound {k1['tcga_bound_ms']:.4f} ms "
+          f"({card_line()})")
+    steady = steady_stream_steps(dev, sds, root)
+    print(f"streaming phase in {time.time() - t0:.1f} s")
+    return counts, k1, steady
 
 
 def main() -> int:
@@ -2103,11 +2413,13 @@ def main() -> int:
                                               ("ABMIL", 1, abmil_pretrained),
                                               ("DSMIL", 1, None)])
         steady_murcl_steps(dev, ds, tmp / "murcl")
+        stream_counts, k1_tcga, _ = streaming_path(dev, tmp / "stream")
+        k1.update(k1_tcga)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
     for counts in [pre, *clam_stages.values(), *abmil_stages.values(), heat,
-                   *(c for path in rl_stages for c in path.values())]:
+                   *(c for path in rl_stages for c in path.values()), *stream_counts]:
         for k, v in counts.items():
             launches[k] += v
 
@@ -2150,7 +2462,8 @@ def main() -> int:
                                            "bound_ms_12288", "ms_bf16", "plain_ms_bf16",
                                            "bound_ms_bf16", "bwd_ms", "bwd_plain_ms")})
         if row["name"] == "compact":
-            row.update({k: k1[k] for k in ("k5_ms", "k5_plain_ms", "k5_bound_ms")})
+            row.update({k: k1[k] for k in ("k5_ms", "k5_plain_ms", "k5_bound_ms", "tcga_ms",
+                                           "tcga_plain_ms", "tcga_bound_ms")})
         if row["name"].startswith("ntxent"):
             r = k4f if row["name"] == "ntxent_fwd" else k4b
             row.update({k: r[k] for k in ("device_ms", "plain_device_ms", "autograd_ms",

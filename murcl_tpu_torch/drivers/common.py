@@ -106,6 +106,17 @@ class ProfilerHook:
             self._stop()
 
 
+def refuse_cascaded_head(args) -> None:
+    """The cascaded-FC head (``fc_rnn`` false, :class:`~murcl_tpu_torch.models.FullLayer`)
+    gives no logit at the restart step; both packages' engines need one at
+    every step (``murcl_tpu/engine/contrastive.py:266-271``,
+    ``murcl_tpu/engine/supervised.py:324-333``)."""
+    if not args.fc_rnn:
+        raise ValueError("the cascaded-FC head (fc_rnn false) gives no logit at the restart "
+                         "step, and the engines (the JAX package's too) need a logit at "
+                         "every step")
+
+
 def load_policy(ppo, state_dict) -> None:
     """Load ``state_dict`` into the PPO's policy by :func:`transfer_state`,
     then copy it into ``policy_old``."""

@@ -12,10 +12,15 @@ epoch (with the policy and the PPO optimizer at stages 2 and 3) with a
 ``model_best`` copy. The per-epoch loss is the mean over steps of each
 step's last NT-Xent loss, as in the reference.
 
+``--streaming`` keeps the split on the host and stages each batch's slides
+onto the device on a prefetch thread (:mod:`murcl_tpu_torch.data.streaming`);
+the steps are bitwise those over the resident bank.
+
 ``--device cpu`` runs the plain PyTorch path; any other device is a CUDA
 device, which runs the hand-written kernels. Without a CUDA device only
-``--device cpu`` runs. Options of later slices raise ``NotImplementedError``
-naming their ROADMAP item.
+``--device cpu`` runs. ``--dp_devices > 1`` raises ``NotImplementedError``
+naming its ROADMAP item; the cascaded-FC head (``fc_rnn`` false) raises
+``ValueError``, as no engine runs it.
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from murcl_tpu_torch.data.bank import build_bank
 from murcl_tpu_torch.data.contract import load_split
+from murcl_tpu_torch.data.sources import build_sources
 from murcl_tpu_torch.drivers.common import (ProfilerHook, epoch_batches, load_policy,
-                                           make_tb_writer, murcl_save_dir)
+                                           make_tb_writer, murcl_save_dir,
+                                           refuse_cascaded_head)
 from murcl_tpu_torch.engine.checkpoint import (JAX_FORMAT, load_checkpoint, save_checkpoint,
                                                transfer_state)
 from murcl_tpu_torch.engine.config import PretrainConfig
@@ -59,15 +65,8 @@ def resolve_device(spec) -> torch.device:
 
 
 def _reject_unported(args) -> None:
-    todo = [
-        (args.policy_conv, "--policy_conv: ROADMAP queue 1, item 10"),
-        (not args.fc_rnn, "the cascaded-FC head (fc_rnn false): ROADMAP queue 1, item 10"),
-        (args.streaming, "--streaming: ROADMAP queue 1, item 13"),
-        (int(args.dp_devices or 0) > 1, "--dp_devices > 1: ROADMAP queue 1, item 14"),
-    ]
-    for unported, what in todo:
-        if unported:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if int(args.dp_devices or 0) > 1:
+        raise NotImplementedError("not ported yet: --dp_devices > 1: ROADMAP queue 1, item 14")
 
 
 def _arch_setting(args) -> dict:
@@ -84,10 +83,12 @@ def _arch_setting(args) -> dict:
 
 
 def setup(args) -> SimpleNamespace:
-    """Bank, modules, optimizer, policy, engine and the stage chaining of one
-    stage: ``SimpleNamespace(device, bank, model, fc, ppo, optimizer, engine,
-    start_epoch)``. Creates ``args.save_dir`` and fills the derived args."""
+    """Source, modules, optimizer, policy, engine and the stage chaining of
+    one stage: ``SimpleNamespace(device, source, model, fc, ppo, optimizer,
+    engine, start_epoch)``. Creates ``args.save_dir`` and fills the derived
+    args."""
     _reject_unported(args)
+    refuse_cascaded_head(args)
     device = resolve_device(args.device)
     init_seeds(args.seed)
 
@@ -102,14 +103,15 @@ def setup(args) -> SimpleNamespace:
 
     indices = load_split(args.data_split_json)["train"]
     cdtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    bank = build_bank(args.data_csv, indices).to(device, dtype=cdtype)
-    args.num_clusters = bank.num_clusters
-    args.num_data = bank.num_slides * args.data_repeat
+    source = build_sources(args.data_csv, {"train": indices}, streaming=args.streaming,
+                           device=device, dtype=cdtype)["train"]
+    args.num_clusters = source.num_clusters
+    args.num_data = source.num_slides * args.data_repeat
     args.eval_step = int(args.num_data / args.batch_size)
-    print(f"train_length: {bank.num_slides}, epoch_step: {args.num_data}, "
+    print(f"train_length: {source.num_slides}, epoch_step: {args.num_data}, "
           f"eval_step: {args.eval_step}")
 
-    encoder, feature_num = build_aggregator(args.arch, dim_in=bank.patch_dim,
+    encoder, feature_num = build_aggregator(args.arch, dim_in=source.patch_dim,
                                             num_classes=args.projection_dim,
                                             arch_setting=_arch_setting(args))
     model = CL(encoder, projection_dim=args.projection_dim).to(device)
@@ -170,7 +172,7 @@ def setup(args) -> SimpleNamespace:
                          num_classes=args.projection_dim, alpha=args.alpha,
                          temperature=args.temperature, compute_dtype=args.compute_dtype)
     engine = ContrastiveEngine(cfg, model, fc, optimizer, ppo=ppo)
-    return SimpleNamespace(device=device, bank=bank, model=model, fc=fc, ppo=ppo,
+    return SimpleNamespace(device=device, source=source, model=model, fc=fc, ppo=ppo,
                            optimizer=optimizer, engine=engine, start_epoch=start_epoch)
 
 
@@ -205,13 +207,14 @@ def run(args) -> dict:
             loss_meter = AverageMeter()
             # per-step losses stay on the device until the epoch ends (no sync per step)
             step_losses, step_counts = [], []
-            for ids, _ in epoch_batches(s.bank.num_slides, args.num_data, args.batch_size, np_rng,
-                                        drop_partial=True):
+            batches = [ids for ids, _ in epoch_batches(s.source.num_slides, args.num_data,
+                                                       args.batch_size, np_rng,
+                                                       drop_partial=True)]
+            for bank, slide_ids in s.source.iter_batches(batches):
                 profiler.step()
-                stats = s.engine.train_step(s.bank, torch.as_tensor(ids, device=s.device),
-                                            generator)
+                stats = s.engine.train_step(bank, slide_ids, generator)
                 step_losses.append(stats.step_losses[-1])
-                step_counts.append(len(ids))
+                step_counts.append(len(slide_ids))
             for loss, cnt in zip(step_losses, step_counts):
                 loss_meter.update(float(loss), cnt)
             train_loss = loss_meter.avg

@@ -21,9 +21,14 @@ test runs on the best model. Outputs: ``losses.csv``, ``accs.csv``,
 ``aucs.csv``, ``results.csv``, ``pred.csv``, ``final_res.csv`` (written with
 :mod:`csv`) and ``args.json``; checkpoints with ``--save_model``.
 
+``--streaming`` keeps each split on the host and stages each batch's slides
+onto the device (:mod:`murcl_tpu_torch.data.streaming`); an evaluation
+stages its whole split as one batch, as the JAX driver does.
+
 ``--device cpu`` runs the plain PyTorch path; a CUDA device runs the
-hand-written kernels. Options of later slices raise ``NotImplementedError``
-naming their ROADMAP item.
+hand-written kernels. ``--dp_devices > 1`` raises ``NotImplementedError``
+naming its ROADMAP item; the cascaded-FC head (``fc_rnn`` false) raises
+``ValueError``, as no engine runs it.
 """
 
 from __future__ import annotations
@@ -37,10 +42,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from murcl_tpu_torch.data.bank import build_bank
 from murcl_tpu_torch.data.contract import load_split
+from murcl_tpu_torch.data.sources import build_sources
 from murcl_tpu_torch.drivers.common import (EpochOutputs, ProfilerHook, epoch_batches,
-                                           load_policy, make_tb_writer, rlmil_save_dir)
+                                           load_policy, make_tb_writer, refuse_cascaded_head,
+                                           rlmil_save_dir)
 from murcl_tpu_torch.drivers.murcl import resolve_device
 from murcl_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint, transfer_state
 from murcl_tpu_torch.engine.config import RolloutConfig
@@ -54,15 +60,8 @@ from murcl_tpu_torch.utils.general import (BestVariable, CSVWriter, EarlyStop, i
 
 
 def _reject_unported(args) -> None:
-    todo = [
-        (not args.fc_rnn, "the cascaded-FC head (fc_rnn false): ROADMAP queue 1, item 10"),
-        (args.policy_conv, "--policy_conv: ROADMAP queue 1, item 10"),
-        (args.streaming, "--streaming: ROADMAP queue 1, item 13"),
-        (int(args.dp_devices or 0) > 1, "--dp_devices > 1: ROADMAP queue 1, item 14"),
-    ]
-    for unported, what in todo:
-        if unported:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if int(args.dp_devices or 0) > 1:
+        raise NotImplementedError("not ported yet: --dp_devices > 1: ROADMAP queue 1, item 14")
 
 
 def _load_stage_checkpoint(args, model, fc, device) -> dict:
@@ -99,10 +98,11 @@ def _arch_setting(args) -> dict:
 
 
 def setup(args) -> SimpleNamespace:
-    """Banks, modules, optimizer, engine and the weight surgery of one
-    stage: ``SimpleNamespace(device, banks, model, fc, ppo, optimizer,
+    """Sources, modules, optimizer, engine and the weight surgery of one
+    stage: ``SimpleNamespace(device, sources, model, fc, ppo, optimizer,
     engine)``. Creates ``args.save_dir`` and fills the derived args."""
     _reject_unported(args)
+    refuse_cascaded_head(args)
     device = resolve_device(args.device)
     init_seeds(args.seed)
     if args.save_dir is None:
@@ -115,9 +115,10 @@ def setup(args) -> SimpleNamespace:
 
     split = load_split(args.data_split_json)
     cdtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    banks = {name: build_bank(args.data_csv, split[key]).to(device, dtype=cdtype)
-             for name, key in (("train", args.train_data), ("valid", "valid"), ("test", "test"))}
-    train = banks["train"]
+    sources = build_sources(args.data_csv, {"train": split[args.train_data],
+                                            "valid": split["valid"], "test": split["test"]},
+                            streaming=args.streaming, device=device, dtype=cdtype)
+    train = sources["train"]
     args.num_clusters = train.num_clusters
     args.num_data = train.num_slides
     args.eval_step = max(1, int(args.num_data / args.batch_size))
@@ -177,7 +178,7 @@ def setup(args) -> SimpleNamespace:
                         num_classes=args.num_classes, bag_weight=args.bag_weight,
                         compute_dtype=args.compute_dtype)
     engine = SupervisedEngine(cfg, model, fc, ppo=ppo, optimizer=optimizer)
-    return SimpleNamespace(device=device, banks=banks, model=model, fc=fc, ppo=ppo,
+    return SimpleNamespace(device=device, sources=sources, model=model, fc=fc, ppo=ppo,
                            optimizer=optimizer, engine=engine)
 
 
@@ -188,13 +189,14 @@ def _states(s: SimpleNamespace) -> dict:
             "policy": copy(s.ppo.policy) if s.ppo is not None else None}
 
 
-def _evaluate(s: SimpleNamespace, bank, generator, collect_preds: bool = False):
-    """A whole split as one batch (``train_RLMIL.py:417-424``):
-    ``(loss, (acc, auc, precision, recall, f1)[, pred rows])``."""
-    ids = torch.arange(bank.num_slides, device=s.device)
+def _evaluate(s: SimpleNamespace, source, generator, collect_preds: bool = False):
+    """A whole split as one batch (``train_RLMIL.py:417-424``; a streaming
+    split is staged whole): ``(loss, (acc, auc, precision, recall, f1)[, pred
+    rows])``."""
+    bank, ids = source.batch(np.arange(source.num_slides))
     stats = s.engine.eval_step(bank, ids, generator)
     logits = stats.logits.float().cpu().numpy()
-    labels = bank.labels.cpu().numpy()
+    labels = source.labels
     loss = float(stats.step_losses[-1])
     metrics = get_metrics(logits, labels)
     if not collect_preds:
@@ -203,7 +205,7 @@ def _evaluate(s: SimpleNamespace, bank, generator, collect_preds: bool = False):
     probs = probs / probs.sum(axis=1, keepdims=True)
     pred = probs.argmax(axis=1)
     rows = [[case_id, int(labels[i]), int(pred[i]), bool(labels[i] == pred[i]),
-             *[float(v) for v in probs[i]]] for i, case_id in enumerate(bank.case_ids)]
+             *[float(v) for v in probs[i]]] for i, case_id in enumerate(source.case_ids)]
     return loss, metrics, rows
 
 
@@ -227,7 +229,8 @@ def run(args) -> dict:
     s.fc.load_state_dict(best["fc"])
     if s.ppo is not None:
         s.ppo.load_policy(best["policy"])
-    loss, metrics, rows = _evaluate(s, s.banks["test"], torch.Generator().manual_seed(args.seed + 1),
+    loss, metrics, rows = _evaluate(s, s.sources["test"],
+                                    torch.Generator().manual_seed(args.seed + 1),
                                     collect_preds=True)
     n_class = len(rows[0]) - 4
     pred_csv = CSVWriter(save_dir / "pred.csv",
@@ -264,7 +267,7 @@ def _train_loop(args, s: SimpleNamespace, generator: torch.Generator, tb_writer=
     backbone_lr_fn = lr_schedule_factory(args.scheduler, args.backbone_lr, args.epochs,
                                          int(args.warmup))
     fc_lr_fn = lr_schedule_factory(args.scheduler, args.fc_lr, args.epochs, int(args.warmup))
-    train = s.banks["train"]
+    train = s.sources["train"]
     train_losses, steps_per_sec = [], None
 
     for epoch in range(args.epochs):
@@ -273,25 +276,26 @@ def _train_loop(args, s: SimpleNamespace, generator: torch.Generator, tb_writer=
             set_learning_rates(s.optimizer, backbone_lr_fn(epoch), fc_lr_fn(epoch))
         # per-step outputs stay on the device until the epoch ends (no sync per step)
         pending = []
-        for ids, valid in epoch_batches(train.num_slides, args.num_data, args.batch_size,
-                                        np_rng, drop_partial=False):
+        batches = list(epoch_batches(train.num_slides, args.num_data, args.batch_size, np_rng,
+                                     drop_partial=False))
+        staged = train.iter_batches([ids for ids, _ in batches])
+        for (bank, slide_ids), (ids, valid) in zip(staged, batches):
             if profiler is not None:
                 profiler.step()
-            stats = s.engine.train_step(train, torch.as_tensor(ids, device=s.device), generator,
+            stats = s.engine.train_step(bank, slide_ids, generator,
                                         valid=torch.as_tensor(valid, device=s.device))
             pending.append((stats.logits, ids, valid, stats.step_losses[-1]))
         outputs = EpochOutputs()
-        labels = train.labels.cpu().numpy()
         for logits, ids, valid, _ in pending:
-            outputs.update(logits.float().cpu().numpy(), labels[ids], valid)
+            outputs.update(logits.float().cpu().numpy(), train.labels[ids], valid)
         train_loss = float(np.mean([float(p[3]) for p in pending]))
         dt = time.time() - t0
         steps_per_sec = len(pending) / dt if dt > 0 else None
         train_losses.append(train_loss)
         (train_acc, train_auc, _, _, _), _, _ = outputs.metrics()
 
-        valid_loss, valid_metrics = _evaluate(s, s.banks["valid"], generator)
-        test_loss, test_metrics = _evaluate(s, s.banks["test"], generator)
+        valid_loss, valid_metrics = _evaluate(s, s.sources["valid"], generator)
+        test_loss, test_metrics = _evaluate(s, s.sources["test"], generator)
         valid_acc, valid_auc, valid_p, valid_r, valid_f1 = valid_metrics
         test_acc, test_auc, test_p, test_r, test_f1 = test_metrics
         if tb_writer is not None:

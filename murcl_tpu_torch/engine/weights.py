@@ -10,7 +10,13 @@ CLAM keeps the reference ``Attn_Net`` keys (``attention_net.3.module.0``
 and ``.3``), which ``clam_map`` does not cover; they map to the JAX leaves
 ``attn/wa, ba, wc, bc``. DSMIL's dead conv head ``b_classifier.fcc`` is the
 pair of leaves ``fcc_kernel`` (its ``(C, C, D)`` weight as it is) and
-``fcc_bias``. Arrays pass through numpy, so this module needs no JAX.
+``fcc_bias``. The cascaded-FC head's ``fc_2``..``fc_5`` keep the keys of
+``murcl_tpu/engine/torch_import.py:168-177``. The conv policy encoder's
+keys are the port's own, as no reference layout of it can be read:
+``state_encoder.0.weight`` is the 1x1 conv ``(32, C, 1, 1)`` (JAX leaf
+``conv1x1`` ``(C, 32)``) and ``state_encoder.3`` the linear after it, whose
+input columns torch flattens in ``(32, h, w)`` order where JAX flattens in
+``(h, w, 32)``. Arrays pass through numpy, so this module needs no JAX.
 """
 
 from __future__ import annotations
@@ -55,6 +61,12 @@ _GRU = [("weight_ih_l0", "w_ih", True), ("weight_hh_l0", "w_hh", True),
 # ActorCritic: (torch prefix, JAX module) of its linears; its GRU is "gru"
 _POLICY_LINEARS = [("state_encoder.0", "enc_hidden"), ("state_encoder.2", "enc_out"),
                    ("actor.0", "actor"), ("critic.0", "critic")]
+# with policy_conv: the linear after the conv, and the conv's weight
+_POLICY_CONV_LINEARS = [("state_encoder.3", "enc_out"), ("actor.0", "actor"),
+                        ("critic.0", "critic")]
+_POLICY_CONV = "state_encoder.0.weight"
+# FullLayer's linears: the GRU head's, or the cascaded head's fc_2..fc_5
+_HEADS = ("fc", "fc_2", "fc_3", "fc_4", "fc_5")
 
 
 def _unwrap(tree: dict) -> dict:
@@ -144,9 +156,10 @@ def params_from_jax(model_tree: dict, fc_tree: Optional[dict] = None, arch: str 
     if fc_tree is None:
         return model, None
     ft = _unwrap(fc_tree)
-    fc = _gru_from_jax(ft["rnn"], "rnn")
-    fc["fc.weight"] = _t(np.asarray(ft["fc"]["kernel"]).T)
-    fc["fc.bias"] = _t(ft["fc"]["bias"])
+    fc = _gru_from_jax(ft["rnn"], "rnn") if "rnn" in ft else {}
+    for name in (n for n in _HEADS if n in ft):
+        fc[f"{name}.weight"] = _t(np.asarray(ft[name]["kernel"]).T)
+        fc[f"{name}.bias"] = _t(ft[name]["bias"])
     return model, fc
 
 
@@ -178,27 +191,47 @@ def jax_from_params(model_sd: Dict[str, torch.Tensor],
     if fc_sd is None:
         return {"params": model}, None
     f = _numpy(fc_sd)
-    fc = {"rnn": _gru_to_jax(f, "rnn"),
-          "fc": {"kernel": f["fc.weight"].T.copy(), "bias": f["fc.bias"].copy()}}
+    fc = {"rnn": _gru_to_jax(f, "rnn")} if "rnn.weight_ih_l0" in f else {}
+    for name in (n for n in _HEADS if f"{n}.weight" in f):
+        fc[name] = {"kernel": f[f"{name}.weight"].T.copy(), "bias": f[f"{name}.bias"].copy()}
     return {"params": model}, {"params": fc}
 
 
+def _conv_columns(kernel: np.ndarray, to_torch: bool) -> np.ndarray:
+    """Reorder the input rows of the linear after the policy's conv between
+    JAX's ``(h w, 32)`` flatten and torch's ``(32, h w)``."""
+    n, out = kernel.shape
+    shape = (n // 32, 32, out) if to_torch else (32, n // 32, out)
+    return kernel.reshape(shape).transpose(1, 0, 2).reshape(n, out)
+
+
 def policy_from_jax(tree: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``ActorCritic`` tree (``policy_conv=False``) -> the port's
+    """JAX ``ActorCritic`` tree (either state encoder) -> the port's
     ``ActorCritic`` ``state_dict``."""
     t = _unwrap(tree)
     sd = _gru_from_jax(t["gru"], "gru")
-    for prefix, name in _POLICY_LINEARS:
-        sd[f"{prefix}.weight"] = _t(np.asarray(t[name]["kernel"]).T)
+    conv = "conv1x1" in t
+    for prefix, name in _POLICY_CONV_LINEARS if conv else _POLICY_LINEARS:
+        kernel = np.asarray(t[name]["kernel"])
+        if conv and name == "enc_out":
+            kernel = _conv_columns(kernel, to_torch=True)
+        sd[f"{prefix}.weight"] = _t(kernel.T)
         sd[f"{prefix}.bias"] = _t(t[name]["bias"])
+    if conv:
+        sd[_POLICY_CONV] = _t(np.asarray(t["conv1x1"]["kernel"]).T[:, :, None, None])
     return sd
 
 
 def jax_from_policy(sd: Dict[str, torch.Tensor]) -> dict:
     """Inverse of :func:`policy_from_jax`: ``{'params': tree}`` of numpy arrays."""
     f = _numpy(sd)
+    conv = f[_POLICY_CONV].ndim == 4
     tree = {"gru": _gru_to_jax(f, "gru")}
-    for prefix, name in _POLICY_LINEARS:
-        tree[name] = {"kernel": f[f"{prefix}.weight"].T.copy(),
-                      "bias": f[f"{prefix}.bias"].copy()}
+    for prefix, name in _POLICY_CONV_LINEARS if conv else _POLICY_LINEARS:
+        kernel = f[f"{prefix}.weight"].T
+        if conv and name == "enc_out":
+            kernel = _conv_columns(kernel, to_torch=False)
+        tree[name] = {"kernel": kernel.copy(), "bias": f[f"{prefix}.bias"].copy()}
+    if conv:
+        tree["conv1x1"] = {"kernel": f[_POLICY_CONV][:, :, 0, 0].T.copy()}
     return {"params": tree}

@@ -1,12 +1,17 @@
 """GRU projection head and the PPO policy (counterpart of ``murcl_tpu/models/rlmil.py``).
 
-- :class:`FullLayer`: the reference ``Full_layer`` (``fc_rnn=True``), a
-  one-layer GRU over the rollout steps plus a linear head. The carry is
+- :class:`FullLayer`: the reference ``Full_layer``, a one-layer GRU over
+  the rollout steps plus a linear head (``fc_rnn=True``). The carry is
   explicit: ``forward(x, hidden)`` returns ``(logits, new_hidden)`` and
-  ``hidden=None`` restarts from zeros.
-- :class:`ActorCritic`: state encoder ``state_dim -> 2048 -> hidden``, a GRU
-  carrying the policy's recurrent state, a sigmoid actor and a scalar
-  critic. :func:`act` samples independent Gaussians of std ``action_std``
+  ``hidden=None`` restarts from zeros. The cascaded-FC mode
+  (``fc_rnn=False``, ``murcl_tpu/models/rlmil.py:67-83``) carries the
+  concatenated step features and classifies them with the head ``fc_t`` of
+  their width; it has no logit at the restart step, so no engine runs it.
+- :class:`ActorCritic`: state encoder ``state_dim -> 2048 -> hidden`` (or,
+  with ``policy_conv``, a bias-free 1x1 conv to 32 channels, flatten and
+  ``-> hidden``), a GRU carrying the policy's recurrent state, a sigmoid
+  actor and a scalar critic. :func:`act` samples independent Gaussians of
+  std ``action_std``
   around the actor's mean, clamps to [0, 1] and records the log-prob of the
   clamped action; :func:`evaluate` re-runs a rollout from a **zero** hidden
   state, as the reference does.
@@ -46,43 +51,98 @@ class FullLayer(nn.Module):
     def __init__(self, feature_num: int, hidden_state_dim: int = 1024,
                  fc_rnn: bool = True, class_num: int = 1000):
         super().__init__()
-        if not fc_rnn:
-            raise NotImplementedError(
-                "the cascaded-FC head (fc_rnn=False) is not ported: ROADMAP queue 1, item 10")
+        self.feature_num = feature_num
         self.hidden_state_dim = hidden_state_dim
-        self.rnn = nn.GRU(feature_num, hidden_state_dim)
-        self.fc = nn.Linear(hidden_state_dim, class_num)
+        self.fc_rnn = fc_rnn
+        if fc_rnn:
+            self.rnn = nn.GRU(feature_num, hidden_state_dim)
+            self.fc = nn.Linear(hidden_state_dim, class_num)
+        else:
+            # the heads of steps 2..5 all exist, as in checkpoints of either package
+            for t in range(2, 6):
+                setattr(self, f"fc_{t}", nn.Linear(feature_num * t, class_num))
 
     def forward(self, x, hidden: Optional[torch.Tensor] = None):
-        if hidden is None:
-            hidden = x.new_zeros((x.shape[0], self.hidden_state_dim))
-        h = _gru_step(self.rnn, x, hidden)
-        return self.fc(h), h
+        if self.fc_rnn:
+            if hidden is None:
+                hidden = x.new_zeros((x.shape[0], self.hidden_state_dim))
+            h = _gru_step(self.rnn, x, hidden)
+            return self.fc(h), h
+        acc = x if hidden is None else torch.cat([hidden, x], dim=1)
+        t, rest = divmod(acc.shape[1], self.feature_num)
+        if rest or not 1 <= t <= 5:
+            raise ValueError(f"cascaded FullLayer supports T<=5, got width {acc.shape[1]}")
+        return (None if t == 1 else getattr(self, f"fc_{t}")(acc)), acc
+
+    def zero_carry(self, batch: int, device=None) -> Optional[torch.Tensor]:
+        """The restart carry: zeros for the GRU, ``None`` for the cascaded head."""
+        if not self.fc_rnn:
+            return None
+        return torch.zeros((batch, self.hidden_state_dim), device=device)
+
+
+class _Conv1x1(nn.Module):
+    """A bias-free 1x1 convolution, ``(B, C, h, w) -> (B, out, h, w)``, as a
+    product over channels (f32 without TF32, as every policy product; a
+    ``Conv2d`` would run cuDNN). Its weight has ``Conv2d``'s shape and
+    initialisation."""
+
+    def __init__(self, channels: int, out: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out, channels, 1, 1))
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+
+    def forward(self, x):
+        return F.linear(x.movedim(1, -1), self.weight.flatten(1)).movedim(-1, 1)
 
 
 class ActorCritic(nn.Module):
     """``forward(state (B, S), hidden (B, H))`` -> ``(action_mean (B, K),
     value (B,), new_hidden)``. Keys: ``state_encoder.0``, ``state_encoder.2``,
     ``gru``, ``actor.0``, ``critic.0`` (``murcl_tpu/engine/torch_import.py``
-    ``ACTOR_CRITIC_MAP``)."""
+    ``ACTOR_CRITIC_MAP``).
+
+    ``policy_conv`` encodes a feature map ``(B, C, h, w)``, or the engines'
+    ``(B, C)`` state as a 1 x 1 map (``murcl_tpu/models/rlmil.py:112-118``):
+    ``state_encoder.0`` is a bias-free 1x1 conv ``C -> 32`` (a ``Conv2d``'s
+    weight, run as a product over channels), then ReLU, flatten in torch's
+    ``(32, h, w)`` order, ``state_encoder.3`` (``Linear(32 h w, hidden)``)
+    and ReLU. ``C`` is ``feature_dim`` (default ``state_dim``) and ``h w =
+    state_dim / C``.
+    """
 
     def __init__(self, state_dim: int, hidden_state_dim: int = 1024, action_size: int = 2,
-                 action_std: float = 0.1, policy_conv: bool = False):
+                 action_std: float = 0.1, policy_conv: bool = False,
+                 feature_dim: Optional[int] = None):
         super().__init__()
-        if policy_conv:
-            raise NotImplementedError(
-                "the conv state encoder (policy_conv) is not ported: ROADMAP queue 1, item 10")
         self.hidden_state_dim = hidden_state_dim
         self.action_size = action_size
         self.action_std = action_std
-        self.state_encoder = nn.Sequential(nn.Linear(state_dim, 2048), nn.ReLU(),
-                                           nn.Linear(2048, hidden_state_dim), nn.ReLU())
+        self.policy_conv = policy_conv
+        if policy_conv:
+            channels = feature_dim or state_dim
+            if state_dim % channels:
+                raise ValueError(f"state_dim {state_dim} is not a multiple of the conv "
+                                 f"state's {channels} channels")
+            self.state_encoder = nn.Sequential(
+                _Conv1x1(channels, 32), nn.ReLU(), nn.Flatten(),
+                nn.Linear(32 * (state_dim // channels), hidden_state_dim), nn.ReLU())
+        else:
+            self.state_encoder = nn.Sequential(nn.Linear(state_dim, 2048), nn.ReLU(),
+                                               nn.Linear(2048, hidden_state_dim), nn.ReLU())
         self.gru = nn.GRU(hidden_state_dim, hidden_state_dim)
         self.actor = nn.Sequential(nn.Linear(hidden_state_dim, action_size), nn.Sigmoid())
         self.critic = nn.Sequential(nn.Linear(hidden_state_dim, 1))
 
+    def _encode(self, state):
+        if not self.policy_conv:
+            state = state.reshape(state.shape[0], -1)
+        elif state.dim() != 4:  # the engines' (B, C) state, a 1 x 1 map
+            state = state.reshape(state.shape[0], -1, 1, 1)
+        return self.state_encoder(state)
+
     def forward(self, state, hidden):
-        h = _gru_step(self.gru, self.state_encoder(state.reshape(state.shape[0], -1)), hidden)
+        h = _gru_step(self.gru, self._encode(state), hidden)
         return self.actor(h), self.critic(h)[..., 0], h
 
 
@@ -158,12 +218,12 @@ class PPO:
     def __init__(self, state_dim: int, hidden_state_dim: int = 1024, policy_conv: bool = False,
                  action_std: float = 0.1, lr: float = 3e-4, betas=(0.9, 0.999),
                  gamma: float = 0.7, K_epochs: int = 1, eps_clip: float = 0.2,
-                 action_size: int = 2):
+                 action_size: int = 2, feature_dim: Optional[int] = None):
         self.gamma = gamma
         self.eps_clip = eps_clip
         self.K_epochs = K_epochs
         self.policy = ActorCritic(state_dim, hidden_state_dim, action_size, action_std,
-                                  policy_conv)
+                                  policy_conv, feature_dim)
         self.policy_old = copy.deepcopy(self.policy)
         self.optimizer = torch.optim.Adam(self.policy.parameters(), lr=lr, betas=betas,
                                           eps=1e-8)

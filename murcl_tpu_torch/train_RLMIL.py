@@ -57,7 +57,9 @@ def parse_args(argv=None):
     parser.add_argument('--model_dim', type=int, default=512)
     # Architecture - PPO
     parser.add_argument('--policy_hidden_dim', type=int, default=512)
-    parser.add_argument('--policy_conv', action='store_true', default=False)
+    parser.add_argument('--policy_conv', action='store_true', default=False,
+                        help="the policy's conv state encoder: a bias-free 1x1 conv to "
+                             "32 channels before its linear")
     parser.add_argument('--action_std', type=float, default=0.5)
     parser.add_argument('--ppo_lr', type=float, default=0.00001)
     parser.add_argument('--ppo_gamma', type=float, default=0.1)
@@ -97,7 +99,8 @@ def parse_args(argv=None):
                         help="'cpu' (plain PyTorch path) or a CUDA device index")
     parser.add_argument('--seed', type=int, default=985)
     parser.add_argument('--streaming', action='store_true', default=False,
-                        help="not ported yet (ROADMAP queue 1, item 13)")
+                        help="keep the features on the host and stage each batch's "
+                             "slides onto the device on a prefetch thread")
     parser.add_argument('--compute_dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16'],
                         help="aggregator compute dtype (losses stay float32)")

@@ -17,6 +17,11 @@ at F 1024 (two f32 slabs) and D 384, with a bag that ends mid-tile and one
 whose later chunks are all masked; one backward through K8's op at the
 heatmap's largest bag, (1, 60416, 512) f32, past K7f's softmax pass. K1 also
 at 64 bags of 1000 slots, split over slot slices whose last is partial.
+The streaming feed (not a kernel, but its pinned buffers, side-stream copy
+and prefetch thread exist only on the card): each staged batch bitwise the
+CPU's staging of it, in f32 and bf16 banks, while the consumer's stream
+lags behind the producer; the producer's error reaches the caller; and
+repeated whole-split stages (the evaluations) hold one pinned buffer.
 """
 
 import pytest
@@ -462,3 +467,53 @@ def test_ycc_to_rgb_kernel_against_its_twin(dev, h, w, fv, fh):
     got = ycc_to_rgb(y, cb, cr)
     assert _cuda.LAUNCHES["ycc_to_rgb"] == before + 1
     assert torch.equal(got, ycc_to_rgb_plain(y, cb, cr))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streaming_feed_on_the_card(dev, tmp_path, dtype):
+    import numpy as np
+
+    from murcl_tpu_torch.data.streaming import StreamingBank
+    from murcl_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    ds = generate_synthetic_dataset(tmp_path, num_slides=9, dim=64, num_clusters=4,
+                                    min_patches=50, max_patches=400)
+    host = StreamingBank(ds["data_csv"], dtype=dtype, max_patches=512)
+    stream = StreamingBank(ds["data_csv"], device=dev, dtype=dtype, max_patches=512)
+    view = torch.int32 if dtype == torch.float32 else torch.int16
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 9, size=n) for n in (3, 12, 5, 20, 2, 16, 7)]  # buffers grow
+    for (bank, sid), ids in zip(stream.iter_epoch(batches), batches):
+        torch.cuda._sleep(20_000_000)  # the step lags; the producer stages ahead
+        want, want_sid = host.stage(ids)
+        assert torch.equal(bank.feats.cpu().view(view), want.feats.view(view))
+        for name in ("offsets", "num_patches", "cluster_sizes", "patch_cluster", "patch_pos",
+                     "labels"):
+            assert torch.equal(getattr(bank, name).cpu(), getattr(want, name)), name
+        assert torch.equal(sid.cpu(), want_sid) and bank.patch_cluster.shape[1] == 512
+    assert all("events" in rec for rec in stream.stage_log)
+
+    def failing(ids, k):
+        raise OSError("feature file vanished")
+
+    stream._stage = failing
+    with pytest.raises(OSError, match="vanished"):
+        next(stream.iter_epoch(batches))
+
+
+def test_whole_split_stages_reuse_one_pinned_buffer(dev, tmp_path):
+    """Evaluations stage their whole split with ``stage``: two of them leave
+    one pinned buffer of the split's rows, and each gives the host's bits."""
+    from murcl_tpu_torch.data.streaming import StreamingBank
+    from murcl_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    ds = generate_synthetic_dataset(tmp_path, num_slides=6, dim=64, num_clusters=4,
+                                    min_patches=50, max_patches=400)
+    want, _ = StreamingBank(ds["data_csv"]).stage(range(6))
+    stream = StreamingBank(ds["data_csv"], device=dev)
+    for _ in range(2):
+        bank, _ = stream.stage(range(6))
+        assert torch.equal(bank.feats.cpu(), want.feats)
+    torch.cuda.synchronize()
+    held = [b for b in stream._buffers if b is not None]
+    assert len(held) == 1 and held[0].shape == want.feats.shape and held[0].is_pinned()

@@ -44,8 +44,10 @@ def test_cli_stage1_one_epoch(synthetic_dataset, tmp_path):
 
 
 # stages 2/3 and ABMIL are ported (tests/test_torch_murcl_stages.py), and so
-# are --use_tensorboard and --profile (tests/test_torch_profile_tb.py)
-@pytest.mark.parametrize("extra", [("--policy_conv",), ("--streaming",), ("--dp_devices", "2")])
+# are --use_tensorboard and --profile (tests/test_torch_profile_tb.py),
+# --policy_conv (tests/test_torch_policy_heads.py) and --streaming
+# (tests/test_torch_streaming.py)
+@pytest.mark.parametrize("extra", [("--dp_devices", "2")])
 def test_unported_flags_raise(synthetic_dataset, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(_argv(synthetic_dataset, tmp_path, *extra))

@@ -15,8 +15,7 @@ from murcl_tpu_torch.drivers.rlmil import default_args as rlmil_defaults
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "murcl_tpu_torch"
 # each still-unported option and the args that switch it on
-OPTIONS = {"--streaming": {"streaming": True}, "--dp_devices": {"dp_devices": 2},
-           "--policy_conv": {"policy_conv": True}, "fc_rnn": {"fc_rnn": False}}
+OPTIONS = {"--dp_devices": {"dp_devices": 2}}
 
 
 def _raised_items():
@@ -43,7 +42,7 @@ def test_help_strings_name_the_drivers_items():
             option, item = m.groups()
             assert items.get(option) == item, (path.name, option, item, items)
             seen += 1
-    assert seen >= 2  # train_RLMIL's --streaming and --dp_devices
+    assert seen >= 2  # both CLIs' --dp_devices
 
 
 def test_every_item_named_exists_and_no_slice_is_left():

@@ -18,7 +18,7 @@ from murcl_tpu.engine.torch_import import FULL_LAYER_MAP, export_model_state, fl
 from murcl_tpu.models import CLAM_SB as JaxCLAM
 from murcl_tpu.models import FullLayer as JaxFullLayer
 from murcl_tpu_torch.engine.weights import jax_from_params, params_from_jax
-from murcl_tpu_torch.models import CL, CLAM_SB, ActorCritic, FullLayer
+from murcl_tpu_torch.models import CL, CLAM_SB, FullLayer
 
 DIM, N, B, PROJ, HID = 16, 12, 3, 8, 32
 
@@ -91,12 +91,8 @@ def test_params_round_trip(tiny_clam):
 
 
 def test_unported_options_raise():
-    # ungated CLAM (tests/test_torch_fused_modes.py) and DSMIL (tests/test_torch_dsmil.py)
-    # are ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FullLayer(32, fc_rnn=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ActorCritic(32, policy_conv=True)
+    # ungated CLAM (tests/test_torch_fused_modes.py), DSMIL (tests/test_torch_dsmil.py),
+    # the cascaded-FC head and the conv policy (tests/test_torch_policy_heads.py) are ported
     # the instance branch is ported (tests/test_torch_clam_instance.py); it needs labels
     with pytest.raises(ValueError, match="labels"):
         CLAM_SB(in_dim=DIM)(torch.zeros(1, 4, DIM), instance_eval=True)

@@ -75,7 +75,9 @@ def test_cli_finetune_stages_1_2_3(synthetic_dataset, tmp_path, pretrained):
         assert torch.equal(v, s2["model_state_dict"][k]), k
 
 
-@pytest.mark.parametrize("extra", [("--streaming",), ("--policy_conv",), ("--dp_devices", "2")])
+# --streaming (tests/test_torch_streaming.py) and --policy_conv
+# (tests/test_torch_policy_heads.py) are ported
+@pytest.mark.parametrize("extra", [("--dp_devices", "2")])
 def test_unported_flags_raise(synthetic_dataset, tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_RLMIL.main(_common(synthetic_dataset, tmp_path) + list(extra))
