@@ -134,6 +134,25 @@
    bytes and GB/s (the feed's ``stage_log``), the peak device memory and,
    over 3 traced steps, the device's busy share.
 
+9. Data-parallel training (``dp_cli_path``, ``dp_step_path``), two ranks
+   (``--dp_devices 2``), each on a card of its own over NCCL where there are
+   two, else both on ``cuda:0`` over gloo: ``train_MuRCL`` CLAM_SB stages 1
+   -> 2 -> 3 at the bench.py shape (batch 128, 64 per rank; 2 steps each),
+   a single-process stage 2 from the dp stage 1's ``model_best``, and
+   ``train_RLMIL`` CLAM_SB finetune stages 1 -> 2 -> 3 from the dp MuRCL
+   stage 3 (batch 64, 32 per rank): per run finite losses, rank 0's files
+   alone in the run directory, and each rank's launches (K1, K2/K3, K4 for
+   MuRCL; K1, K7 for RLMIL, by ``MURCL_KERNELS`` and ``RLMIL_KERNELS``),
+   summed over the ranks into the kernels line. Then one MuRCL CLAM_SB
+   stage-1 step at the bench.py shape with dropout off, dp 2 against the
+   single process from the same weights and draws (each rank's half of one
+   global draw, the mixup partners within each half): step losses within
+   2e-2 relative, the all-reduced gradients within 2e-2 relative Frobenius
+   (K3's split-K atomics), the ranks' gradients and weights after Adam
+   bitwise equal; and steady steps in turns, single, dp, single: step and
+   enqueue ms per rank, the gradient all-reduce's bytes and ms, and the peak
+   device memory per rank.
+
 Every kernel's row carries its bound at the timed shape (``bound``: the
 larger of its operations at the published H100 SXM peak for their type and
 its bytes at 3.35 TB/s). Prints the kernel table as one JSON line, the card
@@ -1993,6 +2012,231 @@ def steady_murcl_steps(dev, ds, results):
     return out
 
 
+# the dp phase: MuRCL and RLMIL through the CLIs with --dp_devices DP_RANKS;
+# the files a run directory holds, all rank 0's
+DP_RANKS = 2
+DP_MURCL_FILES = {"args.json", "losses.csv", "results.csv", "checkpoint.pth.tar",
+                  "model_best.pth.tar"}
+DP_RLMIL_FILES = DP_MURCL_FILES | {"accs.csv", "aucs.csv", "pred.csv", "final_res.csv"}
+
+
+def nonzero(rank_launches) -> list:
+    return [{k: v for k, v in launches.items() if v} for launches in rank_launches]
+
+
+def dp_check_ranks(what, out, used, unused, files) -> dict:
+    """A dp CLI run's checks: rank 0's files alone in its run directory,
+    each rank's launches (``used`` > 0 and ``unused`` == 0 on every rank).
+    Returns the launches summed over the ranks."""
+    run_dir = Path(out["save_dir"])
+    names = {p.name for p in run_dir.iterdir()}
+    check(names == files, f"{what}: files {sorted(names)}")
+    ranks = out["rank_launches"]
+    check(len(ranks) == DP_RANKS, f"{what}: {len(ranks)} ranks reported")
+    for r, launches in enumerate(ranks):
+        check(all(launches[k] > 0 for k in used) and all(launches[k] == 0 for k in unused),
+              f"{what}: rank {r} launches {launches}")
+    return {k: sum(launches[k] for launches in ranks) for k in ranks[0]}
+
+
+def dp_cli_path(dev, ds, results):
+    """``train_MuRCL --dp_devices 2`` CLAM_SB stages 1 -> 2 -> 3 at the bench.py
+    shape (2 steps each), a single-process stage 2 from the dp stage 1's
+    ``model_best``, then ``train_RLMIL --dp_devices 2`` CLAM_SB stages 1 -> 2
+    -> 3 at batch 64, finetuned from the dp MuRCL stage 3. Returns the
+    launches of each dp run, summed over its ranks."""
+    import torch
+
+    from murcl_tpu_torch import train_MuRCL, train_RLMIL
+    from murcl_tpu_torch.drivers.murcl import run
+    from murcl_tpu_torch.ops import _cuda
+
+    common = ["--data_csv", ds["data_csv"], "--device", str(dev.index), "--arch", "CLAM_SB",
+              "--feat_size", str(N_MAIN), "--T", str(T), "--compute_dtype", "bfloat16",
+              "--epochs", "1", "--ppo_epochs", "1", "--dp_devices", str(DP_RANKS)]
+    counts, murcl_runs = [], []
+    for stage in (1, 2, 3):
+        what = f"dp MuRCL CLAM_SB stage {stage}"
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        out = train_MuRCL.main(common + [
+            "--data_split_json", ds["data_split_json"], "--train_stage", str(stage),
+            "--batch_size", str(BATCH), "--data_repeat", str(2 * BATCH // SLIDES),
+            "--base_save_dir", str(results / "murcl")])
+        wall = time.time() - t0
+        check(not any(_cuda.LAUNCHES.values()), f"{what}: the launching process launched")
+        check(math.isfinite(out["best_loss"]), f"{what}: loss {out['best_loss']}")
+        used, unused = MURCL_KERNELS["CLAM_SB"][stage]
+        counts.append(dp_check_ranks(what, out, used, unused, DP_MURCL_FILES))
+        murcl_runs.append(Path(out["save_dir"]))
+        print(f"{what}: loss {out['best_loss']:.6f}, {out['steps_per_sec']:.4f} steps/s over "
+              f"the epoch, main() wall {wall:.2f} s (spawn and load included), launches per "
+              f"rank {nonzero(out['rank_launches'])}")
+    args = murcl_args(dev, ds, results / "single", "CLAM_SB", 2,
+                      checkpoint=str(murcl_runs[0] / "model_best.pth.tar"))
+    out = run(args)
+    torch.cuda.synchronize()
+    check(math.isfinite(out["best_loss"]), f"single-process stage 2 from dp stage 1: {out}")
+    print(f"single-process MuRCL CLAM_SB stage 2 from the dp stage 1's model_best: loss "
+          f"{out['best_loss']:.6f}")
+    pretrained = str(murcl_runs[2] / "model_best.pth.tar")
+    every, trained, _ = RLMIL_KERNELS["CLAM_SB"]
+    for stage in (1, 2, 3):
+        what = f"dp RLMIL CLAM_SB finetune stage {stage}"
+        t0 = time.time()
+        out = train_RLMIL.main(common + [
+            "--data_split_json", ds["rlmil_split_json"], "--train_stage", str(stage),
+            "--batch_size", str(RL_BATCH), "--train_method", "finetune", "--save_model",
+            "--base_save_dir", str(results / "rlmil"),
+            *(("--checkpoint_pretrained", pretrained) if stage < 3 else ())])
+        wall = time.time() - t0
+        check(all(math.isfinite(v) for v in out["final"] + tuple(out["train_losses"])),
+              f"{what}: {out['final']} {out['train_losses']}")
+        used = every + (trained if stage != 2 else ())
+        counts.append(dp_check_ranks(what, out, used, trained if stage == 2 else (),
+                                     DP_RLMIL_FILES))
+        print(f"{what}: train loss {out['train_losses'][0]:.6f}, final test {out['final']}, "
+              f"main() wall {wall:.2f} s, launches per rank {nonzero(out['rank_launches'])}")
+    return counts
+
+
+def dp_draws(gen):
+    """One global draw of a MuRCL stage-1 step's actions and per-rank mixup
+    draws (partners within each rank's rows), as ``(per rank, single)``."""
+    import torch
+
+    from murcl_tpu_torch.ops.mixup import mixup_factors
+
+    b = BATCH // DP_RANKS
+    actions = torch.rand((T, 2, BATCH, K), generator=gen)
+    ranks = []
+    for r in range(DP_RANKS):
+        mix = [mixup_factors(gen, b, 0.9) for _ in range(T * 2)]
+        ranks.append({"actions": actions[:, :, r * b:(r + 1) * b].clone(),
+                      "mix": (torch.stack([m[0] for m in mix]),
+                              torch.stack([m[1] for m in mix]))})
+    single = {"actions": actions,
+              "mix": (torch.cat([d["mix"][0] for d in ranks], dim=1),
+                      torch.cat([d["mix"][1] + r * b for r, d in enumerate(ranks)], dim=1))}
+    return ranks, single
+
+
+def dp_step(dp, args, draws, steady: int):
+    """One MuRCL CLAM_SB stage-1 step at the bench.py shape with the injected
+    ``draws[dp.rank]`` and dropout off, on rank ``dp`` (or the single process), then
+    ``steady`` timed steps. Returns the step losses, the (all-reduced)
+    gradients, the weights after the step and the timings."""
+    import numpy as np
+    import torch
+
+    from murcl_tpu_torch.drivers.murcl import setup
+    from murcl_tpu_torch.engine.optim import fill_missing_grads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = setup(args, dp)
+    s.model.encoder.dropout = 0.0  # the ranks' dropout masks are keyed per rank
+    eng, bank, dev = s.engine, s.source.bank, s.device
+    ids = torch.as_tensor(dp.local(np.arange(BATCH) % SLIDES), device=dev)
+    named = ([(f"model.{k}", v) for k, v in eng.model.named_parameters()]
+             + [(f"fc.{k}", v) for k, v in eng.fc.named_parameters()])
+    gen = torch.Generator().manual_seed(0)
+    stats = eng.train_step(bank, ids, gen, **draws[dp.rank])
+    torch.cuda.synchronize()
+    out = {"step_losses": stats.step_losses.cpu(),
+           "grads": {k: v.grad.detach().cpu() for k, v in named if v.grad is not None},
+           "weights": {k: v.detach().cpu() for k, v in named}}
+    if steady:
+        for _ in range(2):
+            eng.train_step(bank, ids, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, host = [], []
+        for _ in range(steady):
+            t0 = time.perf_counter()
+            eng.train_step(bank, ids, gen)
+            host.append((time.perf_counter() - t0) * 1e3)  # enqueued, not yet synced
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        params = [p for g in eng.optimizer.param_groups for p in g["params"]]
+        fill_missing_grads(params)
+        reduce_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nbytes = dp.all_reduce_grads(params)
+            torch.cuda.synchronize()
+            reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        out.update(step_ms=statistics.median(times), steps=times,
+                   enqueue_ms=statistics.median(host), reduce_bytes=nbytes,
+                   reduce_ms=statistics.median(reduce_ms),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   params=sum(p.numel() for p in params))
+    del s, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_step_path(dev, ds, results):
+    """The dp-2 step against the single-process step from the same weights
+    and draws (bf16: step losses within 2e-2 relative; the all-reduced
+    gradients within 2e-2 relative Frobenius, floored as ``twin_step``
+    floors; the ranks' gradients and weights after the Adam step bitwise
+    equal), then steady steps in turns: single, dp, single."""
+    import torch
+
+    from murcl_tpu_torch.drivers.common import resolve_save_dir
+    from murcl_tpu_torch.drivers.murcl import murcl_save_dir
+    from murcl_tpu_torch.parallel import SINGLE, launch, rank_devices
+
+    gen = torch.Generator().manual_seed(5)
+    rank_draws, single_draws = dp_draws(gen)
+    args = murcl_args(dev, ds, results / "dp_step", "CLAM_SB", 1, exist_ok=True)
+    resolve_save_dir(args, murcl_save_dir)
+    devices, backend = rank_devices(DP_RANKS, dev)
+    shared = len(set(devices)) < DP_RANKS
+    where = (f"{DP_RANKS} ranks over {backend} on {', '.join(map(str, devices))}"
+             + (": the ranks share one card, so this is the collectives' overhead, not "
+                "scaling" if shared else ""))
+    before = dp_step(SINGLE, args, [{}], steady=5)
+    torch.cuda.empty_cache()
+    ranks = [v for v, _ in launch(DP_RANKS, dp_step, args, rank_draws, 5, device=dev,
+                                  run_dir=args.save_dir)]
+    single = dp_step(SINGLE, args, [single_draws], steady=5)
+    what = "dp MuRCL CLAM_SB stage-1 step against the single-process step"
+    for r in range(1, DP_RANKS):
+        check(all(torch.equal(ranks[0]["weights"][k], ranks[r]["weights"][k])
+                  for k in ranks[0]["weights"]), f"{what}: rank {r}'s weights differ from rank 0's")
+        check(all(torch.equal(ranks[0]["grads"][k], ranks[r]["grads"][k])
+                  for k in ranks[0]["grads"]), f"{what}: rank {r}'s gradients differ")
+    loss_rel = float(((ranks[0]["step_losses"] - single["step_losses"]).abs()
+                      / single["step_losses"].abs()).max())
+    grads, want = ranks[0]["grads"], single["grads"]
+    check(grads.keys() == want.keys() and len(grads) >= 10, f"{what}: gradients {sorted(grads)}")
+    floor = 1e-4 * max(float(g.norm()) for g in want.values())
+    rels = {k: float((grads[k].double() - want[k].double()).norm()
+                     / max(float(want[k].norm()), floor)) for k in grads}
+    worst = max(rels, key=rels.get)
+    print(f"{what} ({where}): step losses {[round(float(v), 6) for v in ranks[0]['step_losses']]}"
+          f" vs {[round(float(v), 6) for v in single['step_losses']]} (max rel diff "
+          f"{loss_rel:.2e}); {len(rels)} all-reduced gradients, worst rel err "
+          f"{rels[worst]:.2e} ({worst}); the ranks' weights after Adam bitwise equal")
+    check(loss_rel <= 2e-2, f"{what}: step losses rel diff {loss_rel}")
+    check(rels[worst] <= 2e-2, f"{what}: gradients {rels}")
+    card = card_line()
+    for name, r in [("single", before)] + [(f"dp rank {i}", v) for i, v in enumerate(ranks)] \
+            + [("single", single)]:
+        line = (f"steady MuRCL CLAM_SB stage 1, batch {BATCH}, {name}: median step "
+                f"{r['step_ms']:.2f} ms, host enqueue {r['enqueue_ms']:.2f} ms, steps "
+                f"{[round(t, 2) for t in r['steps']]}, peak device memory {r['peak_gib']:.2f} GiB")
+        if name.startswith("dp"):
+            line += (f", gradient all-reduce {r['reduce_bytes'] / 1e6:.1f} MB "
+                     f"({r['params']} params) in {r['reduce_ms']:.2f} ms")
+        print(f"{line} ({where}; {card})")
+    if torch.cuda.device_count() < DP_RANKS:
+        print(f"dp nccl: not run ({torch.cuda.device_count()} card)")
+    return {"loss_rel": loss_rel, "grad_rel": rels[worst], "backend": backend}
+
+
 def device_events(prof) -> list:
     import torch
 
@@ -2413,13 +2657,18 @@ def main() -> int:
                                               ("ABMIL", 1, abmil_pretrained),
                                               ("DSMIL", 1, None)])
         steady_murcl_steps(dev, ds, tmp / "murcl")
+        t0 = time.time()
+        dp_counts = dp_cli_path(dev, ds, tmp / "dp")
+        dp_step_path(dev, ds, tmp / "dp")
+        print(f"dp phase in {time.time() - t0:.1f} s")
         stream_counts, k1_tcga, _ = streaming_path(dev, tmp / "stream")
         k1.update(k1_tcga)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
     for counts in [pre, *clam_stages.values(), *abmil_stages.values(), heat,
-                   *(c for path in rl_stages for c in path.values()), *stream_counts]:
+                   *(c for path in rl_stages for c in path.values()), *dp_counts,
+                   *stream_counts]:
         for k, v in counts.items():
             launches[k] += v
 

@@ -11,5 +11,8 @@ The slide preprocessing (``preprocess/``: tiling, tissue masks, patch
 features, k-means) runs on numpy, scipy and PyTorch (cuDNN for the
 encoders), without PIL, OpenCV, torchvision or scikit-learn.
 
+Data-parallel training (``--dp_devices N``, :mod:`murcl_tpu_torch.parallel`)
+runs N rank processes over ``torch.distributed``, every kernel per rank.
+
 This package imports neither ``jax`` nor ``murcl_tpu``.
 """

@@ -13,6 +13,13 @@ its compaction kernel's over-allocation rule. The port compiles nothing per
 shape and its compaction kernel reads no row past a slide's own, so it has
 no counterpart; the streaming splits still share one ``max_patches``, the
 width of their staged patch tables, as the JAX sources do.
+
+Under data parallelism (``--dp_devices N``) every rank builds its own
+sources and asks for its own rows of each global batch, as ``P("data")``
+shards them: a resident rank holds the whole split (replicated, as JAX's
+bank is), a streaming rank stages only the distinct slides of its rows, on
+its own pinned buffers and prefetch thread (host memory N times one
+process's; the host's reads are not repeated across ranks).
 """
 
 from __future__ import annotations

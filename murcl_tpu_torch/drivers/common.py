@@ -1,7 +1,9 @@
 """Driver plumbing (counterpart of ``murcl_tpu/drivers/common.py``): the
 reference save-dir schemes, the per-epoch batch order, epoch metrics, the
 policy loading both drivers share, the TensorBoard writer
-(``--use_tensorboard``) and the profiler hook (``--profile N``)."""
+(``--use_tensorboard``), the profiler hook (``--profile N``), and the
+data-parallel rank count (``--dp_devices``, :func:`dp_world`) with each rank's
+generator (:func:`rank_generator`)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import torch
 
 from murcl_tpu_torch.engine.checkpoint import transfer_state
 from murcl_tpu_torch.ops.metrics import get_metrics
+from murcl_tpu_torch.parallel import Ranks
+from murcl_tpu_torch.utils.general import CSVWriter, increment_path
 
 
 def murcl_save_dir(args) -> str:
@@ -48,6 +52,58 @@ def rlmil_save_dir(args) -> str:
         Path(args.base_save_dir) / f"{args.dataset}_np_{args.feat_size}" / "RLMIL" / rl
         / args.arch / arch_setting / args.train_method / exp / f"seed{args.seed}"
         / f"stage_{args.train_stage}")
+
+
+def resolve_save_dir(args, scheme) -> str:
+    """Set ``args.save_dir`` to the run's directory and create it: the
+    reference scheme ``scheme(args)``, or ``--save_dir`` under
+    ``--base_save_dir``, incremented (``_2``, ...) unless ``--exist_ok``.
+    Under data parallelism the launching process resolves it once, before
+    the ranks start."""
+    if args.save_dir is None:
+        args.save_dir = scheme(args)
+    else:
+        args.save_dir = str(Path(args.base_save_dir) / args.save_dir)
+    args.save_dir = increment_path(Path(args.save_dir), exist_ok=args.exist_ok, sep="_")
+    Path(args.save_dir).mkdir(parents=True, exist_ok=True)
+    print(f"save_dir: {args.save_dir}")
+    return args.save_dir
+
+
+def dp_world(args) -> int:
+    """The data-parallel rank count of ``--dp_devices`` (0 and 1: one
+    process), the counterpart of ``dp_mesh``: the global ``--batch_size``
+    splits into equal rows per rank, so it must be a multiple of the count.
+    Unlike ``dp_mesh``, the count may exceed the cards
+    (:func:`~murcl_tpu_torch.parallel.rank_devices`)."""
+    n = int(getattr(args, "dp_devices", 0) or 0)
+    if n <= 1:
+        return 1
+    if args.batch_size % n:
+        raise ValueError(f"--batch_size {args.batch_size} must be divisible by --dp_devices "
+                         f"{n} (each rank takes an equal share of the batch)")
+    return n
+
+
+def rank_generator(seed: int, dp: Ranks) -> torch.Generator:
+    """The CPU generator of rank ``dp.rank``'s draws (actions, mixup, dropout
+    seeds, policy noise). A single process seeds it with ``seed``; rank r of
+    N > 1 with the first 64-bit word of ``numpy.random.SeedSequence([seed,
+    r])``, so ranks draw apart as JAX's ``fold_in(rng, shard)`` streams do."""
+    if dp.world == 1:
+        return torch.Generator().manual_seed(seed)
+    word = np.random.SeedSequence([seed, dp.rank]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(word))
+
+
+class _NoWriter:
+    def write_row(self, row) -> None:
+        pass
+
+
+def rank0_csv(dp: Ranks, filename, header):
+    """A :class:`CSVWriter` on rank 0; on the other ranks one that writes nothing."""
+    return CSVWriter(filename, header=header) if dp.main else _NoWriter()
 
 
 def make_tb_writer(save_dir, enabled: bool):

@@ -16,10 +16,20 @@ step's last NT-Xent loss, as in the reference.
 onto the device on a prefetch thread (:mod:`murcl_tpu_torch.data.streaming`);
 the steps are bitwise those over the resident bank.
 
+``--dp_devices N`` (N > 1) trains data-parallel, the JAX ``mesh=`` mode: N
+rank processes (:func:`~murcl_tpu_torch.parallel.launch`), each on its rows
+of every global batch of ``--batch_size`` slides, with the global-batch
+NT-Xent and the gradients summed over the ranks
+(:mod:`murcl_tpu_torch.engine.contrastive`). The launching process resolves
+the run directory; rank 0 writes every file (csv, checkpoints,
+``args.json``, TensorBoard, ``--profile``) and prints; the other ranks write
+nothing. Every rank decides best epoch and early stop from the same
+all-reduced losses. ``run`` returns rank 0's result with each rank's kernel
+launch counts (``rank_launches``).
+
 ``--device cpu`` runs the plain PyTorch path; any other device is a CUDA
 device, which runs the hand-written kernels. Without a CUDA device only
-``--device cpu`` runs. ``--dp_devices > 1`` raises ``NotImplementedError``
-naming its ROADMAP item; the cascaded-FC head (``fc_rnn`` false) raises
+``--device cpu`` runs. The cascaded-FC head (``fc_rnn`` false) raises
 ``ValueError``, as no engine runs it.
 """
 
@@ -36,9 +46,10 @@ import torch
 
 from murcl_tpu_torch.data.contract import load_split
 from murcl_tpu_torch.data.sources import build_sources
-from murcl_tpu_torch.drivers.common import (ProfilerHook, epoch_batches, load_policy,
-                                           make_tb_writer, murcl_save_dir,
-                                           refuse_cascaded_head)
+from murcl_tpu_torch.drivers.common import (ProfilerHook, dp_world, epoch_batches,
+                                           load_policy, make_tb_writer, murcl_save_dir,
+                                           rank0_csv, rank_generator, refuse_cascaded_head,
+                                           resolve_save_dir)
 from murcl_tpu_torch.engine.checkpoint import (JAX_FORMAT, load_checkpoint, save_checkpoint,
                                                transfer_state)
 from murcl_tpu_torch.engine.config import PretrainConfig
@@ -46,8 +57,8 @@ from murcl_tpu_torch.engine.contrastive import ContrastiveEngine
 from murcl_tpu_torch.engine.optim import (lr_schedule_factory, make_optimizer,
                                           set_learning_rates)
 from murcl_tpu_torch.models import CL, PPO, FullLayer, build_aggregator
-from murcl_tpu_torch.utils.general import (AverageMeter, BestVariable, CSVWriter, EarlyStop,
-                                           increment_path, init_seeds)
+from murcl_tpu_torch.parallel import SINGLE, Ranks, launch
+from murcl_tpu_torch.utils.general import AverageMeter, BestVariable, EarlyStop, init_seeds
 
 
 def resolve_device(spec) -> torch.device:
@@ -64,11 +75,6 @@ def resolve_device(spec) -> torch.device:
     return torch.device(f"cuda:{index}")
 
 
-def _reject_unported(args) -> None:
-    if int(args.dp_devices or 0) > 1:
-        raise NotImplementedError("not ported yet: --dp_devices > 1: ROADMAP queue 1, item 14")
-
-
 def _arch_setting(args) -> dict:
     """``murcl_tpu/drivers/murcl.py:51-65`` without the TPU gate-math knob."""
     if args.arch == "ABMIL":
@@ -82,24 +88,18 @@ def _arch_setting(args) -> dict:
     raise ValueError(args.arch)
 
 
-def setup(args) -> SimpleNamespace:
+def setup(args, dp: Ranks = SINGLE) -> SimpleNamespace:
     """Source, modules, optimizer, policy, engine and the stage chaining of
-    one stage: ``SimpleNamespace(device, source, model, fc, ppo, optimizer,
-    engine, start_epoch)``. Creates ``args.save_dir`` and fills the derived
-    args."""
-    _reject_unported(args)
+    one stage on rank ``dp``: ``SimpleNamespace(device, source, model, fc,
+    ppo, optimizer, engine, start_epoch)``. A single process creates
+    ``args.save_dir`` (data-parallel ranks find it resolved); fills the
+    derived args; rank 0's weights go to every rank once loaded."""
     refuse_cascaded_head(args)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if dp.world == 1 else dp.device
     init_seeds(args.seed)
-
-    if args.save_dir is None:
-        args.save_dir = murcl_save_dir(args)
-    else:
-        args.save_dir = str(Path(args.base_save_dir) / args.save_dir)
-    args.save_dir = increment_path(Path(args.save_dir), exist_ok=args.exist_ok, sep="_")
+    if dp.world == 1:
+        resolve_save_dir(args, murcl_save_dir)
     save_dir = Path(args.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    print(f"save_dir: {save_dir}")
 
     indices = load_split(args.data_split_json)["train"]
     cdtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
@@ -167,37 +167,53 @@ def setup(args) -> SimpleNamespace:
         start_epoch = int(ckpt["epoch"])
         print(f"resumed from {resume_path} at epoch {start_epoch}")
 
+    dp.broadcast(model, fc, *((ppo.policy, ppo.policy_old) if ppo is not None else ()))
+
     cfg = PretrainConfig(arch=args.arch, T=args.T, feat_size=args.feat_size,
                          num_clusters=args.num_clusters, train_stage=args.train_stage,
                          num_classes=args.projection_dim, alpha=args.alpha,
                          temperature=args.temperature, compute_dtype=args.compute_dtype)
-    engine = ContrastiveEngine(cfg, model, fc, optimizer, ppo=ppo)
+    engine = ContrastiveEngine(cfg, model, fc, optimizer, ppo=ppo, dp=dp)
     return SimpleNamespace(device=device, source=source, model=model, fc=fc, ppo=ppo,
                            optimizer=optimizer, engine=engine, start_epoch=start_epoch)
 
 
 def run(args) -> dict:
-    s = setup(args)
+    """Train one stage: in this process, or with ``--dp_devices N > 1`` in N
+    rank processes; rank 0's result."""
+    world = dp_world(args)
+    if world == 1:
+        return _train(SINGLE, args)
+    resolve_save_dir(args, murcl_save_dir)
+    ranks = launch(world, _train, args, device=resolve_device(args.device),
+                   run_dir=args.save_dir)
+    return dict(ranks[0][0], rank_launches=[launches for _, launches in ranks])
+
+
+def _train(dp: Ranks, args) -> dict:
+    s = setup(args, dp)
     save_dir = Path(args.save_dir)
-    with open(save_dir / "args.json", "w", encoding="utf-8") as fp:
-        json.dump(vars(args), fp, indent=1, default=str)
+    if dp.main:
+        with open(save_dir / "args.json", "w", encoding="utf-8") as fp:
+            json.dump(vars(args), fp, indent=1, default=str)
 
     best_train_loss = BestVariable(order="min")
-    losses_csv = CSVWriter(save_dir / "losses.csv",
+    losses_csv = rank0_csv(dp, save_dir / "losses.csv",
                            header=["epoch", "train", "best_epoch", "best_train"])
-    results_csv = CSVWriter(save_dir / "results.csv",
+    results_csv = rank0_csv(dp, save_dir / "results.csv",
                             header=["epoch", "final_epoch", "final_loss"])
     early_stop = EarlyStop(args.patience) if args.patience is not None else None
+    # the epoch order is the same on every rank; each takes its rows of a batch
     np_rng = np.random.default_rng(args.seed)
-    generator = torch.Generator().manual_seed(args.seed)
+    generator = rank_generator(args.seed, dp)
     backbone_lr_fn = lr_schedule_factory(args.scheduler, args.backbone_lr, args.epochs,
                                          int(args.warmup))
     fc_lr_fn = lr_schedule_factory(args.scheduler, args.fc_lr, args.epochs, int(args.warmup))
     with contextlib.ExitStack() as stack:
-        tb_writer = make_tb_writer(save_dir, args.use_tensorboard)
+        tb_writer = make_tb_writer(save_dir, args.use_tensorboard and dp.main)
         if tb_writer is not None:
             stack.callback(tb_writer.close)
-        profiler = ProfilerHook(save_dir / "profile", args.profile, s.device)
+        profiler = ProfilerHook(save_dir / "profile", args.profile if dp.main else 0, s.device)
         stack.callback(profiler.close)
         steps_per_sec = None
         for epoch in range(s.start_epoch, args.epochs):
@@ -207,14 +223,13 @@ def run(args) -> dict:
             loss_meter = AverageMeter()
             # per-step losses stay on the device until the epoch ends (no sync per step)
             step_losses, step_counts = [], []
-            batches = [ids for ids, _ in epoch_batches(s.source.num_slides, args.num_data,
-                                                       args.batch_size, np_rng,
-                                                       drop_partial=True)]
+            batches = [dp.local(ids) for ids, _ in epoch_batches(
+                s.source.num_slides, args.num_data, args.batch_size, np_rng, drop_partial=True)]
             for bank, slide_ids in s.source.iter_batches(batches):
                 profiler.step()
                 stats = s.engine.train_step(bank, slide_ids, generator)
-                step_losses.append(stats.step_losses[-1])
-                step_counts.append(len(slide_ids))
+                step_losses.append(stats.step_losses[-1])  # global: the same on every rank
+                step_counts.append(len(slide_ids) * dp.world)
             for loss, cnt in zip(step_losses, step_counts):
                 loss_meter.update(float(loss), cnt)
             train_loss = loss_meter.avg
@@ -224,8 +239,9 @@ def run(args) -> dict:
                 tb_writer.add_scalar("train/1.train_loss", train_loss, epoch)
 
             is_best = best_train_loss.compare(train_loss, epoch + 1, inplace=True)
-            save_checkpoint(save_dir, epoch + 1, s.model, s.fc, s.optimizer, s.ppo,
-                            is_best=is_best)
+            if dp.main:
+                save_checkpoint(save_dir, epoch + 1, s.model, s.fc, s.optimizer, s.ppo,
+                                is_best=is_best)
             losses_csv.write_row([epoch + 1, train_loss, best_train_loss.epoch,
                                   best_train_loss.best])
             results_csv.write_row([epoch + 1, best_train_loss.epoch, best_train_loss.best])

@@ -25,9 +25,19 @@ test runs on the best model. Outputs: ``losses.csv``, ``accs.csv``,
 onto the device (:mod:`murcl_tpu_torch.data.streaming`); an evaluation
 stages its whole split as one batch, as the JAX driver does.
 
+``--dp_devices N`` (N > 1) trains data-parallel, the JAX ``mesh=`` mode: N
+rank processes (:func:`~murcl_tpu_torch.parallel.launch`), each on its rows
+of every global batch, with global CE and extras and the gradients summed
+over the ranks (:mod:`murcl_tpu_torch.engine.supervised`). An evaluation
+pads its split to a multiple of N (the tail masked out of every mean and
+metric, as the JAX driver pads it) and each rank scores its rows; the logits
+come back in global order. The launching process resolves the run
+directory; rank 0 writes every file and prints; every rank selects the best
+epoch from the same all-reduced numbers. ``run`` returns rank 0's result
+with each rank's kernel launch counts (``rank_launches``).
+
 ``--device cpu`` runs the plain PyTorch path; a CUDA device runs the
-hand-written kernels. ``--dp_devices > 1`` raises ``NotImplementedError``
-naming its ROADMAP item; the cascaded-FC head (``fc_rnn`` false) raises
+hand-written kernels. The cascaded-FC head (``fc_rnn`` false) raises
 ``ValueError``, as no engine runs it.
 """
 
@@ -44,9 +54,10 @@ import torch
 
 from murcl_tpu_torch.data.contract import load_split
 from murcl_tpu_torch.data.sources import build_sources
-from murcl_tpu_torch.drivers.common import (EpochOutputs, ProfilerHook, epoch_batches,
-                                           load_policy, make_tb_writer, refuse_cascaded_head,
-                                           rlmil_save_dir)
+from murcl_tpu_torch.drivers.common import (EpochOutputs, ProfilerHook, dp_world,
+                                           epoch_batches, load_policy, make_tb_writer,
+                                           rank0_csv, rank_generator, refuse_cascaded_head,
+                                           resolve_save_dir, rlmil_save_dir)
 from murcl_tpu_torch.drivers.murcl import resolve_device
 from murcl_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint, transfer_state
 from murcl_tpu_torch.engine.config import RolloutConfig
@@ -55,13 +66,8 @@ from murcl_tpu_torch.engine.optim import (freeze_for_linear_eval, lr_schedule_fa
 from murcl_tpu_torch.engine.supervised import SupervisedEngine
 from murcl_tpu_torch.models import PPO, FullLayer, build_aggregator
 from murcl_tpu_torch.ops.metrics import get_metrics, get_score
-from murcl_tpu_torch.utils.general import (BestVariable, CSVWriter, EarlyStop, increment_path,
-                                           init_seeds)
-
-
-def _reject_unported(args) -> None:
-    if int(args.dp_devices or 0) > 1:
-        raise NotImplementedError("not ported yet: --dp_devices > 1: ROADMAP queue 1, item 14")
+from murcl_tpu_torch.parallel import SINGLE, Ranks, launch
+from murcl_tpu_torch.utils.general import BestVariable, EarlyStop, init_seeds
 
 
 def _load_stage_checkpoint(args, model, fc, device) -> dict:
@@ -97,21 +103,17 @@ def _arch_setting(args) -> dict:
     return {}
 
 
-def setup(args) -> SimpleNamespace:
+def setup(args, dp: Ranks = SINGLE) -> SimpleNamespace:
     """Sources, modules, optimizer, engine and the weight surgery of one
-    stage: ``SimpleNamespace(device, sources, model, fc, ppo, optimizer,
-    engine)``. Creates ``args.save_dir`` and fills the derived args."""
-    _reject_unported(args)
+    stage on rank ``dp``: ``SimpleNamespace(device, sources, model, fc, ppo,
+    optimizer, engine)``. A single process creates ``args.save_dir``
+    (data-parallel ranks find it resolved); fills the derived args; rank 0's
+    weights go to every rank once loaded."""
     refuse_cascaded_head(args)
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if dp.world == 1 else dp.device
     init_seeds(args.seed)
-    if args.save_dir is None:
-        args.save_dir = rlmil_save_dir(args)
-    else:
-        args.save_dir = str(Path(args.base_save_dir) / args.save_dir)
-    args.save_dir = increment_path(Path(args.save_dir), exist_ok=args.exist_ok, sep="_")
-    Path(args.save_dir).mkdir(parents=True, exist_ok=True)
-    print(f"save_dir: {args.save_dir}")
+    if dp.world == 1:
+        resolve_save_dir(args, rlmil_save_dir)
 
     split = load_split(args.data_split_json)
     cdtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
@@ -163,6 +165,8 @@ def setup(args) -> SimpleNamespace:
             load_policy(ppo, ckpt["policy"])
         print(f"resumed model/fc/policy from {resume_path}")
 
+    dp.broadcast(model, fc, *((ppo.policy, ppo.policy_old) if ppo is not None else ()))
+
     optimizer = None
     if args.train_stage == 2:
         args.epochs = args.ppo_epochs
@@ -177,9 +181,9 @@ def setup(args) -> SimpleNamespace:
                         num_clusters=args.num_clusters, train_stage=args.train_stage,
                         num_classes=args.num_classes, bag_weight=args.bag_weight,
                         compute_dtype=args.compute_dtype)
-    engine = SupervisedEngine(cfg, model, fc, ppo=ppo, optimizer=optimizer)
+    engine = SupervisedEngine(cfg, model, fc, ppo=ppo, optimizer=optimizer, dp=dp)
     return SimpleNamespace(device=device, sources=sources, model=model, fc=fc, ppo=ppo,
-                           optimizer=optimizer, engine=engine)
+                           optimizer=optimizer, engine=engine, dp=dp)
 
 
 def _states(s: SimpleNamespace) -> dict:
@@ -192,10 +196,16 @@ def _states(s: SimpleNamespace) -> dict:
 def _evaluate(s: SimpleNamespace, source, generator, collect_preds: bool = False):
     """A whole split as one batch (``train_RLMIL.py:417-424``; a streaming
     split is staged whole): ``(loss, (acc, auc, precision, recall, f1)[, pred
-    rows])``."""
-    bank, ids = source.batch(np.arange(source.num_slides))
-    stats = s.engine.eval_step(bank, ids, generator)
-    logits = stats.logits.float().cpu().numpy()
+    rows])``. Under data parallelism the split is padded with its last slide
+    to a multiple of the ranks (``murcl_tpu/drivers/rlmil.py:259-275``), each
+    rank scores (and stages) its rows, and the padding is masked out."""
+    n, dp = source.num_slides, s.dp
+    ids = np.concatenate([np.arange(n), np.full(-n % dp.world, n - 1)])
+    valid = np.arange(ids.size) < n
+    bank, local_ids = source.batch(dp.local(ids))
+    stats = s.engine.eval_step(bank, local_ids, generator,
+                               valid=torch.as_tensor(dp.local(valid), device=s.device))
+    logits = stats.logits.float().cpu().numpy()[:n]
     labels = source.labels
     loss = float(stats.step_losses[-1])
     metrics = get_metrics(logits, labels)
@@ -210,16 +220,29 @@ def _evaluate(s: SimpleNamespace, source, generator, collect_preds: bool = False
 
 
 def run(args) -> dict:
-    s = setup(args)
+    """Train and test one stage: in this process, or with ``--dp_devices N >
+    1`` in N rank processes; rank 0's result."""
+    world = dp_world(args)
+    if world == 1:
+        return _run(SINGLE, args)
+    resolve_save_dir(args, rlmil_save_dir)
+    ranks = launch(world, _run, args, device=resolve_device(args.device),
+                   run_dir=args.save_dir)
+    return dict(ranks[0][0], rank_launches=[launches for _, launches in ranks])
+
+
+def _run(dp: Ranks, args) -> dict:
+    s = setup(args, dp)
     save_dir = Path(args.save_dir)
-    with open(save_dir / "args.json", "w", encoding="utf-8") as fp:
-        json.dump(vars(args), fp, indent=1, default=str)
-    generator = torch.Generator().manual_seed(args.seed)
+    if dp.main:
+        with open(save_dir / "args.json", "w", encoding="utf-8") as fp:
+            json.dump(vars(args), fp, indent=1, default=str)
+    generator = rank_generator(args.seed, dp)
     with contextlib.ExitStack() as stack:
-        tb_writer = make_tb_writer(save_dir, args.use_tensorboard)
+        tb_writer = make_tb_writer(save_dir, args.use_tensorboard and dp.main)
         if tb_writer is not None:
             stack.callback(tb_writer.close)
-        profiler = ProfilerHook(save_dir / "profile", args.profile, s.device)
+        profiler = ProfilerHook(save_dir / "profile", args.profile if dp.main else 0, s.device)
         stack.callback(profiler.close)
         result = _train_loop(args, s, generator, tb_writer, profiler)
 
@@ -229,16 +252,15 @@ def run(args) -> dict:
     s.fc.load_state_dict(best["fc"])
     if s.ppo is not None:
         s.ppo.load_policy(best["policy"])
-    loss, metrics, rows = _evaluate(s, s.sources["test"],
-                                    torch.Generator().manual_seed(args.seed + 1),
+    loss, metrics, rows = _evaluate(s, s.sources["test"], rank_generator(args.seed + 1, dp),
                                     collect_preds=True)
     n_class = len(rows[0]) - 4
-    pred_csv = CSVWriter(save_dir / "pred.csv",
+    pred_csv = rank0_csv(dp, save_dir / "pred.csv",
                          header=["case_id", "label", "pred", "correct",
                                  *[f"prob{i}" for i in range(n_class)]])
     for row in rows:
         pred_csv.write_row(row)
-    final_csv = CSVWriter(save_dir / "final_res.csv",
+    final_csv = rank0_csv(dp, save_dir / "final_res.csv",
                           header=["", "loss", "acc", "auc", "precision", "recall", "f1_score"])
     final_csv.write_row([f"seed{args.seed}", loss, *metrics])
     print(f"final test: loss {loss:.4f} acc {metrics[0]:.4f} auc {metrics[1]:.4f}\n"
@@ -255,14 +277,15 @@ def _train_loop(args, s: SimpleNamespace, generator: torch.Generator, tb_writer=
     best_score = BestVariable(order="max")
     final = dict(epoch=0, loss=0.0, acc=0.0, auc=0.0, precision=0.0, recall=0.0, f1=0.0)
     header = ["epoch", "train", "valid", "test", "best_train", "best_valid", "best_test"]
-    writers = {m: CSVWriter(save_dir / f"{name}.csv", header=header)
+    writers = {m: rank0_csv(s.dp, save_dir / f"{name}.csv", header=header)
                for m, name in (("loss", "losses"), ("acc", "accs"), ("auc", "aucs"))}
-    results_csv = CSVWriter(save_dir / "results.csv",
+    results_csv = rank0_csv(s.dp, save_dir / "results.csv",
                             header=["epoch", "final_epoch", "final_loss", "final_acc",
                                     "final_auc", "final_precision", "final_recall",
                                     "final_f1_score"])
     early_stop = EarlyStop(args.patience) if args.patience is not None else None
     best = _states(s)
+    # the epoch order is the same on every rank; each takes its rows of a batch
     np_rng = np.random.default_rng(args.seed)
     backbone_lr_fn = lr_schedule_factory(args.scheduler, args.backbone_lr, args.epochs,
                                          int(args.warmup))
@@ -278,12 +301,13 @@ def _train_loop(args, s: SimpleNamespace, generator: torch.Generator, tb_writer=
         pending = []
         batches = list(epoch_batches(train.num_slides, args.num_data, args.batch_size, np_rng,
                                      drop_partial=False))
-        staged = train.iter_batches([ids for ids, _ in batches])
+        staged = train.iter_batches([s.dp.local(ids) for ids, _ in batches])
         for (bank, slide_ids), (ids, valid) in zip(staged, batches):
             if profiler is not None:
                 profiler.step()
             stats = s.engine.train_step(bank, slide_ids, generator,
-                                        valid=torch.as_tensor(valid, device=s.device))
+                                        valid=torch.as_tensor(s.dp.local(valid), device=s.device))
+            # the logits and the loss are the global batch's, on every rank
             pending.append((stats.logits, ids, valid, stats.step_losses[-1]))
         outputs = EpochOutputs()
         for logits, ids, valid, _ in pending:
@@ -318,7 +342,7 @@ def _train_loop(args, s: SimpleNamespace, generator: torch.Generator, tb_writer=
             final.update(epoch=epoch + 1, loss=test_loss, acc=test_acc, auc=test_auc,
                          precision=test_p, recall=test_r, f1=test_f1)
             best = _states(s)
-            if args.save_model:
+            if args.save_model and s.dp.main:
                 save_checkpoint(save_dir, epoch + 1, s.model, s.fc, s.optimizer, s.ppo,
                                 is_best=True)
 

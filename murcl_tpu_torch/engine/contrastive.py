@@ -31,6 +31,17 @@ at t=0 each view restarts from zeros and view 1's carry is kept; at each
 later step view 0 consumes the carry view 1 wrote. One carry threads view0
 -> view1 per step to match.
 
+Data parallelism (``dp``, a :class:`~murcl_tpu_torch.parallel.Ranks`; the
+JAX engine's ``mesh=``): each rank runs the rollout on its own rows of the
+global batch, with its own generator, so its actions, mixup draws (pairs
+within the rank's rows, as within a JAX shard) and dropout seeds are its
+own. NT-Xent runs over the gathered ``(B_global, C)`` projections of both
+views, the same loss on every rank, whose backward reaches only the rank's
+own rows; the rewards are global means; :func:`~murcl_tpu_torch.engine.optim.step`
+sums the gradients over the ranks before the replicated update; and in
+stage 2 each view's rollout is gathered in rank order before the PPO
+update, which every rank runs on the same numbers.
+
 Random draws come from one explicit CPU ``torch.Generator`` in a fixed
 order. Stage 1: the actions ``(T, 2, B, K)``, the mixup draws of each
 (step, view) group, then one dropout seed per aggregator forward. Stages 2
@@ -53,6 +64,7 @@ from murcl_tpu_torch.models.rlmil import Rollout, act
 from murcl_tpu_torch.ops.mixup import mixup_factors, mixup_ref, mixup_rows
 from murcl_tpu_torch.ops.ntxent import nt_xent
 from murcl_tpu_torch.ops.select import select_feats
+from murcl_tpu_torch.parallel import SINGLE, Ranks
 
 ARCHS = ("ABMIL", "CLAM_SB")
 
@@ -68,10 +80,12 @@ class ContrastiveEngine:
 
     ``model`` is the ``CL``-wrapped aggregator, ``fc`` the GRU head, ``ppo``
     a :class:`~murcl_tpu_torch.models.rlmil.PPO` (stages 2 and 3) and
-    ``optimizer`` over model and fc (stages 1 and 3).
+    ``optimizer`` over model and fc (stages 1 and 3), ``dp`` this process's
+    data-parallel rank (a single process by default).
     """
 
-    def __init__(self, cfg: PretrainConfig, model, fc, optimizer=None, ppo=None):
+    def __init__(self, cfg: PretrainConfig, model, fc, optimizer=None, ppo=None,
+                 dp: Ranks = SINGLE):
         if cfg.arch not in ARCHS:
             raise NotImplementedError(
                 f"{cfg.arch} has no MuRCL pretraining: the JAX package's MuRCL CLI offers "
@@ -85,6 +99,7 @@ class ContrastiveEngine:
         self.fc = fc
         self.optimizer = optimizer
         self.ppo = ppo
+        self.dp = dp
         self.cdtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         # CLAM_SB's fused trunk kernel mixes in place of a standalone pass
         self.fused_mix = cfg.arch == "CLAM_SB"
@@ -94,6 +109,10 @@ class ContrastiveEngine:
         kwargs = {"mix": mix} if mix is not None else {}
         emb, _ = self.model.encoder(x.to(self.cdtype), generator=generator, **kwargs)
         return emb.float()
+
+    def _nt_xent(self, a, b):
+        """NT-Xent over the global batch: both views' projections gathered."""
+        return nt_xent(self.dp.gather(a), self.dp.gather(b), self.cfg.temperature)
 
     def rollout_batched(self, bank, slide_ids, generator: torch.Generator,
                         actions: Optional[torch.Tensor] = None, mix=None):
@@ -134,12 +153,12 @@ class ContrastiveEngine:
             pa, c_mid = self.fc(emb[t, 0], carry)
             pb, carry = self.fc(emb[t, 1], c_mid)
             projs.append((pa, pb))
-        step_losses = torch.stack([nt_xent(pa, pb, cfg.temperature) for pa, pb in projs])
+        step_losses = torch.stack([self._nt_xent(pa, pb) for pa, pb in projs])
         total = step_losses.sum() / t_steps
 
         with torch.no_grad():  # rewards are reported only in stage 1
             sims = torch.stack([cosine_similarity(pa, pb) for pa, pb in projs])
-            rewards = (sims[:-1] - sims[1:]).mean(dim=1)
+            rewards = self.dp.mean((sims[:-1] - sims[1:]).mean(dim=1))
         return total, PretrainStats(total.detach(), step_losses.detach(), rewards)
 
     def _pair_forward(self, bank, slide_ids, actions, carry, generator, mix_t):
@@ -188,7 +207,7 @@ class ContrastiveEngine:
                                   device=generator.device)
         projs, states, fc_carry = self._pair_forward(bank, slide_ids, actions0, None,
                                                      generator, mix_of(0))
-        losses = [nt_xent(projs[0], projs[1], cfg.temperature)]
+        losses = [self._nt_xent(projs[0], projs[1])]
         sim_last = cosine_similarity(projs[0].detach(), projs[1].detach())
 
         pol = [self.ppo.zero_hidden(b, dev), self.ppo.zero_hidden(b, dev)]
@@ -202,7 +221,7 @@ class ContrastiveEngine:
                 steps[v].append(pstep)
             projs, states, fc_carry = self._pair_forward(bank, slide_ids, acts, fc_carry,
                                                          generator, mix_of(t))
-            losses.append(nt_xent(projs[0], projs[1], cfg.temperature))
+            losses.append(self._nt_xent(projs[0], projs[1]))
             sim = cosine_similarity(projs[0].detach(), projs[1].detach())
             rewards.append(sim_last - sim)
             sim_last = sim
@@ -215,7 +234,8 @@ class ContrastiveEngine:
                     actions=torch.stack([s.action for s in view]),
                     logprobs=torch.stack([s.logprob for s in view]), rewards=rewards)
             for view in steps)
-        stats = PretrainStats(total.detach(), step_losses.detach(), rewards.mean(dim=1))
+        stats = PretrainStats(total.detach(), step_losses.detach(),
+                              self.dp.mean(rewards.mean(dim=1)))
         return total, stats, rollouts
 
     def train_step(self, bank, slide_ids, generator: torch.Generator, **draws) -> PretrainStats:
@@ -229,7 +249,7 @@ class ContrastiveEngine:
                 _, stats, rollouts = self.rollout_sequential(bank, slide_ids, generator,
                                                              **draws)
             for rollout in rollouts:  # view 0 first (train_MuRCL.py:296-298)
-                self.ppo.update(rollout)
+                self.ppo.update(Rollout(*(self.dp.gather(x, dim=1) for x in rollout)))
             return stats
         self.model.train()
         self.fc.train()
@@ -239,5 +259,5 @@ class ContrastiveEngine:
         else:
             total, stats = self.rollout_batched(bank, slide_ids, generator, **draws)
         total.backward()
-        optim.step(self.optimizer)
+        optim.step(self.optimizer, self.dp)
         return stats

@@ -1,7 +1,10 @@
 """Loss helpers of the supervised engine (counterpart of ``murcl_tpu/engine/losses.py``).
 
-Single-device: the JAX package's ``axis_name`` (a global mean across a data
-mesh) comes with multi-device training (ROADMAP queue 1, item 14).
+The batch means take the data-parallel ranks ``dp``
+(:class:`~murcl_tpu_torch.parallel.Ranks`), JAX's ``axis_name``: numerator
+and count are summed over the ranks, so a rank's loss is the global-batch
+loss, and its backward is its local sum over the global count (the count
+carries no gradient; the engines sum the ranks' gradients).
 """
 
 from __future__ import annotations
@@ -9,19 +12,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from murcl_tpu_torch.parallel import SINGLE, Ranks
 
-def masked_mean(x, valid):
-    """Mean of ``x`` over the rows where ``valid`` (B,) is true; 0 when no
-    row is valid."""
+
+def masked_mean(x, valid, dp: Ranks = SINGLE):
+    """Mean of ``x`` over the rows where ``valid`` (B,) is true, over every
+    rank's rows; 0 when no row is valid."""
     w = valid.to(x.dtype)
-    return (x * w).sum() / w.sum().clamp_min(1.0)
+    return dp.all_sum((x * w).sum()) / dp.sum(w.sum()).clamp_min(1.0)
 
 
-def cross_entropy(logits, labels, valid):
+def cross_entropy(logits, labels, valid, dp: Ranks = SINGLE):
     """Torch ``CrossEntropyLoss`` (mean over the batch) restricted to the
     ``valid`` rows, so a padded last batch counts only its real slides."""
     nll = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None].long())[:, 0]
-    return masked_mean(nll, valid)
+    return masked_mean(nll, valid, dp)
 
 
 def cosine_similarity(a, b, eps: float = 1e-8):

@@ -14,7 +14,9 @@ The engines step through :func:`step`: a stepped parameter without a
 gradient (a dead head, such as CLAM's ``classifiers``) gets a zero one
 first, so the L2 decay and Adam's moments move it as optax's
 ``add_decayed_weights`` + ``scale_by_adam`` move every leaf of its group;
-``torch.optim`` would skip it.
+``torch.optim`` would skip it. Under data parallelism the gradients are then
+summed over the ranks, the zeros too, so every rank steps on the same
+numbers.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Optional
 import torch
 
 from murcl_tpu_torch.engine.weights import jax_leaf_path
+from murcl_tpu_torch.parallel import SINGLE, Ranks
 
 # JAX leaf names that stay trainable under linear eval
 # (``murcl_tpu/engine/optim.py:150``)
@@ -75,9 +78,12 @@ def fill_missing_grads(params) -> None:
             p.grad = torch.zeros_like(p)
 
 
-def step(optimizer: torch.optim.Optimizer) -> None:
-    """``optimizer.step()`` after :func:`fill_missing_grads` over its groups."""
-    fill_missing_grads(p for group in optimizer.param_groups for p in group["params"])
+def step(optimizer: torch.optim.Optimizer, dp: Ranks = SINGLE) -> None:
+    """``optimizer.step()`` after :func:`fill_missing_grads` over its groups
+    and the sum of the gradients over the ranks ``dp``."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    fill_missing_grads(params)
+    dp.all_reduce_grads(params)
     optimizer.step()
 
 

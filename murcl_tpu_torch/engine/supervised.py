@@ -30,9 +30,20 @@ change of the true class's confidence between steps:
   reference's quirk (``murcl_tpu/engine/supervised.py:17-19``).
 
 A ``valid`` mask (B,) runs through every batch mean, for the padded last
-batch. Random draws come from one CPU ``torch.Generator``: actions, then a
-dropout seed per aggregator forward, then the policy noise of each step.
-Tests inject the actions and the noise.
+batch.
+
+Data parallelism (``dp``, a :class:`~murcl_tpu_torch.parallel.Ranks`; the
+JAX engine's ``mesh=``): each rank steps on its own rows of the global batch
+with its own generator. The CE and the arch's extra are global masked means
+(numerator and count summed over the ranks), the rewards global means, the
+final-step logits come back gathered in global order (the metrics' input),
+:func:`~murcl_tpu_torch.engine.optim.step` sums the gradients over the ranks
+before the replicated update, and stage 2 gathers the rollout before the PPO
+update, which every rank runs on the same numbers.
+
+Random draws come from one CPU ``torch.Generator``: actions, then a dropout
+seed per aggregator forward, then the policy noise of each step. Tests
+inject the actions and the noise.
 """
 
 from __future__ import annotations
@@ -46,22 +57,25 @@ from murcl_tpu_torch.engine.config import RolloutConfig
 from murcl_tpu_torch.engine.losses import cross_entropy, label_confidence, masked_mean
 from murcl_tpu_torch.models.rlmil import Rollout, act
 from murcl_tpu_torch.ops.select import select_feats
+from murcl_tpu_torch.parallel import SINGLE, Ranks
 
 
 class StepStats(NamedTuple):
     loss: torch.Tensor  # scalar: mean of the T step losses
     step_losses: torch.Tensor  # (T,)
     rewards: torch.Tensor  # (T-1,) batch-mean reward per step
-    logits: torch.Tensor  # (B, C) final-step outputs (metrics source)
+    logits: torch.Tensor  # (B, C) final-step outputs of the global batch (metrics source)
 
 
 class SupervisedEngine:
     """Train and eval steps of one stage. ``model`` is the bare aggregator
     (``cfg.arch``), ``fc`` the GRU head, ``ppo`` a
     :class:`~murcl_tpu_torch.models.rlmil.PPO` (stages 2 and 3),
-    ``optimizer`` over model and fc (stages 1 and 3)."""
+    ``optimizer`` over model and fc (stages 1 and 3), ``dp`` this process's
+    data-parallel rank (a single process by default)."""
 
-    def __init__(self, cfg: RolloutConfig, model, fc, ppo=None, optimizer=None):
+    def __init__(self, cfg: RolloutConfig, model, fc, ppo=None, optimizer=None,
+                 dp: Ranks = SINGLE):
         # the weight of the fc head's CE in each arch's step loss
         ce_weight = {"ABMIL": 1.0, "CLAM_SB": cfg.bag_weight, "DSMIL": 0.5}
         if cfg.arch not in ce_weight:
@@ -75,6 +89,7 @@ class SupervisedEngine:
         self.fc = fc
         self.ppo = ppo
         self.optimizer = optimizer
+        self.dp = dp
         self.cdtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.ce_weight = ce_weight[cfg.arch]
 
@@ -107,14 +122,15 @@ class SupervisedEngine:
                          actions.reshape(t_steps * b, cfg.num_clusters), cfg.feat_size)
         fc_in_flat, extra_flat = self._encode(x, labels.repeat(t_steps), generator)
         fc_in = fc_in_flat.reshape(t_steps, b, -1)
-        extra_step = torch.stack([masked_mean(e, valid) for e in extra_flat.reshape(t_steps, b)])
+        extra_step = torch.stack([masked_mean(e, valid, self.dp)
+                                  for e in extra_flat.reshape(t_steps, b)])
 
         logits, carry = [], None
         for t in range(t_steps):
             lg, carry = self.fc(fc_in[t], carry)
             logits.append(lg)
         logits_all = torch.stack(logits)  # (T, B, C)
-        step_ce = torch.stack([cross_entropy(lg, labels, valid) for lg in logits])
+        step_ce = torch.stack([cross_entropy(lg, labels, valid, self.dp) for lg in logits])
         step_losses = self.ce_weight * step_ce + extra_step
         total = step_losses.sum() / t_steps
 
@@ -122,8 +138,9 @@ class SupervisedEngine:
         rewards = conf[1:] - conf[:-1]
         rollout = Rollout(states=fc_in.detach()[:-1], actions=actions[1:],
                           logprobs=torch.zeros((t_steps - 1, b), device=dev), rewards=rewards)
-        stats = StepStats(total.detach(), step_losses.detach(), rewards.mean(dim=1),
-                          logits_all[-1].detach())
+        stats = StepStats(total.detach(), step_losses.detach(),
+                          self.dp.mean(rewards.mean(dim=1)),
+                          self.dp.gather(logits_all[-1].detach()))
         return total, stats, rollout
 
     def rollout_sequential(self, bank, slide_ids, labels, valid, generator: torch.Generator,
@@ -140,8 +157,8 @@ class SupervisedEngine:
             x = select_feats(bank, slide_ids, actions.to(dev), cfg.feat_size)
             fc_in, extra = self._encode(x, labels, generator)
             logits, carry = self.fc(fc_in, carry)
-            loss = self.ce_weight * cross_entropy(logits, labels, valid) + \
-                masked_mean(extra, valid)
+            loss = self.ce_weight * cross_entropy(logits, labels, valid, self.dp) + \
+                masked_mean(extra, valid, self.dp)
             return logits, carry, fc_in.detach(), loss
 
         if actions0 is None:
@@ -168,44 +185,47 @@ class SupervisedEngine:
         rollout = Rollout(states=torch.stack([s.state for s in steps]),
                           actions=torch.stack([s.action for s in steps]),
                           logprobs=torch.stack([s.logprob for s in steps]), rewards=rewards)
-        stats = StepStats(total.detach(), step_losses.detach(), rewards.mean(dim=1),
-                          logits.detach())
+        stats = StepStats(total.detach(), step_losses.detach(),
+                          self.dp.mean(rewards.mean(dim=1)), self.dp.gather(logits.detach()))
         return total, stats, rollout
 
-    def _rollout(self, bank, slide_ids, labels, valid, generator):
+    def _rollout(self, bank, slide_ids, labels, valid, generator, **draws):
         if self.cfg.uses_policy:
-            return self.rollout_sequential(bank, slide_ids, labels, valid, generator)
-        return self.rollout_batched(bank, slide_ids, labels, valid, generator)
+            return self.rollout_sequential(bank, slide_ids, labels, valid, generator, **draws)
+        return self.rollout_batched(bank, slide_ids, labels, valid, generator, **draws)
 
     def _modes(self, train: bool) -> None:
         self.model.train(train)
         self.fc.train(train)
 
     def train_step(self, bank, slide_ids, generator: torch.Generator,
-                   valid: Optional[torch.Tensor] = None) -> StepStats:
-        """One optimizer step (stages 1/3) or one PPO update (stage 2)."""
+                   valid: Optional[torch.Tensor] = None, **draws) -> StepStats:
+        """One optimizer step (stages 1/3) or one PPO update (stage 2).
+        ``draws`` go to the rollout (tests inject the random draws)."""
         labels = bank.labels[slide_ids]
         if valid is None:
             valid = torch.ones(slide_ids.shape, dtype=torch.bool, device=slide_ids.device)
         if self.cfg.train_stage == 2:
             self._modes(False)
             with torch.no_grad():
-                _, stats, rollout = self._rollout(bank, slide_ids, labels, valid, generator)
-            self.ppo.update(rollout)
+                _, stats, rollout = self._rollout(bank, slide_ids, labels, valid, generator,
+                                                  **draws)
+            self.ppo.update(Rollout(*(self.dp.gather(x, dim=1) for x in rollout)))
             return stats
         self._modes(True)
         self.optimizer.zero_grad(set_to_none=True)
-        total, stats, _ = self._rollout(bank, slide_ids, labels, valid, generator)
+        total, stats, _ = self._rollout(bank, slide_ids, labels, valid, generator, **draws)
         total.backward()
-        optim.step(self.optimizer)
+        optim.step(self.optimizer, self.dp)
         return stats
 
     @torch.no_grad()
     def eval_step(self, bank, slide_ids, generator: torch.Generator,
-                  valid: Optional[torch.Tensor] = None) -> StepStats:
-        """T-step rollout in eval mode (sampled actions, reference quirk)."""
+                  valid: Optional[torch.Tensor] = None, **draws) -> StepStats:
+        """T-step rollout in eval mode (sampled actions, reference quirk) of
+        this rank's rows; the logits come back for every rank's rows."""
         labels = bank.labels[slide_ids]
         if valid is None:
             valid = torch.ones(slide_ids.shape, dtype=torch.bool, device=slide_ids.device)
         self._modes(False)
-        return self._rollout(bank, slide_ids, labels, valid, generator)[1]
+        return self._rollout(bank, slide_ids, labels, valid, generator, **draws)[1]

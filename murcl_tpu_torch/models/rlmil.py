@@ -212,7 +212,10 @@ class PPO:
     """Clipped PPO over the rollout buffer (``murcl_tpu/models/rlmil.py`` ``PPO``).
 
     ``policy`` trains; ``policy_old`` is the action source and takes the
-    policy's weights after each :meth:`update`.
+    policy's weights after each :meth:`update`. Under data parallelism every
+    rank runs :meth:`update` on the same gathered rollout, from the same
+    weights and Adam state, so the policies stay bitwise equal across ranks
+    (``tests/test_torch_dp.py`` and ``chip_smoke.py`` check it).
     """
 
     def __init__(self, state_dim: int, hidden_state_dim: int = 1024, policy_conv: bool = False,

@@ -5,6 +5,9 @@ process, all started together, and the objects are linked into one shared
 library with a plain C interface, loaded with :mod:`ctypes`. The library is
 built on first use into ``build/murcl_tpu_torch/`` at the repository root,
 named by a hash of the sources and flags, so an edited source builds anew.
+An exclusive file lock (``fcntl``) on ``build/murcl_tpu_torch/.build.lock``
+makes processes that need the library at once (data-parallel ranks, however
+they were started) wait for one build instead of compiling side by side.
 Nothing here runs at import time; a machine without ``nvcc`` raises when a
 kernel is first needed.
 
@@ -16,6 +19,7 @@ Each C entry point launches on the stream it is given and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -133,12 +137,21 @@ def _wait(procs) -> None:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the current sources exists."""
+    """Compile the kernels unless a library of the current sources exists;
+    one process at a time builds, the others then find its library."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not out.exists():
+            _compile(nvcc, out)
+    return out
+
+
+def _compile(nvcc: str, out: Path) -> None:
     tag = f"{out.stem}.{os.getpid()}"
     objs, procs = [], []
     for src in sorted(CSRC.glob("*.cu")):
@@ -155,7 +168,6 @@ def build() -> Path:
     for obj in objs:
         obj.unlink()
     os.replace(tmp, out)
-    return out
 
 
 def library() -> ctypes.CDLL:

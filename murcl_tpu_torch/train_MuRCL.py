@@ -91,7 +91,11 @@ def parse_args(argv=None):
                         choices=['float32', 'bfloat16'],
                         help="aggregator compute dtype (losses stay float32)")
     parser.add_argument('--dp_devices', type=int, default=0,
-                        help="> 1 is not ported yet (ROADMAP queue 1, item 14)")
+                        help="N > 1 trains data-parallel: N rank processes over "
+                             "torch.distributed, each on batch_size / N slides of every "
+                             "batch, the first N cards one each (ranks share cards when "
+                             "there are fewer; gloo with --device cpu); batch_size must be "
+                             "a multiple of N")
     return parser.parse_args(argv)
 
 

@@ -517,3 +517,61 @@ def test_whole_split_stages_reuse_one_pinned_buffer(dev, tmp_path):
     torch.cuda.synchronize()
     held = [b for b in stream._buffers if b is not None]
     assert len(held) == 1 and held[0].shape == want.feats.shape and held[0].is_pinned()
+
+
+def test_data_parallel_step_on_one_card(dev, tmp_path):
+    """Two ranks on ``cuda:0`` over gloo (they share the card): one MuRCL
+    CLAM_SB stage-1 step (K1, K2/K3, K4 on each rank; Fin 64, CLAM small, f32,
+    b = 3 per rank) equals the single-process step fed the ranks' draws
+    concatenated, the mixup partners kept in each rank's block: loss within
+    rtol 1e-5, weights after the Adam step within rtol 1e-4 plus 1e-6, the
+    score bias (true gradient 0) within the rate of its start; the two
+    ranks' weights bitwise equal."""
+    import numpy as np
+    from torch_dp_ranks import ALPHA, LR, K, T, run_case, run_cases
+
+    from murcl_tpu_torch.models import CLAM_SB, FullLayer
+    from murcl_tpu_torch.ops.mixup import mixup_factors
+    from murcl_tpu_torch.parallel import Ranks, launch
+
+    n, b, dim = 2, 3, 64
+    rng = np.random.default_rng(0)
+    feats, clusters = [], []
+    for _ in range(8):
+        rows = int(rng.integers(30, 80))
+        feats.append(rng.normal(size=(rows, dim)).astype(np.float32))
+        a = rng.integers(0, K, size=rows)
+        clusters.append([[int(i) for i in np.where(a == k)[0]] for k in range(K)])
+    torch.manual_seed(0)
+    model = CLAM_SB(in_dim=dim, gate=True, size_arg="small", dropout=0.0, n_classes=8,
+                    subtyping=True)
+    fc = FullLayer(feature_num=512, hidden_state_dim=32, class_num=8)
+    gen = torch.Generator().manual_seed(1)
+    draws = []
+    for _ in range(n):
+        mix = [mixup_factors(gen, b, ALPHA) for _ in range(T * 2)]
+        draws.append({"actions": torch.rand((T, 2, b, K), generator=gen),
+                      "mix": (torch.stack([m[0] for m in mix]), torch.stack([m[1] for m in mix]))})
+    case = {"kind": "contrastive", "arch": "CLAM_SB", "stage": 1, "dim": dim, "size": "small",
+            "feats": feats, "clusters": clusters, "labels": [0] * 8,
+            "ids": rng.permutation(8)[:n * b], "model": model.state_dict(),
+            "fc": fc.state_dict(), "policy": None, "draws": draws}
+    got = launch(n, run_cases, [case], device=dev, run_dir=tmp_path)
+    outs = [value[0] for value, _ in got]
+    for _, launches in got:
+        assert all(launches[k] > 0 for k in ("compact", "fused_trunk_fwd", "fused_trunk_bwd",
+                                             "ntxent_fwd", "ntxent_bwd")), launches
+    single = dict(case, draws=[{
+        "actions": torch.cat([d["actions"] for d in draws], dim=2),
+        "mix": (torch.cat([d["mix"][0] for d in draws], dim=1),
+                torch.cat([d["mix"][1] + r * b for r, d in enumerate(draws)], dim=1))}])
+    want = run_case(Ranks(device=dev), single)
+    np.testing.assert_allclose(float(outs[0]["loss"]), float(want["loss"]), rtol=1e-5)
+    for part in ("model", "fc"):
+        for k, v in want[part].items():
+            assert torch.equal(outs[0][part][k], outs[1][part][k]), (part, k)
+            if k.endswith("attention_c.bias"):
+                assert float((v - case["model"][k]).abs().max()) <= 1.01 * LR
+                continue
+            np.testing.assert_allclose(outs[0][part][k].numpy(), v.numpy(), rtol=1e-4,
+                                       atol=1e-6, err_msg=f"{part}.{k}")

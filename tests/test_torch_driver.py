@@ -1,6 +1,7 @@
 """Port's MuRCL CLI at stage 1 end to end on the CPU plain path, and its guards:
-unported options raise, importing the port leaves JAX unloaded, and a
-kernel launch with no CUDA toolkit raises instead of falling back."""
+a ``--dp_devices`` that does not divide the batch raises, importing the port
+leaves JAX unloaded, and a kernel launch with no CUDA toolkit raises instead
+of falling back."""
 
 import csv
 import math
@@ -43,14 +44,15 @@ def test_cli_stage1_one_epoch(synthetic_dataset, tmp_path):
     assert torch.load(run / "checkpoint.pth.tar", weights_only=True)["epoch"] == 2
 
 
-# stages 2/3 and ABMIL are ported (tests/test_torch_murcl_stages.py), and so
-# are --use_tensorboard and --profile (tests/test_torch_profile_tb.py),
-# --policy_conv (tests/test_torch_policy_heads.py) and --streaming
-# (tests/test_torch_streaming.py)
+# every option is ported: stages 2/3 and ABMIL (tests/test_torch_murcl_stages.py),
+# --use_tensorboard and --profile (tests/test_torch_profile_tb.py),
+# --policy_conv (tests/test_torch_policy_heads.py), --streaming
+# (tests/test_torch_streaming.py) and --dp_devices (tests/test_torch_dp*.py);
+# what still raises is a --dp_devices that does not divide the batch
 @pytest.mark.parametrize("extra", [("--dp_devices", "2")])
 def test_unported_flags_raise(synthetic_dataset, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(_argv(synthetic_dataset, tmp_path, *extra))
+    with pytest.raises(ValueError, match="divisible by --dp_devices"):
+        main(_argv(synthetic_dataset, tmp_path, *extra, "--batch_size", "3"))
 
 
 def test_tpu_only_flags_are_absent(synthetic_dataset, tmp_path):

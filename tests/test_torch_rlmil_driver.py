@@ -4,8 +4,9 @@ Stage 1 fine-tunes from a MuRCL checkpoint the port itself wrote, then
 stages 2 and 3 chain on ``../stage_{N-1}/model_best.pth.tar``; every stage
 writes its csv logs, checkpoints (with the policy from stage 2 on),
 ``pred.csv`` and ``final_res.csv``. Batch 3 over 4 train slides exercises
-the padded last batch. Unported options raise, and importing the CLI leaves
-JAX, pandas, yaml and scikit-learn unloaded.
+the padded last batch. A ``--dp_devices`` that does not divide the batch
+raises, and importing the CLI leaves JAX, pandas, yaml and scikit-learn
+unloaded.
 """
 
 import csv
@@ -75,11 +76,12 @@ def test_cli_finetune_stages_1_2_3(synthetic_dataset, tmp_path, pretrained):
         assert torch.equal(v, s2["model_state_dict"][k]), k
 
 
-# --streaming (tests/test_torch_streaming.py) and --policy_conv
-# (tests/test_torch_policy_heads.py) are ported
+# --streaming (tests/test_torch_streaming.py), --policy_conv
+# (tests/test_torch_policy_heads.py) and --dp_devices (tests/test_torch_dp*.py)
+# are ported; a --dp_devices that does not divide the batch (1 here) raises
 @pytest.mark.parametrize("extra", [("--dp_devices", "2")])
 def test_unported_flags_raise(synthetic_dataset, tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="divisible by --dp_devices"):
         train_RLMIL.main(_common(synthetic_dataset, tmp_path) + list(extra))
 
 
