@@ -4,8 +4,9 @@
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from ``murcl_tpu_torch/csrc`` (one nvcc
    per source, in parallel), and reads the library's SASS with
-   ``cuobjdump``: the bf16 K2/K3 and K7 kernels and both instantiations of
-   K8's kernel must hold tensor-core instructions (HMMA or HGMMA).
+   ``cuobjdump``: the bf16 K2/K3 kernels must hold Hopper's warpgroup
+   products (HGMMA), the bf16 K7 kernels and both instantiations of K8's
+   kernel tensor-core instructions (HMMA or HGMMA).
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape (one block
@@ -25,8 +26,11 @@
    timed gated and ungated, K3 also unmixed with and without dh, K7 at the
    supervised shape and in ABMIL's mode at (1536, 1024, 512), each beside
    its plain twin and its bound; K2's, K3's and K7's timed calls split by
-   sub-kernel (forward trunk or gates, and pool; backward trunk, dp, gates,
-   dx and each weight-gradient contraction) with torch.profiler; K3 (with
+   sub-kernel (K2: trunk, gates and pool; K3: trunk, softmax backward,
+   gates, dx and its two weight-gradient passes, dWf and dWa + dWb; K7:
+   gates and pool, gates, dx and each weight-gradient contraction) with
+   torch.profiler, K2's and K3's with each sub-kernel's achieved TFLOP/s and
+   GB/s; K3 (with
    dh) and K7b run twice on the same inputs, the largest difference per
    output printed (the split-K weight gradients add with atomics; dh and
    K7's dx must be bitwise equal). K8 (the streaming attention pool, on
@@ -62,7 +66,7 @@
    port's CPU k-means; ms and iterations per slide); then
    ``WSIWithCluster`` loads the output and MuRCL CLAM_SB stage 1 (batch 2,
    feat_size 1024, bf16, ``--profile 2``, whose trace must name
-   ``trunk_tc``) trains on it, launching K1, K2/K3 and K4.
+   ``trunk_wg``) trains on it, launching K1, K2/K3 and K4.
    Then slides as Aperio's and Camelyon16's scanners write them
    (``jpeg_slide_path``): two JPEG-tiled pyramids of the same size, each
    level made of the four 256-pixel YCbCr 4:2:0 tiles of
@@ -113,7 +117,13 @@
    warm-up steps, then a host clock around 5 synchronised steps, read also
    when the step call returns (the host's enqueue time), and the peak
    device memory; then ``torch.profiler`` traces 3 more steps of each and
-   prints device time by kernel and the device's busy share.
+   prints device time by kernel and the device's busy share. Where the
+   parent commit's tree is unpacked under ``build/parent``, the A/B
+   (``ab_parent``): K2 and K3 through the op at the timed call, and the
+   MuRCL CLAM_SB stage-1 and stage-3 steps, of the parent's tree and of
+   this one in turns (parent, this, this, parent), each side a process that
+   imports and builds its own tree's port; fails unless this tree's K2 and
+   K3 are faster.
 8. The streaming feature feed (``streaming_path``), on 128 synthetic
    slides of 3,000-10,240 patches x 512 (K 10; about 1.7 GB of f32 npz,
    drawn as the JAX package's ``scripts/bench_tcga_scale.py`` draws its
@@ -305,7 +315,7 @@ def trunk_keep_rate(dev) -> float:
     err = _cuda.library().murcl_fused_trunk_fwd(
         1, 1, ptr(o["h"]), None, None, ptr(o["wf"]), ptr(o["bf"]), ptr(o["wa"]), ptr(o["ba"]),
         ptr(o["wb"]), ptr(o["bb"]), ptr(o["wc"]), ptr(bc), ptr(o["mask"]), *drop, ptr(xc),
-        ptr(m), ptr(p), ptr(s), b, N_MAIN, FIN, L1, D, _cuda.stream())
+        None, ptr(m), ptr(p), ptr(s), b, N_MAIN, FIN, L1, D, _cuda.stream())
     _cuda.check(err, "keep-rate probe")
     torch.cuda.synchronize()
     return float((xc != 0).float().mean())
@@ -516,12 +526,14 @@ def device_ms(fn, own: bool = True, reps: int = 20) -> float:
 
 
 # the kernels that must run on the tensor cores: the bf16 kernels of
-# csrc/fused_trunk.cu (K2/K3) and csrc/attention_pool.cu (K7), where
-# tc::wgrad_kernel serves both, and K8's kernel (csrc/attention_tiled.cu) in
-# both of its instantiations
-TC_KERNELS = ("trunk_tc", "gates_fwd_tc", "gates_bwd_tc", "dx_tc", "tc::wgrad_kernel",
-              "pool_gates_fwd_tc", "pool_gates_bwd_tc", "pool_dx_tc", "tiled_pool_tc<float>",
-              "tiled_pool_tc<__nv_bfloat16>")
+# csrc/fused_trunk.cu (K2/K3), which must hold Hopper's warpgroup products
+# (HGMMA), and those of csrc/attention_pool.cu (K7, with tc::wgrad_kernel)
+# and K8's kernel (csrc/attention_tiled.cu) in both of its instantiations
+# (HMMA or HGMMA)
+HGMMA_KERNELS = ("trunk_wg", "gates_fwd_wg", "gates_bwd_wg", "dx_wg", "dh_wg", "wgrad_wg")
+TC_KERNELS = HGMMA_KERNELS + ("tc::wgrad_kernel", "pool_gates_fwd_tc", "pool_gates_bwd_tc",
+                              "pool_dx_tc", "tiled_pool_tc<float>",
+                              "tiled_pool_tc<__nv_bfloat16>")
 
 
 def mangled(kernel: str) -> str:
@@ -539,9 +551,9 @@ def mangled(kernel: str) -> str:
 def check_sass() -> dict:
     """``cuobjdump -sass`` (beside nvcc) over the built kernel library: each
     kernel of ``TC_KERNELS`` (defined in ``csrc/fused_trunk.cu``,
-    ``csrc/attention_pool.cu``, ``csrc/attention_tiled.cu`` and the header
-    they share) must hold tensor-core instructions (HMMA or HGMMA). Returns
-    their counts per kernel."""
+    ``csrc/attention_pool.cu``, ``csrc/attention_tiled.cu`` and the headers
+    they share) must hold tensor-core instructions (HMMA or HGMMA), and each
+    of ``HGMMA_KERNELS`` HGMMA. Returns their counts per kernel."""
     from murcl_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).with_name("cuobjdump")
@@ -552,11 +564,11 @@ def check_sass() -> dict:
         name = body.split(None, 1)[0]
         for k in TC_KERNELS:
             if mangled(k) in name:
+                rule = r"\bHGMMA\b" if k in HGMMA_KERNELS else r"\bH(G)?MMA\b"
                 counts[k] = counts.get(k, 0) + sum(
-                    1 for line in body.splitlines()
-                    if re.search(r"\bH(G)?MMA\b", line))
+                    1 for line in body.splitlines() if re.search(rule, line))
     check(set(counts) == set(TC_KERNELS) and all(counts.values()),
-          f"kernels without tensor-core instructions: {counts}")
+          f"kernels without their tensor-core instructions: {counts}")
     return counts
 
 
@@ -608,12 +620,13 @@ def check_fused(dev, gen):
     k_bwd = median_ms(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77, perm, lam),
                       reps=3)
     split_fwd = kernel_split(lambda: att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam))
-    split_bwd = name_wgrads(kernel_split(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25,
-                                                               77, perm, lam)),
-                            ("dWf", "dWa", "dWb"))
+    split_bwd = name_wgrads(kernel_split(lambda: att._bwd_cuda(h, *w[:7], mask, p, *cots,
+                                                               0.25, 77, perm, lam)),
+                            ("dWf", "dWa+dWb"))
     for what, split, total in (("K2", split_fwd, k_fwd), ("K3", split_bwd, k_bwd)):
         print_split(f"{what} at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, dropout 0.25",
                     split, total)
+        print_rates(what, split)
     # unmixed with dh: dh, like K7b's dx, has no atomics on its path
     twice = determinism(f"K3 at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, unmixed, with dh, "
                         "dropout 0.25",
@@ -746,12 +759,42 @@ def name_wgrads(split, grads) -> list:
     """``split`` (``kernel_split``'s list) with each weight-gradient
     contraction named by its gradient, in launch order."""
     grads = iter(grads)
-    return [(f"{n} {next(grads)}" if n.endswith("wgrad_kernel") else n, ms) for n, ms in split]
+    return [(f"{n} {next(grads)}" if n.endswith(("wgrad_kernel", "wgrad_wg")) else n, ms)
+            for n, ms in split]
 
 
 def print_split(what, split, total) -> None:
     print(f"{what}: {total:.3f} ms (median of 3); one call by sub-kernel: "
           + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split))
+
+
+# K2/K3's bf16 kernels at the timed call (B_MAIN, N_MAIN, FIN -> L1 -> D,
+# gated, mixed): (FLOPs, device-memory bytes) each must do, each input read
+# once and each output written once (``csrc/fused_trunk.cu``'s reckoning)
+def fused_work() -> dict:
+    r, x = B_MAIN * N_MAIN, B_MAIN * N_MAIN * L1 * 2  # rows; one bf16 (R, L1) tensor
+    h, zab = r * FIN * 2, r * 2 * D * 2
+    # the mixed trunk reads h and h[perm] and writes xc and hm in both passes
+    return {"trunk_wg": (2 * r * FIN * L1, 3 * h + x), "gates_fwd_wg": (4 * r * L1 * D, x + r * 4),
+            "pool_kernel<__nv_bfloat16>": (2 * r * L1, x + r * 8),
+            "trunk_wg bwd": (2 * r * FIN * L1, 2 * h + x + h),
+            "gates_bwd_wg": (4 * r * L1 * D, x + zab + r * 16),
+            "dx_wg": (4 * r * L1 * D, zab + x + x + r * 4),
+            "wgrad_wg dWf": (2 * r * FIN * L1, h + x),
+            "wgrad_wg dWa+dWb": (4 * r * L1 * D, x + zab)}
+
+
+def print_rates(what, split) -> None:
+    """Achieved TFLOP/s and GB/s of each of ``split``'s kernels that
+    :func:`fused_work` reckons."""
+    work, seen, out = fused_work(), set(), []
+    for name, ms in split:
+        key = f"{name} bwd" if what == "K3" and name == "trunk_wg" else name
+        if key in work and key not in seen:
+            seen.add(key)
+            flops, nb = work[key]
+            out.append(f"{name} {flops / ms / 1e9:.1f} TFLOP/s, {nb / ms / 1e6:.0f} GB/s")
+    print(f"{what} sub-kernels, achieved: " + "; ".join(out))
 
 
 def determinism(what, fn, names, exact) -> dict:
@@ -1116,7 +1159,7 @@ def preprocess_path(dev, root):
     and bf16; ``features_clustering`` on the card, each slide's inertia
     within 1e-4 of the port's CPU k-means; then ``WSIWithCluster`` loads the
     output and MuRCL CLAM_SB stage 1 (feat_size 1024, bf16, ``--profile
-    2``: the trace must name ``trunk_tc``) trains on it, launch counts reset
+    2``: the trace must name ``trunk_wg``) trains on it, launch counts reset
     first. Returns those launch counts."""
     import collections
 
@@ -1349,10 +1392,10 @@ def preprocess_path(dev, root):
         launches = dict(_cuda.LAUNCHES)
         check(math.isfinite(out["best_loss"]), f"MuRCL on preprocessed features: {out}")
         trace = Path(out["save_dir"]) / "profile" / "steps_1-2.pt.trace.json"
-        check(trace.exists() and "trunk_tc" in trace.read_text(),
-              f"--profile 2: no trace naming trunk_tc at {trace}")
+        check(trace.exists() and "trunk_wg" in trace.read_text(),
+              f"--profile 2: no trace naming trunk_wg at {trace}")
         print(f"--profile 2: {trace.name} ({trace.stat().st_size / 2**20:.1f} MiB) names "
-              "trunk_tc")
+              "trunk_wg")
         used, unused = MURCL_KERNELS["CLAM_SB"][1]
         check(all(launches[k] > 0 for k in used) and all(launches[k] == 0 for k in unused),
               f"MuRCL on preprocessed features: launches {launches}")
@@ -2012,6 +2055,129 @@ def steady_murcl_steps(dev, ds, results):
     return out
 
 
+# The A/B against the parent commit: its tree unpacked under build/parent
+# (``git archive <parent> | tar -x -C build/parent``; absent from a checkout,
+# so the A/B is skipped there), whose package and kernels each side process
+# imports and builds from that tree
+PARENT_TREE = REPO / "build" / "parent"
+
+
+def ab_side(tree: str, ds: dict, results: str) -> dict:
+    """One side of the A/B, in a process of its own that imports the port
+    from ``tree``: K2 (the op's forward, under no_grad) and K3 (its
+    backward) at the timed call of ``check_fused`` (median ms of 5, and one
+    call's device ms by kernel), then steady MuRCL CLAM_SB stage-1 and
+    stage-3 steps as ``steady_murcl_steps`` times them (step and enqueue ms,
+    the device's busy ms over 3 traced steps, peak memory)."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from murcl_tpu_torch.drivers.murcl import setup
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.ops.attention import fused_trunk_attention_pool
+
+    check(Path(_cuda.__file__).resolve().is_relative_to(Path(tree).resolve()),
+          f"A/B side imported {_cuda.__file__}, not {tree}'s port")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    _cuda.library()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h, w, mask, mix, cots = fused_inputs(B_MAIN, torch.bfloat16, gen, dev, False)
+    ws = [x.detach().clone().requires_grad_(True) for x in w]
+
+    def fwd():
+        with torch.no_grad():
+            return fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77, mix=mix)
+
+    outs = fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77, mix=mix)
+
+    def bwd():
+        return torch.autograd.grad(outs, ws, cots, retain_graph=True)
+
+    res = {"tree": tree, "k2_ms": median_ms(fwd), "k3_ms": median_ms(bwd),
+           "k2_split": kernel_split(fwd), "k3_split": kernel_split(bwd)}
+    del outs, ws, h
+    torch.cuda.empty_cache()
+    for stage in (1, 3):
+        s = setup(murcl_args(dev, ds, Path(results), "CLAM_SB", stage, exist_ok=True))
+        g = torch.Generator().manual_seed(0)
+        ids = torch.arange(BATCH, device=dev) % SLIDES
+
+        def step():
+            s.engine.train_step(s.source.bank, ids, g)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, host = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            step()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = profile_steps(step, f"A/B {Path(tree).name} MuRCL CLAM_SB stage {stage}", ms)
+        res[f"stage{stage}"] = {"ms": ms, "enqueue_ms": statistics.median(host),
+                                "busy_ms": busy, "busy_pct": 100 * busy / ms, "peak_gib": peak}
+        del s
+        torch.cuda.empty_cache()
+    return res
+
+
+def ab_parent(ds, results):
+    """K2/K3 and the MuRCL CLAM_SB stage-1 and stage-3 steps of the parent's
+    tree and of this one, in turns (parent, this, this, parent), each side a
+    process of its own on this card; fails unless this tree's K2 and K3 are
+    faster than the parent's (median of each side's two runs). Returns
+    ``{"parent": [side, side], "this": [side, side]}``, or None without a
+    parent tree."""
+    import torch
+
+    if not (PARENT_TREE / "murcl_tpu_torch").is_dir():
+        print(f"A/B against the parent: skipped (no parent tree at {PARENT_TREE})")
+        return None
+    torch.cuda.empty_cache()
+    sides = {"parent": [], "this": []}
+    for name, tree in (("parent", PARENT_TREE), ("this", REPO), ("this", REPO),
+                       ("parent", PARENT_TREE)):
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--ab-side",
+                               str(tree), json.dumps(ds), str(results)],
+                              capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"A/B side {name}: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+        for line in lines[:-1]:
+            print(f"  [{name}] {line}")
+        sides[name].append(json.loads(lines[-1]))
+        print(f"A/B side {name} ({tree}) in {time.time() - t0:.1f} s")
+    card = card_line()
+    for key, what in (("k2", "K2 (the op's forward)"), ("k3", "K3 (the op's backward)")):
+        print(f"A/B {what} at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, dropout 0.25, in "
+              "turns: " + "; ".join(
+                  f"{n} {[round(s[key + '_ms'], 3) for s in v]} ms, device "
+                  f"{[round(sum(ms for _, ms in s[key + '_split']), 3) for s in v]} ms"
+                  for n, v in sides.items()) + f" ({card})")
+        for n, v in sides.items():
+            print(f"  {n} {key} one call by kernel: "
+                  + ", ".join(f"{k} {ms:.3f}" for k, ms in v[0][key + "_split"]))
+    for stage in (1, 3):
+        key = f"stage{stage}"
+        print(f"A/B MuRCL CLAM_SB stage {stage}, batch {BATCH}, in turns: " + "; ".join(
+            f"{n} " + ", ".join(
+                f"{s[key]['ms']:.2f} ms (enqueue {s[key]['enqueue_ms']:.2f}, busy "
+                f"{s[key]['busy_pct']:.2f}%, peak {s[key]['peak_gib']:.2f} GiB)" for s in v)
+            for n, v in sides.items()) + f" ({card})")
+    for key in ("k2", "k3"):
+        mine = statistics.median(s[key + "_ms"] for s in sides["this"])
+        theirs = statistics.median(s[key + "_ms"] for s in sides["parent"])
+        check(mine < theirs, f"A/B: this tree's {key} ({mine:.3f} ms) not faster than the "
+                             f"parent's ({theirs:.3f} ms)")
+    return sides
+
+
 # the dp phase: MuRCL and RLMIL through the CLIs with --dp_devices DP_RANKS;
 # the files a run directory holds, all rank 0's
 DP_RANKS = 2
@@ -2253,9 +2419,10 @@ def busy_union_ms(kernels) -> float:
     return busy / 1e3
 
 
-def profile_steps(step, what: str, step_ms: float, n: int = 3) -> None:
+def profile_steps(step, what: str, step_ms: float, n: int = 3) -> float:
     """Device time by kernel over ``n`` traced steps, and the union of the
-    kernel intervals per step against the untraced step time ``step_ms``."""
+    kernel intervals per step against the untraced step time ``step_ms``;
+    returns that union, ms per step."""
     import collections
 
     import torch
@@ -2276,6 +2443,7 @@ def profile_steps(step, what: str, step_ms: float, n: int = 3) -> None:
           f"device ms per step by kernel ({len(kernels) / n:.0f} launches per step):")
     for name, ms in sorted(by_name.items(), key=lambda r: -r[1])[:12]:
         print(f"  {ms:9.3f}  {name[:110]}")
+    return busy_ms
 
 
 # the streaming phase: a corpus of TCGA-sized slides drawn as the JAX
@@ -2658,6 +2826,9 @@ def main() -> int:
                                               ("DSMIL", 1, None)])
         steady_murcl_steps(dev, ds, tmp / "murcl")
         t0 = time.time()
+        ab = ab_parent({k: str(ds[k]) for k in ("data_csv", "data_split_json")}, tmp / "murcl")
+        print(f"A/B phase in {time.time() - t0:.1f} s")
+        t0 = time.time()
         dp_counts = dp_cli_path(dev, ds, tmp / "dp")
         dp_step_path(dev, ds, tmp / "dp")
         print(f"dp phase in {time.time() - t0:.1f} s")
@@ -2700,6 +2871,12 @@ def main() -> int:
         if row["name"].startswith("fused_trunk"):
             row["modes"] = ("gated and ungated, mixed and unmixed"
                             + ("; bags' gradient dh" if row["name"].endswith("bwd") else ""))
+            r = k2 if row["name"].endswith("fwd") else k3
+            row["split_ms"] = r["split_ms"]
+            if ab:  # the op timed in turns beside the parent's, ms per side run
+                key = "k2_ms" if row["name"].endswith("fwd") else "k3_ms"
+                row["ab_ms"] = [s[key] for s in ab["this"]]
+                row["ab_parent_ms"] = [s[key] for s in ab["parent"]]
         if row["name"] in ("attention_pool_fwd", "attention_pool_bwd"):
             row["modes"] = (f"gated and ungated at D {D}; gated at D {CLAM_BIG_D} (bf16) and on "
                             f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL: MuRCL and "
@@ -2728,4 +2905,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab-side"]:
+        print(json.dumps(ab_side(sys.argv[2], json.loads(sys.argv[3]), sys.argv[4])))
+        sys.exit(0)
     sys.exit(main())

@@ -16,32 +16,61 @@
 // after they are evaluated, as the TPU kernels do; products accumulate in
 // f32.
 //
-// Bound on the H100: FLOPs. The main path's call (1536 bags x 1024 rows,
-// 512 -> 512 -> 256) is about 1.6 TFLOP forward and 4.1 TFLOP backward.
-// A bag (1 MiB in bf16) does not fit a block's 227 KB of shared memory, so
-// the TPU's whole-bag-in-VMEM design is replaced by row tiles and scratch in
-// device memory: the forward writes xc and the raw scores s, and
-// pool_kernel (tiles.cuh) then takes the softmax over the whole bag and
-// pools M = bf16(p) @ xc, the price of a simple exact softmax being one
-// extra round trip of B x N x L1 elements; the backward recomputes the mix
-// and the trunk (writing the mixed bag hm, xc and dp = xc @ gm + gp), sums
-// p * dp over the bag (the cross-tile sum the softmax backward needs),
-// recomputes the gates, writes dza, dzb and dz (and, with need_dh,
-// dh = dz @ Wf^T: one more (N, L1) x (L1, Fin) product per bag), and
-// contracts the scratches into dWf, dWa, dWb (and the bias sums) as a
-// split-K sum over all B x N rows, adding the splits with f32 atomics.
+// Bound on the H100: at the main path's call (1536 bags x 1024 rows, 512 ->
+// 512 -> 256; R = 1,572,864 rows) the products are 1.65 TFLOP forward and
+// 4.13 TFLOP backward (1.67 and 4.17 ms at 989 TFLOP/s in bf16), and one bf16
+// (R, 512) tensor is 1.61 GB (0.48 ms at 3.35 TB/s). A bag (1 MiB in bf16)
+// does not fit a block's 227 KB of shared memory, and at 128-row tiles
+// neither do a tile of the mixed bag and its xc together (128 KB each at
+// Fin = L1 = 512), so each pass below writes a scratch in device memory that
+// the next reads back; M = bf16(p) @ xc comes from pool_kernel (tiles.cuh),
+// an exact softmax over the whole bag.
 // Two instantiations:
-//  * bf16 (the training path), on the tensor cores (mma_tiles.cuh:
-//    mma.sync m16n8k16 fed by ldmatrix, B through a cp.async ring) over
-//    64-row tiles whose A operand sits in shared memory as bf16. The tensor
-//    cores multiply exactly the bf16 values the FMA tiles multiplied (the
-//    mixed bag, xc, dza, dzb and dz are rounded before they are stored), so
-//    results differ from the FMA version's only in summation order. Five
-//    kernels each hold one large tile, so that two blocks share an SM at the
-//    main widths: trunk_tc (forward and backward), gates_fwd_tc,
-//    gates_bwd_tc (the gates in one pass over [Wa | Wb] per 64 columns),
-//    dx_tc (dza @ Wa^T and dzb @ Wb^T in one pass of two accumulators,
-//    rounded apart as the twin rounds them) and tc::wgrad (X^T @ Y).
+//  * bf16 (the training path): warpgroup products (wgmma m64n128k16) over
+//    128-row tiles, both operands copied by TMA into an mbarrier ring (as
+//    many stages as fit beside the output staging: 5-6 of 32 KB, 3 of 48 KB
+//    with the mixup's partner slice) by one producer thread
+//    (wgmma_tiles.cuh), weights read as stored (wgmma's transpose bit, no
+//    transposed copies), one persistent kernel per pass (a block per SM
+//    walks the tiles, so its producer loads the next pass while its
+//    consumers finish an epilogue). The tensor cores multiply exactly the
+//    bf16 values the FMA tiles multiplied (the mixed bag, xc, dza, dzb and dz
+//    are rounded before they are stored), so results differ from the FMA
+//    version's only in summation order. The softmax backward's bag sum
+//    c = sum_r p_r dp_r takes dp_r = xc_r . bf16(gm) + gp_r from the trunk
+//    pass's per-128-column partials, summed in a fixed order (so dh stays
+//    bitwise from run to run); c taken instead as M . bf16(gm) + sum_r p_r
+//    gp_r from the forward's M, which would let the gates follow the trunk
+//    with no pass between, missed the bf16 tolerance on dbc (2.99e-2 > 2e-2
+//    at N 100: M rounds p to bf16, and dbc sums the near-cancelling
+//    p_r (dp_r - c)).
+//    Device-memory bytes per pass at the main call (reads + writes, GB):
+//      forward  trunk_wg 3.22 + 3.22 (h, h[perm]; xc and the mixed bag hm,
+//               written once so that the later column passes read it back
+//               instead of mixing again), gates_fwd_wg 1.61, pool_kernel
+//               1.61: 9.66 GB (2.88 ms), hm's 1.61 more than the mma.sync
+//               kernels moved (unmixed 6.44);
+//      backward trunk_wg 3.22 + 3.22 (xc, hm), gates_bwd_wg 1.61 + 1.61
+//               ([dza | dzb]), dx_wg 3.22 + 1.61 (dz), wgrad_wg dWf 3.22
+//               and dWa + dWb 3.22 (one pass over xc against [dza | dzb]),
+//               and 0.06 of dp partials and ds: 21.0 GB (6.26 ms), where the
+//               mma.sync kernels moved 22.5 GB (their second xc read is
+//               gone).
+//    So both stay bound by device memory above their FLOP bound; one
+//    kernel per tile for the whole chain (xc and [dza | dzb] kept on chip)
+//    is the next step. Each 16 KB weight slice that lands feeds 128 rows: a
+//    product streams 6.4 GB of weights from L2 where the 64-row tiles
+//    streamed 12.9; the A slices are read again from L2 for each 128
+//    columns of output (L1 / 128 times in the trunk, D / 64 times gated in
+//    the gates). A block is 384 threads: two consumer warpgroups of 64
+//    rows and a producer warpgroup, whose other three warps mix the bags and
+//    hash each pass's dropout keep bits ahead of its epilogue; the
+//    epilogues (tanh and sigmoid, the bf16 roundings) write their tiles
+//    through shared memory for TMA stores while the producer's copies
+//    proceed. Launches: the forward's trunk_wg and gates_fwd_wg, the
+//    backward's trunk_wg, softmax_bwd_kernel, gates_bwd_wg, dx_wg (dh_wg
+//    with need_dh) and two wgrad_wg; the weight gradients add their row
+//    splits with f32 atomics.
 //  * f32 (the tests and the heatmap's bags up to 3,072 padded patches): the
 //    FP32 FMA tiles of tiles.cuh, 32 rows per block, in trunk_fwd_kernel,
 //    trunk_bwd_kernel, gates_bwd_kernel and wgrad_kernel. TF32 would round
@@ -51,8 +80,8 @@
 // both modes.
 // Dropout keep bits come from a counter hash keyed by (seed, bag, stream,
 // row, col) (common.cuh), so the backward regenerates the forward's masks.
-#include "mma_tiles.cuh"
 #include "tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -382,153 +411,75 @@ size_t gates_smem(int L1, int D) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores: five kernels over 64-row tiles, each holding one
-// large bf16 tile in shared memory, so that two blocks share an SM at the
-// main widths and one block's loads and epilogues overlap the other's
-// products:
-//   forward:  trunk_tc (mix and trunk; xc to scratch), gates_fwd_tc (the
+// bf16: warpgroup products (wgmma) fed by TMA over 128-row tiles
+// (wgmma_tiles.cuh), one persistent kernel per pass, each block walking the
+// (bag, 128-row tile) pairs t = blockIdx.x, + gridDim.x, ...:
+//   forward:  trunk_wg (mix and trunk; xc to scratch), gates_fwd_wg (the
 //             scores s, from xc), then pool_kernel;
-//   backward: trunk_tc (again; also hm and dp), gates_bwd_tc (dza, dzb, dwc,
-//             dbc, from xc), dx_tc (dz and, with dh_out, dh, from dza and
-//             dzb), then the weight gradients (tc::wgrad).
+//   backward: trunk_wg (again; also the mixed bag hm and each row's dp
+//             partial per 128 columns), softmax_bwd_kernel (per bag: the sum
+//             c = sum_r p_r dp_r, ds and dbc), gates_bwd_wg (dza and dzb side
+//             by side in one scratch, dwc), dx_wg (dz), dh_wg (with need_dh),
+//             then wgrad_wg twice: dWf over [hm | dz] and dWa, dWb in one pass
+//             over xc against [dza | dzb].
 // ops/attention.py (trunk_tile_smem) reckons the same shared-memory sums.
 // ---------------------------------------------------------------------------
-using tc::BM;
-using tc::bf16;
-using tc::gate_col;
-using tc::PAD;
-using tc::ring_end;
-using tc::row_partials;
-using tc::st2;
+using wg::bf16;
+using wg::BK;
+using wg::BM;
+using wg::BN;
+using wg::TILE_A;
+using wg::TILE_B;
 
-size_t tc_trunk_smem(int Fin) {
-  return sizeof(bf16) * BM * (Fin + PAD) + tc::RING_BYTES + sizeof(float) * BM * 4;
-}
-size_t tc_gates_smem(int L1, int D) {
-  return sizeof(bf16) * BM * (L1 + PAD) + tc::RING_BYTES + sizeof(float) * (BM * 4 + D + 32);
-}
-size_t tc_dx_smem(int L1, int D, bool dh) {
-  return sizeof(bf16) * (2 * BM * (D + PAD) + (dh ? BM * (L1 + PAD) : 0)) + tc::RING_BYTES +
-         sizeof(float) * BM;
+// A kernel's launch plan: ring stages (as many as fit beside the output
+// staging and its arrays, at least 3) and shared-memory bytes.
+struct Plan {
+  int stages;
+  size_t smem;
+};
+Plan plan(int stage_bytes, bool staging, size_t extra) {
+  const int out = staging ? 2 * wg::OUT_TILE : 0;
+  const int stages = wg::plan_stages(stage_bytes, out, extra);
+  // fewer than 3 stages: a size no block may take, so that the launch fails
+  return {stages,
+          stages >= 3 ? wg::smem_bytes(stage_bytes, stages, out, extra) : wg::SMEM_LIMIT + 1};
 }
 
-// Hs = the mixed bag rows r0.. (zeros past N), bf16, row stride Fin + PAD;
-// the mix rounds as load_mixed_tile<bf16> does. With hm_out, the rows below
-// N are also stored there.
-__device__ void tc_load_mixed(const bf16* __restrict__ h, const int64_t* __restrict__ perm,
-                              const float* __restrict__ lam, int bag, int r0, int N, int Fin,
-                              bf16* Hs, bf16* __restrict__ hm_out) {
-  const bf16* self = h + (size_t)bag * N * Fin;
-  const bf16* partner = perm ? h + (size_t)perm[bag] * N * Fin : nullptr;
-  float lam_t = 0.f, oml_t = 0.f;
-  if (perm) {
-    lam_t = rnd<bf16>(lam[bag]);
-    oml_t = rnd<bf16>(1.f - lam[bag]);
+// Persistent grids: one block of 384 threads per SM (a block takes most of
+// an SM's shared memory and registers).
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  const int cpr = Fin / 8;  // 16-byte chunks per row
-  for (int e = threadIdx.x; e < BM * cpr; e += tc::THREADS) {
-    const int r = e / cpr, c = (e % cpr) * 8, row = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row < N) {
-      v = *reinterpret_cast<const uint4*>(self + (size_t)row * Fin + c);
-      if (perm) {
-        const uint4 w = *reinterpret_cast<const uint4*>(partner + (size_t)row * Fin + c);
-        bf16* pv = reinterpret_cast<bf16*>(&v);
-        const bf16* pw = reinterpret_cast<const bf16*>(&w);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          pv[i] = st<bf16>(__fadd_rn(rnd<bf16>(__fmul_rn(lam_t, __bfloat162float(pv[i]))),
-                                     rnd<bf16>(__fmul_rn(oml_t, __bfloat162float(pw[i])))));
-      }
-      if (hm_out)
-        *reinterpret_cast<uint4*>(hm_out + ((size_t)bag * N + row) * Fin + c) = v;
-    }
-    *reinterpret_cast<uint4*>(Hs + r * (Fin + PAD) + c) = v;
-  }
+  return sms;
 }
-
-// Mix and trunk of one 64-row tile: xc = drop(relu(Hs @ Wf + bf)) to the
-// scratch; in the backward (hm_out set) also the mixed rows and
-// dp = xc @ bf16(gm) + gp.
-__global__ void __launch_bounds__(tc::THREADS, 2)
-trunk_tc(const bf16* __restrict__ h, const int64_t* __restrict__ perm,
-         const float* __restrict__ lam, const bf16* __restrict__ wf,
-         const float* __restrict__ bf, Dropout dp, const float* __restrict__ gm,
-         const float* __restrict__ gp, bf16* __restrict__ xc_out, bf16* __restrict__ hm_out,
-         float* __restrict__ dp_out, int N, int Fin, int L1) {
-  extern __shared__ uint4 tc_smem[];
-  bf16* Hs = reinterpret_cast<bf16*>(tc_smem);
-  tc::Ring ring{Hs + BM * (Fin + PAD), 0, true};
-  float* red = reinterpret_cast<float*>(ring_end(ring));  // BM x 4
-  const int bag = blockIdx.y, r0 = blockIdx.x * BM, wm = tc::warp_m(), wn = tc::warp_n();
-
-  tc::BSrc b{wf, nullptr, L1, 0};
-  tc::load_b(b, 0, ring.buf);  // Wf's first slice streams in while the tile is mixed
-  tc::cp_commit();
-  tc_load_mixed(h, perm, lam, bag, r0, N, Fin, Hs, hm_out);
-
-  const uint32_t key = murcl::bag_key(dp.seed, bag, 0);
-  const float* g = dp_out ? gm + (size_t)bag * L1 : nullptr;
-  float rowp[2][2] = {};
-  tc::Acc acc;
-  for (int n0 = 0; n0 < L1; n0 += tc::BN) {
-    b.n0 = n0;
-    const tc::BSrc next{n0 + tc::BN < L1 ? wf : nullptr, nullptr, L1, n0 + tc::BN};
-    tc::mma_pass(Hs, nullptr, Fin + PAD, Fin, b, next, ring, acc);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = wm * 32 + tc::frag_row(mi, 2 * hh);
-          const int col = n0 + wn * 32 + tc::frag_col(j, 0);
-          float x[2];
-#pragma unroll
-          for (int eb = 0; eb < 2; ++eb) {
-            const float z = acc[mi][j][2 * hh + eb] + bf[col + eb];
-            if (dp.on) {
-              const float m =
-                  z > 0.f ? keep_scale<bf16>(dp, key, (uint32_t)(r0 + r) * L1 + col + eb) : 0.f;
-              x[eb] = rnd<bf16>(__fmul_rn(rnd<bf16>(z), m));
-            } else {
-              x[eb] = rnd<bf16>(fmaxf(z, 0.f));
-            }
-          }
-          if (r0 + r < N) st2(xc_out + ((size_t)bag * N + r0 + r) * L1 + col, x[0], x[1]);
-          if (g)
-            rowp[mi][hh] = fmaf(x[1], rnd<bf16>(g[col + 1]),
-                                fmaf(x[0], rnd<bf16>(g[col]), rowp[mi][hh]));
-        }
-  }
-  if (!dp_out) return;
-  row_partials(rowp, red);
-  __syncthreads();
-  const int r = threadIdx.x, row = r0 + r;
-  if (r < BM && row < N)
-    dp_out[(size_t)bag * N + row] = red[r * 4] + red[r * 4 + 1] + red[r * 4 + 2] +
-                                    red[r * 4 + 3] + gp[(size_t)bag * N + row];
+unsigned persistent_grid(long long tiles) {
+  return (unsigned)(tiles < sm_count() ? tiles : sm_count());
 }
 
 // The gates at one element, rounded to bf16 where gates_bwd_kernel<bf16>
 // rounds them: a = tanh(za), g = sigmoid(zb) (gated only), their keep
-// scales ka, kb, the kept a_eff, g_eff and u = a_eff * g_eff (or a_eff).
+// scales ka, kb (from the keep bits, `scale` the bf16 keep scale), the kept
+// a_eff, g_eff and u = a_eff * g_eff (or a_eff).
 struct Gates {
   float a, ka, a_eff, g, kb, g_eff, u;
 };
-__device__ __forceinline__ Gates gates_at(float za, float zb, int gated, const Dropout& dp,
-                                          uint32_t key_a, uint32_t key_b, uint32_t idx) {
+__device__ __forceinline__ Gates gates_at(float za, float zb, int gated, bool drop, bool keep_a,
+                                          bool keep_b, float scale) {
   Gates t{rnd<bf16>(tanhf(za)), 1.f, 0.f, 0.f, 1.f, 0.f, 0.f};
   t.a_eff = t.a;
-  if (dp.on) {
-    t.ka = keep_scale<bf16>(dp, key_a, idx);
+  if (drop) {
+    t.ka = keep_a ? scale : 0.f;
     t.a_eff = rnd<bf16>(__fmul_rn(t.a, t.ka));
   }
   t.u = t.a_eff;
   if (gated) {
     t.g = t.g_eff = rnd<bf16>(sigmoidf(zb));
-    if (dp.on) {
-      t.kb = keep_scale<bf16>(dp, key_b, idx);
+    if (drop) {
+      t.kb = keep_b ? scale : 0.f;
       t.g_eff = rnd<bf16>(__fmul_rn(t.g, t.kb));
     }
     t.u = rnd<bf16>(__fmul_rn(t.a_eff, t.g_eff));
@@ -536,312 +487,708 @@ __device__ __forceinline__ Gates gates_at(float za, float zb, int gated, const D
   return t;
 }
 
-// Forward pass 2: the raw scores s of one 64-row tile from its xc.
-__global__ void __launch_bounds__(tc::THREADS, 2)
-gates_fwd_tc(const bf16* __restrict__ xc, const bf16* __restrict__ wa,
-             const float* __restrict__ ba, const bf16* __restrict__ wb,
-             const float* __restrict__ bb, const bf16* __restrict__ wc,
-             const float* __restrict__ bc, Dropout dp, int gated, float* __restrict__ s_out,
-             int N, int L1, int D) {
-  extern __shared__ uint4 tc_smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(tc_smem);
-  const int bag = blockIdx.y, r0 = blockIdx.x * BM, wm = tc::warp_m();
-  tc::BSrc b{wa, gated ? wb : nullptr, D, 0};
-  tc::Ring ring = tc::tile_start(xc, bag, r0, N, L1, b, Xs);
-  float* red = reinterpret_cast<float*>(ring_end(ring));  // BM x 4
-
-  const uint32_t key_a = murcl::bag_key(dp.seed, bag, 1), key_b = murcl::bag_key(dp.seed, bag, 2);
-  float rowp[2][2] = {};
-  tc::Acc acc;
-  const int step = gated ? tc::BN / 2 : tc::BN;
-  for (int n0 = 0; n0 < D; n0 += step) {
-    b.n0 = n0;
-    const tc::BSrc next{n0 + step < D ? wa : nullptr, gated ? wb : nullptr, D, n0 + step};
-    tc::mma_pass(Xs, nullptr, L1 + PAD, L1, b, next, ring, acc);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (gated && j >= 2) continue;  // g: read beside a
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t row = r0 + wm * 32 + tc::frag_row(mi, e);
-          const int col = gate_col(gated, n0, j, e);
-          const Gates t = gates_at(acc[mi][j][e] + ba[col],
-                                   gated ? acc[mi][(j + 2) & 3][e] + bb[col] : 0.f, gated, dp,
-                                   key_a, key_b, row * D + col);
-          rowp[mi][e >> 1] = fmaf(t.u, ld<bf16>(wc + col), rowp[mi][e >> 1]);
-        }
-      }
+// The helper warps' keep bits of every pass of a kernel's tiles, in the
+// consumers' order: passes of `step` columns over `width` (the hash
+// stream's row width), stream `stream` (and, gated gates, streams 1 and 2).
+__device__ __forceinline__ void bits_passes(wg::Pipe& pipe, const Dropout& dp, int stream,
+                                            bool two, int step, int width, int B, int N) {
+  const int tiles = (N + BM - 1) / BM, ht = threadIdx.x - wg::PRODUCER - 32;
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    const uint32_t k0 = murcl::bag_key(dp.seed, bag, stream), k1 = murcl::bag_key(dp.seed, bag, 2);
+    for (int n0 = 0; n0 < width; n0 += step)
+      wg::make_bits(pipe, k0, k1, two, width, r0, n0, dp.thresh, ht);
   }
-  row_partials(rowp, red);
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r < BM && r0 + r < N)
-    s_out[(size_t)bag * N + r0 + r] = red[r * 4] + red[r * 4 + 1] + red[r * 4 + 2] +
-                                      red[r * 4 + 3] + bc[0];
 }
 
-// Backward pass 2: softmax backward and gate backward of one 64-row tile:
-// dza, dzb (to scratch), dwc and dbc; as gates_bwd_kernel<bf16> up to dx.
-__global__ void __launch_bounds__(tc::THREADS, 2)
-gates_bwd_tc(const bf16* __restrict__ xc, const bf16* __restrict__ wa,
-             const float* __restrict__ ba, const bf16* __restrict__ wb,
-             const float* __restrict__ bb, const bf16* __restrict__ wc,
-             const uint8_t* __restrict__ mask, Dropout dp, int gated, const float* __restrict__ p,
-             const float* __restrict__ gs, const float* __restrict__ dpv,
-             bf16* __restrict__ dza_out, bf16* __restrict__ dzb_out, float* __restrict__ dwc,
-             float* __restrict__ dbc, int N, int L1, int D) {
-  extern __shared__ uint4 tc_smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(tc_smem);
-  const int bag = blockIdx.y, r0 = blockIdx.x * BM;
-  const int lane = threadIdx.x & 31, wm = tc::warp_m();
-  tc::BSrc b{wa, gated ? wb : nullptr, D, 0};
-  tc::Ring ring = tc::tile_start(xc, bag, r0, N, L1, b, Xs);
-  float* Ds = reinterpret_cast<float*>(ring_end(ring));  // BM: ds per row
-  float* Wcs = Ds + BM * 4;                               // D: this block's dwc partial
-  float* red = Wcs + D;                                   // 32
-  const float* pb = p + (size_t)bag * N;
-  const float* dpb = dpv + (size_t)bag * N;
+// Copies `n` floats of src into shared memory (rounded to bf16 when
+// `round`), by `threads` threads numbered from `tid`.
+__device__ __forceinline__ void to_shared(float* dst, const float* __restrict__ src, int n,
+                                          bool round, int tid, int threads) {
+  for (int i = tid; i < n; i += threads) dst[i] = round ? rnd<bf16>(src[i]) : src[i];
+}
 
-  // cross-tile sum over the whole bag: c = sum_r p_r dp_r
-  float part = 0.f;
-  for (int r = threadIdx.x; r < N; r += tc::THREADS) part += pb[r] * dpb[r];
-  const float csum = block_sum(part, red);
-  float dbc_part = 0.f;
-  if (threadIdx.x < BM) {
-    const int row = r0 + threadIdx.x;
-    float ds = 0.f;
-    if (row < N) {
-      ds = pb[row] * (dpb[row] - csum);
-      if (!mask[(size_t)bag * N + row]) ds = 0.f;
-      ds += gs[(size_t)bag * N + row];
+// Mix and trunk of 128-row tiles, 128 columns of xc a pass: xc = drop(relu(Hs
+// @ Wf + bf)) to the scratch (staged, stored by TMA), Wf read MN-major as
+// stored. With a partner bag (perm), the first pass of a tile loads the
+// partner's slices beside the bag's, the producer warpgroup's three other
+// warps mix them in place and store them to hm by TMA, and the later passes
+// read the mixed tile back from hm (the helpers' last store complete
+// before the producer's first load of it: the aux barrier), so a tile is
+// mixed once. With dpp (the backward) each pass c also writes dpp[c][row] =
+// xc[row, 128 c ..] . bf16(gm[bag, 128 c ..]).
+__global__ void __launch_bounds__(wg::THREADS, 1)
+trunk_wg(const __grid_constant__ CUtensorMap h_map, const __grid_constant__ CUtensorMap wf_map,
+         const __grid_constant__ CUtensorMap hm_map, const __grid_constant__ CUtensorMap hm_st,
+         const __grid_constant__ CUtensorMap xc_map, const int64_t* __restrict__ perm,
+         const float* __restrict__ lam, const float* __restrict__ bf, Dropout dp,
+         const float* __restrict__ gm, float* __restrict__ dpp, int stages, int B, int N,
+         int Fin, int L1) {
+  extern __shared__ uint8_t smem_raw[];
+  const bool mixed = perm != nullptr;
+  const int a_bytes = TILE_A * (mixed ? 2 : 1);
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, a_bytes + TILE_B, stages, 2 * wg::OUT_TILE, mixed);
+  const int tiles = (N + BM - 1) / BM, nk = Fin / BK;
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER) {
+      for (int t = blockIdx.x, ord = 0; t < tiles * B; t += gridDim.x, ++ord) {
+        const int bag = t / tiles, r0 = (t % tiles) * BM;
+        const int partner = mixed ? (int)perm[bag] : 0;
+        for (int n0 = 0; n0 < L1; n0 += BN) {
+          const bool from_hm = mixed && n0 > 0;
+          if (from_hm && n0 == BN) {  // the tile's mixed slices are in hm
+            wg::bar_wait(pipe.aux, ord & 1);
+            wg::fence_async_global();
+          }
+          for (int k = 0; k < nk; ++k) {
+            uint64_t* bar;
+            uint8_t* st = wg::produce(pipe, bar, from_hm ? TILE_A + TILE_B : 0);
+            if (from_hm) {
+              wg::tma_load_3d(st, &hm_map, bar, k * BK, r0, bag);
+            } else {
+              wg::tma_load_3d(st, &h_map, bar, k * BK, r0, bag);
+              if (mixed) wg::tma_load_3d(st + TILE_A, &h_map, bar, k * BK, r0, partner);
+            }
+            wg::load_b_mn(st + a_bytes, &wf_map, n0, &wf_map, n0 + 64, k * BK, bar);
+          }
+        }
+      }
+    } else if ((mixed || dp.on) && threadIdx.x >= wg::PRODUCER + 32) {
+      const int mt = threadIdx.x - wg::PRODUCER - 32;  // 0 .. 95
+      // the keep bits of pass (t, n0), made one pass ahead of the mixing
+      auto bits = [&](int t, int n0) {
+        const int bag = t / tiles;
+        wg::make_bits(pipe, murcl::bag_key(dp.seed, bag, 0), 0, false, L1, (t % tiles) * BM, n0,
+                      dp.thresh, mt);
+      };
+      if (dp.on && (int)blockIdx.x < tiles * B) bits(blockIdx.x, 0);
+      for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+        const int bag = t / tiles, r0 = (t % tiles) * BM;
+        const __nv_bfloat162 lam2 = __float2bfloat162_rn(mixed ? lam[bag] : 1.f);
+        const __nv_bfloat162 oml2 = __float2bfloat162_rn(mixed ? 1.f - lam[bag] : 0.f);
+        for (int n0 = 0; n0 < L1; n0 += BN) {
+          // mixed: mix and store the first pass's slices; pass the later ones on
+          for (int k = 0; mixed && k < nk; ++k, ++pipe.it) {
+            const int s = pipe.it % pipe.stages;
+            wg::bar_wait(&pipe.full[s], (pipe.it / pipe.stages) & 1);
+            if (n0 == 0) {
+              uint8_t* st = pipe.base + s * pipe.stage_bytes;
+              wg::mix_slice(st, st + TILE_A, lam2, oml2, mt);
+              wg::fence_async();
+              asm volatile("bar.sync 4, 96;\n" ::: "memory");  // the slice is mixed
+              if (mt == 0) {
+                wg::tma_store_3d(&hm_st, st, k * BK, r0, bag);
+                wg::tma_store_3d(&hm_st, st + wg::HALF_A, k * BK, r0 + 64, bag);
+                wg::store_commit();
+                wg::store_wait_read();
+              }
+            }
+            __syncwarp();
+            if ((mt & 31) == 0) wg::bar_arrive(&pipe.mixed[s]);
+          }
+          if (mixed && n0 == 0 && mt == 0) {
+            wg::store_wait_done();
+            wg::bar_arrive(pipe.aux);
+          }
+          const int tn = n0 + BN < L1 ? t : t + (int)gridDim.x, nn = n0 + BN < L1 ? n0 + BN : 0;
+          if (dp.on && tn < tiles * B) bits(tn, nn);
+        }
+      }
     }
-    Ds[threadIdx.x] = ds;
-    dbc_part = ds;
+    return;
   }
-  for (int c = threadIdx.x; c < D; c += tc::THREADS) Wcs[c] = 0.f;
-  const float dbc_blk = block_sum(dbc_part, red);  // also orders the smem writes above
-  if (threadIdx.x == 0) atomicAdd(dbc, dbc_blk);
-
-  const uint32_t key_a = murcl::bag_key(dp.seed, bag, 1), key_b = murcl::bag_key(dp.seed, bag, 2);
-  tc::Acc acc;
-  const int step = gated ? tc::BN / 2 : tc::BN;
-  for (int n0 = 0; n0 < D; n0 += step) {
-    b.n0 = n0;
-    const tc::BSrc next{n0 + step < D ? wa : nullptr, gated ? wb : nullptr, D, n0 + step};
-    tc::mma_pass(Xs, nullptr, L1 + PAD, L1, b, next, ring, acc);
+  wg::consumer_regs();
+  const int w = wg::wg_index(), tid = threadIdx.x;
+  float* bfs = reinterpret_cast<float*>(pipe.extra);  // L1: bf
+  float* gms = bfs + L1 + w * L1;                     // L1 per warpgroup: bf16(gm) of its bag
+  to_shared(bfs, bf, L1, false, tid, wg::CONSUMERS);
+  wg::sync_consumers();
+  float acc[64];
+  const float scale = rnd<bf16>(dp.scale);
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    if (dpp) {
+      wg::sync_wg();
+      to_shared(gms, gm + (size_t)bag * L1, L1, true, tid & 127, 128);
+      wg::sync_wg();
+    }
+    for (int n0 = 0; n0 < L1; n0 += BN) {
+      wg::mainloop<0, 1>(pipe, nk, 0, a_bytes, acc, wg::NoPre{});
+      const uint2 kb = dp.on ? wg::take_bits(pipe) : make_uint2(0u, 0u);
+      wg::stage_begin();
+      float rowp[2] = {};
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (gated && j >= 2) continue;
-      const int col = gate_col(gated, n0, j, 0);  // the thread's columns: col, col + 1
-      float wsum[2] = {};
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int j = 0; j < 16; ++j)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int r = wm * 32 + tc::frag_row(mi, 2 * hh);
-          const float ds_t = rnd<bf16>(Ds[r]);
+          const int rl = wg::frag_row(hh), c = wg::frag_col(j), col = n0 + c;
+          float x[2];
+#pragma unroll
+          for (int eb = 0; eb < 2; ++eb) {
+            const float z = acc[4 * j + 2 * hh + eb] + bfs[col + eb];
+            if (dp.on) {
+              const float m = z > 0.f && wg::bit(kb, 4 * j + 2 * hh + eb) ? scale : 0.f;
+              x[eb] = rnd<bf16>(__fmul_rn(rnd<bf16>(z), m));
+            } else {
+              x[eb] = rnd<bf16>(fmaxf(z, 0.f));
+            }
+          }
+          wg::stage_pair(pipe.out, rl - 64 * w, c, x[0], x[1]);
+          if (dpp) rowp[hh] = fmaf(x[1], gms[col + 1], fmaf(x[0], gms[col], rowp[hh]));
+        }
+      wg::stage_end(pipe, &xc_map, n0, n0 + 64, r0 + 64 * w, bag);
+      if (!dpp) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v = rowp[hh];
+        v += __shfl_xor_sync(murcl::kFull, v, 1);  // over the 4 lanes of a row
+        v += __shfl_xor_sync(murcl::kFull, v, 2);
+        const int r = r0 + wg::frag_row(hh);
+        if ((threadIdx.x & 3) == 0 && r < N) dpp[((size_t)(n0 / BN) * B + bag) * N + r] = v;
+      }
+    }
+  }
+  wg::stage_drain();
+}
+
+// The softmax backward over one bag per block: dp_r = sum of the trunk's
+// partials (in pass order) + gp_r, c = sum_r p_r dp_r, ds_r = p_r (dp_r - c)
+// on live rows, plus gs_r; dbc += sum_r ds_r.
+__global__ void __launch_bounds__(THREADS)
+softmax_bwd_kernel(const float* __restrict__ dpp, int passes, const float* __restrict__ p,
+                   const float* __restrict__ gp, const float* __restrict__ gs,
+                   const uint8_t* __restrict__ mask, float* __restrict__ ds,
+                   float* __restrict__ dbc, int B, int N) {
+  __shared__ float red[32];
+  const size_t base = (size_t)blockIdx.x * N;
+  auto dp_at = [&](int r) {
+    float v = 0.f;
+    for (int c = 0; c < passes; ++c) v += dpp[(size_t)c * B * N + base + r];
+    return v + gp[base + r];
+  };
+  float part = 0.f;
+  for (int r = threadIdx.x; r < N; r += THREADS) part += p[base + r] * dp_at(r);
+  const float csum = block_sum(part, red);
+  float dsum = 0.f;
+  for (int r = threadIdx.x; r < N; r += THREADS) {
+    float d = mask[base + r] ? p[base + r] * (dp_at(r) - csum) : 0.f;
+    d += gs[base + r];
+    ds[base + r] = d;
+    dsum += d;
+  }
+  dsum = block_sum(dsum, red);
+  if (threadIdx.x == 0) atomicAdd(dbc, dsum);
+}
+
+// The gate passes of each 128-row tile over xc: gated, 64 columns of Wa and
+// the same 64 of Wb per pass (accumulator j and j + 8 hold a and g of one
+// element); ungated, 128 columns of Wa.
+__device__ __forceinline__ void produce_gates(wg::Pipe& pipe, const CUtensorMap* xc_map,
+                                              const CUtensorMap* wa_map,
+                                              const CUtensorMap* wb_map, int gated, int B,
+                                              int N, int L1, int D) {
+  const int tiles = (N + BM - 1) / BM, step = gated ? 64 : BN;
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    for (int n0 = 0; n0 < D; n0 += step)
+      for (int k = 0; k < L1 / BK; ++k) {
+        uint64_t* bar;
+        uint8_t* st = wg::produce(pipe, bar);
+        wg::tma_load_3d(st, xc_map, bar, k * BK, r0, bag);
+        if (gated)
+          wg::load_b_mn(st + TILE_A, wa_map, n0, wb_map, n0, k * BK, bar);
+        else
+          wg::load_b_mn(st + TILE_A, wa_map, n0, wa_map, n0 + 64, k * BK, bar);
+      }
+  }
+}
+
+// The gate parameters of a block in shared memory: ba, bb and wc (bf16
+// values) as f32, D each.
+__device__ __forceinline__ void gate_params(float* ps, const float* __restrict__ ba,
+                                            const float* __restrict__ bb,
+                                            const bf16* __restrict__ wc, int gated, int D) {
+  for (int c = threadIdx.x; c < D; c += wg::CONSUMERS) {
+    ps[c] = ba[c];
+    ps[D + c] = gated ? bb[c] : 0.f;
+    ps[2 * D + c] = ld<bf16>(wc + c);
+  }
+}
+
+// Forward pass 2: the raw scores s of each 128-row tile from its xc.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+gates_fwd_wg(const __grid_constant__ CUtensorMap xc_map, const __grid_constant__ CUtensorMap wa_map,
+             const __grid_constant__ CUtensorMap wb_map, const float* __restrict__ ba,
+             const float* __restrict__ bb, const bf16* __restrict__ wc,
+             const float* __restrict__ bc, Dropout dp, int gated, float* __restrict__ s_out,
+             int stages, int B, int N, int L1, int D) {
+  extern __shared__ uint8_t smem_raw[];
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 0, false);
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER)
+      produce_gates(pipe, &xc_map, &wa_map, &wb_map, gated, B, N, L1, D);
+    else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
+      bits_passes(pipe, dp, 1, gated, gated ? 64 : BN, D, B, N);
+    return;
+  }
+  wg::consumer_regs();
+  float* bas = reinterpret_cast<float*>(pipe.extra);  // ba, bb, wc: D each
+  const float *bbs = bas + D, *wcs = bas + 2 * D;
+  gate_params(bas, ba, bb, wc, gated, D);
+  wg::sync_consumers();
+  const int tiles = (N + BM - 1) / BM, step = gated ? 64 : BN;
+  const float scale = rnd<bf16>(dp.scale);
+  float acc[64];
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    float rowp[2] = {};
+    for (int n0 = 0; n0 < D; n0 += step) {
+      wg::mainloop<0, 1>(pipe, L1 / BK, 0, TILE_A, acc, wg::NoPre{});
+      const uint2 kb = dp.on ? wg::take_bits(pipe) : make_uint2(0u, 0u);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (gated && j >= 8) continue;  // g: read beside a
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int eb = 0; eb < 2; ++eb) {
+            const int e = 4 * j + 2 * hh + eb, col = n0 + wg::frag_col(j) + eb;
+            const Gates g = gates_at(acc[e] + bas[col], gated ? acc[e + 32] + bbs[col] : 0.f,
+                                     gated, dp.on, wg::bit(kb, e), wg::bit(kb, e + 32 * gated),
+                                     scale);
+            rowp[hh] = fmaf(g.u, wcs[col], rowp[hh]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = rowp[hh];
+      v += __shfl_xor_sync(murcl::kFull, v, 1);  // over the 4 lanes of a row
+      v += __shfl_xor_sync(murcl::kFull, v, 2);
+      const int r = r0 + wg::frag_row(hh);
+      if ((threadIdx.x & 3) == 0 && r < N) s_out[(size_t)bag * N + r] = v + bc[0];
+    }
+  }
+}
+
+// Backward pass 3: the gate backward of each 128-row tile from its xc and
+// the rows' ds: dza and dzb (side by side: row stride 2 D gated, D
+// ungated; staged and stored by TMA) and dwc, as gates_bwd_kernel<bf16> up
+// to dx.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+gates_bwd_wg(const __grid_constant__ CUtensorMap xc_map, const __grid_constant__ CUtensorMap wa_map,
+             const __grid_constant__ CUtensorMap wb_map,
+             const __grid_constant__ CUtensorMap zab_map,
+             const float* __restrict__ ba, const float* __restrict__ bb,
+             const bf16* __restrict__ wc, Dropout dp, int gated, const float* __restrict__ ds,
+             float* __restrict__ dwc, int stages, int B, int N, int L1, int D) {
+  extern __shared__ uint8_t smem_raw[];
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 2 * wg::OUT_TILE, false);
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER)
+      produce_gates(pipe, &xc_map, &wa_map, &wb_map, gated, B, N, L1, D);
+    else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
+      bits_passes(pipe, dp, 1, gated, gated ? 64 : BN, D, B, N);
+    return;
+  }
+  wg::consumer_regs();
+  float* bas = reinterpret_cast<float*>(pipe.extra);  // ba, bb, wc, then dwc's partial: D each
+  const float *bbs = bas + D, *wcs = bas + 2 * D;
+  float* Wcs = bas + 3 * D;
+  const int tid = threadIdx.x, lane = tid & 31, w = wg::wg_index();
+  gate_params(bas, ba, bb, wc, gated, D);
+  for (int c = tid; c < D; c += wg::CONSUMERS) Wcs[c] = 0.f;
+  wg::sync_consumers();
+  const int tiles = (N + BM - 1) / BM, step = gated ? 64 : BN;
+  const float scale = rnd<bf16>(dp.scale);
+  float acc[64];
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    float ds_t[2];  // this thread's two rows; dead rows 0
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + wg::frag_row(hh);
+      ds_t[hh] = r < N ? rnd<bf16>(ds[(size_t)bag * N + r]) : 0.f;
+    }
+    for (int n0 = 0; n0 < D; n0 += step) {
+      wg::mainloop<0, 1>(pipe, L1 / BK, 0, TILE_A, acc, wg::NoPre{});
+      const uint2 kb = dp.on ? wg::take_bits(pipe) : make_uint2(0u, 0u);
+      wg::stage_begin();
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (gated && j >= 8) continue;
+        const int c = wg::frag_col(j), col = n0 + c;  // the thread's columns: col, col + 1
+        float wsum[2] = {};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rl = wg::frag_row(hh);
           float dza[2], dzb[2];
 #pragma unroll
           for (int eb = 0; eb < 2; ++eb) {
-            const int e = 2 * hh + eb, c = col + eb;
-            const Gates t = gates_at(acc[mi][j][e] + ba[c],
-                                     gated ? acc[mi][(j + 2) & 3][e] + bb[c] : 0.f, gated, dp,
-                                     key_a, key_b, (uint32_t)(r0 + r) * D + c);
-            wsum[eb] = fmaf(t.u, ds_t, wsum[eb]);
-            const float du = rnd<bf16>(__fmul_rn(ds_t, ld<bf16>(wc + c)));
-            float da = gated ? rnd<bf16>(__fmul_rn(du, t.g_eff)) : du;
-            if (dp.on) da = rnd<bf16>(__fmul_rn(da, t.ka));
-            dza[eb] = rnd<bf16>(__fmul_rn(da, rnd<bf16>(1.f - rnd<bf16>(__fmul_rn(t.a, t.a)))));
+            const int e = 4 * j + 2 * hh + eb, cc = col + eb;
+            const Gates g = gates_at(acc[e] + bas[cc], gated ? acc[e + 32] + bbs[cc] : 0.f,
+                                     gated, dp.on, wg::bit(kb, e), wg::bit(kb, e + 32 * gated),
+                                     scale);
+            wsum[eb] = fmaf(g.u, ds_t[hh], wsum[eb]);
+            const float du = rnd<bf16>(__fmul_rn(ds_t[hh], wcs[cc]));
+            float da = gated ? rnd<bf16>(__fmul_rn(du, g.g_eff)) : du;
+            if (dp.on) da = rnd<bf16>(__fmul_rn(da, g.ka));
+            dza[eb] = rnd<bf16>(__fmul_rn(da, rnd<bf16>(1.f - rnd<bf16>(__fmul_rn(g.a, g.a)))));
             dzb[eb] = 0.f;
             if (gated) {
-              float dg = rnd<bf16>(__fmul_rn(du, t.a_eff));
-              if (dp.on) dg = rnd<bf16>(__fmul_rn(dg, t.kb));
-              dzb[eb] = rnd<bf16>(__fmul_rn(rnd<bf16>(__fmul_rn(dg, t.g)), rnd<bf16>(1.f - t.g)));
+              float dg = rnd<bf16>(__fmul_rn(du, g.a_eff));
+              if (dp.on) dg = rnd<bf16>(__fmul_rn(dg, g.kb));
+              dzb[eb] = rnd<bf16>(__fmul_rn(rnd<bf16>(__fmul_rn(dg, g.g)), rnd<bf16>(1.f - g.g)));
             }
           }
-          if (r0 + r >= N) continue;
-          const size_t at = ((size_t)bag * N + r0 + r) * D + col;
-          st2(dza_out + at, dza[0], dza[1]);
-          if (gated) st2(dzb_out + at, dzb[0], dzb[1]);
+          // gated: box 0 holds dza's 64 columns, box 1 dzb's
+          wg::stage_pair(pipe.out, rl - 64 * w, c, dza[0], dza[1]);
+          if (gated) wg::stage_pair(pipe.out, rl - 64 * w, c + 64, dzb[0], dzb[1]);
         }
 #pragma unroll
-      for (int eb = 0; eb < 2; ++eb) {  // over the lanes that share a column: lane % 4 equal
-        float v = wsum[eb];
-        v += __shfl_xor_sync(murcl::kFull, v, 4);
-        v += __shfl_xor_sync(murcl::kFull, v, 8);
-        v += __shfl_xor_sync(murcl::kFull, v, 16);
-        if (lane < 4) atomicAdd(&Wcs[col + eb], v);
+        for (int eb = 0; eb < 2; ++eb) {  // over the lanes that share a column: lane % 4 equal
+          float v = wsum[eb];
+          v += __shfl_xor_sync(murcl::kFull, v, 4);
+          v += __shfl_xor_sync(murcl::kFull, v, 8);
+          v += __shfl_xor_sync(murcl::kFull, v, 16);
+          if (lane < 4) atomicAdd(&Wcs[col + eb], v);
+        }
       }
+      wg::stage_end(pipe, &zab_map, n0, gated ? D + n0 : n0 + 64, r0 + 64 * w, bag);
     }
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += tc::THREADS) atomicAdd(&dwc[c], Wcs[c]);
+  wg::stage_drain();
+  wg::sync_consumers();
+  for (int c = tid; c < D; c += wg::CONSUMERS) atomicAdd(&dwc[c], Wcs[c]);
 }
 
-// Backward pass 3: dz = drop/relu'(bf16(p gm^T) + bf16(dza @ Wa^T)
-// + bf16(dzb @ Wb^T)) of one 64-row tile, the two products in one pass of
-// two accumulators (rounded apart, as the twin rounds them), and, with
-// dh_out, dh = dz @ Wf^T; as gates_bwd_kernel<bf16> from dx on. relu'(z) is
-// read as xc > 0 (see gates_bwd_kernel), from the scratch.
-__global__ void __launch_bounds__(tc::THREADS, 2)
-dx_tc(const bf16* __restrict__ xc, const bf16* __restrict__ waT, const bf16* __restrict__ wbT,
-      const bf16* __restrict__ wfT, Dropout dp, int gated, const float* __restrict__ p,
-      const float* __restrict__ gm, const bf16* __restrict__ dza, const bf16* __restrict__ dzb,
-      bf16* __restrict__ dz_out, bf16* __restrict__ dh_out, int N, int Fin, int L1, int D) {
-  extern __shared__ uint4 tc_smem[];
-  const int ldd = D + PAD, ldz = L1 + PAD;
-  bf16* DAs = reinterpret_cast<bf16*>(tc_smem);
-  bf16* DBs = DAs + BM * ldd;
-  tc::Ring ring{DBs + BM * ldd, 0, true};
-  float* Ps = reinterpret_cast<float*>(ring_end(ring));  // BM: p per row
-  bf16* DZs = reinterpret_cast<bf16*>(Ps + BM);           // with dh_out: the dz tile
-  const int bag = blockIdx.y, r0 = blockIdx.x * BM, wm = tc::warp_m(), wn = tc::warp_n();
-
-  tc::load_rows(dza + (size_t)bag * N * D, D, r0, N, DAs);
-  if (gated) tc::load_rows(dzb + (size_t)bag * N * D, D, r0, N, DBs);
-  const int step = gated ? tc::BN / 2 : tc::BN;
-  tc::BSrc b{waT, gated ? wbT : nullptr, L1, 0};
-  tc::load_b(b, 0, ring.buf);
-  tc::cp_commit();
-  if (threadIdx.x < BM) Ps[threadIdx.x] = r0 + threadIdx.x < N ? p[(size_t)bag * N + r0 + threadIdx.x] : 0.f;
-
-  const uint32_t key_x = murcl::bag_key(dp.seed, bag, 0);
-  const float* gmb = gm + (size_t)bag * L1;
-  tc::Acc acc;
-  for (int n0 = 0; n0 < L1; n0 += step) {
-    // this thread's xc pairs, loaded ahead of the products they wait for
-    uint32_t xv[2][4][2];
+// Backward pass 4: dz = drop/relu'(bf16(p gm^T) + bf16(dza @ Wa^T) +
+// bf16(dzb @ Wb^T)) for each 128-row tile, 128 columns a pass, the two
+// products one after the other into two accumulators (rounded apart, as
+// the twin rounds them), Wa and Wb read K-major as stored (a row of W^T is
+// a column of W). relu'(z) is read as xc > 0, from the scratch, loaded
+// ahead of the products.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+dx_wg(const __grid_constant__ CUtensorMap dz_ab_map, const __grid_constant__ CUtensorMap wa_map,
+      const __grid_constant__ CUtensorMap wb_map, const __grid_constant__ CUtensorMap dz_map,
+      const bf16* __restrict__ xc, const float* __restrict__ p, const float* __restrict__ gm,
+      Dropout dp, int gated, int stages, int B, int N, int L1, int D) {
+  extern __shared__ uint8_t smem_raw[];
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 2 * wg::OUT_TILE, false);
+  const int tiles = (N + BM - 1) / BM, nk = D / BK;
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER)
+      for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+        const int bag = t / tiles, r0 = (t % tiles) * BM;
+        for (int n0 = 0; n0 < L1; n0 += BN)
+          for (int g = 0; g < (gated ? 2 : 1); ++g)
+            for (int k = 0; k < nk; ++k) {
+              uint64_t* bar;
+              uint8_t* st = wg::produce(pipe, bar);
+              wg::tma_load_3d(st, &dz_ab_map, bar, g * D + k * BK, r0, bag);
+              wg::tma_load_2d(st + TILE_A, g ? &wb_map : &wa_map, bar, k * BK, n0);
+            }
+      }
+    else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
+      bits_passes(pipe, dp, 0, false, BN, L1, B, N);
+    return;
+  }
+  wg::consumer_regs();
+  const int w = wg::wg_index();
+  float* gms = reinterpret_cast<float*>(pipe.extra) + w * L1;  // L1 per warpgroup: gm of its bag
+  const float scale = rnd<bf16>(dp.scale);
+  float acc_a[64], acc_b[64];
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    wg::sync_wg();
+    to_shared(gms, gm + (size_t)bag * L1, L1, false, threadIdx.x & 127, 128);
+    wg::sync_wg();
+    float pr[2];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + wg::frag_row(hh);
+      pr[hh] = r < N ? p[(size_t)bag * N + r] : 0.f;
+    }
+    for (int n0 = 0; n0 < L1; n0 += BN) {
+      // this thread's xc pairs, loaded ahead of the products they wait for
+      uint32_t xv[2][16];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + wg::frag_row(hh);
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = r0 + wm * 32 + tc::frag_row(mi, 2 * hh);
-          xv[mi][j][hh] = 0u;
-          if (!(gated && j >= 2) && row < N)
-            xv[mi][j][hh] = __ldg(reinterpret_cast<const unsigned int*>(
-                xc + ((size_t)bag * N + row) * L1 + gate_col(gated, n0, j, 0)));
-        }
-    b.n0 = n0;
-    const tc::BSrc next = n0 + step < L1 ? tc::BSrc{waT, gated ? wbT : nullptr, L1, n0 + step}
-                                          : tc::BSrc{dh_out ? wfT : nullptr, nullptr, Fin, 0};
-    if (gated)
-      tc::mma_pass<true>(DAs, DBs, ldd, D, b, next, ring, acc);
-    else
-      tc::mma_pass(DAs, nullptr, ldd, D, b, next, ring, acc);
+        for (int j = 0; j < 16; ++j)
+          xv[hh][j] = r < N ? __ldg(reinterpret_cast<const unsigned int*>(
+                                  xc + ((size_t)bag * N + r) * L1 + n0 + wg::frag_col(j)))
+                            : 0u;
+      }
+      wg::mainloop<0, 0>(pipe, nk, 0, TILE_A, acc_a, wg::NoPre{});
+      if (gated) wg::mainloop<0, 0>(pipe, nk, 0, TILE_A, acc_b, wg::NoPre{});
+      const uint2 kb = dp.on ? wg::take_bits(pipe) : make_uint2(0u, 0u);
+      wg::stage_begin();
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rl = wg::frag_row(hh);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (gated && j >= 2) continue;  // dzb @ Wb^T: read beside dza @ Wa^T
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int r = wm * 32 + tc::frag_row(mi, 2 * hh);
-          const int col = gate_col(gated, n0, j, 0);
-          const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(&xv[mi][j][hh]);
-          float dz[2];
+        for (int j = 0; j < 16; ++j) {
+          const int c = wg::frag_col(j), col = n0 + c;
+          const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(&xv[hh][j]);
+          float out[2];
 #pragma unroll
           for (int eb = 0; eb < 2; ++eb) {
-            const int e = 2 * hh + eb;
-            float dx = rnd<bf16>(__fadd_rn(rnd<bf16>(__fmul_rn(Ps[r], gmb[col + eb])),
-                                           rnd<bf16>(acc[mi][j][e])));
-            if (gated) dx = rnd<bf16>(__fadd_rn(dx, rnd<bf16>(acc[mi][(j + 2) & 3][e])));
+            const int e = 4 * j + 2 * hh + eb;
+            float dx = rnd<bf16>(
+                __fadd_rn(rnd<bf16>(__fmul_rn(pr[hh], gms[col + eb])), rnd<bf16>(acc_a[e])));
+            if (gated) dx = rnd<bf16>(__fadd_rn(dx, rnd<bf16>(acc_b[e])));
             const float x = eb ? __high2float(x2) : __low2float(x2);
-            float m;
+            float mk;
             if (dp.on)
-              m = x > 0.f ? keep_scale<bf16>(dp, key_x, (uint32_t)(r0 + r) * L1 + col + eb)
-                          : 0.f;
+              mk = x > 0.f && wg::bit(kb, e) ? scale : 0.f;
             else
-              m = x > 0.f ? 1.f : 0.f;
-            dz[eb] = rnd<bf16>(__fmul_rn(dx, m));  // dead rows: xc = 0, so dz = 0
+              mk = x > 0.f ? 1.f : 0.f;
+            out[eb] = rnd<bf16>(__fmul_rn(dx, mk));  // dead rows: xc = 0, so dz = 0
           }
-          if (r0 + r < N) st2(dz_out + ((size_t)bag * N + r0 + r) * L1 + col, dz[0], dz[1]);
-          if (dh_out) st2(DZs + r * ldz + col, dz[0], dz[1]);
+          wg::stage_pair(pipe.out, rl - 64 * w, c, out[0], out[1]);
         }
       }
+      wg::stage_end(pipe, &dz_map, n0, n0 + 64, r0 + 64 * w, bag);
+    }
   }
-  if (!dh_out) return;
-  // dh = dz @ Wf^T, rounded to bf16 once
-  for (int n0 = 0; n0 < Fin; n0 += tc::BN) {
-    const tc::BSrc bh{wfT, nullptr, Fin, n0};
-    const tc::BSrc next{n0 + tc::BN < Fin ? wfT : nullptr, nullptr, Fin, n0 + tc::BN};
-    tc::mma_pass(DZs, nullptr, ldz, L1, bh, next, ring, acc);
+  wg::stage_drain();
+}
+
+// The bags' gradient dh = dz @ Wf^T for each 128-row tile, 128 columns of
+// Fin a pass, rounded to bf16 once (staged, stored by TMA); Wf read K-major
+// as stored.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+dh_wg(const __grid_constant__ CUtensorMap dz_map, const __grid_constant__ CUtensorMap wf_map,
+      const __grid_constant__ CUtensorMap dh_map, int stages, int B, int N, int Fin, int L1) {
+  extern __shared__ uint8_t smem_raw[];
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 2 * wg::OUT_TILE, false);
+  const int tiles = (N + BM - 1) / BM, nk = L1 / BK;
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER)
+      for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+        const int bag = t / tiles, r0 = (t % tiles) * BM;
+        for (int n0 = 0; n0 < Fin; n0 += BN)
+          for (int k = 0; k < nk; ++k) {
+            uint64_t* bar;
+            uint8_t* st = wg::produce(pipe, bar);
+            wg::tma_load_3d(st, &dz_map, bar, k * BK, r0, bag);
+            wg::tma_load_2d(st + TILE_A, &wf_map, bar, k * BK, n0);
+          }
+      }
+    return;
+  }
+  wg::consumer_regs();
+  const int w = wg::wg_index();
+  float acc[64];
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    for (int n0 = 0; n0 < Fin; n0 += BN) {
+      wg::mainloop<0, 0>(pipe, nk, 0, TILE_A, acc, wg::NoPre{});
+      wg::stage_begin();
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+      for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 16; ++j)
+          wg::stage_pair(pipe.out, wg::frag_row(hh) - 64 * w, wg::frag_col(j),
+                         acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      wg::stage_end(pipe, &dh_map, n0, n0 + 64, r0 + 64 * w, bag);
+    }
+  }
+  wg::stage_drain();
+}
+
+// Weight gradients: dW[M x Nc] += X^T @ Y over this block's split of the R
+// rows (X (R, M), Y (R, Nc) bf16 row-major, both read MN-major as stored),
+// on 128 x 128 output tiles; the columns of Y below `split` go to out0, the
+// rest to out1 (row stride ldo). Blocks of the first M tile also add Y's
+// column sums into db0 / db1 (db0 null: none).
+__global__ void __launch_bounds__(wg::THREADS, 1)
+wgrad_wg(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
+         float* __restrict__ out0, float* __restrict__ out1, int split, int ldo,
+         float* __restrict__ db0, float* __restrict__ db1, long long R, long long per, int M,
+         int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 0, false);
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const long long rbeg = blockIdx.z * per, rend = min(R, rbeg + per);
+  const int nk = (int)((rend - rbeg + BK - 1) / BK);
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER)
+      for (int k = 0; k < nk; ++k) {
+        uint64_t* bar;
+        uint8_t* st = wg::produce(pipe, bar);
+        const int r = (int)(rbeg + (long long)k * BK);
+        wg::load_b_mn(st, &x_map, m0, &x_map, m0 + 64, r, bar);
+        wg::load_b_mn(st + TILE_A, &y_map, n0, &y_map, n0 + 64, r, bar);
+      }
+    return;
+  }
+  wg::consumer_regs();
+  const int tid = threadIdx.x;
+  const bool sums = db0 != nullptr && blockIdx.y == 0 && tid < BN;
+  float colsum = 0.f;
+  float acc[64];
+  wg::mainloop<1, 1>(pipe, nk, 0, TILE_A, acc, [&](int, uint8_t* st) {
+    if (!sums) return;
+    const uint8_t* y = st + TILE_A + (tid >> 6) * wg::BOX;
+    const int cc = tid & 63;
+    for (int rr = 0; rr < BK; ++rr)
+      colsum += __bfloat162float(
+          *reinterpret_cast<const bf16*>(wg::chunk_at(y, rr, cc >> 3) + ((cc & 7) << 1)));
+  });
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = r0 + wm * 32 + tc::frag_row(mi, 2 * hh);
-          if (row < N)
-            st2(dh_out + ((size_t)bag * N + row) * Fin + n0 + wn * 32 + tc::frag_col(j, 0),
-                rnd<bf16>(acc[mi][j][2 * hh]), rnd<bf16>(acc[mi][j][2 * hh + 1]));
-        }
+  for (int hh = 0; hh < 2; ++hh) {
+    const int mr = m0 + wg::frag_row(hh);
+    if (mr >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int eb = 0; eb < 2; ++eb) {
+        const int c = n0 + wg::frag_col(j) + eb;
+        float* o = c < split ? out0 + (size_t)mr * ldo + c : out1 + (size_t)mr * ldo + c - split;
+        atomicAdd(o, acc[4 * j + 2 * hh + eb]);
+      }
+  }
+  if (sums) {
+    const int c = n0 + tid;
+    atomicAdd(c < split ? db0 + c : db1 + c - split, colsum);
   }
 }
 
-int fwd_tc(const void* h, const void* perm, const void* lam, const void* wf, const void* bf,
+// dW += X^T @ Y over all R rows, split over rows so that about two blocks
+// per SM are in flight (one fits an SM at a time); M % 64 == 0, Nc % 128 ==
+// 0.
+int wgrad_wg_launch(const void* X, int M, const void* Y, int Nc, long long R, float* out0,
+                    float* out1, int split, int ldo, float* db0, float* db1,
+                    cudaStream_t stream) {
+  CUtensorMap xm, ym;
+  MURCL_TRY((cudaError_t)wg::map2(&xm, X, M, R, BK));
+  MURCL_TRY((cudaError_t)wg::map2(&ym, Y, Nc, R, BK));
+  const int tiles = (Nc / BN) * ((M + BM - 1) / BM);
+  long long splits = max(1, 2 * sm_count() / tiles);
+  splits = min(splits, (R + BK - 1) / BK);
+  long long per = (R + splits - 1) / splits;
+  per = (per + BK - 1) / BK * BK;
+  const Plan pl = plan(TILE_A + TILE_B, false, 0);
+  MURCL_TRY(allow_smem(wgrad_wg, pl.smem));
+  const dim3 grid(Nc / BN, (M + BM - 1) / BM, (unsigned)((R + per - 1) / per));
+  wgrad_wg<<<grid, wg::THREADS, pl.smem, stream>>>(xm, ym, out0, out1, split, ldo, db0, db1, R,
+                                                   per, M, pl.stages);
+  return (int)cudaGetLastError();
+}
+
+// hm: the mixed bag's scratch (null unmixed).
+int fwd_wg(const void* h, const void* perm, const void* lam, const void* wf, const void* bf,
            const void* wa, const void* ba, const void* wb, const void* bb, const void* wc,
-           const void* bc, const void* mask, Dropout dp, int gated, void* xc, void* m, void* p,
-           void* s, int B, int N, int Fin, int L1, int D, cudaStream_t stream) {
-  const dim3 tiles((N + BM - 1) / BM, B);
-  const size_t smem1 = tc_trunk_smem(Fin);
-  MURCL_TRY(allow_smem(trunk_tc, smem1));
-  trunk_tc<<<tiles, tc::THREADS, smem1, stream>>>(
-      (const bf16*)h, (const int64_t*)perm, (const float*)lam, (const bf16*)wf,
-      (const float*)bf, dp, nullptr, nullptr, (bf16*)xc, nullptr, nullptr, N, Fin, L1);
+           const void* bc, const void* mask, Dropout dp, int gated, void* xc, void* hm, void* m,
+           void* p, void* s, int B, int N, int Fin, int L1, int D, cudaStream_t stream) {
+  const unsigned grid = persistent_grid((long long)((N + BM - 1) / BM) * B);
+  const bool mixed = perm != nullptr;
+  CUtensorMap hmap, wfm, hml, hst, xm, xst, wam, wbm;
+  MURCL_TRY((cudaError_t)wg::map3(&hmap, h, Fin, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map3(&hml, mixed ? hm : h, Fin, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map3(&hst, mixed ? hm : h, Fin, N, B, 64));
+  MURCL_TRY((cudaError_t)wg::map2(&wfm, wf, L1, Fin, BK));
+  MURCL_TRY((cudaError_t)wg::map3(&xm, xc, L1, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map3(&xst, xc, L1, N, B, 64));
+  MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, L1, BK));
+  MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, L1, BK));
+  const Plan p1 = plan(TILE_A * (mixed ? 2 : 1) + TILE_B, true, sizeof(float) * 3 * L1);
+  MURCL_TRY(allow_smem(trunk_wg, p1.smem));
+  trunk_wg<<<grid, wg::THREADS, p1.smem, stream>>>(
+      hmap, wfm, hml, hst, xst, (const int64_t*)perm, (const float*)lam, (const float*)bf, dp,
+      nullptr, nullptr, p1.stages, B, N, Fin, L1);
   MURCL_TRY(cudaGetLastError());
-  const size_t smem2 = tc_gates_smem(L1, D);
-  MURCL_TRY(allow_smem(gates_fwd_tc, smem2));
-  gates_fwd_tc<<<tiles, tc::THREADS, smem2, stream>>>(
-      (const bf16*)xc, (const bf16*)wa, (const float*)ba, (const bf16*)wb, (const float*)bb,
-      (const bf16*)wc, (const float*)bc, dp, gated, (float*)s, N, L1, D);
+  const Plan p2 = plan(TILE_A + TILE_B, false, sizeof(float) * 3 * D);
+  MURCL_TRY(allow_smem(gates_fwd_wg, p2.smem));
+  gates_fwd_wg<<<grid, wg::THREADS, p2.smem, stream>>>(
+      xm, wam, wbm, (const float*)ba, (const float*)bb, (const bf16*)wc, (const float*)bc, dp,
+      gated, (float*)s, p2.stages, B, N, L1, D);
   MURCL_TRY(cudaGetLastError());
   return pool<bf16>((const float*)s, (const uint8_t*)mask, (const bf16*)xc, (float*)m, (float*)p,
                     B, N, L1, stream);
 }
 
-int bwd_tc(const void* h, const void* perm, const void* lam, const void* wf, const void* bf,
+// dzab: (B, N, 2 D) gated ([dza | dzb] per row), (B, N, D) ungated; hm the
+// mixed bag's scratch (null unmixed: dWf then reads h itself); dpp
+// (L1 / 128, B, N) and ds (B, N) f32 scratch.
+int bwd_wg(const void* h, const void* perm, const void* lam, const void* wf, const void* bf,
            const void* wa, const void* ba, const void* wb, const void* bb, const void* wc,
-           const void* waT, const void* wbT, const void* wfT, const void* mask, Dropout dp,
-           int gated, const void* p, const void* gm, const void* gp, const void* gs, void* hm,
-           void* xc, void* dpv, void* dza, void* dzb, void* dz, void* dh, void* dwf, void* dbf,
-           void* dwa, void* dba, void* dwb, void* dbb, void* dwc, void* dbc, int B, int N,
-           int Fin, int L1, int D, cudaStream_t stream) {
-  const dim3 tiles((N + BM - 1) / BM, B);
-  const size_t smem1 = tc_trunk_smem(Fin);
-  MURCL_TRY(allow_smem(trunk_tc, smem1));
-  trunk_tc<<<tiles, tc::THREADS, smem1, stream>>>(
-      (const bf16*)h, (const int64_t*)perm, (const float*)lam, (const bf16*)wf,
-      (const float*)bf, dp, (const float*)gm, (const float*)gp, (bf16*)xc, (bf16*)hm,
-      (float*)dpv, N, Fin, L1);
+           const void* mask, Dropout dp, int gated, const void* p, const void* gm,
+           const void* gp, const void* gs, void* hm, void* xc, void* dpp, void* ds, void* dzab,
+           void* dz, void* dh, void* dwf, void* dbf, void* dwa, void* dba, void* dwb, void* dbb,
+           void* dwc, void* dbc, int B, int N, int Fin, int L1, int D, cudaStream_t stream) {
+  const unsigned grid = persistent_grid((long long)((N + BM - 1) / BM) * B);
+  const int ldz = gated ? 2 * D : D;
+  const bool mixed = perm != nullptr;
+  CUtensorMap hmap, wfm, hml, hst, xm, xst, wam, wbm, zabm, zabst, wak, wbk, zst;
+  MURCL_TRY((cudaError_t)wg::map3(&hmap, h, Fin, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map2(&wfm, wf, L1, Fin, BK));
+  MURCL_TRY((cudaError_t)wg::map3(&hml, mixed ? hm : h, Fin, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map3(&hst, mixed ? hm : h, Fin, N, B, 64));
+  MURCL_TRY((cudaError_t)wg::map3(&xm, xc, L1, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map3(&xst, xc, L1, N, B, 64));
+  MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, L1, BK));
+  MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, L1, BK));
+  MURCL_TRY((cudaError_t)wg::map3(&zabm, dzab, ldz, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map3(&zabst, dzab, ldz, N, B, 64));
+  MURCL_TRY((cudaError_t)wg::map2(&wak, wa, D, L1, BN));
+  MURCL_TRY((cudaError_t)wg::map2(&wbk, wb, D, L1, BN));
+  MURCL_TRY((cudaError_t)wg::map3(&zst, dz, L1, N, B, 64));
+
+  const Plan p1 = plan(TILE_A * (mixed ? 2 : 1) + TILE_B, true, sizeof(float) * 3 * L1);
+  MURCL_TRY(allow_smem(trunk_wg, p1.smem));
+  trunk_wg<<<grid, wg::THREADS, p1.smem, stream>>>(
+      hmap, wfm, hml, hst, xst, (const int64_t*)perm, (const float*)lam, (const float*)bf, dp,
+      (const float*)gm, (float*)dpp, p1.stages, B, N, Fin, L1);
   MURCL_TRY(cudaGetLastError());
 
-  const size_t smem2 = tc_gates_smem(L1, D);
-  MURCL_TRY(allow_smem(gates_bwd_tc, smem2));
-  gates_bwd_tc<<<tiles, tc::THREADS, smem2, stream>>>(
-      (const bf16*)xc, (const bf16*)wa, (const float*)ba, (const bf16*)wb, (const float*)bb,
-      (const bf16*)wc, (const uint8_t*)mask, dp, gated, (const float*)p, (const float*)gs,
-      (const float*)dpv, (bf16*)dza, (bf16*)dzb, (float*)dwc, (float*)dbc, N, L1, D);
+  softmax_bwd_kernel<<<B, THREADS, 0, stream>>>((const float*)dpp, L1 / BN, (const float*)p,
+                                                (const float*)gp, (const float*)gs,
+                                                (const uint8_t*)mask, (float*)ds, (float*)dbc,
+                                                B, N);
   MURCL_TRY(cudaGetLastError());
 
-  const size_t smem3 = tc_dx_smem(L1, D, dh != nullptr);
-  MURCL_TRY(allow_smem(dx_tc, smem3));
-  dx_tc<<<tiles, tc::THREADS, smem3, stream>>>(
-      (const bf16*)xc, (const bf16*)waT, (const bf16*)wbT, (const bf16*)wfT, dp, gated,
-      (const float*)p, (const float*)gm, (const bf16*)dza, (const bf16*)dzb, (bf16*)dz,
-      (bf16*)dh, N, Fin, L1, D);
+  const Plan p2 = plan(TILE_A + TILE_B, true, sizeof(float) * 4 * D);
+  MURCL_TRY(allow_smem(gates_bwd_wg, p2.smem));
+  gates_bwd_wg<<<grid, wg::THREADS, p2.smem, stream>>>(
+      xm, wam, wbm, zabst, (const float*)ba, (const float*)bb, (const bf16*)wc, dp, gated,
+      (const float*)ds, (float*)dwc, p2.stages, B, N, L1, D);
   MURCL_TRY(cudaGetLastError());
+
+  const Plan p3 = plan(TILE_A + TILE_B, true, sizeof(float) * 2 * L1);
+  MURCL_TRY(allow_smem(dx_wg, p3.smem));
+  dx_wg<<<grid, wg::THREADS, p3.smem, stream>>>(zabm, wak, wbk, zst, (const bf16*)xc,
+                                                (const float*)p, (const float*)gm, dp, gated,
+                                                p3.stages, B, N, L1, D);
+  MURCL_TRY(cudaGetLastError());
+
+  if (dh) {
+    CUtensorMap zm, wfk, dhst;
+    MURCL_TRY((cudaError_t)wg::map3(&zm, dz, L1, N, B, BM));
+    MURCL_TRY((cudaError_t)wg::map2(&wfk, wf, L1, Fin, BN));
+    MURCL_TRY((cudaError_t)wg::map3(&dhst, dh, Fin, N, B, 64));
+    const Plan p4 = plan(TILE_A + TILE_B, true, 0);
+    MURCL_TRY(allow_smem(dh_wg, p4.smem));
+    dh_wg<<<grid, wg::THREADS, p4.smem, stream>>>(zm, wfk, dhst, p4.stages, B, N, Fin, L1);
+    MURCL_TRY(cudaGetLastError());
+  }
 
   const long long R = (long long)B * N;
-  int err = tc::wgrad(hm, Fin, dz, L1, R, (float*)dwf, (float*)dbf, stream);
+  int err = wgrad_wg_launch(mixed ? hm : h, Fin, dz, L1, R, (float*)dwf, nullptr, L1, L1,
+                            (float*)dbf, nullptr, stream);
   if (err) return err;
-  err = tc::wgrad(xc, L1, dza, D, R, (float*)dwa, (float*)dba, stream);
-  if (err || !gated) return err;
-  return tc::wgrad(xc, L1, dzb, D, R, (float*)dwb, (float*)dbb, stream);
+  return wgrad_wg_launch(xc, L1, dzab, ldz, R, (float*)dwa, (float*)dwb, D, D, (float*)dba,
+                         (float*)dbb, stream);
 }
 
 // The backward's outputs are sums: zero them before any pass adds to them.
@@ -910,25 +1257,30 @@ int bwd_impl(const void* h, const void* perm, const void* lam, const void* wf, c
 
 }  // namespace
 
+// hm: bf16, the mixed bag's (B, N, Fin) scratch when mixed, else null; f32
+// leaves it unread.
 MURCL_API int murcl_fused_trunk_fwd(int is_bf16, int gated, const void* h, const void* perm,
                                     const void* lam, const void* wf, const void* bf,
                                     const void* wa, const void* ba, const void* wb,
                                     const void* bb, const void* wc, const void* bc,
                                     const void* mask, int use_dropout, uint32_t seed,
-                                    uint32_t thresh, float scale, void* xc, void* m, void* p,
-                                    void* s, int B, int N, int Fin, int L1, int D,
+                                    uint32_t thresh, float scale, void* xc, void* hm, void* m,
+                                    void* p, void* s, int B, int N, int Fin, int L1, int D,
                                     void* stream) {
   const Dropout dp{use_dropout, seed, thresh, scale};
   auto strm = (cudaStream_t)stream;
   if (is_bf16)
-    return fwd_tc(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask, dp, gated, xc, m, p, s, B,
-                  N, Fin, L1, D, strm);
+    return fwd_wg(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask, dp, gated, xc, hm, m, p, s,
+                  B, N, Fin, L1, D, strm);
   return fwd_impl<float>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask, dp, gated, xc, m, p,
                          s, B, N, Fin, L1, D, strm);
 }
 
-// dzb may be null when ungated; dh (and wfT) null unless the bags' gradient
-// is wanted.
+// f32: waT, wbT (and, with dh, wfT) are the weights transposed, dpv (B, N)
+// f32, dza, dzb (null when ungated) and hm scratch. bf16: dpv is the
+// (L1 / 128 + 1, B, N) f32 scratch of dp partials and ds, dza the
+// [dza | dzb] scratch (see bwd_wg), hm the mixed bag (null unmixed), and
+// waT, wbT, wfT and dzb unread. dh null unless the bags' gradient is wanted.
 MURCL_API int murcl_fused_trunk_bwd(
     int is_bf16, int gated, const void* h, const void* perm, const void* lam, const void* wf,
     const void* bf, const void* wa, const void* ba, const void* wb, const void* bb,
@@ -941,10 +1293,12 @@ MURCL_API int murcl_fused_trunk_bwd(
   auto strm = (cudaStream_t)stream;
   const int err = zero_grads(dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, Fin, L1, D, strm);
   if (err) return err;
-  if (is_bf16)
-    return bwd_tc(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, wfT, mask, dp, gated, p,
-                  gm, gp, gs, hm, xc, dpv, dza, dzb, dz, dh, dwf, dbf, dwa, dba, dwb, dbb, dwc,
-                  dbc, B, N, Fin, L1, D, strm);
+  if (is_bf16) {
+    float* ds = (float*)dpv + (size_t)(L1 / BN) * B * N;
+    return bwd_wg(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, mask, dp, gated, p, gm, gp, gs, hm,
+                  xc, dpv, ds, dza, dz, dh, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1,
+                  D, strm);
+  }
   return bwd_impl<float>(h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, wfT, mask, dp,
                          gated, p, gm, gp, gs, hm, xc, dpv, dza, dzb, dz, dh, dwf, dbf, dwa, dba,
                          dwb, dbb, dwc, dbc, B, N, Fin, L1, D, strm);

@@ -2,7 +2,11 @@
 
 Each ``.cu`` source is compiled with ``nvcc`` for ``sm_90a`` by its own
 process, all started together, and the objects are linked into one shared
-library with a plain C interface, loaded with :mod:`ctypes`. The library is
+library with a plain C interface, loaded with :mod:`ctypes`. The library
+links only the CUDA runtime: the bf16 K2/K3 kernels' TMA descriptors come
+from the driver's ``cuTensorMapEncodeTiled``, reached at run time through
+the runtime's ``cudaGetDriverEntryPointByVersion`` (``csrc/wgmma_tiles.cuh``),
+so no ``-lcuda`` is needed at build time. The library is
 built on first use into ``build/murcl_tpu_torch/`` at the repository root,
 named by a hash of the sources and flags, so an edited source builds anew.
 An exclusive file lock (``fcntl``) on ``build/murcl_tpu_torch/.build.lock``
@@ -66,9 +70,9 @@ _SIGNATURES = {
     # zi, zj, temp, stats, g, dzi, dzj, zn, B, d, stream
     "murcl_ntxent_bwd": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _P],
     # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask,
-    # use_dropout, seed, thresh, scale, xc_scratch, m, p, s, B, N, Fin, L1, D,
-    # stream
-    "murcl_fused_trunk_fwd": [_I, _I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 4
+    # use_dropout, seed, thresh, scale, xc_scratch, hm_scratch, m, p, s, B, N,
+    # Fin, L1, D, stream
+    "murcl_fused_trunk_fwd": [_I, _I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 5
     + [_I] * 5 + [_P],
     # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, wfT,
     # mask, use_dropout, seed, thresh, scale, p, gm, gp, gs, hm, xc, dp, dza,

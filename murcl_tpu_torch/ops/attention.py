@@ -47,8 +47,27 @@ _M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _TM, _TN, _KC = 32, 128, 32  # csrc/tiles.cuh tile constants (K2/K3, K7 in f32; K8)
 # csrc/mma_tiles.cuh: rows per block, bf16 padding of a shared row, and the
-# bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K2/K3 and K7 in bf16
+# bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K7 and K8 in bf16
 _TC_BM, _TC_PAD, _TC_RING = 64, 8, 2 * 2 * 64 * (128 + 8)
+# csrc/wgmma_tiles.cuh (K2/K3 in bf16): stages of 16 KB slices (128 x 64
+# bf16) of A (two with the in-kernel mixup) and B, three 8-byte barriers a
+# stage, as many stages as fit (at most 6, at least 3) beside 1,024 bytes of
+# alignment, two 16 KB output staging tiles, the dropout keep bits (two
+# buffers of 64 per consumer thread) with five barriers (the bits' four and
+# a kernel's own) and the kernel's f32 arrays
+_WG_SLICE, _WG_OUT, _WG_MAX_STAGES, _WG_MIN_STAGES = 128 * 64 * 2, 2 * 64 * 128 * 2, 6, 3
+_WG_BITS = 2 * 256 * 8 + 5 * 8
+
+
+def _wg_plan_bytes(slices: int, staging: bool, floats: int) -> int:
+    """Shared-memory bytes of one K2/K3 bf16 kernel (``plan`` in
+    ``csrc/fused_trunk.cu``): as many ring stages as fit, at most 6; a plan
+    that fits fewer than 3 is reckoned at 3, over the limit."""
+    stage = slices * _WG_SLICE + 24
+    fixed = 1024 + (_WG_OUT if staging else 0) + _WG_BITS + 4 * floats
+    stages = min(_WG_MAX_STAGES, (_SMEM_LIMIT - fixed) // stage)
+    return fixed + max(stages, _WG_MIN_STAGES) * stage
+
 
 # The JAX package's route rule (``murcl_tpu/ops/attention_pallas.py:483-490``
 # and ``:446-459``): a bag block over 6 MiB does not stay resident in the
@@ -204,16 +223,19 @@ def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
 
 def trunk_tile_smem(n: int, fin: int, l1: int, d: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory the widest block of K2/K3 takes at bags of
-    ``n`` rows and widths ``fin -> l1 -> d``: the tiles of the trunk, gate
-    and dx kernels (``csrc/fused_trunk.cu``: ``tc_trunk_smem``,
-    ``tc_gates_smem`` and ``tc_dx_smem`` with dh in bf16; ``trunk_smem`` and
-    ``gates_smem`` in f32) and the pool pass's ``n + 32`` floats. The
-    weight-gradient contraction takes a fixed 39,936 or 52,224 bytes."""
+    ``n`` rows and widths ``fin -> l1 -> d``: in bf16 each warpgroup kernel's
+    ring, as deep as fits (:func:`_wg_plan_bytes`), beside its output staging
+    and arrays (``bf`` and two rows of ``gm`` in the trunk, ``ba``, ``bb``,
+    ``wc`` and dwc's partial in the gates, two rows of ``gm`` in dx), none
+    with a term in ``fin``; in f32 the FMA tiles (``trunk_smem`` and
+    ``gates_smem``); and the pool pass's ``n + 32`` floats. The f32
+    weight-gradient contraction takes 16,640 bytes."""
     if dtype == torch.bfloat16:
-        bm, pad = _TC_BM, _TC_PAD
-        tiles = max(2 * bm * (fin + pad) + _TC_RING + 4 * bm * 4,
-                    2 * bm * (l1 + pad) + _TC_RING + 4 * (bm * 4 + d + 32),
-                    2 * bm * (2 * (d + pad) + l1 + pad) + _TC_RING + 4 * bm)
+        # the trunk (mixing: three slices a stage), the forward and backward
+        # gates, dx and dh, and the weight gradients
+        tiles = max(_wg_plan_bytes(3, True, 3 * l1), _wg_plan_bytes(2, False, 3 * d),
+                    _wg_plan_bytes(2, True, 4 * d), _wg_plan_bytes(2, True, 2 * l1),
+                    _wg_plan_bytes(2, False, 0))
     else:
         tiles = 4 * max(_TM * (fin + 1) + _TM * (l1 + 1) + _KC * _TN,
                         _TM * (l1 + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + d + 32)
@@ -265,13 +287,16 @@ def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam,
     l1, d = wf.shape[1], wa.shape[1]
     dev = h.device
     xc = torch.empty((b, n, l1), dtype=h.dtype, device=dev)
+    # bf16 mixes each tile once into hm, which its later column passes read
+    hm = (torch.empty((b, n, fin), dtype=h.dtype, device=dev)
+          if perm is not None and h.dtype == torch.bfloat16 else None)
     m = torch.empty((b, l1), dtype=torch.float32, device=dev)
     p = torch.empty((b, n), dtype=torch.float32, device=dev)
     s = torch.empty((b, n), dtype=torch.float32, device=dev)
     err = _cuda.library().murcl_fused_trunk_fwd(
         int(h.dtype == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
         _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
-        _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop, _p(xc), _p(m), _p(p), _p(s),
+        _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop, _p(xc), _p(hm), _p(m), _p(p), _p(s),
         b, n, fin, l1, d, _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["fused_trunk_fwd"] += 1
@@ -284,29 +309,37 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
     name = "fused_trunk_attention_pool backward"
     _check_shapes(name, h, wf, wa, need_dh)
     o, drop = _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed)
-    waT, wbT = o["wa"].T.contiguous(), o["wb"].T.contiguous()
-    wfT = o["wf"].T.contiguous() if need_dh else None
     p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
     b, n, fin = h.shape
     l1, d = wf.shape[1], wa.shape[1]
     dev, dt = h.device, h.dtype
-    hm = torch.empty((b, n, fin), dtype=dt, device=dev)
-    xc = torch.empty((b, n, l1), dtype=dt, device=dev)
-    dz = torch.empty((b, n, l1), dtype=dt, device=dev)
-    dza = torch.empty((b, n, d), dtype=dt, device=dev)
-    dzb = torch.empty((b, n, d), dtype=dt, device=dev) if gated else None
-    dh = torch.empty((b, n, fin), dtype=dt, device=dev) if need_dh else None
-    dpv = torch.empty((b, n), dtype=torch.float32, device=dev)
+    new = lambda *shape: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    xc, dz = new(b, n, l1), new(b, n, l1)
+    dh = new(b, n, fin) if need_dh else None
+    if dt == torch.bfloat16:
+        # weights read as stored; [dza | dzb] side by side; the mixed bag
+        # only when mixed (dWf reads h itself otherwise); dp's partials per
+        # 128 columns of L1, then ds
+        wa_t = wb_t = wf_t = dzb = None
+        hm = new(b, n, fin) if perm is not None else None
+        dza = new(b, n, 2 * d if gated else d)
+        dpv = torch.empty((l1 // _TN + 1, b, n), dtype=torch.float32, device=dev)
+    else:
+        wa_t, wb_t = o["wa"].T.contiguous(), o["wb"].T.contiguous()
+        wf_t = o["wf"].T.contiguous() if need_dh else None
+        hm, dza = new(b, n, fin), new(b, n, d)
+        dzb = new(b, n, d) if gated else None
+        dpv = torch.empty((b, n), dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dwf, dbf = torch.empty((fin, l1), **f32), torch.empty((l1,), **f32)
     dwa, dba = torch.empty((l1, d), **f32), torch.empty((d,), **f32)
     dwb, dbb = torch.empty((l1, d), **f32), torch.empty((d,), **f32)
     dwc, dbc = torch.empty((d,), **f32), torch.empty((), **f32)
-    _cuda.require_cuda(name, p, gm, gp, gs, waT, wbT)
+    _cuda.require_cuda(name, p, gm, gp, gs)
     err = _cuda.library().murcl_fused_trunk_bwd(
         int(dt == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
         _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
-        _p(o["wc"]), _p(waT), _p(wbT), _p(wfT), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp),
+        _p(o["wc"]), _p(wa_t), _p(wb_t), _p(wf_t), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp),
         _p(gs), _p(hm), _p(xc), _p(dpv), _p(dza), _p(dzb), _p(dz), _p(dh), _p(dwf), _p(dbf),
         _p(dwa), _p(dba), _p(dwb), _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d,
         _cuda.stream())

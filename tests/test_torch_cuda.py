@@ -10,8 +10,11 @@ bags' gradient), K7 and K8 relative Frobenius 1e-4 in f32 (sum
 order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32 sum
 in another order crosses a rounding boundary; the bf16 products of K2/K3 and
 K7 run on the tensor cores, whose sums run in yet another order). K2/K3 and
-K7 also at the edges of their 64-row bf16 tiles: N = 1000 with live lengths
-1, 63, 65 and 1000, and D = 384; K7 also at ABMIL's D 128 with F 512. K8
+K7 also at N = 1000 with live lengths 1, 63, 65 and 1000, and D = 384; K2/K3
+at the edges of their 128-row bf16 tiles (lengths 1, 63, 65, 127, 129 and
+1000; Fin 192 and 1024; D 384; gated and ungated, with and without dh,
+mixed and unmixed, dropout 0 and 0.25); K7 also at ABMIL's D 128 with F
+512. K8
 (whose f32 gate products are three bf16 products on the tensor cores) also
 at F 1024 (two f32 slabs) and D 384, with a bag that ends mid-tile and one
 whose later chunks are all masked; one backward through K8's op at the
@@ -280,6 +283,62 @@ def test_fused_trunk_modes_match_plain(dev, gated, need_dh, dtype, rate, tol, d)
             assert not g.any(), name
             continue
         assert _rel(g, wv) <= tol, name
+
+
+# K2/K3's bf16 kernels (128-row tiles, wgmma fed by TMA) at their edges: N
+# that neither the 128-row tile nor the mask divides, Fin 192 (a 64-column
+# slice past the last 128-row dWf tile) and 1024, D 384, gated and ungated,
+# the bags' gradient, mixed and unmixed
+_WG_LENGTHS = [1, 63, 65, 127, 129, 1000]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("fin,l1,d,gated,need_dh,mixed", [
+    (192, 128, 128, True, False, True),
+    (1024, 512, 256, True, False, True),
+    (1024, 512, 384, False, True, False),
+    (256, 256, 384, True, True, False),
+    (192, 512, 384, False, False, True),
+])
+def test_fused_trunk_wg_edges_match_plain(dev, rate, fin, l1, d, gated, need_dh, mixed):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, n = len(_WG_LENGTHS), 1000
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * sc
+
+    w = [r(fin, l1, sc=fin ** -0.5), r(l1, sc=0.1), r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1),
+         r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1), r(d, sc=d ** -0.5), r((), sc=0.1)]
+    h = r(b, n, fin).to(torch.bfloat16)
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor(_WG_LENGTHS, device=dev)[:, None]
+    perm = torch.randperm(b, generator=gen, device=dev)
+    lam = 0.9 + 0.1 * torch.rand(b, generator=gen, device=dev)
+    mix = (perm, lam) if mixed else None
+    cots = [r(b, l1), r(b, n, sc=0.1), r(b, n, sc=0.01)]
+    hg = h.clone().requires_grad_(need_dh)
+    ws = [x.clone().requires_grad_(True) for x in w]
+    before = dict(_cuda.LAUNCHES)
+    outs = fused_trunk_attention_pool(hg, *ws, mask=mask, dropout=rate, seed=7, mix=mix,
+                                      gated=gated)
+    torch.autograd.backward(outs, cots)
+    assert _cuda.LAUNCHES["fused_trunk_fwd"] == before["fused_trunk_fwd"] + 1
+    assert _cuda.LAUNCHES["fused_trunk_bwd"] == before["fused_trunk_bwd"] + 1
+    pm = (perm, lam) if mixed else (None, None)
+    m, p, s = fused_trunk_plain_fwd(h, *w, mask, rate, 7, *pm, gated=gated)
+    grads = fused_trunk_plain_bwd(h, *w[:7], mask, p, *cots, rate, 7, *pm, gated=gated,
+                                  need_dh=need_dh)
+    names = ["M", "p", "s", "dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
+    got = [o.detach() for o in outs] + [x.grad for x in ws]
+    want = [m, p, s, *grads[:8]]
+    if need_dh:
+        names.append("dh")
+        got.append(hg.grad)
+        want.append(grads[8])
+    for name, g, wv in zip(names, got, want):
+        if not gated and name in ("dwb", "dbb"):
+            assert not g.any(), name
+            continue
+        assert _rel(g, wv) <= 2e-2, name
 
 
 @pytest.mark.parametrize("gated", [True, False])

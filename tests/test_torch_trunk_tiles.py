@@ -2,9 +2,12 @@
 shapes the wrapper refuses.
 
 ``trunk_tile_smem`` reckons the bytes of the widest block of the bf16
-tensor-core kernels (64-row tiles, bf16 A tiles padded by 8, a 2-stage B
-ring of 64-deep slices) and of the f32 FMA kernels; every width the port's CLAM sizes give
-must fit one H100 block's 232,448 bytes. ``_check_shapes`` raises, naming
+warpgroup kernels (128-row tiles; a TMA ring of 16 KB slices of 128 x 64
+bf16, three slices a stage in the mixing trunk and two elsewhere, as many
+stages as fit up to 6 and at least 3, each with three 8-byte barriers,
+beside 1,024 bytes of alignment, two 16 KB output staging tiles and the
+kernels' f32 arrays) and of the f32 FMA kernels; every width the port's
+CLAM sizes give must fit one H100 block's 232,448 bytes. ``_check_shapes`` raises, naming
 the shape, on an L1 or D that is not a multiple of 128 (the kernels' column
 passes), on the meta device: no data and no card needed.
 """
@@ -39,5 +42,5 @@ def test_trunk_tiles_fit_and_refuse(fin, l1, d, refused, dtype):
     smem = tat.trunk_tile_smem(1024, fin, l1, d, dtype)
     assert smem <= tat._SMEM_LIMIT == 232448
     tat._check_shapes("fused_trunk_attention_pool", h, wf, wa, need_dh=True)
-    if dtype == torch.bfloat16:  # the trunk kernel: the mixed bag's tile, B ring, row sums
-        assert smem >= 2 * 64 * (fin + 8) + 2 * 2 * 64 * 136 + 4 * 64 * 4
+    if dtype == torch.bfloat16:  # the mixing trunk: 3 stages of bag, partner, Wf; staging
+        assert smem >= 1024 + 3 * (24 + 3 * 128 * 64 * 2) + 2 * 64 * 128 * 2
