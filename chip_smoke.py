@@ -4,9 +4,9 @@
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from ``murcl_tpu_torch/csrc`` (one nvcc
    per source, in parallel), and reads the library's SASS with
-   ``cuobjdump``: the bf16 K2/K3 kernels must hold Hopper's warpgroup
-   products (HGMMA), the bf16 K7 kernels and both instantiations of K8's
-   kernel tensor-core instructions (HMMA or HGMMA).
+   ``cuobjdump``: the bf16 K2/K3 and K7 kernels must hold Hopper's
+   warpgroup products (HGMMA), both instantiations of K8's kernel
+   tensor-core instructions (HMMA or HGMMA).
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape (one block
@@ -27,10 +27,10 @@
    supervised shape and in ABMIL's mode at (1536, 1024, 512), each beside
    its plain twin and its bound; K2's, K3's and K7's timed calls split by
    sub-kernel (K2: trunk, gates and pool; K3: trunk, softmax backward,
-   gates, dx and its two weight-gradient passes, dWf and dWa + dWb; K7:
-   gates and pool, gates, dx and each weight-gradient contraction) with
-   torch.profiler, K2's and K3's with each sub-kernel's achieved TFLOP/s and
-   GB/s; K3 (with
+   gates, dx and its two weight-gradient passes, dWf and dWa + dWb; K7f:
+   gates and pool; K7b: W's planes, dp, softmax backward, gates, dx and
+   one weight-gradient pass, dWa + dWb) with torch.profiler, each with its
+   sub-kernels' achieved TFLOP/s and GB/s; K3 (with
    dh) and K7b run twice on the same inputs, the largest difference per
    output printed (the split-K weight gradients add with atomics; dh and
    K7's dx must be bitwise equal). K8 (the streaming attention pool, on
@@ -119,11 +119,12 @@
    device memory; then ``torch.profiler`` traces 3 more steps of each and
    prints device time by kernel and the device's busy share. Where the
    parent commit's tree is unpacked under ``build/parent``, the A/B
-   (``ab_parent``): K2 and K3 through the op at the timed call, and the
-   MuRCL CLAM_SB stage-1 and stage-3 steps, of the parent's tree and of
-   this one in turns (parent, this, this, parent), each side a process that
-   imports and builds its own tree's port; fails unless this tree's K2 and
-   K3 are faster.
+   (``ab_parent``): K7f and K7b at the supervised stage-1 shape and in
+   ABMIL's mode, K2 and K3 through the op at the timed call, and the
+   supervised CLAM_SB and MuRCL ABMIL stage-1 steps, of the parent's tree
+   and of this one in turns (parent, this, this, parent), each side a
+   process that imports and builds its own tree's port; fails unless this
+   tree's K7f and K7b are faster at both shapes (K2/K3 printed only).
 8. The streaming feature feed (``streaming_path``), on 128 synthetic
    slides of 3,000-10,240 patches x 512 (K 10; about 1.7 GB of f32 npz,
    drawn as the JAX package's ``scripts/bench_tcga_scale.py`` draws its
@@ -526,20 +527,19 @@ def device_ms(fn, own: bool = True, reps: int = 20) -> float:
 
 
 # the kernels that must run on the tensor cores: the bf16 kernels of
-# csrc/fused_trunk.cu (K2/K3), which must hold Hopper's warpgroup products
-# (HGMMA), and those of csrc/attention_pool.cu (K7, with tc::wgrad_kernel)
-# and K8's kernel (csrc/attention_tiled.cu) in both of its instantiations
-# (HMMA or HGMMA)
-HGMMA_KERNELS = ("trunk_wg", "gates_fwd_wg", "gates_bwd_wg", "dx_wg", "dh_wg", "wgrad_wg")
-TC_KERNELS = HGMMA_KERNELS + ("tc::wgrad_kernel", "pool_gates_fwd_tc", "pool_gates_bwd_tc",
-                              "pool_dx_tc", "tiled_pool_tc<float>",
-                              "tiled_pool_tc<__nv_bfloat16>")
+# csrc/fused_trunk.cu (K2/K3) and csrc/attention_pool.cu (K7; wgrad_wg in
+# both), which must hold Hopper's warpgroup products (HGMMA), and K8's
+# kernel (csrc/attention_tiled.cu) in both of its instantiations (HMMA or
+# HGMMA)
+HGMMA_KERNELS = ("trunk_wg", "gates_fwd_wg", "gates_bwd_wg", "dx_wg", "dh_wg", "wgrad_wg",
+                 "pool_gates_fwd_wg", "pool_gates_bwd_wg", "pool_dx_wg")
+TC_KERNELS = HGMMA_KERNELS + ("tiled_pool_tc<float>", "tiled_pool_tc<__nv_bfloat16>")
 
 
 def mangled(kernel: str) -> str:
     """The part of a kernel's mangled name that spells ``kernel``: each part
-    of the name by its length (``2tc12wgrad_kernel``), then a template
-    argument (``13tiled_pool_tcIfE``)."""
+    of the name by its length (``8wgrad_wg``), then a template argument
+    (``13tiled_pool_tcIfE``)."""
     base, _, arg = kernel.partition("<")
     out = "".join(f"{len(part)}{part}" for part in base.split("::"))
     if arg:
@@ -626,7 +626,7 @@ def check_fused(dev, gen):
     for what, split, total in (("K2", split_fwd, k_fwd), ("K3", split_bwd, k_bwd)):
         print_split(f"{what} at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, dropout 0.25",
                     split, total)
-        print_rates(what, split)
+        print_rates(what, split, fused_work())
     # unmixed with dh: dh, like K7b's dx, has no atomics on its path
     twice = determinism(f"K3 at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, unmixed, with dh, "
                         "dropout 0.25",
@@ -776,7 +776,7 @@ def fused_work() -> dict:
     h, zab = r * FIN * 2, r * 2 * D * 2
     # the mixed trunk reads h and h[perm] and writes xc and hm in both passes
     return {"trunk_wg": (2 * r * FIN * L1, 3 * h + x), "gates_fwd_wg": (4 * r * L1 * D, x + r * 4),
-            "pool_kernel<__nv_bfloat16>": (2 * r * L1, x + r * 8),
+            "pool_kernel": (2 * r * L1, x + r * 8),
             "trunk_wg bwd": (2 * r * FIN * L1, 2 * h + x + h),
             "gates_bwd_wg": (4 * r * L1 * D, x + zab + r * 16),
             "dx_wg": (4 * r * L1 * D, zab + x + x + r * 4),
@@ -784,10 +784,22 @@ def fused_work() -> dict:
             "wgrad_wg dWa+dWb": (4 * r * L1 * D, x + zab)}
 
 
-def print_rates(what, split) -> None:
+# K7's bf16 kernels at (b, N_MAIN, L1 -> d): (FLOPs, device-memory bytes)
+# each must do (``csrc/attention_pool.cu``'s reckoning); dx's products are
+# three bf16 products per gate, and the dz scratch two planes of [dza | dzb]
+def pool_work(b: int, d: int, gated: bool) -> dict:
+    r, g = b * N_MAIN, 2 if gated else 1
+    x, z, gate = r * L1 * 2, 2 * r * g * d * 2, 2 * r * L1 * d * g  # bytes; one gate product
+    return {"pool_gates_fwd_wg": (gate, x + r * 4), "pool_kernel": (2 * r * L1, x + r * 9),
+            "dp_kernel": (2 * r * L1, x + r * 4), "softmax_bwd_kernel": (4 * r, r * 21),
+            "pool_gates_bwd_wg": (gate, x + z + r * 4), "pool_dx_wg": (3 * gate, z + x + r * 4),
+            "wgrad_wg dWa+dWb": (gate, x + z // 2)}
+
+
+def print_rates(what, split, work) -> None:
     """Achieved TFLOP/s and GB/s of each of ``split``'s kernels that
-    :func:`fused_work` reckons."""
-    work, seen, out = fused_work(), set(), []
+    ``work`` (:func:`fused_work`, :func:`pool_work`) reckons."""
+    seen, out = set(), []
     for name, ms in split:
         key = f"{name} bwd" if what == "K3" and name == "trunk_wg" else name
         if key in work and key not in seen:
@@ -869,7 +881,7 @@ def check_pool(dev, gen):
         bwd = lambda: att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 77)  # noqa: E731
         res = {"fwd": median_ms(fwd, reps=3), "bwd": median_ms(bwd, reps=3),
                "split_fwd": kernel_split(fwd),
-               "split_bwd": name_wgrads(kernel_split(bwd), ("dWa", "dWb"))}
+               "split_bwd": name_wgrads(kernel_split(bwd), ("dWa+dWb",))}
         if gated:
             res["twice"] = determinism(f"K7b at ({b}, {N_MAIN}, {L1}) bf16 gated, dropout {rate}",
                                        bwd, names[3:], ("dx",))
@@ -888,6 +900,8 @@ def check_pool(dev, gen):
                f"dropout {rate}"
         print_split(f"K7f at {mode}", res["split_fwd"], res["fwd"])
         print_split(f"K7b at {mode}", res["split_bwd"], res["bwd"])
+        print_rates(f"K7f/K7b at {mode}", res["split_fwd"] + res["split_bwd"],
+                    pool_work(b, d, gated))
         del x, p, cots
         torch.cuda.empty_cache()
         return res
@@ -1973,6 +1987,27 @@ def rlmil_path(dev, ds, results, pretrained, arch="CLAM_SB"):
     return per_stage
 
 
+def timed_step(step) -> tuple:
+    """``(ms, enqueue ms, peak GiB)`` of a steady step: 2 warm-up steps, then
+    the medians over 5 synchronised steps of the step and of the host's
+    enqueue (when the step call returns), and the peak device memory."""
+    import torch
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, host = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (statistics.median(times), statistics.median(host),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
 def steady_steps(dev, ds, results, runs):
     """Steady supervised steps at batch 64, one per ``(arch, stage,
     pretrained)`` of ``runs`` (a stage 3 chains on its path's stage 2): 2
@@ -1992,23 +2027,11 @@ def steady_steps(dev, ds, results, runs):
         def step():
             s.engine.train_step(bank, ids, gen)
 
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times, host = [], []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            step()
-            host.append((time.perf_counter() - t0) * 1e3)  # enqueued, not yet synced
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
         name = f"supervised {arch} stage {stage}"
-        out[name] = statistics.median(times)
+        out[name], enqueue, peak = timed_step(step)
         print(f"{name}, batch {RL_BATCH}: median step {out[name]:.2f} ms "
-              f"({1e3 / out[name]:.3f} steps/s), host enqueue {statistics.median(host):.2f} "
-              f"ms, steps {[round(t, 2) for t in times]}, "
-              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+              f"({1e3 / out[name]:.3f} steps/s), host enqueue {enqueue:.2f} ms, "
+              f"peak device memory {peak:.2f} GiB")
         profile_steps(step, name, out[name])
         del s
         torch.cuda.empty_cache()
@@ -2032,23 +2055,11 @@ def steady_murcl_steps(dev, ds, results):
         def step():
             s.engine.train_step(s.source.bank, ids, gen)
 
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times, host = [], []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            step()
-            host.append((time.perf_counter() - t0) * 1e3)  # enqueued, not yet synced
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
         name = f"MuRCL {arch} stage {stage}"
-        out[name] = statistics.median(times)
+        out[name], enqueue, peak = timed_step(step)
         print(f"{name}, batch {BATCH}: median step {out[name]:.2f} ms "
-              f"({1e3 / out[name]:.3f} steps/s), host enqueue {statistics.median(host):.2f} ms, "
-              f"steps {[round(t, 2) for t in times]}, "
-              f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+              f"({1e3 / out[name]:.3f} steps/s), host enqueue {enqueue:.2f} ms, "
+              f"peak device memory {peak:.2f} GiB")
         profile_steps(step, name, out[name])
         del s
         torch.cuda.empty_cache()
@@ -2062,19 +2073,26 @@ def steady_murcl_steps(dev, ds, results):
 PARENT_TREE = REPO / "build" / "parent"
 
 
+# K7's timed calls in the A/B: the supervised stage-1 shape (gated, D 256,
+# dropout 0.25) and ABMIL's mode (ungated, D 128, dropout 0)
+AB_POOL = {"sup": (POOL_BAGS, D, True, 0.25), "abmil": (B_MAIN, ABMIL_D, False, 0.0)}
+
+
 def ab_side(tree: str, ds: dict, results: str) -> dict:
     """One side of the A/B, in a process of its own that imports the port
-    from ``tree``: K2 (the op's forward, under no_grad) and K3 (its
-    backward) at the timed call of ``check_fused`` (median ms of 5, and one
-    call's device ms by kernel), then steady MuRCL CLAM_SB stage-1 and
-    stage-3 steps as ``steady_murcl_steps`` times them (step and enqueue ms,
+    from ``tree``: K7f and K7b through ``_pool_fwd_cuda`` / ``_pool_bwd_cuda``
+    at ``AB_POOL``'s shapes and K2 (the op's forward, under no_grad) and K3
+    (its backward) at the timed call of ``check_fused`` (median ms of 5, and
+    one call's device ms by kernel), then steady supervised CLAM_SB stage-1
+    (batch 64, finetuned from ``ds["pretrained"]``) and MuRCL ABMIL stage-1
+    (batch 128) steps as ``steady_steps`` times them (step and enqueue ms,
     the device's busy ms over 3 traced steps, peak memory)."""
     sys.path.insert(0, tree)
     import torch
 
-    from murcl_tpu_torch.drivers.murcl import setup
+    from murcl_tpu_torch.drivers import murcl, rlmil
     from murcl_tpu_torch.ops import _cuda
-    from murcl_tpu_torch.ops.attention import fused_trunk_attention_pool
+    from murcl_tpu_torch.ops import attention as att
 
     check(Path(_cuda.__file__).resolve().is_relative_to(Path(tree).resolve()),
           f"A/B side imported {_cuda.__file__}, not {tree}'s port")
@@ -2082,58 +2100,72 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
     dev = torch.device("cuda:0")
     _cuda.library()
     gen = torch.Generator(device=dev).manual_seed(0)
+    res = {"tree": tree}
+    for key, (b, d, gated, rate) in AB_POOL.items():
+        x, w, mask, cots = pool_inputs(b, torch.bfloat16, gen, dev, False, d)
+        p = att._pool_fwd_cuda(x, *w, mask, gated, rate, 77)[1]
+
+        def fwd():
+            return att._pool_fwd_cuda(x, *w, mask, gated, rate, 77)
+
+        def bwd():
+            return att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 77)
+
+        res[f"k7f_{key}_ms"], res[f"k7b_{key}_ms"] = median_ms(fwd), median_ms(bwd)
+        res[f"k7f_{key}_split"], res[f"k7b_{key}_split"] = kernel_split(fwd), kernel_split(bwd)
+        del x, p, cots
+        torch.cuda.empty_cache()
     h, w, mask, mix, cots = fused_inputs(B_MAIN, torch.bfloat16, gen, dev, False)
     ws = [x.detach().clone().requires_grad_(True) for x in w]
 
-    def fwd():
+    def k2():
         with torch.no_grad():
-            return fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77, mix=mix)
+            return att.fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77,
+                                                  mix=mix)
 
-    outs = fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77, mix=mix)
+    outs = att.fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77, mix=mix)
 
-    def bwd():
+    def k3():
         return torch.autograd.grad(outs, ws, cots, retain_graph=True)
 
-    res = {"tree": tree, "k2_ms": median_ms(fwd), "k3_ms": median_ms(bwd),
-           "k2_split": kernel_split(fwd), "k3_split": kernel_split(bwd)}
+    res.update({"k2_ms": median_ms(k2), "k3_ms": median_ms(k3), "k2_split": kernel_split(k2),
+                "k3_split": kernel_split(k3)})
     del outs, ws, h
     torch.cuda.empty_cache()
-    for stage in (1, 3):
-        s = setup(murcl_args(dev, ds, Path(results), "CLAM_SB", stage, exist_ok=True))
+    steps = {
+        "supervised": lambda: rlmil.setup(rlmil_args(dev, ds, Path(results) / "ab_rlmil", 1,
+                                                     ds["pretrained"], exist_ok=True)),
+        "murcl_abmil": lambda: murcl.setup(murcl_args(dev, ds, Path(results) / "murcl",
+                                                      "ABMIL", 1, exist_ok=True)),
+    }
+    for key, make in steps.items():
+        s = make()
         g = torch.Generator().manual_seed(0)
-        ids = torch.arange(BATCH, device=dev) % SLIDES
+        if key == "supervised":
+            bank, ids = s.sources["train"].bank, torch.arange(RL_BATCH, device=dev)
+        else:
+            bank, ids = s.source.bank, torch.arange(BATCH, device=dev) % SLIDES
 
         def step():
-            s.engine.train_step(s.source.bank, ids, g)
+            s.engine.train_step(bank, ids, g)
 
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times, host = [], []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            step()
-            host.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(times)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        busy = profile_steps(step, f"A/B {Path(tree).name} MuRCL CLAM_SB stage {stage}", ms)
-        res[f"stage{stage}"] = {"ms": ms, "enqueue_ms": statistics.median(host),
-                                "busy_ms": busy, "busy_pct": 100 * busy / ms, "peak_gib": peak}
-        del s
+        ms, enqueue, peak = timed_step(step)
+        busy = profile_steps(step, f"A/B {Path(tree).name} {key} stage 1", ms)
+        res[key] = {"ms": ms, "enqueue_ms": enqueue, "busy_ms": busy, "busy_pct": 100 * busy / ms,
+                    "peak_gib": peak}
+        del s, bank
         torch.cuda.empty_cache()
     return res
 
 
 def ab_parent(ds, results):
-    """K2/K3 and the MuRCL CLAM_SB stage-1 and stage-3 steps of the parent's
-    tree and of this one, in turns (parent, this, this, parent), each side a
-    process of its own on this card; fails unless this tree's K2 and K3 are
-    faster than the parent's (median of each side's two runs). Returns
-    ``{"parent": [side, side], "this": [side, side]}``, or None without a
-    parent tree."""
+    """K7f/K7b, K2/K3 and the supervised CLAM_SB and MuRCL ABMIL stage-1
+    steps of the parent's tree and of this one, in turns (parent, this,
+    this, parent), each side a process of its own on this card; fails unless
+    this tree's K7f and K7b are faster than the parent's at both of
+    ``AB_POOL``'s shapes (median of each side's two runs). K2/K3 are printed,
+    not gated. Returns ``{"parent": [side, side], "this": [side, side]}``, or
+    None without a parent tree."""
     import torch
 
     if not (PARENT_TREE / "murcl_tpu_torch").is_dir():
@@ -2154,23 +2186,28 @@ def ab_parent(ds, results):
         sides[name].append(json.loads(lines[-1]))
         print(f"A/B side {name} ({tree}) in {time.time() - t0:.1f} s")
     card = card_line()
-    for key, what in (("k2", "K2 (the op's forward)"), ("k3", "K3 (the op's backward)")):
-        print(f"A/B {what} at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, dropout 0.25, in "
-              "turns: " + "; ".join(
-                  f"{n} {[round(s[key + '_ms'], 3) for s in v]} ms, device "
-                  f"{[round(sum(ms for _, ms in s[key + '_split']), 3) for s in v]} ms"
-                  for n, v in sides.items()) + f" ({card})")
+    calls = [(f"k7{k}_{key}", f"K7{k} at ({b}, {N_MAIN}, {L1}) bf16 "
+              f"{'gated' if gated else 'ungated'}, D {d}, dropout {rate}")
+             for key, (b, d, gated, rate) in AB_POOL.items() for k in ("f", "b")]
+    calls += [("k2", f"K2 (the op's forward) at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, "
+                     "dropout 0.25"),
+              ("k3", "K3 (the op's backward), the same call")]
+    for key, what in calls:
+        print(f"A/B {what}, in turns: " + "; ".join(
+            f"{n} {[round(s[key + '_ms'], 3) for s in v]} ms, device "
+            f"{[round(sum(ms for _, ms in s[key + '_split']), 3) for s in v]} ms"
+            for n, v in sides.items()) + f" ({card})")
         for n, v in sides.items():
             print(f"  {n} {key} one call by kernel: "
                   + ", ".join(f"{k} {ms:.3f}" for k, ms in v[0][key + "_split"]))
-    for stage in (1, 3):
-        key = f"stage{stage}"
-        print(f"A/B MuRCL CLAM_SB stage {stage}, batch {BATCH}, in turns: " + "; ".join(
+    for key, what in (("supervised", f"supervised CLAM_SB stage 1, batch {RL_BATCH}"),
+                      ("murcl_abmil", f"MuRCL ABMIL stage 1, batch {BATCH}")):
+        print(f"A/B {what}, in turns: " + "; ".join(
             f"{n} " + ", ".join(
                 f"{s[key]['ms']:.2f} ms (enqueue {s[key]['enqueue_ms']:.2f}, busy "
                 f"{s[key]['busy_pct']:.2f}%, peak {s[key]['peak_gib']:.2f} GiB)" for s in v)
             for n, v in sides.items()) + f" ({card})")
-    for key in ("k2", "k3"):
+    for key, _ in calls[:4]:
         mine = statistics.median(s[key + "_ms"] for s in sides["this"])
         theirs = statistics.median(s[key + "_ms"] for s in sides["parent"])
         check(mine < theirs, f"A/B: this tree's {key} ({mine:.3f} ms) not faster than the "
@@ -2826,7 +2863,9 @@ def main() -> int:
                                               ("DSMIL", 1, None)])
         steady_murcl_steps(dev, ds, tmp / "murcl")
         t0 = time.time()
-        ab = ab_parent({k: str(ds[k]) for k in ("data_csv", "data_split_json")}, tmp / "murcl")
+        ab = ab_parent({**{k: str(ds[k]) for k in ("data_csv", "data_split_json",
+                                                   "rlmil_split_json")},
+                        "pretrained": str(pretrained)}, tmp)
         print(f"A/B phase in {time.time() - t0:.1f} s")
         t0 = time.time()
         dp_counts = dp_cli_path(dev, ds, tmp / "dp")
@@ -2881,6 +2920,11 @@ def main() -> int:
             row["modes"] = (f"gated and ungated at D {D}; gated at D {CLAM_BIG_D} (bf16) and on "
                             f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL: MuRCL and "
                             "supervised)")
+            if ab:  # timed in turns beside the parent's, ms per side run, per AB_POOL shape
+                k = "k7f" if row["name"].endswith("fwd") else "k7b"
+                row["ab_ms"] = {s: [r[f"{k}_{s}_ms"] for r in ab["this"]] for s in AB_POOL}
+                row["ab_parent_ms"] = {s: [r[f"{k}_{s}_ms"] for r in ab["parent"]]
+                                       for s in AB_POOL}
         if row["name"] == "attention_pool_tiled":
             row["modes"] = ("gated and ungated, f32 and bf16; timed f32 gated at (1, 60416, 512); "
                             "bound of the function's f32 products at the TF32 rate")

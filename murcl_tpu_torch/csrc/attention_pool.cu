@@ -14,35 +14,53 @@
 // dx = p gm + dza @ Wa^T + dzb @ Wb^T with the f32 dza, dzb and weights,
 // rounded once.
 //
-// Bound on the H100: FLOPs. At the supervised stage-1 shape (384 bags x
-// 1024 rows, 512 -> 256) the gate products are about 0.2 TFLOP forward and
-// 0.6 TFLOP backward. A bag (1 MiB in bf16) does not fit a block's shared
-// memory, so blocks take row tiles: the forward writes the raw scores s and
-// pool_kernel (tiles.cuh) then takes the softmax over the whole bag and
-// M = rnd(p) @ x (the bag itself is the pooled tensor, so nothing is written
-// besides s); the backward writes dp in a pass of its own (dp_kernel, a GEMV
-// that reads x once: ds needs each bag's sum of p dp before any gate
-// gradient), recomputes the gates, writes dza/dzb to scratch, forms dx, and
-// contracts x^T @ rnd(dza) and x^T @ rnd(dzb) split-K with f32 atomics. No
-// backward block holds a term in N, so K7b takes any bag length (K7f's
-// softmax pass holds N scores).
+// Bound on the H100: at the supervised stage-1 shape (384 bags x 1024 rows,
+// 512 -> 256, gated; R = 393,216 rows) the gate products are 0.21 TFLOP
+// forward; the backward recomputes them and adds dx's (0.62 TFLOP as three
+// bf16 products, below) and dWa + dWb (0.21). A bag (1 MiB in bf16) does not
+// fit a block's shared memory, so blocks take row tiles: the forward writes
+// the raw scores s and pool_kernel (tiles.cuh) then takes the softmax over
+// the whole bag and M = rnd(p) @ x (the bag itself is the pooled tensor, so
+// nothing is written besides s); the backward writes dp in a pass of its own
+// (dp_kernel, a GEMV that reads x once: ds needs each bag's sum of p dp
+// before any gate gradient), recomputes the gates, writes dza/dzb to
+// scratch, forms dx, and contracts x^T @ rnd(dza) and x^T @ rnd(dzb)
+// split-K with f32 atomics. No backward block holds a term in N, so K7b
+// takes any bag length (K7f's softmax pass holds N scores).
 // Two instantiations:
-//  * bf16 (supervised CLAM and ABMIL), on the tensor cores (mma_tiles.cuh:
-//    mma.sync m16n8k16, x's 64-row tile in shared memory as bf16, weights
-//    through a cp.async ring), two blocks per SM at D 256:
-//    - pool_gates_fwd_tc: the gate products, one pass over [Wa | Wb] per 64
-//      columns (or Wa per 128), and an f32 epilogue that sums s per row;
-//    - pool_gates_bwd_tc: the same products, then the softmax and gate
-//      backward in f32; dza and dzb go to scratch as two bf16 planes,
-//      hi = rnd(dza) (the operand of dWa) and lo = rnd(dza - hi); dwc, dba,
-//      dbb and dbc are summed from the f32 values;
-//    - pool_dx_tc: dx's products take f32 operands in the TPU kernel, which
-//      one bf16 product would round to 2^-9. Three bf16 products,
-//      hi Whi + hi Wlo + lo Whi (W^T split into hi and lo planes by the
-//      caller), keep about 2^-16: one pass of [lo | hi] over [Whi; Wlo] and
-//      one of hi over Whi, gate a then gate b into one accumulator, per
-//      64-row tile and 128 columns of dx;
-//    - tc::wgrad: dWa = x^T @ hi (and dWb).
+//  * bf16 (supervised CLAM and ABMIL): warpgroup products (wgmma m64n128k16)
+//    over 128-row tiles, both operands copied by TMA into an mbarrier ring
+//    by one producer thread (wgmma_tiles.cuh, as K2/K3), persistent kernels
+//    of one 384-thread block per SM whose producer warpgroup's three other
+//    warps hash each pass's dropout keep bits ahead of its epilogue, biases
+//    and wc staged in shared memory once per block, bf16 tiles stored by TMA
+//    through swizzled staging:
+//    - pool_gates_fwd_wg: the gate products (x K-major, Wa and Wb read
+//      MN-major as stored: 64 columns of each per pass gated, 128 of Wa
+//      ungated) and an f32 epilogue that sums s per row;
+//    - pool_gates_bwd_wg: the same products, then the gate backward in f32
+//      from each row's ds (softmax_bwd_kernel's, per bag); dza and dzb go to
+//      scratch as two bf16 planes, hi = rnd(dz) (the operand of dWa, dWb)
+//      and lo = rnd(dz - hi); dwc, dba and dbb are summed from the f32 values
+//      as block partials;
+//    - pool_dx_wg: dx's products take f32 operands in the TPU kernel, which
+//      one bf16 product would round to 2^-9. Three bf16 products, hi Whi +
+//      hi Wlo + lo Whi (W split into hi and lo planes by the caller), keep
+//      about 2^-16; a block owns a 128-row tile and walks its F / 128 column
+//      passes, gate a then gate b into one accumulator. Where the tile's
+//      planes fit beside the ring (ungated D 128: 64 KB) they are copied
+//      into shared memory once per tile and only W's planes stream; else
+//      (gated D 256: 256 KB, more than a block's 227 KB) each stage holds a
+//      k-slice of the tile's hi and lo planes beside W's, so each A slice
+//      feeds two products and the passes after the first read the tile
+//      again from L2, not device memory;
+//    - wgrad_wg (shared with K3): dWa and dWb in one pass over x against
+//      the scratch's hi plane [dza | dzb].
+//    Device-memory bytes of the backward at the supervised shape: x read by
+//    dp_kernel, the gates and the weight gradients (3 x 0.40 GB), the
+//    scratch written once and read by dx (2 x 0.81) and its hi plane by the
+//    weight gradients (0.40), dx written (0.40): 3.6 GB, 1.08 ms at 3.35
+//    TB/s, beside 1.04 ms for its 1.03 TFLOP of bf16 products.
 //  * f32 (the tests, K8's backward on f32 heatmap bags): FP32 FMA tiles
 //    (tiles.cuh), 32 rows per block, in gate_fwd_kernel, gate_bwd_kernel
 //    (which forms dx from the f32 dza/dzb it keeps in shared memory) and
@@ -50,8 +68,8 @@
 // Gate dropout keep bits come from the counter hash of common.cuh, streams 1
 // (a) and 2 (b), the streams K2 uses, so the backward regenerates the
 // forward's masks.
-#include "mma_tiles.cuh"
 #include "tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -123,7 +141,8 @@ gate_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wa,
   }
 }
 
-// Backward pass 1: dp = x @ rnd(gm) + gp, one warp per row.
+// Backward pass 1: dp = x @ rnd(gm) + gp (gp null: x @ rnd(gm)), one warp per
+// row.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 dp_kernel(const T* __restrict__ x, const float* __restrict__ gm, const float* __restrict__ gp,
@@ -136,7 +155,7 @@ dp_kernel(const T* __restrict__ x, const float* __restrict__ gm, const float* __
   float acc = 0.f;
   for (int c = lane; c < F; c += 32) acc = fmaf(ld<T>(xr + c), rnd<T>(g[c]), acc);
   acc = warp_sum(acc);
-  if (lane == 0) dp_out[(size_t)bag * N + row] = acc + gp[(size_t)bag * N + row];
+  if (lane == 0) dp_out[(size_t)bag * N + row] = acc + (gp ? gp[(size_t)bag * N + row] : 0.f);
 }
 
 // Backward pass 2: softmax backward, gate backward (dza, dzb, dwc, dbc, dba,
@@ -318,313 +337,464 @@ int bwd_impl(const void* x, const void* wa, const void* ba, const void* wb, cons
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores. The scratch dza (and dzb) holds two planes of
-// B x N x D: hi = rnd(dza), then lo = rnd(dza - hi), `lo` elements apart;
-// waT (and wbT) hold W^T's hi plane (D x F) and then its lo plane.
-// ops/attention.py (pool_tile_smem) reckons the same shared-memory sums.
+// bf16: warpgroup products (wgmma) fed by TMA over 128-row tiles
+// (wgmma_tiles.cuh), one persistent kernel per pass, each block walking the
+// (bag, 128-row tile) pairs t = blockIdx.x, + gridDim.x, ...:
+//   forward:  pool_gates_fwd_wg (the scores s), then pool_kernel;
+//   backward: dp_kernel (x @ rnd(gm) per row), softmax_bwd_kernel (per bag:
+//             c = sum_r p_r dp_r, ds and dbc), pool_gates_bwd_wg (the dz
+//             scratch, dwc, dba, dbb), pool_dx_wg (dx), then wgrad_wg once:
+//             dWa and dWb in one pass over x against the scratch's hi plane.
+// The dz scratch is two planes of (B, N, Wg), Wg = 2 D gated ([dza | dzb]
+// per row) or D: hi = rnd(dz) (the weight gradients' operand), then lo =
+// rnd(dz - hi), B N Wg elements on; its tensor maps read it as 2 B bags, the
+// lo plane's bag b as bag B + b. Wa and Wb reach dx as planes (2 F, D) each:
+// rnd(W) (F rows), then rnd(W - rnd(W)).
+// ops/attention.py (pool_plans) reckons the same shared-memory sums.
 // ---------------------------------------------------------------------------
-using tc::BM;
-using tc::bf16;
-using tc::PAD;
-
-// the x tile, the ring, BM x 4 row partials (or ds), three D-wide partials
-size_t tc_gates_smem(int F, int D) {
-  return sizeof(bf16) * BM * (F + PAD) + tc::RING_BYTES + sizeof(float) * (BM * 4 + 3 * D + 32);
-}
-// the [lo | hi] tile of one gate's scratch, the ring, p per row
-size_t tc_dx_smem(int D) {
-  return sizeof(bf16) * BM * (2 * D + PAD) + tc::RING_BYTES + sizeof(float) * BM;
-}
+using wg::bf16;
+using wg::BK;
+using wg::BM;
+using wg::BN;
+using wg::TILE_A;
+using wg::TILE_B;
 
 // The gates at one element, in f32 as the TPU kernel keeps them: a = tanh(za),
-// g = sigmoid(zb) (gated only), their keep scales ka, kb (1 without dropout)
-// and u = a ka (g kb).
+// g = sigmoid(zb) (gated only), their keep scales ka, kb (1 without dropout;
+// else `scale` where the keep bit is set) and u = a ka (g kb).
 struct Gates {
   float a, ka, g, kb, u;
 };
-__device__ __forceinline__ Gates gates_f32(float za, float zb, int gated, const GateDropout& dp,
-                                           uint32_t key_a, uint32_t key_b, uint32_t idx) {
+__device__ __forceinline__ Gates gates_f32(float za, float zb, int gated, bool drop, bool keep_a,
+                                           bool keep_b, float scale) {
   Gates t{tanhf(za), 1.f, 0.f, 1.f, 0.f};
-  if (dp.on) t.ka = keep_f32(dp, key_a, idx);
+  if (drop) t.ka = keep_a ? scale : 0.f;
   t.u = t.a * t.ka;
   if (gated) {
     t.g = sigmoidf(zb);
-    if (dp.on) t.kb = keep_f32(dp, key_b, idx);
+    if (drop) t.kb = keep_b ? scale : 0.f;
     t.u *= t.g * t.kb;
   }
   return t;
 }
 
-// An f32 pair as hi = rnd(v) at p and lo = rnd(v - hi) at p + lo (v - hi is
-// exact in f32).
-__device__ __forceinline__ void st_split(bf16* p, size_t lo, const float (&v)[2]) {
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[0], v[1]);
-  *reinterpret_cast<__nv_bfloat162*>(p) = hi;
-  tc::st2(p + lo, v[0] - __low2float(hi), v[1] - __high2float(hi));
+// The gate parameters of a block in shared memory: ba, bb (0 ungated) and
+// wc, D floats each.
+__device__ __forceinline__ void gate_params(float* ps, const float* __restrict__ ba,
+                                            const float* __restrict__ bb,
+                                            const float* __restrict__ wc, int gated, int D) {
+  for (int c = threadIdx.x; c < D; c += wg::CONSUMERS) {
+    ps[c] = ba[c];
+    ps[D + c] = gated ? bb[c] : 0.f;
+    ps[2 * D + c] = wc[c];
+  }
 }
 
-// Forward: the raw scores s of one 64-row tile.
-__global__ void __launch_bounds__(tc::THREADS, 2)
-pool_gates_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wa,
-                  const float* __restrict__ ba, const bf16* __restrict__ wb,
+// Forward: the raw scores s of each 128-row tile of x (B, N, F); rows past N
+// read as zeros and are not written.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+pool_gates_fwd_wg(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap wa_map,
+                  const __grid_constant__ CUtensorMap wb_map, const float* __restrict__ ba,
                   const float* __restrict__ bb, const float* __restrict__ wc,
                   const float* __restrict__ bc, GateDropout dp, int gated,
-                  float* __restrict__ s_out, int N, int F, int D) {
-  extern __shared__ uint4 tc_smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(tc_smem);
-  const int bag = blockIdx.y, r0 = blockIdx.x * BM, wm = tc::warp_m();
-  tc::BSrc b{wa, gated ? wb : nullptr, D, 0};
-  tc::Ring ring = tc::tile_start(x, bag, r0, N, F, b, Xs);
-  float* red = reinterpret_cast<float*>(tc::ring_end(ring));  // BM x 4
-
-  const uint32_t key_a = murcl::bag_key(dp.seed, bag, 1), key_b = murcl::bag_key(dp.seed, bag, 2);
-  float rowp[2][2] = {};
-  tc::Acc acc;
-  const int step = gated ? tc::BN / 2 : tc::BN;
-  for (int n0 = 0; n0 < D; n0 += step) {
-    b.n0 = n0;
-    const tc::BSrc next{n0 + step < D ? wa : nullptr, gated ? wb : nullptr, D, n0 + step};
-    tc::mma_pass(Xs, nullptr, F + PAD, F, b, next, ring, acc);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (gated && j >= 2) continue;  // g: read beside a
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const uint32_t row = r0 + wm * 32 + tc::frag_row(mi, e);
-          const int col = tc::gate_col(gated, n0, j, e);
-          const Gates t = gates_f32(acc[mi][j][e] + ba[col],
-                                    gated ? acc[mi][(j + 2) & 3][e] + bb[col] : 0.f, gated, dp,
-                                    key_a, key_b, row * D + col);
-          rowp[mi][e >> 1] = fmaf(t.u, wc[col], rowp[mi][e >> 1]);
-        }
-      }
+                  float* __restrict__ s_out, int stages, int B, int N, int F, int D) {
+  extern __shared__ uint8_t smem_raw[];
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 0, false);
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER)
+      produce_gates(pipe, &x_map, &wa_map, &wb_map, gated, B, N, F, D);
+    else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
+      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
+    return;
   }
-  tc::row_partials(rowp, red);
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r < BM && r0 + r < N)
-    s_out[(size_t)bag * N + r0 + r] = red[r * 4] + red[r * 4 + 1] + red[r * 4 + 2] +
-                                      red[r * 4 + 3] + bc[0];
+  wg::consumer_regs();
+  float* bas = reinterpret_cast<float*>(pipe.extra);  // ba, bb, wc: D each
+  const float *bbs = bas + D, *wcs = bas + 2 * D;
+  gate_params(bas, ba, bb, wc, gated, D);
+  wg::sync_consumers();
+  const int tiles = (N + BM - 1) / BM, step = gated ? 64 : BN;
+  float acc[64];
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    float rowp[2] = {};
+    for (int n0 = 0; n0 < D; n0 += step) {
+      wg::mainloop<0, 1>(pipe, F / BK, 0, TILE_A, acc, wg::NoPre{});
+      const uint2 kb = dp.on ? wg::take_bits(pipe) : make_uint2(0u, 0u);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        if (gated && j >= 8) continue;  // g: read beside a
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int eb = 0; eb < 2; ++eb) {
+            const int e = 4 * j + 2 * hh + eb, col = n0 + wg::frag_col(j) + eb;
+            const Gates g = gates_f32(acc[e] + bas[col], gated ? acc[e + 32] + bbs[col] : 0.f,
+                                      gated, dp.on, wg::bit(kb, e), wg::bit(kb, e + 32 * gated),
+                                      dp.scale);
+            rowp[hh] = fmaf(g.u, wcs[col], rowp[hh]);
+          }
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = rowp[hh];
+      v += __shfl_xor_sync(murcl::kFull, v, 1);  // over the 4 lanes of a row
+      v += __shfl_xor_sync(murcl::kFull, v, 2);
+      const int r = r0 + wg::frag_row(hh);
+      if ((threadIdx.x & 3) == 0 && r < N) s_out[(size_t)bag * N + r] = v + bc[0];
+    }
+  }
 }
 
-// Backward pass 2: softmax backward and gate backward of one 64-row tile:
-// dza, dzb (to scratch, hi and lo), dwc, dba, dbb and dbc.
-__global__ void __launch_bounds__(tc::THREADS, 2)
-pool_gates_bwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ wa,
-                  const float* __restrict__ ba, const bf16* __restrict__ wb,
-                  const float* __restrict__ bb, const float* __restrict__ wc,
-                  const uint8_t* __restrict__ mask, GateDropout dp, int gated,
-                  const float* __restrict__ p, const float* __restrict__ gs,
-                  const float* __restrict__ dpv, bf16* __restrict__ dza_out,
-                  bf16* __restrict__ dzb_out, size_t lo, float* __restrict__ dba,
-                  float* __restrict__ dbb, float* __restrict__ dwc, float* __restrict__ dbc,
-                  int N, int F, int D) {
-  extern __shared__ uint4 tc_smem[];
-  bf16* Xs = reinterpret_cast<bf16*>(tc_smem);
-  const int bag = blockIdx.y, r0 = blockIdx.x * BM;
-  const int lane = threadIdx.x & 31, wm = tc::warp_m();
-  tc::BSrc b{wa, gated ? wb : nullptr, D, 0};
-  tc::Ring ring = tc::tile_start(x, bag, r0, N, F, b, Xs);
-  float* Ds = reinterpret_cast<float*>(tc::ring_end(ring));  // BM: ds per row
-  float* Wcs = Ds + BM * 4;                                   // D: this block's dwc partial
-  float* Sa = Wcs + D;                                        // D: dba partial
-  float* Sb = Sa + D;                                         // D: dbb partial
-  float* red = Sb + D;                                        // 32
-  const float* pb = p + (size_t)bag * N;
-  const float* dpb = dpv + (size_t)bag * N;
+// An f32 pair of row rl, columns c and c + 1, into a warpgroup's staging
+// tiles as hi = rnd(v) and lo = rnd(v - hi) (v - hi is exact in f32).
+__device__ __forceinline__ void stage_split(uint8_t* hi, uint8_t* lo, int rl, int c,
+                                            const float (&v)[2]) {
+  const float h0 = rnd<bf16>(v[0]), h1 = rnd<bf16>(v[1]);
+  wg::stage_pair(hi, rl, c, h0, h1);
+  wg::stage_pair(lo, rl, c, v[0] - h0, v[1] - h1);
+}
 
-  // cross-tile sum over the whole bag: c = sum_r p_r dp_r
-  float part = 0.f;
-  for (int r = threadIdx.x; r < N; r += tc::THREADS) part += pb[r] * dpb[r];
-  const float csum = block_sum(part, red);
-  float dbc_part = 0.f;
-  if (threadIdx.x < BM) {
-    const int row = r0 + threadIdx.x;
-    float ds = 0.f;
-    if (row < N) {
-      ds = pb[row] * (dpb[row] - csum);
-      if (!mask[(size_t)bag * N + row]) ds = 0.f;
-      ds += gs[(size_t)bag * N + row];  // a masked row keeps the score's own cotangent
-    }
-    Ds[threadIdx.x] = ds;
-    dbc_part = ds;
+// Backward pass 3: the gate backward of each 128-row tile from x and the
+// rows' ds, in f32: dza and dzb into the scratch's two planes (staged in
+// four 64-column boxes a warpgroup, stored by TMA: hi at columns c0 and c1
+// of bag `bag`, lo of bag B + bag), and the block's partials of dwc, dba
+// and dbb, added to the outputs once at the end. Each consumer warp keeps
+// its own partials in shared memory and adds to them without atomics (a
+// shared-memory f32 atomic is a compare-and-swap loop, and eight warps
+// would contend for each column).
+__global__ void __launch_bounds__(wg::THREADS, 1)
+pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap wa_map,
+                  const __grid_constant__ CUtensorMap wb_map,
+                  const __grid_constant__ CUtensorMap z_st, const float* __restrict__ ba,
+                  const float* __restrict__ bb, const float* __restrict__ wc, GateDropout dp,
+                  int gated, const float* __restrict__ ds, float* __restrict__ dwc,
+                  float* __restrict__ dba, float* __restrict__ dbb, int stages, int B, int N,
+                  int F, int D) {
+  extern __shared__ uint8_t smem_raw[];
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 4 * wg::OUT_TILE, false);
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER)
+      produce_gates(pipe, &x_map, &wa_map, &wb_map, gated, B, N, F, D);
+    else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
+      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
+    return;
   }
-  for (int c = threadIdx.x; c < D; c += tc::THREADS) Wcs[c] = Sa[c] = Sb[c] = 0.f;
-  const float dbc_blk = block_sum(dbc_part, red);  // also orders the smem writes above
-  if (threadIdx.x == 0) atomicAdd(dbc, dbc_blk);
-
-  const uint32_t key_a = murcl::bag_key(dp.seed, bag, 1), key_b = murcl::bag_key(dp.seed, bag, 2);
-  tc::Acc acc;
-  const int step = gated ? tc::BN / 2 : tc::BN;
-  for (int n0 = 0; n0 < D; n0 += step) {
-    b.n0 = n0;
-    const tc::BSrc next{n0 + step < D ? wa : nullptr, gated ? wb : nullptr, D, n0 + step};
-    tc::mma_pass(Xs, nullptr, F + PAD, F, b, next, ring, acc);
+  wg::consumer_regs();
+  // ba, bb, wc (D each), then per consumer warp its partials of dwc, dba
+  // and dbb (3 D)
+  float* bas = reinterpret_cast<float*>(pipe.extra);
+  const float *bbs = bas + D, *wcs = bas + 2 * D;
+  float* parts = bas + 3 * D;
+  const int tid = threadIdx.x, lane = tid & 31, w = wg::wg_index();
+  float* part = parts + (tid >> 5) * 3 * D;       // this warp's
+  uint8_t* lo_out = pipe.out + 2 * wg::OUT_TILE;  // this warpgroup's lo staging
+  gate_params(bas, ba, bb, wc, gated, D);
+  for (int c = tid; c < 8 * 3 * D; c += wg::CONSUMERS) parts[c] = 0.f;
+  wg::sync_consumers();
+  const int tiles = (N + BM - 1) / BM, step = gated ? 64 : BN;
+  float acc[64];
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    float ds_t[2];  // this thread's two rows; dead rows 0, so their dz are 0
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (gated && j >= 2) continue;
-      const int col = tc::gate_col(gated, n0, j, 0);  // the thread's columns: col, col + 1
-      float wsum[2] = {}, asum[2] = {}, bsum[2] = {};
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + wg::frag_row(hh);
+      ds_t[hh] = r < N ? ds[(size_t)bag * N + r] : 0.f;
+    }
+    for (int n0 = 0; n0 < D; n0 += step) {
+      wg::mainloop<0, 1>(pipe, F / BK, 0, TILE_A, acc, wg::NoPre{});
+      const uint2 kb = dp.on ? wg::take_bits(pipe) : make_uint2(0u, 0u);
+      wg::stage_begin();
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int j = 0; j < 16; ++j) {
+        if (gated && j >= 8) continue;
+        const int c = wg::frag_col(j), col = n0 + c;  // the thread's columns: col, col + 1
+        float sums[3][2] = {};                        // u ds, dza, dzb per column
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int r = wm * 32 + tc::frag_row(mi, 2 * hh);
-          const float ds = Ds[r];  // 0 past N
           float dza[2], dzb[2];
 #pragma unroll
           for (int eb = 0; eb < 2; ++eb) {
-            const int e = 2 * hh + eb, c = col + eb;
-            const Gates t = gates_f32(acc[mi][j][e] + ba[c],
-                                      gated ? acc[mi][(j + 2) & 3][e] + bb[c] : 0.f, gated, dp,
-                                      key_a, key_b, (uint32_t)(r0 + r) * D + c);
-            wsum[eb] = fmaf(t.u, ds, wsum[eb]);
-            const float du = ds * wc[c];
-            dza[eb] = (gated ? du * (t.g * t.kb) : du) * t.ka * (1.f - t.a * t.a);
-            dzb[eb] = gated ? du * (t.a * t.ka) * t.kb * t.g * (1.f - t.g) : 0.f;
-            asum[eb] += dza[eb];
-            bsum[eb] += dzb[eb];
+            const int e = 4 * j + 2 * hh + eb, cc = col + eb;
+            const Gates g = gates_f32(acc[e] + bas[cc], gated ? acc[e + 32] + bbs[cc] : 0.f,
+                                      gated, dp.on, wg::bit(kb, e), wg::bit(kb, e + 32 * gated),
+                                      dp.scale);
+            const float du = ds_t[hh] * wcs[cc];
+            dza[eb] = (gated ? du * (g.g * g.kb) : du) * g.ka * (1.f - g.a * g.a);
+            dzb[eb] = gated ? du * (g.a * g.ka) * g.kb * g.g * (1.f - g.g) : 0.f;
+            sums[0][eb] = fmaf(g.u, ds_t[hh], sums[0][eb]);
+            sums[1][eb] += dza[eb];
+            sums[2][eb] += dzb[eb];
           }
-          if (r0 + r >= N) continue;
-          const size_t at = ((size_t)bag * N + r0 + r) * D + col;
-          st_split(dza_out + at, lo, dza);
-          if (gated) st_split(dzb_out + at, lo, dzb);
+          // gated: box 0 holds dza's 64 columns, box 1 dzb's
+          const int rl = wg::frag_row(hh) - 64 * w;
+          stage_split(pipe.out, lo_out, rl, c, dza);
+          if (gated) stage_split(pipe.out, lo_out, rl, c + 64, dzb);
         }
-#pragma unroll
-      for (int eb = 0; eb < 2; ++eb) {  // over the lanes that share a column: lane % 4 equal
-        float v[3] = {wsum[eb], asum[eb], bsum[eb]};
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          v[k] += __shfl_xor_sync(murcl::kFull, v[k], 4);
-          v[k] += __shfl_xor_sync(murcl::kFull, v[k], 8);
-          v[k] += __shfl_xor_sync(murcl::kFull, v[k], 16);
+          if (k == 2 && !gated) break;  // no dzb
+#pragma unroll
+          for (int eb = 0; eb < 2; ++eb) {  // over the lanes that share a column: lane % 4
+            float v = sums[k][eb];
+            v += __shfl_xor_sync(murcl::kFull, v, 4);
+            v += __shfl_xor_sync(murcl::kFull, v, 8);
+            v += __shfl_xor_sync(murcl::kFull, v, 16);
+            if (lane < 4) part[k * D + col + eb] += v;  // lanes 0-3: distinct columns
+          }
         }
-        if (lane < 4) {
-          atomicAdd(&Wcs[col + eb], v[0]);
-          atomicAdd(&Sa[col + eb], v[1]);
-          if (gated) atomicAdd(&Sb[col + eb], v[2]);
-        }
+      }
+      wg::fence_async();
+      wg::sync_wg();
+      if ((tid & 127) == 0) {
+        const int c1 = gated ? D + n0 : n0 + 64, r = r0 + 64 * w;
+        wg::tma_store_3d(&z_st, pipe.out, n0, r, bag);
+        wg::tma_store_3d(&z_st, pipe.out + wg::BOX, c1, r, bag);
+        wg::tma_store_3d(&z_st, lo_out, n0, r, B + bag);
+        wg::tma_store_3d(&z_st, lo_out + wg::BOX, c1, r, B + bag);
+        wg::store_commit();
       }
     }
   }
+  wg::stage_drain();
+  wg::sync_consumers();
+  for (int c = tid; c < 3 * D; c += wg::CONSUMERS) {
+    if (c >= 2 * D && !gated) break;
+    float v = 0.f;
+    for (int wp = 0; wp < 8; ++wp) v += parts[wp * 3 * D + c];
+    atomicAdd(c < D ? &dwc[c] : c < 2 * D ? &dba[c - D] : &dbb[c - 2 * D], v);
+  }
+}
+
+// Backward pass 4: dx = p gm + dza @ Wa^T + dzb @ Wb^T for each 128-row
+// tile, 128 columns of dx a pass, each product as three bf16 products
+// hi Whi + hi Wlo + lo Whi into one f32 accumulator (gate a, then gate b),
+// rounded to bf16 once and stored by TMA through a 64-column staging box per
+// warpgroup (two rounds a pass). Every operand is K-major: the scratch as
+// stored, and W's planes as stored (a row of W is a column of W^T). Two
+// layouts of a stage:
+//  * streamed: a 64-deep k-slice of the tile's hi and lo planes beside W's
+//    hi and lo slices (64 KB): each A slice feeds two products, each B
+//    slice of Whi two; the passes after a tile's first read its planes
+//    again from L2;
+//  * resident (when the tile's planes of every gate fit, at ungated D 128):
+//    the producer copies the tile's planes once into shared memory, and a
+//    stage holds W's two slices alone (32 KB); the planes are released for
+//    the next tile when the last pass's products have completed.
+__global__ void __launch_bounds__(wg::THREADS, 1)
+pool_dx_wg(const __grid_constant__ CUtensorMap z_map, const __grid_constant__ CUtensorMap wa_map,
+           const __grid_constant__ CUtensorMap wb_map, const __grid_constant__ CUtensorMap dx_st,
+           const float* __restrict__ p, const float* __restrict__ gm, int gated, int resident,
+           int stages, int B, int N, int F, int D) {
+  extern __shared__ uint8_t smem_raw[];
+  const int stage_bytes = resident ? 2 * TILE_B : 2 * TILE_A + 2 * TILE_B;
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, stage_bytes, stages, 2 * wg::BOX, false);
+  // the resident planes' barriers (landed; released by the 8 consumer
+  // warps), gm per warpgroup, then the planes from a 1024-aligned offset
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(pipe.extra);
+  uint64_t* res_empty = res_full + 1;
+  float* gms = reinterpret_cast<float*>(res_empty + 1);
+  uint8_t* res = reinterpret_cast<uint8_t*>(gms + 2 * F);
+  res += (1024 - (wg::saddr(res) & 1023)) & 1023;
+  if (threadIdx.x == 0) {
+    wg::bar_init(res_full, 1);
+    wg::bar_init(res_empty, wg::CONSUMERS / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  for (int c = threadIdx.x; c < D; c += tc::THREADS) {
-    atomicAdd(&dwc[c], Wcs[c]);
-    atomicAdd(&dba[c], Sa[c]);
-    if (gated) atomicAdd(&dbb[c], Sb[c]);
-  }
-}
-
-// One gate's scratch rows r0.. as the tile [lo | hi] (BM x (2 D + PAD)),
-// zeros past N, asynchronously; the caller commits the group. z: the bag's
-// hi plane.
-__device__ __forceinline__ void load_split(const bf16* __restrict__ z, size_t lo, int D, int r0,
-                                           int N, bf16* tile) {
-  const int cpr = D / 8;  // 16-byte chunks per row of one plane
-  for (int e = threadIdx.x; e < 2 * BM * cpr; e += tc::THREADS) {
-    const int hi = e / (BM * cpr), rem = e % (BM * cpr);
-    const int r = rem / cpr, c = (rem % cpr) * 8;
-    const bool ok = r0 + r < N;
-    tc::cp16(tile + r * (2 * D + PAD) + hi * D + c,
-             z + (hi ? 0 : lo) + (size_t)(ok ? r0 + r : 0) * D + c, ok);
-  }
-}
-
-// Backward pass 3: dx = p gm + dza @ Wa^T + dzb @ Wb^T for one 64-row tile
-// and 128 columns of dx (blockIdx.x = tile * F / 128 + column slice), each
-// product as [lo | hi] @ [Whi; Wlo] + hi @ Whi into one accumulator; rounded
-// to bf16 once.
-__global__ void __launch_bounds__(tc::THREADS, 2)
-pool_dx_tc(const bf16* __restrict__ waT, const bf16* __restrict__ wbT, int gated,
-           const float* __restrict__ p, const float* __restrict__ gm,
-           const bf16* __restrict__ dza, const bf16* __restrict__ dzb, size_t lo,
-           bf16* __restrict__ dx_out, int N, int F, int D) {
-  extern __shared__ uint4 tc_smem[];
-  const int ldz = 2 * D + PAD, slices = F / tc::BN;
-  bf16* Zs = reinterpret_cast<bf16*>(tc_smem);
-  tc::Ring ring{Zs + BM * ldz, 0, true};
-  float* Ps = reinterpret_cast<float*>(tc::ring_end(ring));  // BM: p per row
-  const int bag = blockIdx.y, r0 = (blockIdx.x / slices) * BM;
-  const int n0 = (blockIdx.x % slices) * tc::BN, wm = tc::warp_m(), wn = tc::warp_n();
-  const size_t z0 = (size_t)bag * N * D;
-
-  const tc::BSrc ba{waT, nullptr, F, n0}, bb{gated ? wbT : nullptr, nullptr, F, n0};
-  tc::load_b(ba, 0, ring.buf);
-  load_split(dza + z0, lo, D, r0, N, Zs);
-  tc::cp_commit();
-  if (threadIdx.x < BM)
-    Ps[threadIdx.x] = r0 + threadIdx.x < N ? p[(size_t)bag * N + r0 + threadIdx.x] : 0.f;
-
-  tc::Acc acc;
-  tc::mma_pass(Zs, nullptr, ldz, 2 * D, ba, ba, ring, acc);             // lo Whi + hi Wlo
-  tc::mma_pass<false, true>(Zs + D, nullptr, ldz, D, ba, bb, ring, acc);  // + hi Whi
-  if (gated) {
-    __syncthreads();  // every warp is done with dza's tile
-    load_split(dzb + z0, lo, D, r0, N, Zs);
-    tc::cp_commit();
-    tc::mma_pass<false, true>(Zs, nullptr, ldz, 2 * D, bb, bb, ring, acc);
-    tc::mma_pass<false, true>(Zs + D, nullptr, ldz, D, bb, tc::BSrc{nullptr, nullptr, F, 0},
-                              ring, acc);
-  }
-  const float* gmb = gm + (size_t)bag * F;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = wm * 32 + tc::frag_row(mi, 2 * hh);
-        if (r0 + r >= N) continue;
-        const int col = n0 + wn * 32 + tc::frag_col(j, 0);
-        tc::st2(dx_out + ((size_t)bag * N + r0 + r) * F + col,
-                Ps[r] * gmb[col] + acc[mi][j][2 * hh],
-                Ps[r] * gmb[col + 1] + acc[mi][j][2 * hh + 1]);
+  const int tiles = (N + BM - 1) / BM, nk = D / BK, gates = gated ? 2 : 1;
+  // slice (g, plane, k) of the resident planes
+  auto res_at = [&](int g, int pl, int k) { return res + ((g * 2 + pl) * nk + k) * TILE_A; };
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x != wg::PRODUCER) return;
+    for (int t = blockIdx.x, ord = 0; t < tiles * B; t += gridDim.x, ++ord) {
+      const int bag = t / tiles, r0 = (t % tiles) * BM;
+      if (resident) {
+        wg::bar_wait(res_empty, (ord & 1) ^ 1);
+        wg::bar_expect(res_full, (uint32_t)(gates * 2 * nk * TILE_A));
+        for (int g = 0; g < gates; ++g)
+          for (int pl = 0; pl < 2; ++pl)
+            for (int k = 0; k < nk; ++k)
+              wg::tma_load_3d(res_at(g, pl, k), &z_map, res_full, g * D + k * BK, r0,
+                              pl * B + bag);
       }
+      for (int n0 = 0; n0 < F; n0 += BN)
+        for (int g = 0; g < gates; ++g)
+          for (int k = 0; k < nk; ++k) {
+            uint64_t* bar;
+            uint8_t* st = wg::produce(pipe, bar);
+            if (!resident) {
+              wg::tma_load_3d(st, &z_map, bar, g * D + k * BK, r0, bag);
+              wg::tma_load_3d(st + TILE_A, &z_map, bar, g * D + k * BK, r0, B + bag);
+              st += 2 * TILE_A;
+            }
+            const CUtensorMap* wm = g ? &wb_map : &wa_map;
+            wg::tma_load_2d(st, wm, bar, k * BK, n0);
+            wg::tma_load_2d(st + TILE_B, wm, bar, k * BK, F + n0);
+          }
+    }
+    return;
+  }
+  wg::consumer_regs();
+  const int w = wg::wg_index(), lane = threadIdx.x & 31;
+  pipe.out = pipe.base + stages * stage_bytes + w * wg::BOX;  // one box a warpgroup
+  float* gmw = gms + w * F;
+  float acc[64];
+  for (int t = blockIdx.x, ord = 0; t < tiles * B; t += gridDim.x, ++ord) {
+    const int bag = t / tiles, r0 = (t % tiles) * BM;
+    wg::sync_wg();
+    to_shared(gmw, gm + (size_t)bag * F, F, false, threadIdx.x & 127, 128);
+    wg::sync_wg();
+    float pr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + wg::frag_row(hh);
+      pr[hh] = r < N ? p[(size_t)bag * N + r] : 0.f;
+    }
+    if (resident) wg::bar_wait(res_full, ord & 1);
+    for (int n0 = 0; n0 < F; n0 += BN) {
+      for (int i = 0; i < gates * nk; ++i) {
+        const int g = i / nk, k = i % nk, s = pipe.it % stages;
+        wg::bar_wait(&pipe.full[s], (pipe.it / stages) & 1);
+        const uint8_t* st = pipe.base + s * stage_bytes;
+        const uint8_t* ahi = resident ? res_at(g, 0, k) : st;
+        const uint8_t* alo = resident ? res_at(g, 1, k) : st + TILE_A;
+        const uint8_t* bhi = resident ? st : st + 2 * TILE_A;
+        const uint64_t dah = wg::operand<0>(ahi + w * wg::HALF_A);
+        const uint64_t dal = wg::operand<0>(alo + w * wg::HALF_A);
+        const uint64_t dbh = wg::operand<0>(bhi), dbl = wg::operand<0>(bhi + TILE_B);
+        wg::wgmma_fence();
+        wg::fence_acc(acc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t ks = wg::kstep<0>(kk);
+          wg::mma<0, 0>(acc, dah + ks, dbh + ks, (i | kk) != 0);
+          wg::mma<0, 0>(acc, dah + ks, dbl + ks, 1);
+          wg::mma<0, 0>(acc, dal + ks, dbh + ks, 1);
+        }
+        wg::wgmma_commit();
+        wg::fence_acc(acc);
+        if (i > 0) {
+          wg::wgmma_wait<1>();
+          wg::release(pipe, pipe.it - 1);
+        }
+        ++pipe.it;
+      }
+      wg::wgmma_wait<0>();
+      wg::fence_acc(acc);
+      wg::release(pipe, pipe.it - 1);
+      if (resident && n0 + BN >= F) {  // the tile's last products have read its planes
+        __syncwarp();
+        if (lane == 0) wg::bar_arrive(res_empty);
+      }
+#pragma unroll
+      for (int box = 0; box < 2; ++box) {
+        wg::stage_begin();
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int rl = wg::frag_row(hh) - 64 * w;
+#pragma unroll
+          for (int j = 8 * box; j < 8 * box + 8; ++j) {
+            const int c = wg::frag_col(j), col = n0 + c, e = 4 * j + 2 * hh;
+            wg::stage_pair(pipe.out, rl, c - 64 * box, fmaf(pr[hh], gmw[col], acc[e]),
+                           fmaf(pr[hh], gmw[col + 1], acc[e + 1]));
+          }
+        }
+        wg::stage_end(pipe, &dx_st, n0 + 64 * box, -1, r0 + 64 * w, bag);
+      }
+    }
+  }
+  wg::stage_drain();
 }
 
-int fwd_tc(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
+// Launch plans (ops/attention.py pool_plans mirrors them): the gate kernels'
+// stages of a 128-row x slice and a B slice, beside their f32 arrays (ba,
+// bb, wc; the backward also each consumer warp's three partials) and,
+// backward, the hi and lo staging of two warpgroups (at least 2 stages); pool_dx_wg resident where the tile's planes fit
+// beside at least 3 stages, else streamed, with at least 2 stages.
+Plan fwd_plan(int D) { return plan(TILE_A + TILE_B, 0, sizeof(float) * 3 * D); }
+Plan bwd_plan(int D) {  // 3-4 stages at D <= 512, 2 beyond
+  return plan(TILE_A + TILE_B, 4 * wg::OUT_TILE, sizeof(float) * (3 + 8 * 3) * D, 2);
+}
+struct DxPlan {
+  Plan plan;
+  int resident;
+};
+DxPlan dx_plan(int F, int D, int gated) {
+  const size_t arrays = 2 * sizeof(uint64_t) + sizeof(float) * 2 * F;
+  const size_t planes = (size_t)(gated ? 2 : 1) * 2 * (D / BK) * TILE_A;
+  const Plan r = plan(2 * TILE_B, 2 * wg::BOX, arrays + 1024 + planes);
+  if (r.smem <= wg::SMEM_LIMIT) return {r, 1};
+  return {plan(2 * TILE_A + 2 * TILE_B, 2 * wg::BOX, arrays, 2), 0};
+}
+
+int fwd_wg(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
            const void* wc, const void* bc, const void* mask, GateDropout dp, int gated, void* m,
            void* p, void* s, int B, int N, int F, int D, cudaStream_t stream) {
-  const size_t smem = tc_gates_smem(F, D);
-  MURCL_TRY(allow_smem(pool_gates_fwd_tc, smem));
-  pool_gates_fwd_tc<<<dim3((N + BM - 1) / BM, B), tc::THREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)wa, (const float*)ba, (const bf16*)wb, (const float*)bb,
-      (const float*)wc, (const float*)bc, dp, gated, (float*)s, N, F, D);
+  const unsigned grid = persistent_grid((long long)((N + BM - 1) / BM) * B);
+  CUtensorMap xm, wam, wbm;
+  MURCL_TRY((cudaError_t)wg::map3(&xm, x, F, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, F, BK));
+  MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, F, BK));
+  const Plan pl = fwd_plan(D);
+  MURCL_TRY(allow_smem(pool_gates_fwd_wg, pl.smem));
+  pool_gates_fwd_wg<<<grid, wg::THREADS, pl.smem, stream>>>(
+      xm, wam, wbm, (const float*)ba, (const float*)bb, (const float*)wc, (const float*)bc, dp,
+      gated, (float*)s, pl.stages, B, N, F, D);
   MURCL_TRY(cudaGetLastError());
   return pool<bf16>((const float*)s, (const uint8_t*)mask, (const bf16*)x, (float*)m, (float*)p,
                     B, N, F, stream);
 }
 
-int bwd_tc(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
-           const void* wc, const void* waT, const void* wbT, const void* mask, GateDropout dp,
+// dpv: (2, B, N) f32 scratch, dp then ds; z: the dz scratch (2, B, N, Wg);
+// wa2, wb2: W's planes (2 F, D).
+int bwd_wg(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
+           const void* wc, const void* wa2, const void* wb2, const void* mask, GateDropout dp,
            int gated, const void* p, const void* gm, const void* gp, const void* gs, void* dpv,
-           void* dza, void* dzb, void* dx, void* dwa, void* dba, void* dwb, void* dbb, void* dwc,
-           void* dbc, int B, int N, int F, int D, cudaStream_t stream) {
-  MURCL_TRY(launch_dp<bf16>(x, gm, gp, dpv, B, N, F, stream));
-  const int tiles = (N + BM - 1) / BM;
-  const size_t lo = (size_t)B * N * D;
-  const size_t smem2 = tc_gates_smem(F, D);
-  MURCL_TRY(allow_smem(pool_gates_bwd_tc, smem2));
-  pool_gates_bwd_tc<<<dim3(tiles, B), tc::THREADS, smem2, stream>>>(
-      (const bf16*)x, (const bf16*)wa, (const float*)ba, (const bf16*)wb, (const float*)bb,
-      (const float*)wc, (const uint8_t*)mask, dp, gated, (const float*)p, (const float*)gs,
-      (const float*)dpv, (bf16*)dza, (bf16*)dzb, lo, (float*)dba, (float*)dbb, (float*)dwc,
-      (float*)dbc, N, F, D);
+           void* z, void* dx, void* dwa, void* dba, void* dwb, void* dbb, void* dwc, void* dbc,
+           int B, int N, int F, int D, cudaStream_t stream) {
+  float* dpp = (float*)dpv;
+  float* ds = dpp + (size_t)B * N;
+  MURCL_TRY(launch_dp<bf16>(x, gm, nullptr, dpp, B, N, F, stream));
+  softmax_bwd_kernel<<<B, THREADS, 0, stream>>>(dpp, 1, (const float*)p, (const float*)gp,
+                                                (const float*)gs, (const uint8_t*)mask, ds,
+                                                (float*)dbc, B, N);
   MURCL_TRY(cudaGetLastError());
 
-  const size_t smem3 = tc_dx_smem(D);
-  MURCL_TRY(allow_smem(pool_dx_tc, smem3));
-  pool_dx_tc<<<dim3(tiles * (F / tc::BN), B), tc::THREADS, smem3, stream>>>(
-      (const bf16*)waT, (const bf16*)wbT, gated, (const float*)p, (const float*)gm,
-      (const bf16*)dza, (const bf16*)dzb, lo, (bf16*)dx, N, F, D);
+  const unsigned grid = persistent_grid((long long)((N + BM - 1) / BM) * B);
+  const int wz = gated ? 2 * D : D;
+  CUtensorMap xm, wam, wbm, zst, zm, wak, wbk, dxst;
+  MURCL_TRY((cudaError_t)wg::map3(&xm, x, F, N, B, BM));
+  MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, F, BK));
+  MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, F, BK));
+  MURCL_TRY((cudaError_t)wg::map3(&zst, z, wz, N, 2 * B, 64));
+  MURCL_TRY((cudaError_t)wg::map3(&zm, z, wz, N, 2 * B, BM));
+  MURCL_TRY((cudaError_t)wg::map2(&wak, wa2, D, 2 * F, BN));
+  MURCL_TRY((cudaError_t)wg::map2(&wbk, wb2, D, 2 * F, BN));
+  MURCL_TRY((cudaError_t)wg::map3(&dxst, dx, F, N, B, 64));
+
+  const Plan p3 = bwd_plan(D);
+  MURCL_TRY(allow_smem(pool_gates_bwd_wg, p3.smem));
+  pool_gates_bwd_wg<<<grid, wg::THREADS, p3.smem, stream>>>(
+      xm, wam, wbm, zst, (const float*)ba, (const float*)bb, (const float*)wc, dp, gated, ds,
+      (float*)dwc, (float*)dba, (float*)dbb, p3.stages, B, N, F, D);
   MURCL_TRY(cudaGetLastError());
 
-  const long long R = (long long)B * N;
-  const int err = tc::wgrad(x, F, dza, D, R, (float*)dwa, nullptr, stream);
-  if (err || !gated) return err;
-  return tc::wgrad(x, F, dzb, D, R, (float*)dwb, nullptr, stream);
+  const DxPlan p4 = dx_plan(F, D, gated);
+  MURCL_TRY(allow_smem(pool_dx_wg, p4.plan.smem));
+  pool_dx_wg<<<grid, wg::THREADS, p4.plan.smem, stream>>>(zm, wak, wbk, dxst, (const float*)p,
+                                                          (const float*)gm, gated, p4.resident,
+                                                          p4.plan.stages, B, N, F, D);
+  MURCL_TRY(cudaGetLastError());
+
+  return wgrad_wg_launch(x, F, z, wz, (long long)B * N, (float*)dwa, (float*)dwb, D, D, nullptr,
+                         nullptr, stream);
 }
 
 // The backward's outputs are sums: zero them before any pass adds to them.
@@ -650,14 +820,15 @@ MURCL_API int murcl_attention_pool_fwd(int is_bf16, int gated, const void* x, co
   const GateDropout dp{use_dropout, seed, thresh, scale};
   auto strm = (cudaStream_t)stream;
   if (is_bf16)
-    return fwd_tc(x, wa, ba, wb, bb, wc, bc, mask, dp, gated, m, p, s, B, N, F, D, strm);
+    return fwd_wg(x, wa, ba, wb, bb, wc, bc, mask, dp, gated, m, p, s, B, N, F, D, strm);
   if (gated) return fwd_impl<true>(x, wa, ba, wb, bb, wc, bc, mask, dp, m, p, s, B, N, F, D, strm);
   return fwd_impl<false>(x, wa, ba, wb, bb, wc, bc, mask, dp, m, p, s, B, N, F, D, strm);
 }
 
-// In bf16, dza and dzb (dzb may be null when ungated) hold 2 B N D elements
-// (the hi plane, then the lo plane), and waT, wbT are W^T's bf16 hi plane
-// (D x F) followed by its lo plane; in f32 they are B N D elements and W^T.
+// In bf16, dpv holds 2 B N floats (dp, then ds), dza is the dz scratch (see
+// bwd_wg: 2 B N Wg elements) and dzb is unread, and waT, wbT are W's bf16
+// planes (2 F x D: rnd(W), then rnd(W - rnd(W))); in f32 dpv holds B N
+// floats, dza and dzb (null when ungated) B N D each, and waT, wbT are W^T.
 MURCL_API int murcl_attention_pool_bwd(
     int is_bf16, int gated, const void* x, const void* wa, const void* ba, const void* wb,
     const void* bb, const void* wc, const void* waT, const void* wbT, const void* mask,
@@ -670,8 +841,8 @@ MURCL_API int murcl_attention_pool_bwd(
   const int err = zero_grads(dwa, dba, dwb, dbb, dwc, dbc, F, D, strm);
   if (err) return err;
   if (is_bf16)
-    return bwd_tc(x, wa, ba, wb, bb, wc, waT, wbT, mask, dp, gated, p, gm, gp, gs, dpv, dza, dzb,
-                  dx, dwa, dba, dwb, dbb, dwc, dbc, B, N, F, D, strm);
+    return bwd_wg(x, wa, ba, wb, bb, wc, waT, wbT, mask, dp, gated, p, gm, gp, gs, dpv, dza, dx,
+                  dwa, dba, dwb, dbb, dwc, dbc, B, N, F, D, strm);
 #define MURCL_POOL_BWD(G)                                                                     \
   bwd_impl<G>(x, wa, ba, wb, bb, wc, waT, wbT, mask, dp, p, gm, gp, gs, dpv, dza, dzb, dx, dwa, \
               dba, dwb, dbb, dwc, dbc, B, N, F, D, strm)

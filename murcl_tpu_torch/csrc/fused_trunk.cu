@@ -431,35 +431,6 @@ using wg::BN;
 using wg::TILE_A;
 using wg::TILE_B;
 
-// A kernel's launch plan: ring stages (as many as fit beside the output
-// staging and its arrays, at least 3) and shared-memory bytes.
-struct Plan {
-  int stages;
-  size_t smem;
-};
-Plan plan(int stage_bytes, bool staging, size_t extra) {
-  const int out = staging ? 2 * wg::OUT_TILE : 0;
-  const int stages = wg::plan_stages(stage_bytes, out, extra);
-  // fewer than 3 stages: a size no block may take, so that the launch fails
-  return {stages,
-          stages >= 3 ? wg::smem_bytes(stage_bytes, stages, out, extra) : wg::SMEM_LIMIT + 1};
-}
-
-// Persistent grids: one block of 384 threads per SM (a block takes most of
-// an SM's shared memory and registers).
-int sm_count() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
-}
-unsigned persistent_grid(long long tiles) {
-  return (unsigned)(tiles < sm_count() ? tiles : sm_count());
-}
-
 // The gates at one element, rounded to bf16 where gates_bwd_kernel<bf16>
 // rounds them: a = tanh(za), g = sigmoid(zb) (gated only), their keep
 // scales ka, kb (from the keep bits, `scale` the bf16 keep scale), the kept
@@ -485,27 +456,6 @@ __device__ __forceinline__ Gates gates_at(float za, float zb, int gated, bool dr
     t.u = rnd<bf16>(__fmul_rn(t.a_eff, t.g_eff));
   }
   return t;
-}
-
-// The helper warps' keep bits of every pass of a kernel's tiles, in the
-// consumers' order: passes of `step` columns over `width` (the hash
-// stream's row width), stream `stream` (and, gated gates, streams 1 and 2).
-__device__ __forceinline__ void bits_passes(wg::Pipe& pipe, const Dropout& dp, int stream,
-                                            bool two, int step, int width, int B, int N) {
-  const int tiles = (N + BM - 1) / BM, ht = threadIdx.x - wg::PRODUCER - 32;
-  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
-    const int bag = t / tiles, r0 = (t % tiles) * BM;
-    const uint32_t k0 = murcl::bag_key(dp.seed, bag, stream), k1 = murcl::bag_key(dp.seed, bag, 2);
-    for (int n0 = 0; n0 < width; n0 += step)
-      wg::make_bits(pipe, k0, k1, two, width, r0, n0, dp.thresh, ht);
-  }
-}
-
-// Copies `n` floats of src into shared memory (rounded to bf16 when
-// `round`), by `threads` threads numbered from `tid`.
-__device__ __forceinline__ void to_shared(float* dst, const float* __restrict__ src, int n,
-                                          bool round, int tid, int threads) {
-  for (int i = tid; i < n; i += threads) dst[i] = round ? rnd<bf16>(src[i]) : src[i];
 }
 
 // Mix and trunk of 128-row tiles, 128 columns of xc a pass: xc = drop(relu(Hs
@@ -652,58 +602,6 @@ trunk_wg(const __grid_constant__ CUtensorMap h_map, const __grid_constant__ CUte
   wg::stage_drain();
 }
 
-// The softmax backward over one bag per block: dp_r = sum of the trunk's
-// partials (in pass order) + gp_r, c = sum_r p_r dp_r, ds_r = p_r (dp_r - c)
-// on live rows, plus gs_r; dbc += sum_r ds_r.
-__global__ void __launch_bounds__(THREADS)
-softmax_bwd_kernel(const float* __restrict__ dpp, int passes, const float* __restrict__ p,
-                   const float* __restrict__ gp, const float* __restrict__ gs,
-                   const uint8_t* __restrict__ mask, float* __restrict__ ds,
-                   float* __restrict__ dbc, int B, int N) {
-  __shared__ float red[32];
-  const size_t base = (size_t)blockIdx.x * N;
-  auto dp_at = [&](int r) {
-    float v = 0.f;
-    for (int c = 0; c < passes; ++c) v += dpp[(size_t)c * B * N + base + r];
-    return v + gp[base + r];
-  };
-  float part = 0.f;
-  for (int r = threadIdx.x; r < N; r += THREADS) part += p[base + r] * dp_at(r);
-  const float csum = block_sum(part, red);
-  float dsum = 0.f;
-  for (int r = threadIdx.x; r < N; r += THREADS) {
-    float d = mask[base + r] ? p[base + r] * (dp_at(r) - csum) : 0.f;
-    d += gs[base + r];
-    ds[base + r] = d;
-    dsum += d;
-  }
-  dsum = block_sum(dsum, red);
-  if (threadIdx.x == 0) atomicAdd(dbc, dsum);
-}
-
-// The gate passes of each 128-row tile over xc: gated, 64 columns of Wa and
-// the same 64 of Wb per pass (accumulator j and j + 8 hold a and g of one
-// element); ungated, 128 columns of Wa.
-__device__ __forceinline__ void produce_gates(wg::Pipe& pipe, const CUtensorMap* xc_map,
-                                              const CUtensorMap* wa_map,
-                                              const CUtensorMap* wb_map, int gated, int B,
-                                              int N, int L1, int D) {
-  const int tiles = (N + BM - 1) / BM, step = gated ? 64 : BN;
-  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
-    const int bag = t / tiles, r0 = (t % tiles) * BM;
-    for (int n0 = 0; n0 < D; n0 += step)
-      for (int k = 0; k < L1 / BK; ++k) {
-        uint64_t* bar;
-        uint8_t* st = wg::produce(pipe, bar);
-        wg::tma_load_3d(st, xc_map, bar, k * BK, r0, bag);
-        if (gated)
-          wg::load_b_mn(st + TILE_A, wa_map, n0, wb_map, n0, k * BK, bar);
-        else
-          wg::load_b_mn(st + TILE_A, wa_map, n0, wa_map, n0 + 64, k * BK, bar);
-      }
-  }
-}
-
 // The gate parameters of a block in shared memory: ba, bb and wc (bf16
 // values) as f32, D each.
 __device__ __forceinline__ void gate_params(float* ps, const float* __restrict__ ba,
@@ -730,7 +628,7 @@ gates_fwd_wg(const __grid_constant__ CUtensorMap xc_map, const __grid_constant__
     if (threadIdx.x == wg::PRODUCER)
       produce_gates(pipe, &xc_map, &wa_map, &wb_map, gated, B, N, L1, D);
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
-      bits_passes(pipe, dp, 1, gated, gated ? 64 : BN, D, B, N);
+      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
     return;
   }
   wg::consumer_regs();
@@ -792,7 +690,7 @@ gates_bwd_wg(const __grid_constant__ CUtensorMap xc_map, const __grid_constant__
     if (threadIdx.x == wg::PRODUCER)
       produce_gates(pipe, &xc_map, &wa_map, &wb_map, gated, B, N, L1, D);
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
-      bits_passes(pipe, dp, 1, gated, gated ? 64 : BN, D, B, N);
+      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
     return;
   }
   wg::consumer_regs();
@@ -895,7 +793,7 @@ dx_wg(const __grid_constant__ CUtensorMap dz_ab_map, const __grid_constant__ CUt
             }
       }
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
-      bits_passes(pipe, dp, 0, false, BN, L1, B, N);
+      bits_passes(pipe, dp.seed, dp.thresh, 0, false, BN, L1, B, N);
     return;
   }
   wg::consumer_regs();
@@ -1005,87 +903,6 @@ dh_wg(const __grid_constant__ CUtensorMap dz_map, const __grid_constant__ CUtens
   wg::stage_drain();
 }
 
-// Weight gradients: dW[M x Nc] += X^T @ Y over this block's split of the R
-// rows (X (R, M), Y (R, Nc) bf16 row-major, both read MN-major as stored),
-// on 128 x 128 output tiles; the columns of Y below `split` go to out0, the
-// rest to out1 (row stride ldo). Blocks of the first M tile also add Y's
-// column sums into db0 / db1 (db0 null: none).
-__global__ void __launch_bounds__(wg::THREADS, 1)
-wgrad_wg(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
-         float* __restrict__ out0, float* __restrict__ out1, int split, int ldo,
-         float* __restrict__ db0, float* __restrict__ db1, long long R, long long per, int M,
-         int stages) {
-  extern __shared__ uint8_t smem_raw[];
-  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 0, false);
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const long long rbeg = blockIdx.z * per, rend = min(R, rbeg + per);
-  const int nk = (int)((rend - rbeg + BK - 1) / BK);
-  if (wg::is_producer()) {
-    wg::producer_regs();
-    if (threadIdx.x == wg::PRODUCER)
-      for (int k = 0; k < nk; ++k) {
-        uint64_t* bar;
-        uint8_t* st = wg::produce(pipe, bar);
-        const int r = (int)(rbeg + (long long)k * BK);
-        wg::load_b_mn(st, &x_map, m0, &x_map, m0 + 64, r, bar);
-        wg::load_b_mn(st + TILE_A, &y_map, n0, &y_map, n0 + 64, r, bar);
-      }
-    return;
-  }
-  wg::consumer_regs();
-  const int tid = threadIdx.x;
-  const bool sums = db0 != nullptr && blockIdx.y == 0 && tid < BN;
-  float colsum = 0.f;
-  float acc[64];
-  wg::mainloop<1, 1>(pipe, nk, 0, TILE_A, acc, [&](int, uint8_t* st) {
-    if (!sums) return;
-    const uint8_t* y = st + TILE_A + (tid >> 6) * wg::BOX;
-    const int cc = tid & 63;
-    for (int rr = 0; rr < BK; ++rr)
-      colsum += __bfloat162float(
-          *reinterpret_cast<const bf16*>(wg::chunk_at(y, rr, cc >> 3) + ((cc & 7) << 1)));
-  });
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int mr = m0 + wg::frag_row(hh);
-    if (mr >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int eb = 0; eb < 2; ++eb) {
-        const int c = n0 + wg::frag_col(j) + eb;
-        float* o = c < split ? out0 + (size_t)mr * ldo + c : out1 + (size_t)mr * ldo + c - split;
-        atomicAdd(o, acc[4 * j + 2 * hh + eb]);
-      }
-  }
-  if (sums) {
-    const int c = n0 + tid;
-    atomicAdd(c < split ? db0 + c : db1 + c - split, colsum);
-  }
-}
-
-// dW += X^T @ Y over all R rows, split over rows so that about two blocks
-// per SM are in flight (one fits an SM at a time); M % 64 == 0, Nc % 128 ==
-// 0.
-int wgrad_wg_launch(const void* X, int M, const void* Y, int Nc, long long R, float* out0,
-                    float* out1, int split, int ldo, float* db0, float* db1,
-                    cudaStream_t stream) {
-  CUtensorMap xm, ym;
-  MURCL_TRY((cudaError_t)wg::map2(&xm, X, M, R, BK));
-  MURCL_TRY((cudaError_t)wg::map2(&ym, Y, Nc, R, BK));
-  const int tiles = (Nc / BN) * ((M + BM - 1) / BM);
-  long long splits = max(1, 2 * sm_count() / tiles);
-  splits = min(splits, (R + BK - 1) / BK);
-  long long per = (R + splits - 1) / splits;
-  per = (per + BK - 1) / BK * BK;
-  const Plan pl = plan(TILE_A + TILE_B, false, 0);
-  MURCL_TRY(allow_smem(wgrad_wg, pl.smem));
-  const dim3 grid(Nc / BN, (M + BM - 1) / BM, (unsigned)((R + per - 1) / per));
-  wgrad_wg<<<grid, wg::THREADS, pl.smem, stream>>>(xm, ym, out0, out1, split, ldo, db0, db1, R,
-                                                   per, M, pl.stages);
-  return (int)cudaGetLastError();
-}
-
 // hm: the mixed bag's scratch (null unmixed).
 int fwd_wg(const void* h, const void* perm, const void* lam, const void* wf, const void* bf,
            const void* wa, const void* ba, const void* wb, const void* bb, const void* wc,
@@ -1102,13 +919,14 @@ int fwd_wg(const void* h, const void* perm, const void* lam, const void* wf, con
   MURCL_TRY((cudaError_t)wg::map3(&xst, xc, L1, N, B, 64));
   MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, L1, BK));
   MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, L1, BK));
-  const Plan p1 = plan(TILE_A * (mixed ? 2 : 1) + TILE_B, true, sizeof(float) * 3 * L1);
+  const Plan p1 =
+      plan(TILE_A * (mixed ? 2 : 1) + TILE_B, 2 * wg::OUT_TILE, sizeof(float) * 3 * L1);
   MURCL_TRY(allow_smem(trunk_wg, p1.smem));
   trunk_wg<<<grid, wg::THREADS, p1.smem, stream>>>(
       hmap, wfm, hml, hst, xst, (const int64_t*)perm, (const float*)lam, (const float*)bf, dp,
       nullptr, nullptr, p1.stages, B, N, Fin, L1);
   MURCL_TRY(cudaGetLastError());
-  const Plan p2 = plan(TILE_A + TILE_B, false, sizeof(float) * 3 * D);
+  const Plan p2 = plan(TILE_A + TILE_B, 0, sizeof(float) * 3 * D);
   MURCL_TRY(allow_smem(gates_fwd_wg, p2.smem));
   gates_fwd_wg<<<grid, wg::THREADS, p2.smem, stream>>>(
       xm, wam, wbm, (const float*)ba, (const float*)bb, (const bf16*)wc, (const float*)bc, dp,
@@ -1145,7 +963,8 @@ int bwd_wg(const void* h, const void* perm, const void* lam, const void* wf, con
   MURCL_TRY((cudaError_t)wg::map2(&wbk, wb, D, L1, BN));
   MURCL_TRY((cudaError_t)wg::map3(&zst, dz, L1, N, B, 64));
 
-  const Plan p1 = plan(TILE_A * (mixed ? 2 : 1) + TILE_B, true, sizeof(float) * 3 * L1);
+  const Plan p1 =
+      plan(TILE_A * (mixed ? 2 : 1) + TILE_B, 2 * wg::OUT_TILE, sizeof(float) * 3 * L1);
   MURCL_TRY(allow_smem(trunk_wg, p1.smem));
   trunk_wg<<<grid, wg::THREADS, p1.smem, stream>>>(
       hmap, wfm, hml, hst, xst, (const int64_t*)perm, (const float*)lam, (const float*)bf, dp,
@@ -1158,14 +977,14 @@ int bwd_wg(const void* h, const void* perm, const void* lam, const void* wf, con
                                                 B, N);
   MURCL_TRY(cudaGetLastError());
 
-  const Plan p2 = plan(TILE_A + TILE_B, true, sizeof(float) * 4 * D);
+  const Plan p2 = plan(TILE_A + TILE_B, 2 * wg::OUT_TILE, sizeof(float) * 4 * D);
   MURCL_TRY(allow_smem(gates_bwd_wg, p2.smem));
   gates_bwd_wg<<<grid, wg::THREADS, p2.smem, stream>>>(
       xm, wam, wbm, zabst, (const float*)ba, (const float*)bb, (const bf16*)wc, dp, gated,
       (const float*)ds, (float*)dwc, p2.stages, B, N, L1, D);
   MURCL_TRY(cudaGetLastError());
 
-  const Plan p3 = plan(TILE_A + TILE_B, true, sizeof(float) * 2 * L1);
+  const Plan p3 = plan(TILE_A + TILE_B, 2 * wg::OUT_TILE, sizeof(float) * 2 * L1);
   MURCL_TRY(allow_smem(dx_wg, p3.smem));
   dx_wg<<<grid, wg::THREADS, p3.smem, stream>>>(zabm, wak, wbk, zst, (const bf16*)xc,
                                                 (const float*)p, (const float*)gm, dp, gated,
@@ -1177,7 +996,7 @@ int bwd_wg(const void* h, const void* perm, const void* lam, const void* wf, con
     MURCL_TRY((cudaError_t)wg::map3(&zm, dz, L1, N, B, BM));
     MURCL_TRY((cudaError_t)wg::map2(&wfk, wf, L1, Fin, BN));
     MURCL_TRY((cudaError_t)wg::map3(&dhst, dh, Fin, N, B, 64));
-    const Plan p4 = plan(TILE_A + TILE_B, true, 0);
+    const Plan p4 = plan(TILE_A + TILE_B, 2 * wg::OUT_TILE, 0);
     MURCL_TRY(allow_smem(dh_wg, p4.smem));
     dh_wg<<<grid, wg::THREADS, p4.smem, stream>>>(zm, wfk, dhst, p4.stages, B, N, Fin, L1);
     MURCL_TRY(cudaGetLastError());

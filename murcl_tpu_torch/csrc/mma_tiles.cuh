@@ -1,17 +1,14 @@
-// bf16 tensor-core tiles for the bf16 instantiations of K2/K3 (fused_trunk.cu)
-// and K7 (attention_pool.cu): a 64-row x 128-column product over an A tile
-// that sits in shared memory as bf16, with B streamed in 64-deep k-slices
-// through a two-stage cp.async
-// ring (a pass may prime the next pass's first slice), and the split-K
-// weight-gradient contraction dW += X^T @ Y on the same instructions.
+// bf16 tensor-core tiles on Ampere's route, for K8's tiled_pool_tc
+// (attention_tiled.cu): a 64-row x 128-column product over an A tile that
+// sits in shared memory as bf16, with B streamed in 64-deep k-slices through
+// a two-stage cp.async ring (a pass may prime the next pass's first slice);
+// and the cp.async helpers that K4 (ntxent.cu) stages its tiles with.
 //
-// The route is mma.sync.m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix,
-// not wgmma: every product of K2/K3 is followed by an epilogue that needs
-// each accumulator's true (row, column) (the dropout hash is keyed by it,
-// the score is a row sum and dwc a column sum), and mma.sync's per-thread
-// fragment layout is fixed and documented, so the epilogues read positions
-// directly. It is the simpler route; wgmma with TMA and mbarriers, which
-// reads both operands from shared memory without ldmatrix, is the next step.
+// The route is mma.sync.m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix:
+// K8's epilogue needs each accumulator's true (row, column) (the score is a
+// row sum over the gates), and mma.sync's per-thread fragment layout is
+// fixed and documented. Hopper's route (wgmma fed by TMA through an mbarrier
+// ring, wgmma_tiles.cuh) carries K2/K3 and K7.
 //
 // Layout: 256 threads = 8 warps, 2 (rows) x 4 (columns), each warp a 32 x 32
 // accumulator tile (2 m16 x 4 n8 fragments). Shared rows are padded by 8
@@ -213,27 +210,10 @@ __device__ __forceinline__ void mma_pass(const bf16* A, const bf16* A1, int lda,
 }
 
 // ---------------------------------------------------------------------------
-// Pieces the gate kernels of K2/K3 (fused_trunk.cu) and K7 (attention_pool.cu)
-// share: a block's shared memory is its BM-row A tile, then the ring, then
-// small arrays from ring_end.
+// K8's block layout: its BM-row A tile, then the ring, then small arrays
+// from ring_end.
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ bf16* ring_end(const Ring& ring) { return ring.buf + STAGES * KS * LDB; }
-
-// The tile of rows r0.. of one bag (rows, cols) into Xs with b's first slice;
-// the ring, right after the tile, comes back primed.
-__device__ __forceinline__ Ring tile_start(const bf16* __restrict__ src, int bag, int r0, int rows,
-                                           int cols, const BSrc& b, bf16* Xs) {
-  Ring ring{Xs + BM * (cols + PAD), 0, true};
-  load_rows(src + (size_t)bag * rows * cols, cols, r0, rows, Xs);
-  load_b(b, 0, ring.buf);
-  cp_commit();
-  return ring;
-}
-
-// Two adjacent values, rounded to bf16, as one 4-byte store.
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // Row sums kept per thread (rowp[mi][hh]: row frag_row(mi, 2 hh) of the
 // warp's tile) -> the block's BM sums in red[r * 4 + warp_n]; read after a
@@ -254,134 +234,6 @@ __device__ __forceinline__ void row_partials(const float (&rowp)[2][2], float* r
 // (gated; fragments 0-1 are a, 2-3 g at the same columns) or plain.
 __device__ __forceinline__ int gate_col(int gated, int n0, int j, int e) {
   return gated ? n0 + warp_n() * 16 + frag_col(j & 1, e) : n0 + warp_n() * 32 + frag_col(j, e);
-}
-
-// ---------------------------------------------------------------------------
-// Weight gradients: dW[K1 x K2] += X[rows]^T @ Y[rows] over this block's
-// split of the R rows, on (32 MT) x 128 output tiles (MT = 4 where K1 allows
-// it: each staged row then feeds twice the products, halving the bytes per
-// product that stream through L2); blocks of the first K1 tile also add the
-// column sums of Y into db. X^T is read with ldmatrix.trans from row-major X
-// stages, so neither operand is transposed in memory.
-// ---------------------------------------------------------------------------
-constexpr int WKR = 32;     // reduction rows per stage
-constexpr int WSTAGES = 3;  // cp.async ring depth
-
-template <int MT>
-__host__ __device__ constexpr int wgrad_stage() {  // bf16 per stage: X then Y
-  return WKR * (32 * MT + PAD) + WKR * LDB;
-}
-
-template <int MT>
-__global__ void __launch_bounds__(THREADS)
-wgrad_kernel(const bf16* __restrict__ X, int K1, const bf16* __restrict__ Y, int K2, long long R,
-             long long per, float* __restrict__ dW, float* __restrict__ db) {
-  constexpr int WM = 32 * MT, LDX = WM + PAD, WSTAGE = wgrad_stage<MT>();
-  extern __shared__ uint4 tc_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
-  const int tid = threadIdx.x, lane = tid & 31, wm = warp_m(), wn = warp_n();
-  const int m0 = blockIdx.y * WM, n0 = blockIdx.x * BN;
-  const long long rbeg = blockIdx.z * per, rend = min(R, rbeg + per);
-  const int nk = rend > rbeg ? (int)((rend - rbeg + WKR - 1) / WKR) : 0;
-  const bool sums = db != nullptr && blockIdx.y == 0 && tid < BN;
-
-  auto load = [&](int kt, bf16* st) {
-    const long long r0 = rbeg + (long long)kt * WKR;
-#pragma unroll
-    for (int e = tid; e < WKR * WM / 8; e += THREADS) {  // X: 32 x WM
-      const int rr = e / (WM / 8), c = (e % (WM / 8)) * 8;
-      const bool ok = r0 + rr < rend;
-      cp16(st + rr * LDX + c, X + (ok ? r0 + rr : 0) * K1 + m0 + c, ok);
-    }
-#pragma unroll
-    for (int e = tid; e < WKR * BN / 8; e += THREADS) {  // Y: 32 x 128
-      const int rr = e >> 4, c = (e & 15) * 8;
-      const bool ok = r0 + rr < rend;
-      cp16(st + WKR * LDX + rr * LDB + c, Y + (ok ? r0 + rr : 0) * K2 + n0 + c, ok);
-    }
-  };
-
-  float acc[MT][4][4] = {};
-  float colsum = 0.f;
-#pragma unroll
-  for (int s = 0; s < WSTAGES - 1; ++s) {
-    if (s < nk) load(s, ring + s * WSTAGE);
-    cp_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_wait<WSTAGES - 2>();
-    __syncthreads();
-    const int nx = kt + WSTAGES - 1;
-    if (nx < nk) load(nx, ring + (nx % WSTAGES) * WSTAGE);
-    cp_commit();
-    const bf16* xs = ring + (kt % WSTAGES) * WSTAGE;
-    const bf16* ys = xs + WKR * LDX;
-#pragma unroll
-    for (int ks = 0; ks < WKR / 16; ++ks) {
-      uint32_t af[MT][4], bq[2][4];
-      const int q = lane >> 3;
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)  // A = X^T: stage rows are k, columns m
-        ldsm_x4_t(af[mi], xs + (ks * 16 + (q >> 1) * 8 + (lane & 7)) * LDX + wm * 16 * MT +
-                              mi * 16 + (q & 1) * 8);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        ldsm_x4_t(bq[jj], ys + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDB + wn * 32 +
-                              jj * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          mma(acc[mi][2 * jj], af[mi], bq[jj][0], bq[jj][1]);
-          mma(acc[mi][2 * jj + 1], af[mi], bq[jj][2], bq[jj][3]);
-        }
-    }
-    if (sums)
-      for (int rr = 0; rr < WKR; ++rr) colsum += __bfloat162float(ys[rr * LDB + tid]);
-  }
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        atomicAdd(&dW[(size_t)(m0 + wm * 16 * MT + frag_row(mi, e)) * K2 + n0 + wn * 32 +
-                      frag_col(j, e)],
-                  acc[mi][j][e]);
-  if (sums) atomicAdd(&db[n0 + tid], colsum);
-}
-
-template <int MT>
-int wgrad_launch(const bf16* X, int K1, const bf16* Y, int K2, long long R, float* dW, float* db,
-                 int sms, cudaStream_t stream) {
-  constexpr int WM = 32 * MT;
-  constexpr size_t smem = sizeof(bf16) * WSTAGES * wgrad_stage<MT>();
-  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel<MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)(K2 / BN) * (K1 / WM);
-  long long splits = (4LL * sms + tiles - 1) / tiles;
-  splits = max(1LL, min(splits, (R + WKR - 1) / WKR));
-  long long per = (R + splits - 1) / splits;
-  per = (per + WKR - 1) / WKR * WKR;
-  const dim3 grid(K2 / BN, K1 / WM, (unsigned)((R + per - 1) / per));
-  wgrad_kernel<MT><<<grid, THREADS, smem, stream>>>(X, K1, Y, K2, R, per, dW, db);
-  return (int)cudaGetLastError();
-}
-
-// dW += X^T @ Y over all R rows (db may be null), split over rows so that
-// about four blocks per SM are in flight; K1 % 64 == 0, K2 % 128 == 0.
-inline int wgrad(const void* X, int K1, const void* Y, int K2, long long R, float* dW, float* db,
-                 cudaStream_t stream) {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const bf16 *x = (const bf16*)X, *y = (const bf16*)Y;
-  return K1 % 128 ? wgrad_launch<2>(x, K1, y, K2, R, dW, db, sms, stream)
-                  : wgrad_launch<4>(x, K1, y, K2, R, dW, db, sms, stream);
 }
 
 }  // namespace tc

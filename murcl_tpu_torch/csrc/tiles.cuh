@@ -1,8 +1,9 @@
 // FP32-FMA tile building blocks shared by the attention kernels (K2/K3 in
 // fused_trunk.cu, K7 in attention_pool.cu): a 32-row x 128-column gemm tile
 // over a shared-memory A, block reductions, the masked-softmax pooling pass
-// and the split-K weight-gradient contraction. Everything here sits in an
-// anonymous namespace, so each source file that includes it gets its own copy.
+// and its backward over a bag, and the split-K weight-gradient contraction.
+// Everything here sits in an anonymous namespace, so each source file that
+// includes it gets its own copy.
 #pragma once
 
 #include "common.cuh"
@@ -167,6 +168,36 @@ wgrad_kernel(const T* __restrict__ X, int K1, const T* __restrict__ Y, int K2, l
     for (int j = 0; j < 4; ++j)
       atomicAdd(&dW[(size_t)(c1 + ty + 16 * i) * K2 + c2 + tx + 16 * j], acc[i][j]);
   if (sums) atomicAdd(&db[c2 + tid], colsum);
+}
+
+// The softmax backward over one bag per block (K3, and K7 in bf16): dp_r =
+// the sum of the `passes` partials dpp (in pass order) + gp_r,
+// c = sum_r p_r dp_r, ds_r = p_r (dp_r - c) on live rows, plus gs_r;
+// dbc += sum_r ds_r.
+__global__ void __launch_bounds__(THREADS)
+softmax_bwd_kernel(const float* __restrict__ dpp, int passes, const float* __restrict__ p,
+                   const float* __restrict__ gp, const float* __restrict__ gs,
+                   const uint8_t* __restrict__ mask, float* __restrict__ ds,
+                   float* __restrict__ dbc, int B, int N) {
+  __shared__ float red[32];
+  const size_t base = (size_t)blockIdx.x * N;
+  auto dp_at = [&](int r) {
+    float v = 0.f;
+    for (int c = 0; c < passes; ++c) v += dpp[(size_t)c * B * N + base + r];
+    return v + gp[base + r];
+  };
+  float part = 0.f;
+  for (int r = threadIdx.x; r < N; r += THREADS) part += p[base + r] * dp_at(r);
+  const float csum = block_sum(part, red);
+  float dsum = 0.f;
+  for (int r = threadIdx.x; r < N; r += THREADS) {
+    float d = mask[base + r] ? p[base + r] * (dp_at(r) - csum) : 0.f;
+    d += gs[base + r];
+    ds[base + r] = d;
+    dsum += d;
+  }
+  dsum = block_sum(dsum, red);
+  if (threadIdx.x == 0) atomicAdd(dbc, dsum);
 }
 
 template <typename K>

@@ -1,5 +1,5 @@
-// Hopper tile machinery for the bf16 kernels of K2/K3 (fused_trunk.cu):
-// warpgroup products (wgmma.mma_async m64n128k16, bf16 in, f32 accumulate)
+// Hopper tile machinery for the bf16 kernels of K2/K3 (fused_trunk.cu) and
+// K7 (attention_pool.cu): warpgroup products (wgmma.mma_async m64n128k16, bf16 in, f32 accumulate)
 // over operands that the Tensor Memory Accelerator (TMA) copies into a ring
 // of shared-memory stages, each guarded by a pair of mbarriers.
 //
@@ -40,6 +40,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
 namespace wg {
@@ -530,4 +531,168 @@ inline int map3(CUtensorMap* map, const void* ptr, int cols, int rows, int bags,
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------------
+// What the bf16 kernels of K2/K3 (fused_trunk.cu) and K7 (attention_pool.cu)
+// share: launch plans, persistent grids, the gate passes' producer and keep
+// bits, and the weight-gradient kernel.
+// ---------------------------------------------------------------------------
+
+// A kernel's launch plan: ring stages (as many as fit beside `staging` bytes
+// of output tiles and `extra` bytes of arrays, at least `min_stages`) and
+// shared-memory bytes.
+struct Plan {
+  int stages;
+  size_t smem;
+};
+inline Plan plan(int stage_bytes, int staging, size_t extra, int min_stages = 3) {
+  const int stages = wg::plan_stages(stage_bytes, staging, extra);
+  // fewer than min_stages: a size no block may take, so that the launch fails
+  return {stages, stages >= min_stages ? wg::smem_bytes(stage_bytes, stages, staging, extra)
+                                       : wg::SMEM_LIMIT + 1};
+}
+
+// Persistent grids: one block of 384 threads per SM (a block takes most of
+// an SM's shared memory and registers).
+inline int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+inline unsigned persistent_grid(long long tiles) {
+  return (unsigned)(tiles < sm_count() ? tiles : sm_count());
+}
+
+// Copies `n` floats of src into shared memory (rounded to bf16 when
+// `round`), by `threads` threads numbered from `tid`.
+__device__ __forceinline__ void to_shared(float* dst, const float* __restrict__ src, int n,
+                                          bool round, int tid, int threads) {
+  for (int i = tid; i < n; i += threads) dst[i] = round ? rnd<wg::bf16>(src[i]) : src[i];
+}
+
+// The helper warps' keep bits of every pass of a kernel's tiles, in the
+// consumers' order: passes of `step` columns over `width` (the hash
+// stream's row width), stream `stream` (and, gated gates, streams 1 and 2).
+__device__ __forceinline__ void bits_passes(wg::Pipe& pipe, uint32_t seed, uint32_t thresh,
+                                            int stream, bool two, int step, int width, int B,
+                                            int N) {
+  const int tiles = (N + wg::BM - 1) / wg::BM, ht = threadIdx.x - wg::PRODUCER - 32;
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * wg::BM;
+    const uint32_t k0 = murcl::bag_key(seed, bag, stream), k1 = murcl::bag_key(seed, bag, 2);
+    for (int n0 = 0; n0 < width; n0 += step)
+      wg::make_bits(pipe, k0, k1, two, width, r0, n0, thresh, ht);
+  }
+}
+
+// The gate passes of each 128-row tile of a (B, N, K) bag tensor (a_map,
+// K-major slices of 128 rows; rows past N read as zeros): gated, 64 columns
+// of Wa and the same 64 of Wb per pass (accumulator j and j + 8 hold a and g
+// of one element); ungated, 128 columns of Wa. Wa and Wb (K, D) are read
+// MN-major as stored.
+__device__ __forceinline__ void produce_gates(wg::Pipe& pipe, const CUtensorMap* a_map,
+                                              const CUtensorMap* wa_map,
+                                              const CUtensorMap* wb_map, int gated, int B,
+                                              int N, int K, int D) {
+  const int tiles = (N + wg::BM - 1) / wg::BM, step = gated ? 64 : wg::BN;
+  for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
+    const int bag = t / tiles, r0 = (t % tiles) * wg::BM;
+    for (int n0 = 0; n0 < D; n0 += step)
+      for (int k = 0; k < K / wg::BK; ++k) {
+        uint64_t* bar;
+        uint8_t* st = wg::produce(pipe, bar);
+        wg::tma_load_3d(st, a_map, bar, k * wg::BK, r0, bag);
+        if (gated)
+          wg::load_b_mn(st + wg::TILE_A, wa_map, n0, wb_map, n0, k * wg::BK, bar);
+        else
+          wg::load_b_mn(st + wg::TILE_A, wa_map, n0, wa_map, n0 + 64, k * wg::BK, bar);
+      }
+  }
+}
+
+// Weight gradients: dW[M x Nc] += X^T @ Y over this block's split of the R
+// rows (X (R, M), Y (R, Nc) bf16 row-major, both read MN-major as stored),
+// on 128 x 128 output tiles; the columns of Y below `split` go to out0, the
+// rest to out1 (row stride ldo). Blocks of the first M tile also add Y's
+// column sums into db0 / db1 (db0 null: none).
+__global__ void __launch_bounds__(wg::THREADS, 1)
+wgrad_wg(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
+         float* __restrict__ out0, float* __restrict__ out1, int split, int ldo,
+         float* __restrict__ db0, float* __restrict__ db1, long long R, long long per, int M,
+         int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, wg::TILE_A + wg::TILE_B, stages, 0, false);
+  const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
+  const long long rbeg = blockIdx.z * per, rend = min(R, rbeg + per);
+  const int nk = (int)((rend - rbeg + wg::BK - 1) / wg::BK);
+  if (wg::is_producer()) {
+    wg::producer_regs();
+    if (threadIdx.x == wg::PRODUCER)
+      for (int k = 0; k < nk; ++k) {
+        uint64_t* bar;
+        uint8_t* st = wg::produce(pipe, bar);
+        const int r = (int)(rbeg + (long long)k * wg::BK);
+        wg::load_b_mn(st, &x_map, m0, &x_map, m0 + 64, r, bar);
+        wg::load_b_mn(st + wg::TILE_A, &y_map, n0, &y_map, n0 + 64, r, bar);
+      }
+    return;
+  }
+  wg::consumer_regs();
+  const int tid = threadIdx.x;
+  const bool sums = db0 != nullptr && blockIdx.y == 0 && tid < wg::BN;
+  float colsum = 0.f;
+  float acc[64];
+  wg::mainloop<1, 1>(pipe, nk, 0, wg::TILE_A, acc, [&](int, uint8_t* st) {
+    if (!sums) return;
+    const uint8_t* y = st + wg::TILE_A + (tid >> 6) * wg::BOX;
+    const int cc = tid & 63;
+    for (int rr = 0; rr < wg::BK; ++rr)
+      colsum += __bfloat162float(
+          *reinterpret_cast<const wg::bf16*>(wg::chunk_at(y, rr, cc >> 3) + ((cc & 7) << 1)));
+  });
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int mr = m0 + wg::frag_row(hh);
+    if (mr >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int eb = 0; eb < 2; ++eb) {
+        const int c = n0 + wg::frag_col(j) + eb;
+        float* o = c < split ? out0 + (size_t)mr * ldo + c : out1 + (size_t)mr * ldo + c - split;
+        atomicAdd(o, acc[4 * j + 2 * hh + eb]);
+      }
+  }
+  if (sums) {
+    const int c = n0 + tid;
+    atomicAdd(c < split ? db0 + c : db1 + c - split, colsum);
+  }
+}
+
+// dW += X^T @ Y over all R rows, split over rows so that about two blocks
+// per SM are in flight (one fits an SM at a time); M % 64 == 0, Nc % 128 ==
+// 0.
+int wgrad_wg_launch(const void* X, int M, const void* Y, int Nc, long long R, float* out0,
+                    float* out1, int split, int ldo, float* db0, float* db1,
+                    cudaStream_t stream) {
+  CUtensorMap xm, ym;
+  MURCL_TRY((cudaError_t)wg::map2(&xm, X, M, R, wg::BK));
+  MURCL_TRY((cudaError_t)wg::map2(&ym, Y, Nc, R, wg::BK));
+  const int tiles = (Nc / wg::BN) * ((M + wg::BM - 1) / wg::BM);
+  long long splits = max(1, 2 * sm_count() / tiles);
+  splits = min(splits, (R + wg::BK - 1) / wg::BK);
+  long long per = (R + splits - 1) / splits;
+  per = (per + wg::BK - 1) / wg::BK * wg::BK;
+  const Plan pl = plan(wg::TILE_A + wg::TILE_B, 0, 0);
+  MURCL_TRY(allow_smem(wgrad_wg, pl.smem));
+  const dim3 grid(Nc / wg::BN, (M + wg::BM - 1) / wg::BM, (unsigned)((R + per - 1) / per));
+  wgrad_wg<<<grid, wg::THREADS, pl.smem, stream>>>(xm, ym, out0, out1, split, ldo, db0, db1, R,
+                                                   per, M, pl.stages);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace

@@ -47,26 +47,33 @@ _M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _TM, _TN, _KC = 32, 128, 32  # csrc/tiles.cuh tile constants (K2/K3, K7 in f32; K8)
 # csrc/mma_tiles.cuh: rows per block, bf16 padding of a shared row, and the
-# bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K7 and K8 in bf16
+# bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K8 in bf16
 _TC_BM, _TC_PAD, _TC_RING = 64, 8, 2 * 2 * 64 * (128 + 8)
-# csrc/wgmma_tiles.cuh (K2/K3 in bf16): stages of 16 KB slices (128 x 64
-# bf16) of A (two with the in-kernel mixup) and B, three 8-byte barriers a
-# stage, as many stages as fit (at most 6, at least 3) beside 1,024 bytes of
-# alignment, two 16 KB output staging tiles, the dropout keep bits (two
+# csrc/wgmma_tiles.cuh (K2/K3 and K7 in bf16): stages of 16 KB slices (128 x
+# 64 bf16) of A and B, three 8-byte barriers a stage, as many stages as fit
+# (at most 6, at least 3 unless said) beside 1,024 bytes of alignment, the
+# output staging (two warpgroups' 16 KB tiles), the dropout keep bits (two
 # buffers of 64 per consumer thread) with five barriers (the bits' four and
-# a kernel's own) and the kernel's f32 arrays
+# a kernel's own) and the kernel's arrays
 _WG_SLICE, _WG_OUT, _WG_MAX_STAGES, _WG_MIN_STAGES = 128 * 64 * 2, 2 * 64 * 128 * 2, 6, 3
 _WG_BITS = 2 * 256 * 8 + 5 * 8
 
 
+def _wg_plan(stage: int, staging: int, extra: int, min_stages: int = _WG_MIN_STAGES):
+    """``(stages, bytes)`` of one bf16 warpgroup kernel (``plan`` in
+    ``csrc/wgmma_tiles.cuh``): as many ring stages of ``stage`` bytes as fit
+    beside ``staging`` bytes of output tiles and ``extra`` bytes of arrays,
+    at most 6; a plan that fits fewer than ``min_stages`` is reckoned at
+    ``min_stages``, over the limit."""
+    fixed = 1024 + staging + _WG_BITS + extra
+    stages = min(_WG_MAX_STAGES, (_SMEM_LIMIT - fixed) // (stage + 24))
+    return stages, fixed + max(stages, min_stages) * (stage + 24)
+
+
 def _wg_plan_bytes(slices: int, staging: bool, floats: int) -> int:
-    """Shared-memory bytes of one K2/K3 bf16 kernel (``plan`` in
-    ``csrc/fused_trunk.cu``): as many ring stages as fit, at most 6; a plan
-    that fits fewer than 3 is reckoned at 3, over the limit."""
-    stage = slices * _WG_SLICE + 24
-    fixed = 1024 + (_WG_OUT if staging else 0) + _WG_BITS + 4 * floats
-    stages = min(_WG_MAX_STAGES, (_SMEM_LIMIT - fixed) // stage)
-    return fixed + max(stages, _WG_MIN_STAGES) * stage
+    """Shared-memory bytes of one K2/K3 bf16 kernel: stages of ``slices``
+    16 KB slices, two warpgroups' output tiles or none, ``floats`` f32."""
+    return _wg_plan(slices * _WG_SLICE, _WG_OUT if staging else 0, 4 * floats)[1]
 
 
 # The JAX package's route rule (``murcl_tpu/ops/attention_pallas.py:483-490``
@@ -409,12 +416,13 @@ def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
 # on its Pallas route (forward ``_make_fwd_kernel``, backward
 # ``_make_bwd_kernel``). Its rounding points differ from K2/K3: ``a``, ``g``,
 # ``u`` and the gate dropout scale stay f32, only Wa/Wb are rounded to the bag
-# dtype for the gate products, and wc stays f32. In bf16 the kernels run on
-# the tensor cores, and K7b's dx, an f32 product in the TPU kernel, takes
-# three bf16 products of :func:`split_bf16`'s planes. K7f's softmax pass
-# holds a bag's N scores in shared memory, so K7f takes N up to about 58,000
-# (``4 (N + 32) <= 232,448`` bytes; :func:`pool_tile_smem`); K7b holds no
-# term in N (:func:`pool_bwd_tile_smem`) and takes any bag. A dropout-free
+# dtype for the gate products, and wc stays f32. In bf16 the kernels run
+# warpgroup products (wgmma) fed by TMA over 128-row tiles (:func:`pool_plans`),
+# and K7b's dx, an f32 product in the TPU kernel, takes three bf16 products
+# of :func:`split_bf16`'s planes. K7f's softmax pass holds a bag's N scores
+# in shared memory, so K7f takes N up to about 58,000 (``4 (N + 32) <=
+# 232,448`` bytes; :func:`pool_tile_smem`); K7b holds no term in N
+# (:func:`pool_bwd_tile_smem`) and takes any bag. A dropout-free
 # bag over 6 MiB takes K8 instead (:func:`attention_pool_tiled`, at the end
 # of the module), by the JAX package's route rule.
 
@@ -496,18 +504,36 @@ def split_bf16(t):
     return hi, (t.float() - hi.float()).to(torch.bfloat16)
 
 
+def pool_plans(f: int, d: int, gated: bool) -> dict:
+    """K7's bf16 launch plans at widths ``f -> d``, ``{kernel: (stages,
+    bytes)}``, as ``csrc/attention_pool.cu`` makes them (``fwd_plan``,
+    ``bwd_plan``, ``dx_plan``; ``wgrad_wg`` K3's): the gate kernels' stages
+    hold a 128-row slice of x and a slice of Wa/Wb, beside ``ba``, ``bb``,
+    ``wc`` (and the backward's three partials per consumer warp and two
+    warpgroups' hi and lo staging, at least 2 stages); ``pool_dx_wg`` keeps
+    a tile's hi and lo dz planes resident (its stages W's two slices) where
+    that leaves 3 stages, else streams them (a stage holds the planes' and
+    W's slices, at least 2), beside one 64-column staging box and a row of
+    ``gm`` per warpgroup. None has a term in N."""
+    sl, box = _WG_SLICE, 64 * 64 * 2
+    arrays = 16 + 4 * 2 * f  # dx's two barriers, gm per warpgroup
+    planes = (2 if gated else 1) * 2 * (d // 64) * sl
+    resident = _wg_plan(2 * sl, 2 * box, arrays + 1024 + planes)
+    return {"pool_gates_fwd_wg": _wg_plan(2 * sl, 0, 4 * 3 * d),
+            "pool_gates_bwd_wg": _wg_plan(2 * sl, 2 * _WG_OUT, 4 * (3 + 8 * 3) * d, 2),
+            "pool_dx_wg": (resident if resident[1] <= _SMEM_LIMIT
+                           else _wg_plan(4 * sl, 2 * box, arrays, 2)),
+            "wgrad_wg": _wg_plan(2 * sl, 0, 0)}
+
+
 def pool_tile_smem(n: int, f: int, d: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory the widest block of K7 takes at bags of ``n``
-    rows and widths ``f -> d``: in bf16 the gate kernels' x tile, B ring and
-    partials (``tc_gates_smem`` in ``csrc/attention_pool.cu``) and the dx
-    kernel's ``[lo | hi]`` tile of one gate (``tc_dx_smem``); in f32 the FMA
-    backward's tiles (``bwd_smem``); and the pool pass's ``n + 32`` floats.
-    The weight-gradient contraction takes a fixed 52,224 bytes (bf16) or
-    none (f32)."""
+    rows and widths ``f -> d``: in bf16 the widest plan of
+    :func:`pool_plans`, gated or not; in f32 the FMA backward's tiles
+    (``bwd_smem`` in ``csrc/attention_pool.cu``); and the pool pass's
+    ``n + 32`` floats."""
     if dtype == torch.bfloat16:
-        bm, pad = _TC_BM, _TC_PAD
-        tiles = max(2 * bm * (f + pad) + _TC_RING + 4 * (bm * 4 + 3 * d + 32),
-                    2 * bm * (2 * d + pad) + _TC_RING + 4 * bm)
+        tiles = max(nb for g in (True, False) for _, nb in pool_plans(f, d, g).values())
     else:
         tiles = 4 * (_TM * (f + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + 3 * d + 32)
     return max(tiles, 4 * (n + 32))
@@ -515,18 +541,15 @@ def pool_tile_smem(n: int, f: int, d: int, dtype: torch.dtype) -> int:
 
 def pool_bwd_tile_smem(f: int, d: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory the widest block of K7b takes at widths
-    ``f -> d``, at any bag length: in bf16 the tensor-core gate kernel's x
-    tile, B ring and partials (``tc_gates_smem``) and the dx kernel's
-    ``[lo | hi]`` tile (``tc_dx_smem``); in f32 the FMA backward's tiles
-    (``bwd_smem``); and the weight-gradient stage, 52,224 bytes in bf16
-    (``tc::wgrad``, three stages of 32 x (128 + 8) x 2 bf16) and 16,640 in
-    f32 (``tiles.cuh`` ``wgrad_kernel``). Both backward gate kernels sum
-    the bag's ``p dp`` over rows read from global memory, so no term grows
-    with N."""
+    ``f -> d``, at any bag length: in bf16 the widest backward plan of
+    :func:`pool_plans`, gated or not; in f32 the FMA backward's tiles
+    (``bwd_smem``) and the weight-gradient stage, 16,640 bytes (``tiles.cuh``
+    ``wgrad_kernel``). The bag's sum of ``p dp`` is taken per bag by its own
+    kernel (bf16) or over rows read from global memory (f32), so no term
+    grows with N."""
     if dtype == torch.bfloat16:
-        bm, pad = _TC_BM, _TC_PAD
-        return max(2 * bm * (f + pad) + _TC_RING + 4 * (bm * 4 + 3 * d + 32),
-                   2 * bm * (2 * d + pad) + _TC_RING + 4 * bm, 2 * 3 * 32 * 2 * (128 + pad))
+        return max(nb for g in (True, False) for k, (_, nb) in pool_plans(f, d, g).items()
+                   if k != "pool_gates_fwd_wg")
     return max(4 * (_TM * (f + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + 3 * d + 32),
                4 * 2 * 32 * 65)
 
@@ -584,26 +607,32 @@ def _pool_bwd_cuda(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, s
 
 
 def _pool_bwd_launch(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, seed):
-    """K7b's launch: ``(grads, dza)``, ``dza`` its gate-a scratch. In bf16
-    the scratch holds two planes, ``rnd(dza)`` and the rest
-    (:func:`split_bf16`), and the dx products take W^T's two planes."""
+    """K7b's launch: ``(grads, dza)``, ``dza`` its dz scratch. In bf16 the
+    scratch is ``(2, B, N, Wg)``: ``rnd(dz)``, then the rest
+    (:func:`split_bf16`), of ``[dza | dzb]`` per row gated (``Wg = 2 D``) or
+    ``dza`` (``Wg = D``); the dx products take W's two planes
+    (:func:`_slab_planes` at one slab). In f32 it is ``dza (B, N, D)`` and
+    the dx products take W^T."""
     name = "gated_attention_pool backward"
     _check_pool_shapes(name, x, wa, backward=True)
     o, drop = _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed)
     dev, dt = x.device, x.dtype
-    planes = 2 if dt == torch.bfloat16 else 1
-    if planes == 2:
-        waT, wbT = (torch.cat(split_bf16(w.float().T)) for w in (wa, wb))
-    else:
-        waT, wbT = (w.to(torch.float32).T.contiguous() for w in (wa, wb))
-    p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
-    _cuda.require_cuda(name, *o.values(), waT, wbT, p, gm, gp, gs)
     b, n, f = x.shape
     d = wa.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
-    dpv = torch.empty((b, n), **f32)
-    dza = torch.empty((planes, b, n, d), dtype=dt, device=dev)
-    dzb = torch.empty((planes, b, n, d), dtype=dt, device=dev) if gated else None
+    if dt == torch.bfloat16:
+        waT = _split_planes_cuda(name, wa, f)
+        wbT = _split_planes_cuda(name, wb, f) if gated else waT
+        dpv = torch.empty((2, b, n), **f32)  # dp, then ds
+        dza = torch.empty((2, b, n, 2 * d if gated else d), dtype=dt, device=dev)
+        dzb = None
+    else:
+        waT, wbT = (w.to(torch.float32).T.contiguous() for w in (wa, wb))
+        dpv = torch.empty((b, n), **f32)
+        dza = torch.empty((b, n, d), **f32)
+        dzb = torch.empty((b, n, d), **f32) if gated else None
+    p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
+    _cuda.require_cuda(name, *o.values(), waT, wbT, p, gm, gp, gs)
     dx = torch.empty((b, n, f), dtype=dt, device=dev)
     dwa, dba = torch.empty((f, d), **f32), torch.empty((d,), **f32)
     dwb, dbb = torch.empty((f, d), **f32), torch.empty((d,), **f32)

@@ -188,6 +188,11 @@ def test_fused_trunk_matches_plain(dev, dtype, rate, tol, n, lengths, fin):
         assert _rel(g, wv) <= tol, name
 
 
+# live lengths around K7's 128-row tiles: a bag's tail rows are zeros to
+# the tile, and no row of the next bag enters it
+TILE_EDGES = [1, 63, 65, 127, 129, 1000]
+
+
 @pytest.mark.parametrize("gated", [True, False])
 @pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
                                             (torch.bfloat16, 0.0, 2e-2),
@@ -197,7 +202,12 @@ def test_fused_trunk_matches_plain(dev, dtype, rate, tol, n, lengths, fin):
                                            # masked tail divides N
                                            (1000, 512, 384, [1000, 999, 63, 65, 640]),
                                            # ABMIL's width
-                                           (200, 512, 128, [200, 130, 64, 1, 199])])
+                                           (200, 512, 128, [200, 130, 64, 1, 199]),
+                                           # the 128-row tiles' edges, at F 1024 and
+                                           # every attention width
+                                           (1000, 1024, 128, TILE_EDGES),
+                                           (1000, 1024, 256, TILE_EDGES),
+                                           (1000, 512, 384, TILE_EDGES)])
 def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol, n, f, d, lengths):
     gen = torch.Generator(device=dev).manual_seed(3)
     b = len(lengths)
@@ -227,6 +237,54 @@ def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol, n, f, d, len
             assert not g.any(), name
             continue
         assert _rel(g, wv) <= tol, name
+
+
+def _pool_case(dev, b, n, f, d, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s, sc=1.0):
+        return torch.randn(*s, generator=gen, device=dev) * sc
+
+    w = [r(f, d, sc=f ** -0.5), r(d, sc=0.1), r(f, d, sc=f ** -0.5), r(d, sc=0.1),
+         r(d, sc=d ** -0.5), r((), sc=0.1)]
+    x = torch.relu(r(b, n, f)).to(torch.bfloat16)
+    cots = [r(b, f), r(b, n, sc=0.1), r(b, n, sc=0.01)]
+    return x, w, cots
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("d", [128, 256, 384])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_attention_pool_backward_dx_bitwise_twice(dev, gated, d, rate):
+    """K7b's dx has no atomics on its path: two runs on the same inputs give
+    the same bits, at every attention width, over bags that end mid-tile."""
+    from murcl_tpu_torch.ops.attention import _pool_bwd_cuda, _pool_fwd_cuda
+
+    n = 1000
+    x, w, cots = _pool_case(dev, len(TILE_EDGES), n, 1024, d)
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor(TILE_EDGES, device=dev)[:, None]
+    p = _pool_fwd_cuda(x, *w, mask, gated, rate, 4)[1]
+    first = _pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 4)
+    second = _pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 4)
+    assert torch.equal(first[0], second[0])
+    want = gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots, gated, rate, 4)
+    assert _rel(first[0], want[0]) <= 2e-2
+
+
+@pytest.mark.parametrize("b,n", [(1, 60416), (2, 100000)])
+def test_attention_pool_backward_long_bags_bf16(dev, b, n):
+    """K7b in bf16 at the heatmap's largest bag and longer: no block holds a
+    term in N."""
+    from murcl_tpu_torch.ops.attention import _pool_bwd_cuda
+
+    f, d = 512, 256
+    x, w, cots = _pool_case(dev, b, n, f, d)
+    mask = torch.arange(n, device=dev)[None, :] < n - 416
+    p = gated_attention_pool_plain_fwd(x, *w, mask)[1]
+    got = _pool_bwd_cuda(x, *w[:5], mask, p, *cots, True, 0.0, 0)
+    want = gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots)
+    for name, g, wv in zip(["dx", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"], got, want):
+        assert _rel(g, wv) <= 2e-2, name
 
 
 @pytest.mark.parametrize("dtype,view", [(torch.float32, torch.int32),

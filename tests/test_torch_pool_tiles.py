@@ -1,16 +1,16 @@
 """K7's shape rules and dx's bf16 split on the CPU.
 
-``pool_tile_smem`` reckons the bytes of K7's widest block: in bf16 the
-tensor-core gate kernels (a 64-row x tile padded by 8, a 2-stage B ring,
-row and column partials) and the dx kernel (one gate's ``[lo | hi]`` scratch
-tile); every width the port gives K7 (ABMIL at D 128, CLAM "small" at 256,
-"big" at 384) must fit one H100 block's 232,448 bytes. ``_check_pool_shapes``
-raises, naming the shape, on what the tiles cannot take, on the meta device:
-no data and no card needed. K7b's own rule (``pool_bwd_tile_smem``,
-``_check_pool_shapes(backward=True)``) counts only its blocks' tiles, so it takes the
-heatmap's largest bag and longer ones, which K7f's softmax pass refuses.
-``split_bf16``: three bf16 products of the planes stand in for an f32
-product to 1e-5, where one bf16 product does not.
+``pool_plans`` reckons K7's bf16 launch plans (``csrc/attention_pool.cu``):
+persistent warpgroup kernels over 128-row tiles, each a ring of TMA stages
+beside its staging and arrays; ``pool_tile_smem`` takes the widest. Every
+width the port gives K7 (ABMIL at D 128, CLAM "small" at 256, "big" at 384)
+must fit one H100 block's 232,448 bytes with a ring of at least 3 stages.
+``_check_pool_shapes`` raises, naming the shape, on what the tiles cannot
+take, on the meta device: no data and no card needed. K7b's own rule
+(``pool_bwd_tile_smem``, ``_check_pool_shapes(backward=True)``) counts only
+its blocks' tiles, so it takes the heatmap's largest bag and longer ones,
+which K7f's softmax pass refuses. ``split_bf16``: three bf16 products of the
+planes stand in for an f32 product to 1e-5, where one bf16 product does not.
 """
 
 import numpy as np
@@ -31,16 +31,24 @@ def _operands(n, f, d, dtype):
 def test_pool_tiles_fit(f, d):
     smem = tat.pool_tile_smem(1024, f, d, torch.bfloat16)
     assert smem <= tat._SMEM_LIMIT == 232448
-    # the gate kernels' x tile and ring, and the dx kernel's two planes of dz
-    assert smem >= 2 * 64 * (f + 8) + 2 * 2 * 64 * 136
-    assert smem >= 2 * 64 * (2 * d + 8) + 2 * 2 * 64 * 136
+    # the gates backward's ring (3 stages of a 128-row x slice and a W
+    # slice) beside two warpgroups' hi and lo staging, and the dx kernel's
+    # 3 stages of the dz planes' and W's slices (gated: streamed)
+    assert smem >= 1024 + 3 * (2 * 128 * 64 * 2 + 24) + 4 * 64 * 128 * 2
+    assert smem >= 1024 + 3 * (4 * 128 * 64 * 2 + 24)
     tat._check_pool_shapes(NAME, *_operands(1024, f, d, torch.bfloat16))
 
 
 def test_two_blocks_per_sm_at_clam_small():
-    """Two blocks of every bf16 K7 kernel fit an SM's 228 KB (1 KB each
-    reserved) at CLAM "small" (F 512, D 256)."""
-    assert 2 * (tat.pool_tile_smem(1024, 512, 256, torch.bfloat16) + 1024) <= 228 * 1024
+    """The 128-row plan runs one persistent block per SM (it was two blocks
+    of 64-row tiles): every bf16 K7 kernel's TMA ring holds at least 3
+    stages at F 512 and 1024 and every width, gated or not, within one
+    block's shared memory."""
+    for f in (512, 1024):
+        for d in (128, 256, 384):
+            for gated in (True, False):
+                for kernel, (stages, nbytes) in tat.pool_plans(f, d, gated).items():
+                    assert stages >= 3 and nbytes <= tat._SMEM_LIMIT, (f, d, gated, kernel)
 
 
 @pytest.mark.parametrize("n,f,d,dtype,match", [
@@ -48,10 +56,15 @@ def test_two_blocks_per_sm_at_clam_small():
     (1024, 512, 192, torch.bfloat16, r"multiples of 128.*\(got F 512, D 192\)"),
     (1024, 512, 96, torch.float32, r"multiples of 128.*\(got F 512, D 96\)"),
     (60000, 512, 256, torch.bfloat16, r"240128 bytes .* \(N, F, D\) = \(60000, 512, 256\)"),
-    (1024, 4096, 256, torch.bfloat16, r"bytes .* \(N, F, D\) = \(1024, 4096, 256\)"),
+    # refused by the 64-row tiles (an x tile of 4096 columns), taken by the
+    # 128-row plan, which holds no term in F but a row of gm
+    (1024, 4096, 256, torch.bfloat16, None),
     (1024, 512, 256, torch.float16, r"float32 or bfloat16"),
 ])
 def test_check_pool_shapes_refuses(n, f, d, dtype, match):
+    if match is None:
+        tat._check_pool_shapes(NAME, *_operands(n, f, d, dtype))
+        return
     with pytest.raises(ValueError, match=match):
         tat._check_pool_shapes(NAME, *_operands(n, f, d, dtype))
 
@@ -75,10 +88,15 @@ def test_forward_check_still_refuses_past_its_pool_pass(dtype):
         tat._check_pool_shapes(NAME, x, wa)
 
 
-@pytest.mark.parametrize("f,d,dtype", [(4096, 256, torch.bfloat16),
-                                       (2048, 256, torch.float32)])
-def test_backward_check_refuses_wide_tiles(f, d, dtype):
+@pytest.mark.parametrize("f,d,dtype,refused", [(4096, 256, torch.bfloat16, False),
+                                               (2048, 256, torch.float32, True)])
+def test_backward_check_refuses_wide_tiles(f, d, dtype, refused):
+    """The f32 FMA tiles hold an x tile of F columns; the bf16 plan does
+    not (it was refused at F 4096 by the 64-row tiles)."""
     x, wa = _operands(1024, f, d, dtype)
+    if not refused:
+        tat._check_pool_shapes(NAME + " backward", x, wa, backward=True)
+        return
     with pytest.raises(ValueError, match=rf"bytes .* \(N, F, D\) = \(1024, {f}, {d}\)"):
         tat._check_pool_shapes(NAME + " backward", x, wa, backward=True)
 
