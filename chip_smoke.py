@@ -4,7 +4,8 @@
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from ``murcl_tpu_torch/csrc`` (one nvcc
    per source, in parallel), and reads the library's SASS with
-   ``cuobjdump``: the bf16 K2/K3 and K7 kernels must hold Hopper's
+   ``cuobjdump``: the K2/K3 kernels in both instantiations (bf16, and f32
+   as three bf16 products) and the bf16 K7 kernels must hold Hopper's
    warpgroup products (HGMMA), both instantiations of K8's kernel
    tensor-core instructions (HMMA or HGMMA).
 3. Holds each kernel against its plain PyTorch twin on the card at the
@@ -27,10 +28,16 @@
    supervised shape and in ABMIL's mode at (1536, 1024, 512), each beside
    its plain twin and its bound; K2's, K3's and K7's timed calls split by
    sub-kernel (K2: trunk, gates and pool; K3: trunk, softmax backward,
-   gates, dx and its two weight-gradient passes, dWf and dWa + dWb; K7f:
+   gates, dx and its two weight-gradient passes, dWf and dWa + dWb; in f32
+   also the planes' split and the refine of the trunk's pre-activations
+   near relu's kink; K7f:
    gates and pool; K7b: W's planes, dp, softmax backward, gates, dx and
    one weight-gradient pass, dWa + dWb) with torch.profiler, each with its
-   sub-kernels' achieved TFLOP/s and GB/s; K3 (with
+   sub-kernels' achieved TFLOP/s and GB/s; K2/K3's f32 route (the CLIs'
+   default) at (1536, 1024, 512) gated and mixed, ungated, and unmixed with
+   dh, at dropout 0.25, and at the heatmap's (1, 3072, 512), relative
+   Frobenius error <= 1e-4 on every output, timed beside the bound of its
+   f32 products at TF32's rate; K3 (with
    dh) and K7b run twice on the same inputs, the largest difference per
    output printed (the split-K weight gradients add with atomics; dh and
    K7's dx must be bitwise equal). K8 (the streaming attention pool, on
@@ -79,6 +86,9 @@
 6. Drives the paths on one synthetic dataset of 192 slides x 2048 patches
    (dim 512, K 10), every launch count set to 0 before a stage and read
    after it:
+   - MuRCL CLAM_SB stages 1 -> 2 -> 3 through the CLI,
+     ``train_MuRCL.main``, with the runbook's flags and no
+     ``--compute_dtype``: float32, K2/K3's f32 route, 2 steps in stage 1;
    - MuRCL pretraining, ``murcl_tpu_torch.drivers.murcl.run``, stages 1 ->
      2 -> 3 for CLAM_SB and then for ABMIL, batch 128, feat_size 1024, T 6,
      bf16, on 64 slides: stage 1 one epoch of 5 steps (CLAM_SB) or 2 steps
@@ -113,18 +123,20 @@
      ``abmil_step_check`` compares (``supervised_step_check``).
 7. Times steady steps: supervised at batch 64 (CLAM_SB stage 3 and stage
    1, ABMIL stage 1, DSMIL stage 1), and MuRCL CLAM_SB stage 1 (the
-   ``bench.py`` step), ABMIL stage 1 and CLAM_SB stage 3 at batch 128: 2
+   ``bench.py`` step), ABMIL stage 1 and CLAM_SB stage 3 at batch 128, and
+   CLAM_SB stages 1 and 3 in float32: 2
    warm-up steps, then a host clock around 5 synchronised steps, read also
    when the step call returns (the host's enqueue time), and the peak
    device memory; then ``torch.profiler`` traces 3 more steps of each and
    prints device time by kernel and the device's busy share. Where the
    parent commit's tree is unpacked under ``build/parent``, the A/B
    (``ab_parent``): K7f and K7b at the supervised stage-1 shape and in
-   ABMIL's mode, K2 and K3 through the op at the timed call, and the
-   supervised CLAM_SB and MuRCL ABMIL stage-1 steps, of the parent's tree
-   and of this one in turns (parent, this, this, parent), each side a
-   process that imports and builds its own tree's port; fails unless this
-   tree's K7f and K7b are faster at both shapes (K2/K3 printed only).
+   ABMIL's mode, K2 and K3 through the op at the timed call in bf16 and in
+   f32, and the supervised CLAM_SB, MuRCL ABMIL and MuRCL CLAM_SB f32
+   stage-1 steps, of the parent's tree and of this one in turns (parent,
+   this, this, parent), each side a process that imports and builds its
+   own tree's port; fails unless this tree's f32 K2 and K3 are faster (the
+   rest printed only).
 8. The streaming feature feed (``streaming_path``), on 128 synthetic
    slides of 3,000-10,240 patches x 512 (K 10; about 1.7 GB of f32 npz,
    drawn as the JAX package's ``scripts/bench_tcga_scale.py`` draws its
@@ -275,7 +287,7 @@ def run_plain(h, w, mask, dropout, seed, mix, cots, gated=True, need_dh=False):
                                             gated=gated, need_dh=need_dh)]
 
 
-def fused_inputs(b, dtype, gen, dev, masked: bool):
+def fused_inputs(b, dtype, gen, dev, masked: bool, n: int = N_MAIN):
     import torch
 
     def r(*shape, sc=1.0):
@@ -283,14 +295,14 @@ def fused_inputs(b, dtype, gen, dev, masked: bool):
 
     w = [r(FIN, L1, sc=FIN ** -0.5), r(L1, sc=0.1), r(L1, D, sc=L1 ** -0.5), r(D, sc=0.1),
          r(L1, D, sc=L1 ** -0.5), r(D, sc=0.1), r(D, sc=D ** -0.5), r((), sc=0.1)]
-    h = r(b, N_MAIN, FIN).to(dtype)
-    lengths = torch.randint(600, N_MAIN + 1, (b,), generator=gen, device=dev)
-    mask = torch.arange(N_MAIN, device=dev)[None, :] < lengths[:, None]
+    h = r(b, n, FIN).to(dtype)
+    lengths = torch.randint(min(600, n), n + 1, (b,), generator=gen, device=dev)
+    mask = torch.arange(n, device=dev)[None, :] < lengths[:, None]
     if not masked:
         mask = torch.ones_like(mask)
     perm = torch.randperm(b, generator=gen, device=dev)
     lam = 0.9 + 0.1 * torch.rand(b, generator=gen, device=dev)
-    cots = [r(b, L1), r(b, N_MAIN, sc=0.1), r(b, N_MAIN, sc=0.01)]
+    cots = [r(b, L1), r(b, n, sc=0.1), r(b, n, sc=0.01)]
     return h, w, mask, (perm, lam), cots
 
 
@@ -315,8 +327,8 @@ def trunk_keep_rate(dev) -> float:
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _cuda.library().murcl_fused_trunk_fwd(
         1, 1, ptr(o["h"]), None, None, ptr(o["wf"]), ptr(o["bf"]), ptr(o["wa"]), ptr(o["ba"]),
-        ptr(o["wb"]), ptr(o["bb"]), ptr(o["wc"]), ptr(bc), ptr(o["mask"]), *drop, ptr(xc),
-        None, ptr(m), ptr(p), ptr(s), b, N_MAIN, FIN, L1, D, _cuda.stream())
+        ptr(o["wb"]), ptr(o["bb"]), ptr(o["wc"]), ptr(bc), None, ptr(o["mask"]), *drop,
+        ptr(xc), None, ptr(m), ptr(p), ptr(s), b, N_MAIN, FIN, L1, D, _cuda.stream())
     _cuda.check(err, "keep-rate probe")
     torch.cuda.synchronize()
     return float((xc != 0).float().mean())
@@ -526,13 +538,16 @@ def device_ms(fn, own: bool = True, reps: int = 20) -> float:
     return sum(ms for _, ms in kernel_split(fn, own, reps)) / reps
 
 
-# the kernels that must run on the tensor cores: the bf16 kernels of
-# csrc/fused_trunk.cu (K2/K3) and csrc/attention_pool.cu (K7; wgrad_wg in
-# both), which must hold Hopper's warpgroup products (HGMMA), and K8's
-# kernel (csrc/attention_tiled.cu) in both of its instantiations (HMMA or
-# HGMMA)
-HGMMA_KERNELS = ("trunk_wg", "gates_fwd_wg", "gates_bwd_wg", "dx_wg", "dh_wg", "wgrad_wg",
-                 "pool_gates_fwd_wg", "pool_gates_bwd_wg", "pool_dx_wg")
+# the kernels that must run on the tensor cores: the kernels of
+# csrc/fused_trunk.cu (K2/K3) in both instantiations, bf16 and f32 (three
+# bf16 products per product), and the bf16 kernels of csrc/attention_pool.cu
+# (K7; wgrad_wg in both files), which must hold Hopper's warpgroup products
+# (HGMMA), and K8's kernel (csrc/attention_tiled.cu) in both of its
+# instantiations (HMMA or HGMMA)
+HGMMA_KERNELS = tuple(f"{k}<{t}>" for k in ("trunk_wg", "gates_fwd_wg", "gates_bwd_wg", "dx_wg",
+                                            "dh_wg", "wgrad_wg")
+                      for t in ("__nv_bfloat16", "float")) + (
+    "pool_gates_fwd_wg", "pool_gates_bwd_wg", "pool_dx_wg")
 TC_KERNELS = HGMMA_KERNELS + ("tiled_pool_tc<float>", "tiled_pool_tc<__nv_bfloat16>")
 
 
@@ -679,6 +694,89 @@ def check_fused(dev, gen):
              "unmixed_ms": modes["bwd_unmixed"], "unmixed_plain_ms": plain["bwd_unmixed"]})
 
 
+def check_fused_f32(dev, gen):
+    """K2/K3's f32 route (the default dtype of both CLIs and of the runbook;
+    every product as three bf16 products) at the main path's full shape,
+    (1536, 1024, 512) -> 512 -> 256: gated and mixed at dropout 0.25, ungated
+    and mixed, gated and unmixed with the bags' gradient, and the heatmap's
+    largest f32 bag (1, 3072, 512) gated and ungated at dropout 0, each held
+    within 1e-4 of the plain twin on every output; then the gated, mixed
+    call timed (median of 3) beside the plain twin and the bound of its f32
+    products at TF32's rate, split by sub-kernel with each one's TFLOP/s (of
+    the function's f32 products) and GB/s, and the ungated, unmixed and dh
+    modes timed."""
+    import torch
+
+    from murcl_tpu_torch.ops import attention as att
+
+    names = ["M", "p", "s", "dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc", "dh"]
+    res = {"max_rel": 0.0, "max_abs_err_fwd": 0.0, "max_abs_err_bwd": 0.0}
+    # (bags, rows, gated, mixed, need_dh, dropout)
+    for b, n, gated, mixed, need_dh, rate in (
+            (B_MAIN, N_MAIN, True, True, False, 0.25), (B_MAIN, N_MAIN, False, True, False, 0.25),
+            (B_MAIN, N_MAIN, True, False, True, 0.25), (1, 3072, True, False, False, 0.0),
+            (1, 3072, False, False, False, 0.0)):
+        h, w, mask, mix, cots = fused_inputs(b, torch.float32, gen, dev, True, n)
+        got = run_fused(h, w, mask, rate, 77, mix if mixed else None, cots, gated, need_dh)
+        want = run_plain(h, w, mask, rate, 77, mix if mixed else (None, None), cots, gated,
+                         need_dh)
+        rels = {nm: rel_err(g, wv) for nm, g, wv in zip(names, got, want)
+                if gated or nm not in ("dwb", "dbb")}
+        what = (f"K2/K3 f32 at ({b}, {n}, {FIN}) gated={gated} mixed={mixed} dh={need_dh} "
+                f"dropout {rate}")
+        print(f"{what}: rel err " + ", ".join(f"{nm} {v:.2e}" for nm, v in rels.items()))
+        check(max(rels.values()) <= 1e-4, f"{what}: {rels}")
+        res["max_rel"] = max(res["max_rel"], *rels.values())
+        res["max_abs_err_fwd"] = max(res["max_abs_err_fwd"], *(
+            float((g - wv).abs().max()) for g, wv in zip(got[:3], want[:3])))
+        res["max_abs_err_bwd"] = max(res["max_abs_err_bwd"], *(
+            float((g - wv).abs().max()) for g, wv in zip(got[3:], want[3:])))
+        del h, got, want
+        torch.cuda.empty_cache()
+
+    h, w, mask, mix, cots = fused_inputs(B_MAIN, torch.float32, gen, dev, False)
+    perm, lam = mix
+    _, p, _ = att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam)
+
+    def fwd(gated=True):
+        return att._fwd_cuda(h, *w, mask, 0.25, 77, perm, lam, gated=gated)
+
+    def bwd(mixed=True, gated=True, need_dh=False):
+        pm = (perm, lam) if mixed else (None, None)
+        return att._bwd_cuda(h, *w[:7], mask, p, *cots, 0.25, 77, *pm, gated=gated,
+                             need_dh=need_dh)
+
+    res["fwd_ms"], res["bwd_ms"] = median_ms(fwd, reps=3), median_ms(bwd, reps=3)
+    split_fwd = kernel_split(fwd)
+    split_bwd = name_wgrads(kernel_split(bwd), ("dWf", "dWa+dWb"))
+    for what, split, total in (("K2 f32", split_fwd, res["fwd_ms"]),
+                               ("K3 f32", split_bwd, res["bwd_ms"])):
+        print_split(f"{what} at ({B_MAIN}, {N_MAIN}, {FIN}) gated, mixed, dropout 0.25", split,
+                    total)
+        print_rates(what, split, fused_work_f32())
+    res["fwd_split_ms"], res["bwd_split_ms"] = dict(split_fwd), dict(split_bwd)
+    res["fwd_ungated_ms"] = median_ms(lambda: fwd(False), reps=3)
+    res["bwd_ungated_ms"] = median_ms(lambda: bwd(gated=False), reps=3)
+    res["bwd_unmixed_ms"] = median_ms(lambda: bwd(mixed=False), reps=3)
+    res["bwd_dh_ms"] = median_ms(lambda: bwd(mixed=False, need_dh=True), reps=3)
+    torch.cuda.empty_cache()
+    res["fwd_plain_ms"] = median_ms(
+        lambda: att.fused_trunk_plain_fwd(h, *w, mask, 0.25, 77, perm, lam), reps=3)
+    res["bwd_plain_ms"] = median_ms(
+        lambda: att.fused_trunk_plain_bwd(h, *w[:7], mask, p, *cots, 0.25, 77, perm, lam),
+        reps=3)
+    # the function's f32 products at TF32's rate (the K4 and K8 rows' convention)
+    r = B_MAIN * N_MAIN
+    trunk, gates = 2 * r * FIN * L1, 4 * r * L1 * D
+    io = nbytes(h, mask, perm, lam) + r * 4 * 2 + B_MAIN * L1 * 4
+    res["fwd_bound_ms"], res["fwd_bound_by"] = bound(trunk + gates + 2 * r * L1, io, TF32_FLOPS)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = bound(
+        2 * trunk + 3 * gates + 2 * r * L1, nbytes(h, mask, perm, lam, p, *cots), TF32_FLOPS)
+    del h, p
+    torch.cuda.empty_cache()
+    return res
+
+
 def check_mixup(dev, gen):
     """K6 against ``apply_mix``: bitwise in bf16 at the ABMIL stage-1 shape
     and in f32 at an eighth of it; both timed."""
@@ -784,6 +882,23 @@ def fused_work() -> dict:
             "wgrad_wg dWa+dWb": (4 * r * L1 * D, x + zab)}
 
 
+# K2/K3's f32 kernels at the same call: the function's FLOPs (the products'
+# f32 FLOPs, each issued as three bf16 products) and the bytes each moves:
+# the (mixed) bags split into two bf16 planes, every tile through device
+# memory as its planes (``csrc/fused_trunk.cu``'s reckoning)
+def fused_work_f32() -> dict:
+    r = B_MAIN * N_MAIN
+    h, x, zab = r * FIN * 4, r * L1 * 4, r * 2 * D * 4  # f32 tensors, or their two planes
+    return {"split_kernel": (0, 2 * h + h), "trunk_wg": (2 * r * FIN * L1, h + x),
+            "refine_kernel": (0, r * L1 // 8),
+            "gates_fwd_wg": (4 * r * L1 * D, x + r * 4), "pool_kernel": (2 * r * L1, x + r * 8),
+            "trunk_wg bwd": (2 * r * FIN * L1, h + x + r * 4 * L1 // 128),
+            "gates_bwd_wg": (4 * r * L1 * D, x + zab + r * 16),
+            "dx_wg": (4 * r * L1 * D, zab + x // 2 + x + r * 4),
+            "wgrad_wg dWf": (2 * r * FIN * L1, h + x),
+            "wgrad_wg dWa+dWb": (4 * r * L1 * D, x + zab)}
+
+
 # K7's bf16 kernels at (b, N_MAIN, L1 -> d): (FLOPs, device-memory bytes)
 # each must do (``csrc/attention_pool.cu``'s reckoning); dx's products are
 # three bf16 products per gate, and the dz scratch two planes of [dza | dzb]
@@ -798,14 +913,16 @@ def pool_work(b: int, d: int, gated: bool) -> dict:
 
 def print_rates(what, split, work) -> None:
     """Achieved TFLOP/s and GB/s of each of ``split``'s kernels that
-    ``work`` (:func:`fused_work`, :func:`pool_work`) reckons."""
-    seen, out = set(), []
+    ``work`` (:func:`fused_work`, :func:`fused_work_f32`, :func:`pool_work`)
+    reckons; of a kernel launched more than once (the f32 route's
+    split_kernel: the bags, then the weights), its longest launch."""
+    longest = {}
     for name, ms in split:
-        key = f"{name} bwd" if what == "K3" and name == "trunk_wg" else name
-        if key in work and key not in seen:
-            seen.add(key)
-            flops, nb = work[key]
-            out.append(f"{name} {flops / ms / 1e9:.1f} TFLOP/s, {nb / ms / 1e6:.0f} GB/s")
+        key = f"{name} bwd" if what.startswith("K3") and name == "trunk_wg" else name
+        if key in work:
+            longest[key] = max(ms, longest.get(key, 0.0))
+    out = [f"{key.split(' bwd')[0]} {work[key][0] / ms / 1e9:.1f} TFLOP/s, "
+           f"{work[key][1] / ms / 1e6:.0f} GB/s" for key, ms in longest.items()]
     print(f"{what} sub-kernels, achieved: " + "; ".join(out))
 
 
@@ -1610,9 +1727,10 @@ MURCL_REPEAT = {("CLAM_SB", 1): 10, ("ABMIL", 1): 4}  # data_repeat; 2 (one step
 def murcl_args(dev, ds, results, arch, stage, **extra):
     from murcl_tpu_torch.drivers.murcl import default_args
 
+    extra.setdefault("compute_dtype", "bfloat16")
     return default_args(data_csv=ds["data_csv"], data_split_json=ds["data_split_json"],
                         device=str(dev), train_stage=stage, arch=arch, batch_size=BATCH,
-                        feat_size=N_MAIN, T=T, compute_dtype="bfloat16",
+                        feat_size=N_MAIN, T=T,
                         data_repeat=MURCL_REPEAT.get((arch, stage), 2), epochs=1,
                         ppo_epochs=1, base_save_dir=str(results), **extra)
 
@@ -1649,6 +1767,49 @@ def murcl_path(dev, ds, results, arch):
         print(f"{what}: loss {out['best_loss']:.6f}, {out['steps_per_sec']:.4f} steps/s over "
               f"the epoch (first step included), run() wall {wall:.2f} s, launches {launches}")
     return per_stage, str(run_dir / "model_best.pth.tar")
+
+
+def murcl_cli_path(dev, ds, results):
+    """MuRCL CLAM_SB stages 1 -> 2 -> 3 through the CLI (``train_MuRCL.main``)
+    with the runbook's pretraining flags (``murcl_tpu_torch/scripts/
+    run_camelyon.sh``, step 5) and no ``--compute_dtype``: the default,
+    float32, so K2/K3 take their f32 route; the bench.py shape, 2 steps in
+    stage 1 (``--data_repeat 4``) and 1 in stages 2 and 3, one PPO epoch. Per
+    stage a finite loss, float32 in args.json and the kernels of
+    ``MURCL_KERNELS``. Returns the launch counts per stage."""
+    import torch
+
+    from murcl_tpu_torch import train_MuRCL
+    from murcl_tpu_torch.ops import _cuda
+
+    per_stage = {}
+    for stage in (1, 2, 3):
+        argv = ["--dataset", "Camelyon16", "--data_csv", ds["data_csv"], "--data_split_json",
+                ds["data_split_json"], "--feat_size", str(N_MAIN), "--preload", "--train_stage",
+                str(stage), "--T", str(T), "--scheduler", "CosineAnnealingLR", "--batch_size",
+                str(BATCH), "--epochs", "1", "--ppo_epochs", "1",
+                "--data_repeat", "4" if stage == 1 else "2", "--patience", "10", "--arch",
+                "CLAM_SB", "--device", str(dev.index), "--base_save_dir", str(results),
+                "--seed", "985", "--exist_ok", "--resume"]
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        out = train_MuRCL.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(_cuda.LAUNCHES)
+        per_stage[stage] = launches
+        run_dir = Path(out["save_dir"])
+        what = f"MuRCL CLI CLAM_SB stage {stage}, default dtype"
+        check(math.isfinite(out["best_loss"]), f"{what}: loss {out['best_loss']}")
+        dtype = json.loads((run_dir / "args.json").read_text())["compute_dtype"]
+        check(dtype == "float32", f"{what}: compute_dtype {dtype}")
+        used, unused = MURCL_KERNELS["CLAM_SB"][stage]
+        check(all(launches[k] > 0 for k in used) and all(launches[k] == 0 for k in unused),
+              f"{what}: launches {launches}")
+        print(f"{what} ({dtype}): loss {out['best_loss']:.6f}, {out['steps_per_sec']:.4f} "
+              f"steps/s over the epoch (first step included), main() wall {wall:.2f} s, "
+              f"launches {launches}")
+    return per_stage
 
 
 @contextlib.contextmanager
@@ -2041,21 +2202,24 @@ def steady_steps(dev, ds, results, runs):
 def steady_murcl_steps(dev, ds, results):
     """Steady MuRCL steps at batch 128: CLAM_SB stage 1 (the ``bench.py``
     step), ABMIL stage 1, then CLAM_SB stage 3 (which chains on the CLAM_SB
-    path's stage 2). Returns ``{name: ms}``."""
+    path's stage 2), in bf16; then CLAM_SB stages 1 and 3 in float32, the
+    CLIs' and the runbook's default. Returns ``{name: ms}``."""
     import torch
 
     from murcl_tpu_torch.drivers.murcl import setup
 
     out = {}
-    for arch, stage in (("CLAM_SB", 1), ("ABMIL", 1), ("CLAM_SB", 3)):
-        s = setup(murcl_args(dev, ds, results, arch, stage, exist_ok=True))
+    for arch, stage, dtype in (("CLAM_SB", 1, "bfloat16"), ("ABMIL", 1, "bfloat16"),
+                               ("CLAM_SB", 3, "bfloat16"), ("CLAM_SB", 1, "float32"),
+                               ("CLAM_SB", 3, "float32")):
+        s = setup(murcl_args(dev, ds, results, arch, stage, exist_ok=True, compute_dtype=dtype))
         gen = torch.Generator().manual_seed(0)
         ids = torch.arange(BATCH, device=dev) % SLIDES
 
         def step():
             s.engine.train_step(s.source.bank, ids, gen)
 
-        name = f"MuRCL {arch} stage {stage}"
+        name = f"MuRCL {arch} stage {stage}" + (" f32" if dtype == "float32" else "")
         out[name], enqueue, peak = timed_step(step)
         print(f"{name}, batch {BATCH}: median step {out[name]:.2f} ms "
               f"({1e3 / out[name]:.3f} steps/s), host enqueue {enqueue:.2f} ms, "
@@ -2082,11 +2246,12 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
     """One side of the A/B, in a process of its own that imports the port
     from ``tree``: K7f and K7b through ``_pool_fwd_cuda`` / ``_pool_bwd_cuda``
     at ``AB_POOL``'s shapes and K2 (the op's forward, under no_grad) and K3
-    (its backward) at the timed call of ``check_fused`` (median ms of 5, and
-    one call's device ms by kernel), then steady supervised CLAM_SB stage-1
-    (batch 64, finetuned from ``ds["pretrained"]``) and MuRCL ABMIL stage-1
-    (batch 128) steps as ``steady_steps`` times them (step and enqueue ms,
-    the device's busy ms over 3 traced steps, peak memory)."""
+    (its backward) at the timed call of ``check_fused``, in bf16 and in f32
+    (median ms of 5, and one call's device ms by kernel), then steady
+    supervised CLAM_SB stage-1 (batch 64, finetuned from
+    ``ds["pretrained"]``), MuRCL ABMIL stage-1 (batch 128) and MuRCL CLAM_SB
+    stage-1 f32 (batch 128) steps as ``steady_steps`` times them (step and
+    enqueue ms, the device's busy ms over 3 traced steps, peak memory)."""
     sys.path.insert(0, tree)
     import torch
 
@@ -2115,28 +2280,32 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
         res[f"k7f_{key}_split"], res[f"k7b_{key}_split"] = kernel_split(fwd), kernel_split(bwd)
         del x, p, cots
         torch.cuda.empty_cache()
-    h, w, mask, mix, cots = fused_inputs(B_MAIN, torch.bfloat16, gen, dev, False)
-    ws = [x.detach().clone().requires_grad_(True) for x in w]
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        h, w, mask, mix, cots = fused_inputs(B_MAIN, dtype, gen, dev, False)
+        ws = [x.detach().clone().requires_grad_(True) for x in w]
 
-    def k2():
-        with torch.no_grad():
-            return att.fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77,
-                                                  mix=mix)
+        def k2():
+            with torch.no_grad():
+                return att.fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77,
+                                                      mix=mix)
 
-    outs = att.fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77, mix=mix)
+        outs = att.fused_trunk_attention_pool(h, *ws, mask=mask, dropout=0.25, seed=77, mix=mix)
 
-    def k3():
-        return torch.autograd.grad(outs, ws, cots, retain_graph=True)
+        def k3():
+            return torch.autograd.grad(outs, ws, cots, retain_graph=True)
 
-    res.update({"k2_ms": median_ms(k2), "k3_ms": median_ms(k3), "k2_split": kernel_split(k2),
-                "k3_split": kernel_split(k3)})
-    del outs, ws, h
-    torch.cuda.empty_cache()
+        res.update({f"k2{tag}_ms": median_ms(k2), f"k3{tag}_ms": median_ms(k3),
+                    f"k2{tag}_split": kernel_split(k2), f"k3{tag}_split": kernel_split(k3)})
+        del outs, ws, h
+        torch.cuda.empty_cache()
     steps = {
         "supervised": lambda: rlmil.setup(rlmil_args(dev, ds, Path(results) / "ab_rlmil", 1,
                                                      ds["pretrained"], exist_ok=True)),
         "murcl_abmil": lambda: murcl.setup(murcl_args(dev, ds, Path(results) / "murcl",
                                                       "ABMIL", 1, exist_ok=True)),
+        "murcl_clam_f32": lambda: murcl.setup(murcl_args(dev, ds, Path(results) / "murcl",
+                                                         "CLAM_SB", 1, exist_ok=True,
+                                                         compute_dtype="float32")),
     }
     for key, make in steps.items():
         s = make()
@@ -2159,13 +2328,13 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
 
 
 def ab_parent(ds, results):
-    """K7f/K7b, K2/K3 and the supervised CLAM_SB and MuRCL ABMIL stage-1
-    steps of the parent's tree and of this one, in turns (parent, this,
-    this, parent), each side a process of its own on this card; fails unless
-    this tree's K7f and K7b are faster than the parent's at both of
-    ``AB_POOL``'s shapes (median of each side's two runs). K2/K3 are printed,
-    not gated. Returns ``{"parent": [side, side], "this": [side, side]}``, or
-    None without a parent tree."""
+    """K7f/K7b, K2/K3 in bf16 and f32, and the supervised CLAM_SB, MuRCL
+    ABMIL and MuRCL CLAM_SB f32 stage-1 steps of the parent's tree and of
+    this one, in turns (parent, this, this, parent), each side a process of
+    its own on this card; fails unless this tree's f32 K2 and K3 (the f32
+    route redesigned here) are faster than the parent's (median of each
+    side's two runs). The rest is printed, not gated. Returns ``{"parent":
+    [side, side], "this": [side, side]}``, or None without a parent tree."""
     import torch
 
     if not (PARENT_TREE / "murcl_tpu_torch").is_dir():
@@ -2191,7 +2360,10 @@ def ab_parent(ds, results):
              for key, (b, d, gated, rate) in AB_POOL.items() for k in ("f", "b")]
     calls += [("k2", f"K2 (the op's forward) at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, "
                      "dropout 0.25"),
-              ("k3", "K3 (the op's backward), the same call")]
+              ("k3", "K3 (the op's backward), the same call"),
+              ("k2_f32", f"K2 (the op's forward) at ({B_MAIN}, {N_MAIN}, {FIN}) f32 gated, mixed, "
+                         "dropout 0.25"),
+              ("k3_f32", "K3 f32 (the op's backward), the same call")]
     for key, what in calls:
         print(f"A/B {what}, in turns: " + "; ".join(
             f"{n} {[round(s[key + '_ms'], 3) for s in v]} ms, device "
@@ -2201,13 +2373,14 @@ def ab_parent(ds, results):
             print(f"  {n} {key} one call by kernel: "
                   + ", ".join(f"{k} {ms:.3f}" for k, ms in v[0][key + "_split"]))
     for key, what in (("supervised", f"supervised CLAM_SB stage 1, batch {RL_BATCH}"),
-                      ("murcl_abmil", f"MuRCL ABMIL stage 1, batch {BATCH}")):
+                      ("murcl_abmil", f"MuRCL ABMIL stage 1, batch {BATCH}"),
+                      ("murcl_clam_f32", f"MuRCL CLAM_SB stage 1 f32, batch {BATCH}")):
         print(f"A/B {what}, in turns: " + "; ".join(
             f"{n} " + ", ".join(
                 f"{s[key]['ms']:.2f} ms (enqueue {s[key]['enqueue_ms']:.2f}, busy "
                 f"{s[key]['busy_pct']:.2f}%, peak {s[key]['peak_gib']:.2f} GiB)" for s in v)
             for n, v in sides.items()) + f" ({card})")
-    for key, _ in calls[:4]:
+    for key in ("k2_f32", "k3_f32"):
         mine = statistics.median(s[key + "_ms"] for s in sides["this"])
         theirs = statistics.median(s[key + "_ms"] for s in sides["parent"])
         check(mine < theirs, f"A/B: this tree's {key} ({mine:.3f} ms) not faster than the "
@@ -2813,6 +2986,14 @@ def main() -> int:
           f"K3 ungated {k3['ungated_ms']:.2f} ms vs plain {k3['ungated_plain_ms']:.2f} ms, "
           f"unmixed {k3['unmixed_ms']:.2f} ms vs plain {k3['unmixed_plain_ms']:.2f} ms, "
           f"unmixed with dh {k3['dh_ms']:.2f} ms vs plain {k3['dh_plain_ms']:.2f} ms ({card})")
+    f32 = check_fused_f32(dev, gen)
+    print(f"K2 f32 (three bf16 products per product) at ({B_MAIN}, {N_MAIN}, {FIN}) gated, mixed, "
+          f"dropout 0.25: {f32['fwd_ms']:.2f} ms vs plain {f32['fwd_plain_ms']:.2f} ms, bound "
+          f"{f32['fwd_bound_ms']:.3f} ms ({f32['fwd_bound_by']}, TF32); K3 f32 "
+          f"{f32['bwd_ms']:.2f} ms vs plain {f32['bwd_plain_ms']:.2f} ms, bound "
+          f"{f32['bwd_bound_ms']:.3f} ms; K2 ungated {f32['fwd_ungated_ms']:.2f} ms; K3 ungated "
+          f"{f32['bwd_ungated_ms']:.2f}, unmixed {f32['bwd_unmixed_ms']:.2f}, unmixed with dh "
+          f"{f32['bwd_dh_ms']:.2f} ms; largest rel err {f32['max_rel']:.2e} ({card})")
     k7f, k7b = check_pool(dev, gen)
     print(f"K7 pool fwd {k7f['ms']:.2f} ms vs plain {k7f['plain_ms']:.2f} ms, bound "
           f"{k7f['bound_ms']:.4f} ms; K7 bwd {k7b['ms']:.2f} ms vs plain {k7b['plain_ms']:.2f} ms, "
@@ -2850,6 +3031,7 @@ def main() -> int:
         ds = make_dataset(tmp / "data")
         print(f"synthetic dataset written in {time.time() - t0:.1f} s")
         clam_stages, pretrained = murcl_path(dev, ds, tmp / "murcl", "CLAM_SB")
+        cli_stages = murcl_cli_path(dev, ds, tmp / "murcl_cli")
         heat = heatmap_path(dev, tmp / "slides", pretrained)
         abmil_stages, abmil_pretrained = murcl_path(dev, ds, tmp / "murcl", "ABMIL")
         abmil_step_check(dev, ds, tmp / "murcl")
@@ -2876,7 +3058,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
-    for counts in [pre, *clam_stages.values(), *abmil_stages.values(), heat,
+    for counts in [pre, *clam_stages.values(), *cli_stages.values(), *abmil_stages.values(), heat,
                    *(c for path in rl_stages for c in path.values()), *dp_counts,
                    *stream_counts]:
         for k, v in counts.items():
@@ -2909,13 +3091,22 @@ def main() -> int:
     for row in kernels:  # the modes each attention row was held in
         if row["name"].startswith("fused_trunk"):
             row["modes"] = ("gated and ungated, mixed and unmixed"
-                            + ("; bags' gradient dh" if row["name"].endswith("bwd") else ""))
+                            + ("; bags' gradient dh" if row["name"].endswith("bwd") else "")
+                            + "; bf16, and f32 as three bf16 products (f32)")
             r = k2 if row["name"].endswith("fwd") else k3
             row["split_ms"] = r["split_ms"]
+            # the f32 route (the CLIs' default) at the same call; its bound
+            # counts the f32 products at TF32's rate
+            side = "fwd" if row["name"].endswith("fwd") else "bwd"
+            row["f32"] = {k[len(side) + 1:]: v for k, v in f32.items() if k.startswith(side)}
+            row["f32"]["max_rel"] = f32["max_rel"]
+            row["f32"]["max_abs_err"] = f32[f"max_abs_err_{side}"]
             if ab:  # the op timed in turns beside the parent's, ms per side run
-                key = "k2_ms" if row["name"].endswith("fwd") else "k3_ms"
-                row["ab_ms"] = [s[key] for s in ab["this"]]
-                row["ab_parent_ms"] = [s[key] for s in ab["parent"]]
+                key = "k2" if row["name"].endswith("fwd") else "k3"
+                row["ab_ms"] = [s[key + "_ms"] for s in ab["this"]]
+                row["ab_parent_ms"] = [s[key + "_ms"] for s in ab["parent"]]
+                row["f32"]["ab_ms"] = [s[key + "_f32_ms"] for s in ab["this"]]
+                row["f32"]["ab_parent_ms"] = [s[key + "_f32_ms"] for s in ab["parent"]]
         if row["name"] in ("attention_pool_fwd", "attention_pool_bwd"):
             row["modes"] = (f"gated and ungated at D {D}; gated at D {CLAM_BIG_D} (bf16) and on "
                             f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL: MuRCL and "

@@ -61,10 +61,13 @@
 //    scratch written once and read by dx (2 x 0.81) and its hi plane by the
 //    weight gradients (0.40), dx written (0.40): 3.6 GB, 1.08 ms at 3.35
 //    TB/s, beside 1.04 ms for its 1.03 TFLOP of bf16 products.
-//  * f32 (the tests, K8's backward on f32 heatmap bags): FP32 FMA tiles
-//    (tiles.cuh), 32 rows per block, in gate_fwd_kernel, gate_bwd_kernel
-//    (which forms dx from the f32 dza/dzb it keeps in shared memory) and
-//    wgrad_kernel. TF32 would round beyond the f32 tolerance of 1e-4.
+//  * f32 (the supervised CLIs' and the runbook's default dtype, and K8's
+//    backward on f32 heatmap bags): still the FP32 FMA tiles (tiles.cuh),
+//    32 rows per block, in gate_fwd_kernel, gate_bwd_kernel (which forms dx
+//    from the f32 dza/dzb it keeps in shared memory) and wgrad_kernel; their
+//    redesign as three bf16 wgmma products, as K2/K3's f32 route has it, is
+//    queued (ROADMAP Queue 2). TF32 would round beyond the f32 tolerance of
+//    1e-4.
 // Gate dropout keep bits come from the counter hash of common.cuh, streams 1
 // (a) and 2 (b), the streams K2 uses, so the backward regenerates the
 // forward's masks.
@@ -448,15 +451,6 @@ pool_gates_fwd_wg(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// An f32 pair of row rl, columns c and c + 1, into a warpgroup's staging
-// tiles as hi = rnd(v) and lo = rnd(v - hi) (v - hi is exact in f32).
-__device__ __forceinline__ void stage_split(uint8_t* hi, uint8_t* lo, int rl, int c,
-                                            const float (&v)[2]) {
-  const float h0 = rnd<bf16>(v[0]), h1 = rnd<bf16>(v[1]);
-  wg::stage_pair(hi, rl, c, h0, h1);
-  wg::stage_pair(lo, rl, c, v[0] - h0, v[1] - h1);
-}
-
 // Backward pass 3: the gate backward of each 128-row tile from x and the
 // rows' ds, in f32: dza and dzb into the scratch's two planes (staged in
 // four 64-column boxes a warpgroup, stored by TMA: hi at columns c0 and c1
@@ -533,8 +527,8 @@ pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
           }
           // gated: box 0 holds dza's 64 columns, box 1 dzb's
           const int rl = wg::frag_row(hh) - 64 * w;
-          stage_split(pipe.out, lo_out, rl, c, dza);
-          if (gated) stage_split(pipe.out, lo_out, rl, c + 64, dzb);
+          wg::stage_split(pipe.out, lo_out, rl, c, dza);
+          if (gated) wg::stage_split(pipe.out, lo_out, rl, c + 64, dzb);
         }
 #pragma unroll
         for (int k = 0; k < 3; ++k) {

@@ -1,7 +1,8 @@
-// FP32-FMA tile building blocks shared by the attention kernels (K2/K3 in
-// fused_trunk.cu, K7 in attention_pool.cu): a 32-row x 128-column gemm tile
-// over a shared-memory A, block reductions, the masked-softmax pooling pass
-// and its backward over a bag, and the split-K weight-gradient contraction.
+// Tile building blocks shared by the attention kernels (K2/K3 in
+// fused_trunk.cu, K7 in attention_pool.cu): block reductions, the
+// masked-softmax pooling pass and its backward over a bag, and K7's f32
+// route on FP32 FMA tiles: a 32-row x 128-column gemm tile over a
+// shared-memory A and the split-K weight-gradient contraction.
 // Everything here sits in an anonymous namespace, so each source file that
 // includes it gets its own copy.
 #pragma once
@@ -84,8 +85,10 @@ __device__ float block_sum(float v, float* red) {
 
 // Masked softmax over the bag and M = rnd<T>(p) @ X for 128 columns of the
 // (B, N, L) tensor X: one block per (column tile, bag), N + 32 floats of
-// dynamic shared memory.
-template <typename T>
+// dynamic shared memory. With PLANES, X holds f32 values as two planes of
+// (B, N, L), hi = rnd<T>(x) then lo = rnd<T>(x - hi) (K2's f32 route), and
+// M = p @ (hi + lo), p unrounded.
+template <typename T, bool PLANES = false>
 __global__ void __launch_bounds__(TN)
 pool_kernel(const float* __restrict__ s, const uint8_t* __restrict__ mask,
             const T* __restrict__ xc, float* __restrict__ m_out, float* __restrict__ p_out,
@@ -114,8 +117,13 @@ pool_kernel(const float* __restrict__ s, const uint8_t* __restrict__ mask,
   }
   __syncthreads();
   const T* x = xc + (size_t)bag * N * L1 + col;
+  const size_t lo = PLANES ? (size_t)gridDim.y * N * L1 : 0;  // the lo plane, B N L1 on
   float acc = 0.f;
-  for (int r = 0; r < N; ++r) acc = fmaf(rnd<T>(ps[r]), ld<T>(x + (size_t)r * L1), acc);
+  for (int r = 0; r < N; ++r) {
+    float v = ld<T>(x + (size_t)r * L1);
+    if (PLANES) v += ld<T>(x + lo + (size_t)r * L1);
+    acc = fmaf(PLANES ? ps[r] : rnd<T>(ps[r]), v, acc);
+  }
   m_out[(size_t)bag * L1 + col] = acc;
 }
 
@@ -212,12 +220,12 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   } while (0)
 
 // Launch pool_kernel over (B, N, L1) and check the launch.
-template <typename T>
+template <typename T, bool PLANES = false>
 int pool(const float* s, const uint8_t* mask, const T* X, float* m, float* p, int B, int N,
          int L1, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (N + 32);
-  MURCL_TRY(allow_smem(pool_kernel<T>, smem));
-  pool_kernel<T><<<dim3(L1 / TN, B), TN, smem, stream>>>(s, mask, X, m, p, N, L1);
+  MURCL_TRY(allow_smem(pool_kernel<T, PLANES>, smem));
+  pool_kernel<T, PLANES><<<dim3(L1 / TN, B), TN, smem, stream>>>(s, mask, X, m, p, N, L1);
   return (int)cudaGetLastError();
 }
 

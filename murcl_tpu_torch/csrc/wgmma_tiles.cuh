@@ -1,7 +1,11 @@
-// Hopper tile machinery for the bf16 kernels of K2/K3 (fused_trunk.cu) and
-// K7 (attention_pool.cu): warpgroup products (wgmma.mma_async m64n128k16, bf16 in, f32 accumulate)
-// over operands that the Tensor Memory Accelerator (TMA) copies into a ring
-// of shared-memory stages, each guarded by a pair of mbarriers.
+// Hopper tile machinery for the kernels of K2/K3 (fused_trunk.cu, bf16 and
+// f32) and K7 (attention_pool.cu, bf16): warpgroup products
+// (wgmma.mma_async m64n128k16, bf16 in, f32 accumulate) over operands that
+// the Tensor Memory Accelerator (TMA) copies into a ring of shared-memory
+// stages, each guarded by a pair of mbarriers. An f32 operand t reaches
+// the tensor cores as two bf16 planes, hi = rnd(t) and lo = rnd(t - hi),
+// and an f32 product as three bf16 products hi hi + hi lo + lo hi into one
+// accumulator (about 2^-16 relative; `mainloop` with X3).
 //
 // A block is BM = 128 rows: two consumer warpgroups of 64 rows each, and a
 // producer warpgroup of which one thread issues every copy (its registers go
@@ -38,6 +42,7 @@
 #include <cuda.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "tiles.cuh"
@@ -318,10 +323,14 @@ struct NoPre {
 // each stage (this warpgroup's 64 rows HALF_A further on), B at b_off.
 // pre(k, stage) runs once the stage is ready, before its products (reads
 // of the A slice). A stage is released as soon as the products that read it
-// have completed, one stage behind.
-template <int TA, int TB, typename Pre>
+// have completed, one stage behind. With X3 the operands are f32 values as
+// their bf16 planes, hi at a_off / b_off and lo at a_lo / b_lo, and each
+// k-step takes three products, hi hi + hi lo + lo hi. With `add` the
+// products add to what acc holds.
+template <int TA, int TB, bool X3 = false, typename Pre>
 __device__ __forceinline__ void mainloop(Pipe& p, int nk, int a_off, int b_off,
-                                         float (&acc)[64], Pre&& pre) {
+                                         float (&acc)[64], Pre&& pre, int a_lo = 0,
+                                         int b_lo = 0, bool add = false) {
   const int w = wg_index();
   for (int k = 0; k < nk; ++k) {
     const int s = p.it % p.stages;
@@ -329,11 +338,18 @@ __device__ __forceinline__ void mainloop(Pipe& p, int nk, int a_off, int b_off,
     uint8_t* st = p.base + s * p.stage_bytes;
     pre(k, st);
     const uint64_t da = operand<TA>(st + a_off + w * HALF_A), db = operand<TB>(st + b_off);
+    const uint64_t dal = X3 ? operand<TA>(st + a_lo + w * HALF_A) : 0;
+    const uint64_t dbl = X3 ? operand<TB>(st + b_lo) : 0;
     wgmma_fence();
     fence_acc(acc);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      mma<TA, TB>(acc, da + kstep<TA>(kk), db + kstep<TB>(kk), (k | kk) != 0);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      mma<TA, TB>(acc, da + kstep<TA>(kk), db + kstep<TB>(kk), add || (k | kk) != 0);
+      if constexpr (X3) {
+        mma<TA, TB>(acc, da + kstep<TA>(kk), dbl + kstep<TB>(kk), 1);
+        mma<TA, TB>(acc, dal + kstep<TA>(kk), db + kstep<TB>(kk), 1);
+      }
+    }
     wgmma_commit();
     fence_acc(acc);
     if (k > 0) {
@@ -429,6 +445,14 @@ __device__ __forceinline__ void stage_pair(uint8_t* out, int rl, int c, float x0
   *reinterpret_cast<__nv_bfloat162*>(box + rl * 128 + ((((cc >> 3) ^ (rl & 7))) << 4) +
                                      ((cc & 7) << 1)) = __floats2bfloat162_rn(x0, x1);
 }
+// An f32 pair of row rl, columns c and c + 1, into a warpgroup's staging
+// tiles as hi = rnd(v) and lo = rnd(v - hi) (v - hi is exact in f32).
+__device__ __forceinline__ void stage_split(uint8_t* hi, uint8_t* lo, int rl, int c,
+                                            const float (&v)[2]) {
+  const float h0 = murcl::rnd<bf16>(v[0]), h1 = murcl::rnd<bf16>(v[1]);
+  stage_pair(hi, rl, c, h0, h1);
+  stage_pair(lo, rl, c, v[0] - h0, v[1] - h1);
+}
 __device__ __forceinline__ void store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -451,14 +475,19 @@ __device__ __forceinline__ void stage_begin() {
   sync_wg();
 }
 // After: one thread stores the two boxes, at columns c0 and c1 of rows
-// r of bag `bag` (c1 < 0: the first box only).
+// r of bag `bag` (c1 < 0: the first box only); with lo_bag >= 0 also the
+// lo tile of stage_split (2 OUT_TILE further on) at bag lo_bag.
 __device__ __forceinline__ void stage_end(Pipe& p, const CUtensorMap* map, int c0, int c1, int r,
-                                          int bag) {
+                                          int bag, int lo_bag = -1) {
   fence_async();
   sync_wg();
   if ((threadIdx.x & 127) == 0) {
     tma_store_3d(map, p.out, c0, r, bag);
     if (c1 >= 0) tma_store_3d(map, p.out + BOX, c1, r, bag);
+    if (lo_bag >= 0) {
+      tma_store_3d(map, p.out + 2 * OUT_TILE, c0, r, lo_bag);
+      if (c1 >= 0) tma_store_3d(map, p.out + 2 * OUT_TILE + BOX, c1, r, lo_bag);
+    }
     store_commit();
   }
 }
@@ -533,7 +562,7 @@ inline int map3(CUtensorMap* map, const void* ptr, int cols, int rows, int bags,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// What the bf16 kernels of K2/K3 (fused_trunk.cu) and K7 (attention_pool.cu)
+// What the kernels of K2/K3 (fused_trunk.cu) and K7 (attention_pool.cu)
 // share: launch plans, persistent grids, the gate passes' producer and keep
 // bits, and the weight-gradient kernel.
 // ---------------------------------------------------------------------------
@@ -593,23 +622,30 @@ __device__ __forceinline__ void bits_passes(wg::Pipe& pipe, uint32_t seed, uint3
 // K-major slices of 128 rows; rows past N read as zeros): gated, 64 columns
 // of Wa and the same 64 of Wb per pass (accumulator j and j + 8 hold a and g
 // of one element); ungated, 128 columns of Wa. Wa and Wb (K, D) are read
-// MN-major as stored.
+// MN-major as stored. With x3 each operand is two planes: the bag tensor's
+// lo plane as bags B .. 2 B - 1 of a_map, W's as rows K .. 2 K - 1 (a
+// stage: A hi, A lo, B hi, B lo).
 __device__ __forceinline__ void produce_gates(wg::Pipe& pipe, const CUtensorMap* a_map,
                                               const CUtensorMap* wa_map,
                                               const CUtensorMap* wb_map, int gated, int B,
-                                              int N, int K, int D) {
-  const int tiles = (N + wg::BM - 1) / wg::BM, step = gated ? 64 : wg::BN;
+                                              int N, int K, int D, bool x3 = false) {
+  const int tiles = (N + wg::BM - 1) / wg::BM, step = gated ? 64 : wg::BN, planes = x3 ? 2 : 1;
   for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
     const int bag = t / tiles, r0 = (t % tiles) * wg::BM;
     for (int n0 = 0; n0 < D; n0 += step)
       for (int k = 0; k < K / wg::BK; ++k) {
         uint64_t* bar;
         uint8_t* st = wg::produce(pipe, bar);
-        wg::tma_load_3d(st, a_map, bar, k * wg::BK, r0, bag);
-        if (gated)
-          wg::load_b_mn(st + wg::TILE_A, wa_map, n0, wb_map, n0, k * wg::BK, bar);
-        else
-          wg::load_b_mn(st + wg::TILE_A, wa_map, n0, wa_map, n0 + 64, k * wg::BK, bar);
+        for (int pl = 0; pl < planes; ++pl)
+          wg::tma_load_3d(st + pl * wg::TILE_A, a_map, bar, k * wg::BK, r0, pl * B + bag);
+        for (int pl = 0; pl < planes; ++pl) {
+          uint8_t* b = st + planes * wg::TILE_A + pl * wg::TILE_B;
+          const int kr = pl * K + k * wg::BK;
+          if (gated)
+            wg::load_b_mn(b, wa_map, n0, wb_map, n0, kr, bar);
+          else
+            wg::load_b_mn(b, wa_map, n0, wa_map, n0 + 64, kr, bar);
+        }
       }
   }
 }
@@ -618,14 +654,22 @@ __device__ __forceinline__ void produce_gates(wg::Pipe& pipe, const CUtensorMap*
 // rows (X (R, M), Y (R, Nc) bf16 row-major, both read MN-major as stored),
 // on 128 x 128 output tiles; the columns of Y below `split` go to out0, the
 // rest to out1 (row stride ldo). Blocks of the first M tile also add Y's
-// column sums into db0 / db1 (db0 null: none).
+// column sums into db0 / db1 (db0 null: none). With T = float, X and Y are
+// f32 values as their bf16 planes (x_map, y_map the hi planes, x_lo, y_lo
+// the lo planes; a stage: X hi, X lo, Y hi, Y lo), the products three bf16
+// products, summed 8 k-slices at a time by the tensor cores, and the
+// column sums hi + lo.
+template <typename T>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 wgrad_wg(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap y_map,
+         const __grid_constant__ CUtensorMap x_lo, const __grid_constant__ CUtensorMap y_lo,
          float* __restrict__ out0, float* __restrict__ out1, int split, int ldo,
          float* __restrict__ db0, float* __restrict__ db1, long long R, long long per, int M,
          int stages) {
+  constexpr bool X3 = std::is_same<T, float>::value;
+  constexpr int P = X3 ? 2 : 1;  // planes of each operand
   extern __shared__ uint8_t smem_raw[];
-  wg::Pipe pipe = wg::pipe_setup(smem_raw, wg::TILE_A + wg::TILE_B, stages, 0, false);
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, P * (wg::TILE_A + wg::TILE_B), stages, 0, false);
   const int n0 = blockIdx.x * wg::BN, m0 = blockIdx.y * wg::BM;
   const long long rbeg = blockIdx.z * per, rend = min(R, rbeg + per);
   const int nk = (int)((rend - rbeg + wg::BK - 1) / wg::BK);
@@ -637,7 +681,9 @@ wgrad_wg(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUte
         uint8_t* st = wg::produce(pipe, bar);
         const int r = (int)(rbeg + (long long)k * wg::BK);
         wg::load_b_mn(st, &x_map, m0, &x_map, m0 + 64, r, bar);
-        wg::load_b_mn(st + wg::TILE_A, &y_map, n0, &y_map, n0 + 64, r, bar);
+        if (X3) wg::load_b_mn(st + wg::TILE_A, &x_lo, m0, &x_lo, m0 + 64, r, bar);
+        wg::load_b_mn(st + P * wg::TILE_A, &y_map, n0, &y_map, n0 + 64, r, bar);
+        if (X3) wg::load_b_mn(st + 2 * wg::TILE_A + wg::TILE_B, &y_lo, n0, &y_lo, n0 + 64, r, bar);
       }
     return;
   }
@@ -646,14 +692,36 @@ wgrad_wg(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUte
   const bool sums = db0 != nullptr && blockIdx.y == 0 && tid < wg::BN;
   float colsum = 0.f;
   float acc[64];
-  wg::mainloop<1, 1>(pipe, nk, 0, wg::TILE_A, acc, [&](int, uint8_t* st) {
+  auto colsums = [&](int, uint8_t* st) {
     if (!sums) return;
-    const uint8_t* y = st + wg::TILE_A + (tid >> 6) * wg::BOX;
     const int cc = tid & 63;
-    for (int rr = 0; rr < wg::BK; ++rr)
-      colsum += __bfloat162float(
-          *reinterpret_cast<const wg::bf16*>(wg::chunk_at(y, rr, cc >> 3) + ((cc & 7) << 1)));
-  });
+    for (int pl = 0; pl < P; ++pl) {
+      const uint8_t* y = st + P * wg::TILE_A + pl * wg::TILE_B + (tid >> 6) * wg::BOX;
+      for (int rr = 0; rr < wg::BK; ++rr)
+        colsum += __bfloat162float(
+            *reinterpret_cast<const wg::bf16*>(wg::chunk_at(y, rr, cc >> 3) + ((cc & 7) << 1)));
+    }
+  };
+  if constexpr (X3) {
+    // The tensor cores' f32 accumulation drifts with the number of products
+    // it adds (over a split of 98,304 rows at the main call, 3.3e-4 of dW
+    // against the f32 twin, linear in the rows): f32 sums kPromote k-slices
+    // at a time there, and the sums add in the CUDA cores.
+    constexpr int kPromote = 8;
+    float sum[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sum[i] = 0.f;
+    for (int k0 = 0; k0 < nk; k0 += kPromote) {
+      wg::mainloop<1, 1, true>(pipe, min(kPromote, nk - k0), 0, 2 * wg::TILE_A, acc, colsums,
+                               wg::TILE_A, 2 * wg::TILE_A + wg::TILE_B);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] += acc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = sum[i];
+  } else {
+    wg::mainloop<1, 1>(pipe, nk, 0, wg::TILE_A, acc, colsums);
+  }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int mr = m0 + wg::frag_row(hh);
@@ -675,23 +743,32 @@ wgrad_wg(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUte
 
 // dW += X^T @ Y over all R rows, split over rows so that about two blocks
 // per SM are in flight (one fits an SM at a time); M % 64 == 0, Nc % 128 ==
-// 0.
+// 0. With T = float, X and Y are planes (2, R, M) and (2, R, Nc): hi, then
+// lo, R M (R Nc) elements on.
+template <typename T = wg::bf16>
 int wgrad_wg_launch(const void* X, int M, const void* Y, int Nc, long long R, float* out0,
                     float* out1, int split, int ldo, float* db0, float* db1,
                     cudaStream_t stream) {
-  CUtensorMap xm, ym;
+  constexpr bool X3 = std::is_same<T, float>::value;
+  CUtensorMap xm, ym, xl, yl;
   MURCL_TRY((cudaError_t)wg::map2(&xm, X, M, R, wg::BK));
   MURCL_TRY((cudaError_t)wg::map2(&ym, Y, Nc, R, wg::BK));
+  xl = xm;
+  yl = ym;
+  if (X3) {  // lo planes under maps of their own: a slice past R reads zeros, not hi rows
+    MURCL_TRY((cudaError_t)wg::map2(&xl, (const wg::bf16*)X + (size_t)R * M, M, R, wg::BK));
+    MURCL_TRY((cudaError_t)wg::map2(&yl, (const wg::bf16*)Y + (size_t)R * Nc, Nc, R, wg::BK));
+  }
   const int tiles = (Nc / wg::BN) * ((M + wg::BM - 1) / wg::BM);
   long long splits = max(1, 2 * sm_count() / tiles);
   splits = min(splits, (R + wg::BK - 1) / wg::BK);
   long long per = (R + splits - 1) / splits;
   per = (per + wg::BK - 1) / wg::BK * wg::BK;
-  const Plan pl = plan(wg::TILE_A + wg::TILE_B, 0, 0);
-  MURCL_TRY(allow_smem(wgrad_wg, pl.smem));
+  const Plan pl = plan((X3 ? 2 : 1) * (wg::TILE_A + wg::TILE_B), 0, 0, X3 ? 2 : 3);
+  MURCL_TRY(allow_smem(wgrad_wg<T>, pl.smem));
   const dim3 grid(Nc / wg::BN, (M + wg::BM - 1) / wg::BM, (unsigned)((R + per - 1) / per));
-  wgrad_wg<<<grid, wg::THREADS, pl.smem, stream>>>(xm, ym, out0, out1, split, ldo, db0, db1, R,
-                                                   per, M, pl.stages);
+  wgrad_wg<T><<<grid, wg::THREADS, pl.smem, stream>>>(xm, ym, xl, yl, out0, out1, split, ldo, db0,
+                                                      db1, R, per, M, pl.stages);
   return (int)cudaGetLastError();
 }
 

@@ -69,16 +69,15 @@ _SIGNATURES = {
     "murcl_ntxent_fwd": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _P],
     # zi, zj, temp, stats, g, dzi, dzj, zn, B, d, stream
     "murcl_ntxent_bwd": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _P],
-    # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, mask,
+    # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, x3, mask,
     # use_dropout, seed, thresh, scale, xc_scratch, hm_scratch, m, p, s, B, N,
     # Fin, L1, D, stream
-    "murcl_fused_trunk_fwd": [_I, _I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 5
+    "murcl_fused_trunk_fwd": [_I, _I] + [_P] * 13 + [_I, _U, _U, _F] + [_P] * 5
     + [_I] * 5 + [_P],
-    # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, waT, wbT, wfT,
-    # mask, use_dropout, seed, thresh, scale, p, gm, gp, gs, hm, xc, dp, dza,
-    # dzb, dz, dh, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1, D,
-    # stream
-    "murcl_fused_trunk_bwd": [_I, _I] + [_P] * 14 + [_I, _U, _U, _F] + [_P] * 19
+    # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, x3, mask,
+    # use_dropout, seed, thresh, scale, p, gm, gp, gs, hm, xc, dp, dzab, dz,
+    # dh, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1, D, stream
+    "murcl_fused_trunk_bwd": [_I, _I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 18
     + [_I] * 5 + [_P],
     # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, use_dropout, seed,
     # thresh, scale, m, p, s, B, N, F, D, stream

@@ -45,11 +45,11 @@ from murcl_tpu_torch.ops.mixup import apply_mix
 _NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-_TM, _TN, _KC = 32, 128, 32  # csrc/tiles.cuh tile constants (K2/K3, K7 in f32; K8)
+_TM, _TN, _KC = 32, 128, 32  # csrc/tiles.cuh tile constants (K7 in f32; K8)
 # csrc/mma_tiles.cuh: rows per block, bf16 padding of a shared row, and the
 # bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K8 in bf16
 _TC_BM, _TC_PAD, _TC_RING = 64, 8, 2 * 2 * 64 * (128 + 8)
-# csrc/wgmma_tiles.cuh (K2/K3 and K7 in bf16): stages of 16 KB slices (128 x
+# csrc/wgmma_tiles.cuh (K2/K3, K7 in bf16): stages of 16 KB slices (128 x
 # 64 bf16) of A and B, three 8-byte barriers a stage, as many stages as fit
 # (at most 6, at least 3 unless said) beside 1,024 bytes of alignment, the
 # output staging (two warpgroups' 16 KB tiles), the dropout keep bits (two
@@ -68,12 +68,6 @@ def _wg_plan(stage: int, staging: int, extra: int, min_stages: int = _WG_MIN_STA
     fixed = 1024 + staging + _WG_BITS + extra
     stages = min(_WG_MAX_STAGES, (_SMEM_LIMIT - fixed) // (stage + 24))
     return stages, fixed + max(stages, min_stages) * (stage + 24)
-
-
-def _wg_plan_bytes(slices: int, staging: bool, floats: int) -> int:
-    """Shared-memory bytes of one K2/K3 bf16 kernel: stages of ``slices``
-    16 KB slices, two warpgroups' output tiles or none, ``floats`` f32."""
-    return _wg_plan(slices * _WG_SLICE, _WG_OUT if staging else 0, 4 * floats)[1]
 
 
 # The JAX package's route rule (``murcl_tpu/ops/attention_pallas.py:483-490``
@@ -228,25 +222,44 @@ def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
     return grads
 
 
+def trunk_plans(l1: int, d: int, dtype: torch.dtype) -> dict:
+    """K2/K3's launch plans at widths ``-> l1 -> d``, ``{kernel: (stages,
+    bytes)}``, as ``csrc/fused_trunk.cu`` makes them (``kplan``;
+    ``wgrad_wg_launch`` in ``csrc/wgmma_tiles.cuh``). A stage holds a 16 KB
+    slice of each operand: in bf16 the trunk's widest (the mixing trunk's:
+    the bag's, the partner's and Wf's), at least 3 stages; in float32, each
+    operand as its two bf16 planes (:func:`split_bf16`), at least 2 stages.
+    Beside the ring, the output staging (two warpgroups' 16 KB tiles, in
+    float32 two planes each; ``dh_wg`` writes float32 dh from its
+    accumulators) and the kernels' f32 arrays: ``bf``, two rows of ``gm``
+    and, in float32, Wf's column norms in the trunk, ``ba``, ``bb``, ``wc``
+    (and dwc's partial) in the gates, two rows of ``gm`` in dx. None has a
+    term in N or Fin."""
+    x3 = dtype == torch.float32
+    planes, least = (2, 2) if x3 else (1, 3)
+
+    def plan(slices: int, staged: bool, floats: int):
+        return _wg_plan(planes * slices * _WG_SLICE, planes * _WG_OUT if staged else 0,
+                        4 * floats, least)
+
+    return {"trunk_wg": plan(2 if x3 else 3, True, (4 if x3 else 3) * l1),
+            "gates_fwd_wg": plan(2, False, 3 * d),
+            "gates_bwd_wg": plan(2, True, 4 * d),
+            "dx_wg": plan(2, True, 2 * l1),
+            "dh_wg": plan(2, not x3, 0),
+            "wgrad_wg": plan(2, False, 0)}
+
+
 def trunk_tile_smem(n: int, fin: int, l1: int, d: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory the widest block of K2/K3 takes at bags of
-    ``n`` rows and widths ``fin -> l1 -> d``: in bf16 each warpgroup kernel's
-    ring, as deep as fits (:func:`_wg_plan_bytes`), beside its output staging
-    and arrays (``bf`` and two rows of ``gm`` in the trunk, ``ba``, ``bb``,
-    ``wc`` and dwc's partial in the gates, two rows of ``gm`` in dx), none
-    with a term in ``fin``; in f32 the FMA tiles (``trunk_smem`` and
-    ``gates_smem``); and the pool pass's ``n + 32`` floats. The f32
-    weight-gradient contraction takes 16,640 bytes."""
-    if dtype == torch.bfloat16:
-        # the trunk (mixing: three slices a stage), the forward and backward
-        # gates, dx and dh, and the weight gradients
-        tiles = max(_wg_plan_bytes(3, True, 3 * l1), _wg_plan_bytes(2, False, 3 * d),
-                    _wg_plan_bytes(2, True, 4 * d), _wg_plan_bytes(2, True, 2 * l1),
-                    _wg_plan_bytes(2, False, 0))
-    else:
-        tiles = 4 * max(_TM * (fin + 1) + _TM * (l1 + 1) + _KC * _TN,
-                        _TM * (l1 + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + d + 32)
-    return max(tiles, 4 * (n + 32))
+    ``n`` rows and widths ``fin -> l1 -> d``: the widest of
+    :func:`trunk_plans` (the bag dtype's route: bf16, or float32 as three
+    bf16 products, the CLIs' and the runbook's default), the pool pass's
+    ``n + 32`` floats and, in float32, ``refine_kernel``'s row and column of
+    ``fin`` floats for each of its 4 warps."""
+    tiles = max(nb for _, nb in trunk_plans(l1, d, dtype).values())
+    refine = 4 * 2 * fin * 4 if dtype == torch.float32 else 0
+    return max(tiles, 4 * (n + 32), refine)
 
 
 def _check_shapes(name, h, wf, wa, need_dh=False):
@@ -261,7 +274,8 @@ def _check_shapes(name, h, wf, wa, need_dh=False):
         raise ValueError(f"{name}: the bags' gradient needs Fin % {_TN} == 0 (got {fin})")
     smem = trunk_tile_smem(n, fin, l1, d, h.dtype)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: tiles need {smem} bytes of shared memory")
+        raise ValueError(f"{name}: tiles need {smem} bytes of shared memory at (N, Fin, L1, "
+                         f"D) = ({n}, {fin}, {l1}, {d}) in {h.dtype}")
 
 
 def _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed):
@@ -284,6 +298,20 @@ def _p(t):
     return None if t is None else t.data_ptr()
 
 
+def _planes_scratch(h, wf, wa, *widths):
+    """The scratch of the float32 route (``csrc/fused_trunk.cu``): bf16
+    ``(2, B, N, w)`` planes per width in ``widths``, then ``x3``, bytes for
+    the weights' planes (bf16: Wf's, Wa's, Wb's), the refine masks (a bit
+    per trunk element) and, in f32, the bags' row norms, Wf's column norms
+    and Wf^T (``split_inputs``)."""
+    b, n, fin = h.shape
+    l1, d = wf.shape[1], wa.shape[1]
+    new = lambda *shape: torch.empty(shape, dtype=torch.bfloat16, device=h.device)  # noqa: E731
+    x3 = 4 * (fin * l1 + 2 * l1 * d) + b * n * l1 // 8 + 4 * (b * n + l1 + l1 * fin)
+    return [new(2, b, n, w) for w in widths] + [torch.empty(x3, dtype=torch.uint8,
+                                                            device=h.device)]
+
+
 def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam, gated=True):
     name = "fused_trunk_attention_pool"
     _check_shapes(name, h, wf, wa)
@@ -293,18 +321,21 @@ def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam,
     b, n, fin = h.shape
     l1, d = wf.shape[1], wa.shape[1]
     dev = h.device
-    xc = torch.empty((b, n, l1), dtype=h.dtype, device=dev)
-    # bf16 mixes each tile once into hm, which its later column passes read
-    hm = (torch.empty((b, n, fin), dtype=h.dtype, device=dev)
-          if perm is not None and h.dtype == torch.bfloat16 else None)
+    if h.dtype == torch.bfloat16:
+        xc = torch.empty((b, n, l1), dtype=h.dtype, device=dev)
+        # the mixed bag, which the trunk's later column passes read
+        hm = torch.empty((b, n, fin), dtype=h.dtype, device=dev) if perm is not None else None
+        x3 = None
+    else:  # xc's planes, the (mixed) bags' planes, the weights' planes
+        xc, hm, x3 = _planes_scratch(h, wf, wa, l1, fin)
     m = torch.empty((b, l1), dtype=torch.float32, device=dev)
     p = torch.empty((b, n), dtype=torch.float32, device=dev)
     s = torch.empty((b, n), dtype=torch.float32, device=dev)
     err = _cuda.library().murcl_fused_trunk_fwd(
         int(h.dtype == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
         _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
-        _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop, _p(xc), _p(hm), _p(m), _p(p), _p(s),
-        b, n, fin, l1, d, _cuda.stream())
+        _p(o["wc"]), _p(bc32), _p(x3), _p(o["mask"]), *drop, _p(xc), _p(hm), _p(m), _p(p),
+        _p(s), b, n, fin, l1, d, _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["fused_trunk_fwd"] += 1
     return m, p, s
@@ -320,23 +351,19 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
     b, n, fin = h.shape
     l1, d = wf.shape[1], wa.shape[1]
     dev, dt = h.device, h.dtype
-    new = lambda *shape: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
-    xc, dz = new(b, n, l1), new(b, n, l1)
-    dh = new(b, n, fin) if need_dh else None
+    wz = 2 * d if gated else d  # [dza | dzb] side by side, or dza
     if dt == torch.bfloat16:
-        # weights read as stored; [dza | dzb] side by side; the mixed bag
-        # only when mixed (dWf reads h itself otherwise); dp's partials per
-        # 128 columns of L1, then ds
-        wa_t = wb_t = wf_t = dzb = None
+        # weights read as stored; the mixed bag only when mixed (dWf reads h
+        # itself otherwise)
+        new = lambda *shape: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+        xc, dz, dza = new(b, n, l1), new(b, n, l1), new(b, n, wz)
         hm = new(b, n, fin) if perm is not None else None
-        dza = new(b, n, 2 * d if gated else d)
-        dpv = torch.empty((l1 // _TN + 1, b, n), dtype=torch.float32, device=dev)
-    else:
-        wa_t, wb_t = o["wa"].T.contiguous(), o["wb"].T.contiguous()
-        wf_t = o["wf"].T.contiguous() if need_dh else None
-        hm, dza = new(b, n, fin), new(b, n, d)
-        dzb = new(b, n, d) if gated else None
-        dpv = torch.empty((b, n), dtype=torch.float32, device=dev)
+        x3 = None
+    else:  # each as its two bf16 planes, and the weights' planes
+        xc, dz, dza, hm, x3 = _planes_scratch(h, wf, wa, l1, l1, wz, fin)
+    dh = torch.empty((b, n, fin), dtype=dt, device=dev) if need_dh else None
+    # dp's partials per 128 columns of L1, then ds
+    dpv = torch.empty((l1 // _TN + 1, b, n), dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     dwf, dbf = torch.empty((fin, l1), **f32), torch.empty((l1,), **f32)
     dwa, dba = torch.empty((l1, d), **f32), torch.empty((d,), **f32)
@@ -346,10 +373,9 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
     err = _cuda.library().murcl_fused_trunk_bwd(
         int(dt == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
         _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
-        _p(o["wc"]), _p(wa_t), _p(wb_t), _p(wf_t), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp),
-        _p(gs), _p(hm), _p(xc), _p(dpv), _p(dza), _p(dzb), _p(dz), _p(dh), _p(dwf), _p(dbf),
-        _p(dwa), _p(dba), _p(dwb), _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d,
-        _cuda.stream())
+        _p(o["wc"]), _p(x3), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp), _p(gs), _p(hm),
+        _p(xc), _p(dpv), _p(dza), _p(dz), _p(dh), _p(dwf), _p(dbf), _p(dwa), _p(dba), _p(dwb),
+        _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d, _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["fused_trunk_bwd"] += 1
     grads = (dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)

@@ -11,9 +11,10 @@ order, f32 atomics) and 2e-2 in bf16 (a one-ulp bf16 flip where an f32 sum
 in another order crosses a rounding boundary; the bf16 products of K2/K3 and
 K7 run on the tensor cores, whose sums run in yet another order). K2/K3 and
 K7 also at N = 1000 with live lengths 1, 63, 65 and 1000, and D = 384; K2/K3
-at the edges of their 128-row bf16 tiles (lengths 1, 63, 65, 127, 129 and
-1000; Fin 192 and 1024; D 384; gated and ungated, with and without dh,
-mixed and unmixed, dropout 0 and 0.25); K7 also at ABMIL's D 128 with F
+at the edges of their 128-row tiles in bf16 and f32 (lengths 1, 63, 65,
+127, 129 and 1000; Fin 192 and 1024; D 384; gated and ungated, with and
+without dh, mixed and unmixed, dropout 0 and 0.25) and, f32, on the
+heatmap's largest bag of 3,072 padded patches; K7 also at ABMIL's D 128 with F
 512. K8
 (whose f32 gate products are three bf16 products on the tensor cores) also
 at F 1024 (two f32 slabs) and D 384, with a bag that ends mid-tile and one
@@ -343,32 +344,52 @@ def test_fused_trunk_modes_match_plain(dev, gated, need_dh, dtype, rate, tol, d)
         assert _rel(g, wv) <= tol, name
 
 
-# K2/K3's bf16 kernels (128-row tiles, wgmma fed by TMA) at their edges: N
-# that neither the 128-row tile nor the mask divides, Fin 192 (a 64-column
-# slice past the last 128-row dWf tile) and 1024, D 384, gated and ungated,
-# the bags' gradient, mixed and unmixed
+# K2/K3's warpgroup kernels (128-row tiles, wgmma fed by TMA; in f32 three
+# bf16 products of each operand's planes) at their edges: N that neither
+# the 128-row tile nor the mask divides, Fin 192 (a 64-column slice past the
+# last 128-row dWf tile) and 1024, D 384, gated and ungated, the bags'
+# gradient, mixed and unmixed
 _WG_LENGTHS = [1, 63, 65, 127, 129, 1000]
-
-
-@pytest.mark.parametrize("rate", [0.0, 0.25])
-@pytest.mark.parametrize("fin,l1,d,gated,need_dh,mixed", [
+_WG_EDGES = [
     (192, 128, 128, True, False, True),
     (1024, 512, 256, True, False, True),
     (1024, 512, 384, False, True, False),
     (256, 256, 384, True, True, False),
     (192, 512, 384, False, False, True),
-])
+]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("fin,l1,d,gated,need_dh,mixed", _WG_EDGES)
 def test_fused_trunk_wg_edges_match_plain(dev, rate, fin, l1, d, gated, need_dh, mixed):
+    _fused_edges(dev, torch.bfloat16, 2e-2, rate, fin, l1, d, gated, need_dh, mixed)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("fin,l1,d,gated,need_dh,mixed", _WG_EDGES)
+def test_fused_trunk_f32_edges_match_plain(dev, rate, fin, l1, d, gated, need_dh, mixed):
+    _fused_edges(dev, torch.float32, 1e-4, rate, fin, l1, d, gated, need_dh, mixed)
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_fused_trunk_f32_heatmap_bag(dev, gated):
+    # the heatmap's largest bag on K2 in f32: 3,072 padded patches, 2,000 live
+    _fused_edges(dev, torch.float32, 1e-4, 0.0, 512, 512, 256, gated, False, False,
+                 lengths=[2000], n=3072)
+
+
+def _fused_edges(dev, dtype, tol, rate, fin, l1, d, gated, need_dh, mixed,
+                 lengths=_WG_LENGTHS, n=1000):
     gen = torch.Generator(device=dev).manual_seed(8)
-    b, n = len(_WG_LENGTHS), 1000
+    b = len(lengths)
 
     def r(*s, sc=1.0):
         return torch.randn(*s, generator=gen, device=dev) * sc
 
     w = [r(fin, l1, sc=fin ** -0.5), r(l1, sc=0.1), r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1),
          r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1), r(d, sc=d ** -0.5), r((), sc=0.1)]
-    h = r(b, n, fin).to(torch.bfloat16)
-    mask = torch.arange(n, device=dev)[None, :] < torch.tensor(_WG_LENGTHS, device=dev)[:, None]
+    h = r(b, n, fin).to(dtype)
+    mask = torch.arange(n, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
     perm = torch.randperm(b, generator=gen, device=dev)
     lam = 0.9 + 0.1 * torch.rand(b, generator=gen, device=dev)
     mix = (perm, lam) if mixed else None
@@ -396,7 +417,7 @@ def test_fused_trunk_wg_edges_match_plain(dev, rate, fin, l1, d, gated, need_dh,
         if not gated and name in ("dwb", "dbb"):
             assert not g.any(), name
             continue
-        assert _rel(g, wv) <= 2e-2, name
+        assert _rel(g, wv) <= tol, name
 
 
 @pytest.mark.parametrize("gated", [True, False])
