@@ -4,10 +4,10 @@
 1. Requires CUDA; prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written kernels from ``murcl_tpu_torch/csrc`` (one nvcc
    per source, in parallel), and reads the library's SASS with
-   ``cuobjdump``: the K2/K3 kernels in both instantiations (bf16, and f32
-   as three bf16 products) and the bf16 K7 kernels must hold Hopper's
-   warpgroup products (HGMMA), both instantiations of K8's kernel
-   tensor-core instructions (HMMA or HGMMA).
+   ``cuobjdump``: the K2/K3 and K7 kernels in both instantiations (bf16,
+   and f32 as three bf16 products) must hold Hopper's warpgroup products
+   (HGMMA), both instantiations of K8's kernel tensor-core instructions
+   (HMMA or HGMMA).
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape (one block
@@ -37,7 +37,14 @@
    default) at (1536, 1024, 512) gated and mixed, ungated, and unmixed with
    dh, at dropout 0.25, and at the heatmap's (1, 3072, 512), relative
    Frobenius error <= 1e-4 on every output, timed beside the bound of its
-   f32 products at TF32's rate; K3 (with
+   f32 products at TF32's rate; K7's f32 route (the supervised CLIs'
+   default) gated and ungated at D 128, 256 and 384, dropout 0 and 0.25,
+   on bags ending at the 128-row tiles' edges; K7's timed calls in both
+   dtypes (the supervised shape, ABMIL's mode) and K7b in f32 at the
+   heatmap's (1, 60416, 512) (K8's op backward) held to the twin at the
+   same tolerances on their own inputs, then timed by sub-kernel beside
+   the twin and the bound (in f32 its f32 products at TF32's rate or its
+   bytes), failing unless K8's op backward beats its twin; K3 (with
    dh) and K7b run twice on the same inputs, the largest difference per
    output printed (the split-K weight gradients add with atomics; dh and
    K7's dx must be bitwise equal). K8 (the streaming attention pool, on
@@ -120,23 +127,29 @@
      attention-pool or trunk kernel (its products are plain matmuls, as in
      the JAX package). Then one supervised ABMIL stage-1 step through the
      kernels and through their plain twins, compared as
-     ``abmil_step_check`` compares (``supervised_step_check``).
+     ``abmil_step_check`` compares (``supervised_step_check``). Then
+     supervised CLAM_SB stage 1 through the CLI, ``train_RLMIL.main``,
+     with the runbook's fine-tuning flags and no ``--compute_dtype``:
+     float32, K7's f32 route (``rlmil_cli_path``).
 7. Times steady steps: supervised at batch 64 (CLAM_SB stage 3 and stage
-   1, ABMIL stage 1, DSMIL stage 1), and MuRCL CLAM_SB stage 1 (the
-   ``bench.py`` step), ABMIL stage 1 and CLAM_SB stage 3 at batch 128, and
-   CLAM_SB stages 1 and 3 in float32: 2
+   1, ABMIL stage 1, DSMIL stage 1; CLAM_SB stages 1 and 3 and ABMIL stage
+   1 in float32), and MuRCL CLAM_SB stage 1 (the ``bench.py`` step), ABMIL
+   stage 1 and CLAM_SB stage 3 at batch 128, and CLAM_SB stages 1 and 3 and
+   ABMIL stage 1 in float32: 2
    warm-up steps, then a host clock around 5 synchronised steps, read also
    when the step call returns (the host's enqueue time), and the peak
    device memory; then ``torch.profiler`` traces 3 more steps of each and
    prints device time by kernel and the device's busy share. Where the
    parent commit's tree is unpacked under ``build/parent``, the A/B
    (``ab_parent``): K7f and K7b at the supervised stage-1 shape and in
-   ABMIL's mode, K2 and K3 through the op at the timed call in bf16 and in
-   f32, and the supervised CLAM_SB, MuRCL ABMIL and MuRCL CLAM_SB f32
-   stage-1 steps, of the parent's tree and of this one in turns (parent,
-   this, this, parent), each side a process that imports and builds its
-   own tree's port; fails unless this tree's f32 K2 and K3 are faster (the
-   rest printed only).
+   ABMIL's mode in bf16 and in f32, K2 and K3 through the op at the timed
+   call in bf16 and in f32, and the steady steps of ``AB_STEPS``
+   (supervised CLAM_SB stage 1 in bf16, and in f32 stages 1 and 3;
+   supervised ABMIL stage 1 f32; MuRCL ABMIL stage 1 in bf16 and f32; MuRCL
+   CLAM_SB stage 1 f32), of the parent's tree and of this one in turns
+   (parent, this, this, parent), each side a process that imports and
+   builds its own tree's port; fails unless this tree's f32 K7f and K7b are
+   faster at both shapes (the rest printed only).
 8. The streaming feature feed (``streaming_path``), on 128 synthetic
    slides of 3,000-10,240 patches x 512 (K 10; about 1.7 GB of f32 npz,
    drawn as the JAX package's ``scripts/bench_tcga_scale.py`` draws its
@@ -539,27 +552,28 @@ def device_ms(fn, own: bool = True, reps: int = 20) -> float:
 
 
 # the kernels that must run on the tensor cores: the kernels of
-# csrc/fused_trunk.cu (K2/K3) in both instantiations, bf16 and f32 (three
-# bf16 products per product), and the bf16 kernels of csrc/attention_pool.cu
-# (K7; wgrad_wg in both files), which must hold Hopper's warpgroup products
-# (HGMMA), and K8's kernel (csrc/attention_tiled.cu) in both of its
-# instantiations (HMMA or HGMMA)
+# csrc/fused_trunk.cu (K2/K3) and csrc/attention_pool.cu (K7; wgrad_wg in
+# both files) in both instantiations, bf16 and f32 (three bf16 products per
+# product), which must hold Hopper's warpgroup products (HGMMA), and K8's
+# kernel (csrc/attention_tiled.cu) in both of its instantiations (HMMA or
+# HGMMA)
 HGMMA_KERNELS = tuple(f"{k}<{t}>" for k in ("trunk_wg", "gates_fwd_wg", "gates_bwd_wg", "dx_wg",
-                                            "dh_wg", "wgrad_wg")
-                      for t in ("__nv_bfloat16", "float")) + (
-    "pool_gates_fwd_wg", "pool_gates_bwd_wg", "pool_dx_wg")
+                                            "dh_wg", "wgrad_wg", "pool_gates_fwd_wg",
+                                            "pool_gates_bwd_wg", "pool_dx_wg")
+                      for t in ("__nv_bfloat16", "float"))
 TC_KERNELS = HGMMA_KERNELS + ("tiled_pool_tc<float>", "tiled_pool_tc<__nv_bfloat16>")
 
 
 def mangled(kernel: str) -> str:
     """The part of a kernel's mangled name that spells ``kernel``: each part
-    of the name by its length (``8wgrad_wg``), then a template argument
-    (``13tiled_pool_tcIfE``)."""
+    of the name by its length (``8wgrad_wg``), then its first template
+    argument (``13tiled_pool_tcIf``; a kernel's further template arguments,
+    such as ``pool_gates_bwd_wg``'s partials flag, follow it)."""
     base, _, arg = kernel.partition("<")
     out = "".join(f"{len(part)}{part}" for part in base.split("::"))
     if arg:
         arg = arg.rstrip(">")
-        out += "I" + ("f" if arg == "float" else f"{len(arg)}{arg}") + "E"
+        out += "I" + ("f" if arg == "float" else f"{len(arg)}{arg}")
     return out
 
 
@@ -812,8 +826,9 @@ def check_mixup(dev, gen):
 
 
 def pool_inputs(b, dtype, gen, dev, masked: bool, d: int = D, n: int = N_MAIN):
-    """K7's operands; masked bags are live for 600 (or n / 2) to n rows, and
-    the first four for 1, 63, 65 and n where n is not a multiple of 64."""
+    """K7's operands; masked bags are live for 600 (or n / 2) to n rows, and,
+    where n is not a multiple of 64, the first six for 1, 63, 65, 127, 129
+    and n (the 64- and 128-row tiles' edges)."""
     import torch
 
     def r(*shape, sc=1.0):
@@ -824,7 +839,7 @@ def pool_inputs(b, dtype, gen, dev, masked: bool, d: int = D, n: int = N_MAIN):
     x = torch.relu(r(b, n, L1)).to(dtype)  # a trunk output: post-relu
     lengths = torch.randint(min(600, n // 2), n + 1, (b,), generator=gen, device=dev)
     if n % 64:
-        lengths[:4] = torch.tensor([1, 63, 65, n], device=dev)
+        lengths[:6] = torch.tensor([1, 63, 65, 127, 129, n], device=dev)
     mask = torch.arange(n, device=dev)[None, :] < lengths[:, None]
     if not masked:
         mask = torch.ones_like(mask)
@@ -857,7 +872,7 @@ def name_wgrads(split, grads) -> list:
     """``split`` (``kernel_split``'s list) with each weight-gradient
     contraction named by its gradient, in launch order."""
     grads = iter(grads)
-    return [(f"{n} {next(grads)}" if n.endswith(("wgrad_kernel", "wgrad_wg")) else n, ms)
+    return [(f"{n} {next(grads)}" if n.endswith("wgrad_wg") else n, ms)
             for n, ms in split]
 
 
@@ -899,16 +914,23 @@ def fused_work_f32() -> dict:
             "wgrad_wg dWa+dWb": (4 * r * L1 * D, x + zab)}
 
 
-# K7's bf16 kernels at (b, N_MAIN, L1 -> d): (FLOPs, device-memory bytes)
-# each must do (``csrc/attention_pool.cu``'s reckoning); dx's products are
-# three bf16 products per gate, and the dz scratch two planes of [dza | dzb]
-def pool_work(b: int, d: int, gated: bool) -> dict:
-    r, g = b * N_MAIN, 2 if gated else 1
-    x, z, gate = r * L1 * 2, 2 * r * g * d * 2, 2 * r * L1 * d * g  # bytes; one gate product
-    return {"pool_gates_fwd_wg": (gate, x + r * 4), "pool_kernel": (2 * r * L1, x + r * 9),
+# K7's kernels at (b, n, L1 -> d): (FLOPs, device-memory bytes) each must do
+# (``csrc/attention_pool.cu``'s reckoning); the dz scratch is two bf16 planes
+# of [dza | dzb]. bf16: dx's products are three bf16 products per gate, and
+# the weight gradients read dz's hi plane. f32: the function's FLOPs (its
+# f32 products, each issued as three bf16 products), x's planes as many
+# bytes as the f32 x, dx f32, and the weight gradients read both planes
+def pool_work(b: int, d: int, gated: bool, f32: bool, n: int = N_MAIN) -> dict:
+    r, g = b * n, 2 if gated else 1
+    x, z, gate = r * L1 * (4 if f32 else 2), 2 * r * g * d * 2, 2 * r * L1 * d * g
+    work = {"pool_gates_fwd_wg": (gate, x + r * 4), "pool_kernel": (2 * r * L1, x + r * 9),
             "dp_kernel": (2 * r * L1, x + r * 4), "softmax_bwd_kernel": (4 * r, r * 21),
-            "pool_gates_bwd_wg": (gate, x + z + r * 4), "pool_dx_wg": (3 * gate, z + x + r * 4),
-            "wgrad_wg dWa+dWb": (gate, x + z // 2)}
+            "pool_gates_bwd_wg": (gate, x + z + r * 4),
+            "pool_dx_wg": (gate if f32 else 3 * gate, z + x + r * 4),
+            "wgrad_wg dWa+dWb": (gate, x + (z if f32 else z // 2))}
+    if f32:
+        work["split_kernel"] = (0, 2 * x)
+    return work
 
 
 def print_rates(what, split, work) -> None:
@@ -947,22 +969,59 @@ def determinism(what, fn, names, exact) -> dict:
 
 
 def check_pool(dev, gen):
+    """K7 through the op against the plain twin, every output within 1e-4 in
+    f32 (the supervised CLIs' default; every product as three bf16
+    products) and 2e-2 in bf16: bf16 at dropout 0 and 0.25 gated and
+    ungated at D 256, gated at D 384 and on bags of TAIL_N rows, and in
+    ABMIL's mode (ungated, D 128) at dropout 0; f32 at dropout 0 gated and
+    ungated at D 256 and in ABMIL's mode, and at dropout 0 and 0.25 gated
+    and ungated at D 128, 256 and 384 on bags of TAIL_N rows (those bags'
+    first six end at the 128-row tiles' edges); then the gate keep rates.
+    Then K7f and K7b in both dtypes at the supervised stage-1 shape and in
+    ABMIL's mode, and K7b in f32 at the heatmap's largest bag (1, 60416,
+    512) gated (K8's op backward, which must beat its twin), each held to
+    the twin on the same inputs at the same tolerances and timed beside it
+    (median of 3), split by sub-kernel with each one's TFLOP/s and GB/s,
+    beside its bound. Returns the bf16 rows of K7f and K7b and the f32
+    numbers."""
     import torch
 
     from murcl_tpu_torch.ops import attention as att
 
     names = ["M", "p", "s", "dx", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
-    err_f, err_b = 0.0, 0.0
-    cases = [(torch.float32, 0.0, 1e-4), (torch.bfloat16, 0.0, 2e-2),
-             (torch.bfloat16, 0.25, 2e-2)]
+    tols = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    errs = {dt: {"fwd": 0.0, "bwd": 0.0, "rel": 0.0} for dt in tols}
+
+    def held(what, got, want, outs, gated, dtype):
+        """Holds ``got`` to ``want`` (the outputs named ``outs``) at the
+        dtype's tolerance, ungated dwb and dbb zero, and keeps the largest
+        errors."""
+        rels = {nm: rel_err(g, wv) for nm, g, wv in zip(outs, got, want)
+                if gated or nm not in ("dwb", "dbb")}
+        if not gated and "dwb" in outs:
+            check(not got[outs.index("dwb")].any() and not got[outs.index("dbb")].any(),
+                  f"{what}: ungated dwb/dbb not zero")
+        print(f"{what}: rel err " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+        check(max(rels.values()) <= tols[dtype], f"{what}: {rels}")
+        e = errs[dtype]
+        e["rel"] = max(e["rel"], *rels.values())
+        for nm, g, wv in zip(outs, got, want):
+            side = "fwd" if nm in names[:3] else "bwd"
+            e[side] = max(e[side], float((g.float() - wv.float()).abs().max()))
+
+    bf16 = [(torch.bfloat16, 0.0), (torch.bfloat16, 0.25)]
+    f32 = [(torch.float32, 0.0), (torch.float32, 0.25)]
     # (gated, D, N, cases): CLAM's pools at D 256, gated and ungated; CLAM
     # "big" (gated, D 384) in bf16; bags of TAIL_N rows (K7's row tails);
-    # then ABMIL's mode (ungated, D 128, dropout 0) at its own width
-    modes = [(True, D, N_MAIN, cases), (False, D, N_MAIN, cases),
-             (True, CLAM_BIG_D, N_MAIN, cases[1:]), (True, D, TAIL_N, cases),
-             (False, ABMIL_D, N_MAIN, cases[:2])]
+    # ABMIL's mode (ungated, D 128, dropout 0) at its own width; then f32 at
+    # the three widths on TAIL_N-row bags
+    modes = [(True, D, N_MAIN, bf16 + f32[:1]), (False, D, N_MAIN, bf16 + f32[:1]),
+             (True, CLAM_BIG_D, N_MAIN, bf16), (True, D, TAIL_N, bf16),
+             (False, ABMIL_D, N_MAIN, bf16[:1] + f32[:1])]
+    modes += [(gated, d, TAIL_N, f32) for gated in (True, False)
+              for d in (ABMIL_D, D, CLAM_BIG_D)]
     for gated, d, n, mode_cases in modes:
-        for dtype, rate, tol in mode_cases:
+        for dtype, rate in mode_cases:
             x, w, mask, cots = pool_inputs(POOL_CHECK_BAGS, dtype, gen, dev, True, d, n)
             xg = x.clone().requires_grad_(True)
             ws = [v.clone().requires_grad_(True) for v in w]
@@ -972,14 +1031,8 @@ def check_pool(dev, gen):
             m, p, s = att.gated_attention_pool_plain_fwd(x, *w, mask, gated, rate, 77)
             want = [m, p, s, *att.gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots,
                                                                   gated, rate, 77)]
-            rels = {nm: rel_err(g, wv) for nm, g, wv in zip(names, got, want)
-                    if gated or nm not in ("dwb", "dbb")}
-            what = f"K7 gated={gated} D={d} N={n} {dtype} dropout {rate}"
-            print(f"{what}: rel err " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
-            check(max(rels.values()) <= tol, f"{what}: {rels}")
-            err_f = max(err_f, *(float((g - wv).abs().max()) for g, wv in zip(got[:3], want[:3])))
-            err_b = max(err_b, *(float((g.float() - wv.float()).abs().max())
-                                 for g, wv in zip(got[3:], want[3:])))
+            held(f"K7 gated={gated} D={d} N={n} {dtype} dropout {rate}", got, want, names,
+                 gated, dtype)
             del x, xg, got, want
     rates = gate_keep_rates(dev)
     print(f"K7 gate keep rate at dropout 0.25: stream 1 {rates[False]:.5f}, "
@@ -987,54 +1040,90 @@ def check_pool(dev, gen):
     check(abs(rates[False] - 0.75) <= 0.0075, f"gate keep rate {rates[False]}")
     check(abs(rates[True] - 0.5625) <= 0.005625, f"joint gate keep rate {rates[True]}")
 
-    def timed(b, d, gated, rate):
-        """K7f and K7b at (b, N_MAIN, L1) bf16, unmasked: median ms of each
-        and of its plain twin, one call of each split by sub-kernel, and the
-        bounds (gate products 2 R F D per gate forward; recomputed, then dx
-        and dW in the backward; pool and dp 2 R F)."""
-        x, w, mask, cots = pool_inputs(b, torch.bfloat16, gen, dev, False, d)
-        _, p, _ = att._pool_fwd_cuda(x, *w, mask, gated, rate, 77)
-        fwd = lambda: att._pool_fwd_cuda(x, *w, mask, gated, rate, 77)  # noqa: E731
-        bwd = lambda: att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 77)  # noqa: E731
-        res = {"fwd": median_ms(fwd, reps=3), "bwd": median_ms(bwd, reps=3),
-               "split_fwd": kernel_split(fwd),
-               "split_bwd": name_wgrads(kernel_split(bwd), ("dWa+dWb",))}
-        if gated:
-            res["twice"] = determinism(f"K7b at ({b}, {N_MAIN}, {L1}) bf16 gated, dropout {rate}",
-                                       bwd, names[3:], ("dx",))
+    def timed(b, n, d, gated, rate, dtype, fwd_too=True):
+        """K7f (with ``fwd_too``) and K7b at (b, n, L1) in ``dtype``,
+        unmasked but for the heatmap's bag (b 1: a masked tail), held to the
+        plain twin on the same inputs (p the twin's), then timed: median ms
+        of each and of its twin, one call of each split by sub-kernel, and
+        the bounds (gate products 2 R F D per gate forward; recomputed, then
+        dx and dW in the backward; pool and dp 2 R F) at bf16's rate or, in
+        f32, the f32 products at TF32's."""
+        is32 = dtype == torch.float32
+        x, w, mask, cots = pool_inputs(b, dtype, gen, dev, False, d, n)
+        if b == 1:
+            mask = torch.arange(n, device=dev)[None, :] < n - 416
+        m, p, s = att.gated_attention_pool_plain_fwd(x, *w, mask, gated, rate, 77)
+        fns = {"fwd": lambda: att._pool_fwd_cuda(x, *w, mask, gated, rate, 77),
+               "bwd": lambda: att._pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 77)}
+        plain = {"fwd": lambda: att.gated_attention_pool_plain_fwd(x, *w, mask, gated, rate, 77),
+                 "bwd": lambda: att.gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots,
+                                                                   gated, rate, 77)}
+        mode = (f"({b}, {n}, {L1}) {'f32' if is32 else 'bf16'} "
+                f"{'gated' if gated else 'ungated'}, D {d}, dropout {rate}")
+        sides = ("fwd", "bwd") if fwd_too else ("bwd",)
+        if fwd_too:
+            held(f"K7f at {mode}", fns["fwd"](), (m, p, s), names[:3], gated, dtype)
+        del m, s
+        held(f"K7b at {mode}", fns["bwd"](), plain["bwd"](), names[3:], gated, dtype)
         torch.cuda.empty_cache()
-        res["fwd_plain"] = median_ms(lambda: att.gated_attention_pool_plain_fwd(
-            x, *w, mask, gated, rate, 77), reps=3)
-        res["bwd_plain"] = median_ms(lambda: att.gated_attention_pool_plain_bwd(
-            x, *w[:5], mask, p, *cots, gated, rate, 77), reps=3)
-        r = b * N_MAIN
-        gates = 2 * r * L1 * d * (2 if gated else 1)
-        res["fwd_bound"] = bound(gates + 2 * r * L1, nbytes(x, mask) + r * 8 + b * L1 * 4,
-                                 BF16_FLOPS)
+        res = {}
+        for k in sides:
+            res[k] = median_ms(fns[k], reps=3)
+            split = kernel_split(fns[k])
+            res["split_" + k] = name_wgrads(split, ("dWa+dWb",)) if k == "bwd" else split
+        if gated and b > 1:
+            res["twice"] = determinism(f"K7b at {mode}", fns["bwd"], names[3:], ("dx",))
+        torch.cuda.empty_cache()
+        for k in sides:
+            res[k + "_plain"] = median_ms(plain[k], reps=3)
+        r, gates = b * n, 2 * b * n * L1 * d * (2 if gated else 1)
+        peak = TF32_FLOPS if is32 else BF16_FLOPS
+        res["fwd_bound"] = bound(gates + 2 * r * L1, nbytes(x, mask) + r * 8 + b * L1 * 4, peak)
         res["bwd_bound"] = bound(3 * gates + 2 * r * L1, 2 * nbytes(x) + nbytes(mask, p, *cots),
-                                 BF16_FLOPS)
-        mode = f"({b}, {N_MAIN}, {L1}) bf16 {'gated' if gated else 'ungated'}, D {d}, " \
-               f"dropout {rate}"
-        print_split(f"K7f at {mode}", res["split_fwd"], res["fwd"])
-        print_split(f"K7b at {mode}", res["split_bwd"], res["bwd"])
-        print_rates(f"K7f/K7b at {mode}", res["split_fwd"] + res["split_bwd"],
-                    pool_work(b, d, gated))
+                                 peak)
+        for k in sides:
+            print_split(f"K7{k[0]} at {mode}", res["split_" + k], res[k])
+        print_rates(f"K7 at {mode}", [e for k in sides for e in res["split_" + k]],
+                    pool_work(b, d, gated, is32, n))
+        print(f"K7 at {mode}: " + "; ".join(
+            f"K7{k[0]} {res[k]:.3f} ms vs plain {res[k + '_plain']:.3f}, bound "
+            f"{res[k + '_bound'][0]:.4f} (by {res[k + '_bound'][1]})" for k in sides)
+            + f"; the products at {peak / 1e12:.0f} TFLOP/s"
+            + (" (the f32 products at TF32's rate)" if is32 else "")
+            + f", the bytes at {HBM_BPS / 1e12} TB/s")
         del x, p, cots
         torch.cuda.empty_cache()
         return res
 
-    sup = timed(POOL_BAGS, D, True, 0.25)  # the supervised stage-1 shape
-    abmil = timed(B_MAIN, ABMIL_D, False, 0.0)  # ABMIL's stage-1 shape
+    sup = timed(POOL_BAGS, N_MAIN, D, True, 0.25, torch.bfloat16)  # supervised stage 1
+    abmil = timed(B_MAIN, N_MAIN, ABMIL_D, False, 0.0, torch.bfloat16)  # ABMIL's stage 1
     out = []
     for k in ("fwd", "bwd"):
         out.append({"ms": sup[k], "plain_ms": sup[k + "_plain"],
-                    "max_abs_err": err_f if k == "fwd" else err_b,
+                    "max_abs_err": errs[torch.bfloat16][k],
                     "bound_ms": sup[k + "_bound"][0], "bound_by": sup[k + "_bound"][1],
                     "split_ms": dict(sup["split_" + k]), "abmil_ms": abmil[k],
                     "abmil_plain_ms": abmil[k + "_plain"], "abmil_bound_ms": abmil[k + "_bound"][0],
                     "abmil_split_ms": dict(abmil["split_" + k])})
     out[1]["twice"] = sup["twice"]
-    return tuple(out)
+    # the f32 route at the same shapes, and K7b at K8's op backward
+    runs32 = {"sup": timed(POOL_BAGS, N_MAIN, D, True, 0.25, torch.float32),
+              "abmil": timed(B_MAIN, N_MAIN, ABMIL_D, False, 0.0, torch.float32),
+              "k8": timed(*K8_MAIN, D, True, 0.0, torch.float32, fwd_too=False)}
+    e = errs[torch.float32]
+    res32 = {"max_rel": e["rel"], "max_abs_err_fwd": e["fwd"], "max_abs_err_bwd": e["bwd"],
+             "sup_bwd_twice": runs32["sup"]["twice"]}
+    for tag, t in runs32.items():
+        for k in ("fwd", "bwd"):
+            if k in t:
+                res32.update({f"{tag}_{k}_ms": t[k], f"{tag}_{k}_plain_ms": t[k + "_plain"],
+                              f"{tag}_{k}_bound_ms": t[k + "_bound"][0],
+                              f"{tag}_{k}_bound_by": t[k + "_bound"][1],
+                              f"{tag}_{k}_split_ms": dict(t["split_" + k])})
+    check(res32["k8_bwd_ms"] < res32["k8_bwd_plain_ms"],
+          f"K7b f32 at {K8_MAIN}: {res32['k8_bwd_ms']} ms, not faster than the plain twin's "
+          f"{res32['k8_bwd_plain_ms']}")
+    return out[0], out[1], res32
 
 
 def tiled_inputs(b, n, dtype, gen, dev, lengths):
@@ -2087,16 +2176,17 @@ def heatmap_path(dev, root, checkpoint):
 
 
 def rlmil_args(dev, ds, results, stage, pretrained, arch="CLAM_SB", **extra):
-    """Supervised args: finetune from ``pretrained``, or scratch without one."""
+    """Supervised args: finetune from ``pretrained``, or scratch without one;
+    bf16 unless ``compute_dtype`` says otherwise."""
     from murcl_tpu_torch.drivers.rlmil import default_args
 
+    extra.setdefault("compute_dtype", "bfloat16")
     return default_args(data_csv=ds["data_csv"], data_split_json=ds["rlmil_split_json"],
                         device=str(dev), arch=arch,
                         train_method="finetune" if pretrained else "scratch",
                         train_stage=stage,
                         checkpoint_pretrained=pretrained if stage < 3 else None,
-                        batch_size=RL_BATCH, feat_size=N_MAIN, T=T, compute_dtype="bfloat16",
-                        epochs=1, ppo_epochs=1, save_model=True,
+                        batch_size=RL_BATCH, feat_size=N_MAIN, T=T, epochs=1, ppo_epochs=1, save_model=True,
                         base_save_dir=str(results), **extra)
 
 
@@ -2148,6 +2238,49 @@ def rlmil_path(dev, ds, results, pretrained, arch="CLAM_SB"):
     return per_stage
 
 
+def rlmil_cli_path(dev, ds, results, pretrained):
+    """Supervised CLAM_SB stage 1 through the CLI (``train_RLMIL.main``) with
+    the runbook's fine-tuning flags (``murcl_tpu_torch/scripts/
+    run_camelyon.sh``, step 6) and no ``--compute_dtype``: the default,
+    float32, so K7 takes its f32 route; batch 64 (the runbook's batch of 1
+    would take 128 steps an epoch), one epoch of 2 steps, from the CLAM_SB
+    MuRCL stage-3 ``model_best``. A finite loss, float32 in args.json, and
+    the kernels of ``RLMIL_KERNELS`` (K1 and K7f, K7b in stage 1). Returns
+    the launch counts."""
+    import torch
+
+    from murcl_tpu_torch import train_RLMIL
+    from murcl_tpu_torch.ops import _cuda
+
+    argv = ["--dataset", "Camelyon16", "--data_csv", ds["data_csv"], "--data_split_json",
+            ds["rlmil_split_json"], "--train_data", "train", "--feat_size", str(N_MAIN),
+            "--preload", "--train_method", "finetune", "--train_stage", "1",
+            "--checkpoint_pretrained", str(pretrained), "--T", str(T), "--scheduler",
+            "CosineAnnealingLR", "--batch_size", str(RL_BATCH), "--epochs", "1",
+            "--backbone_lr", "0.0001", "--fc_lr", "0.00005", "--arch", "CLAM_SB", "--device",
+            str(dev.index), "--base_save_dir", str(results), "--seed", "985", "--save_model",
+            "--exist_ok", "--resume"]
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    out = train_RLMIL.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_cuda.LAUNCHES)
+    run_dir = Path(out["save_dir"])
+    what = "RLMIL CLI CLAM_SB finetune stage 1, default dtype"
+    check(all(math.isfinite(v) for v in out["final"] + tuple(out["train_losses"])),
+          f"{what}: {out['final']} {out['train_losses']}")
+    dtype = json.loads((run_dir / "args.json").read_text())["compute_dtype"]
+    check(dtype == "float32", f"{what}: compute_dtype {dtype}")
+    every, trained, never = RLMIL_KERNELS["CLAM_SB"]
+    check(all(launches[k] > 0 for k in every + trained)
+          and all(launches[k] == 0 for k in never), f"{what}: launches {launches}")
+    print(f"{what} ({dtype}): train loss {out['train_losses'][0]:.6f}, final test "
+          f"{out['final']}, {out['steps_per_sec']:.4f} steps/s over the epoch (first step "
+          f"included), main() wall {wall:.2f} s, launches {launches}")
+    return launches
+
+
 def timed_step(step) -> tuple:
     """``(ms, enqueue ms, peak GiB)`` of a steady step: 2 warm-up steps, then
     the medians over 5 synchronised steps of the step and of the host's
@@ -2171,16 +2304,17 @@ def timed_step(step) -> tuple:
 
 def steady_steps(dev, ds, results, runs):
     """Steady supervised steps at batch 64, one per ``(arch, stage,
-    pretrained)`` of ``runs`` (a stage 3 chains on its path's stage 2): 2
-    warm-up steps, a host clock around 5 synchronised steps, then a
-    torch.profiler trace of 3 more. Returns ``{name: ms per step}``."""
+    pretrained, compute dtype)`` of ``runs`` (a stage 3 chains on its path's
+    stage 2): 2 warm-up steps, a host clock around 5 synchronised steps,
+    then a torch.profiler trace of 3 more. Returns ``{name: ms per step}``."""
     import torch
 
     from murcl_tpu_torch.drivers.rlmil import setup
 
     out = {}
-    for arch, stage, pretrained in runs:
-        s = setup(rlmil_args(dev, ds, results, stage, pretrained, arch=arch, exist_ok=True))
+    for arch, stage, pretrained, dtype in runs:
+        s = setup(rlmil_args(dev, ds, results, stage, pretrained, arch=arch, exist_ok=True,
+                             compute_dtype=dtype))
         bank = s.sources["train"].bank
         gen = torch.Generator().manual_seed(0)
         ids = torch.arange(RL_BATCH, device=dev)
@@ -2188,7 +2322,7 @@ def steady_steps(dev, ds, results, runs):
         def step():
             s.engine.train_step(bank, ids, gen)
 
-        name = f"supervised {arch} stage {stage}"
+        name = f"supervised {arch} stage {stage}" + (" f32" if dtype == "float32" else "")
         out[name], enqueue, peak = timed_step(step)
         print(f"{name}, batch {RL_BATCH}: median step {out[name]:.2f} ms "
               f"({1e3 / out[name]:.3f} steps/s), host enqueue {enqueue:.2f} ms, "
@@ -2202,8 +2336,9 @@ def steady_steps(dev, ds, results, runs):
 def steady_murcl_steps(dev, ds, results):
     """Steady MuRCL steps at batch 128: CLAM_SB stage 1 (the ``bench.py``
     step), ABMIL stage 1, then CLAM_SB stage 3 (which chains on the CLAM_SB
-    path's stage 2), in bf16; then CLAM_SB stages 1 and 3 in float32, the
-    CLIs' and the runbook's default. Returns ``{name: ms}``."""
+    path's stage 2), in bf16; then CLAM_SB stages 1 and 3 and ABMIL stage 1
+    in float32, the CLIs' and the runbook's default. Returns ``{name:
+    ms}``."""
     import torch
 
     from murcl_tpu_torch.drivers.murcl import setup
@@ -2211,7 +2346,7 @@ def steady_murcl_steps(dev, ds, results):
     out = {}
     for arch, stage, dtype in (("CLAM_SB", 1, "bfloat16"), ("ABMIL", 1, "bfloat16"),
                                ("CLAM_SB", 3, "bfloat16"), ("CLAM_SB", 1, "float32"),
-                               ("CLAM_SB", 3, "float32")):
+                               ("CLAM_SB", 3, "float32"), ("ABMIL", 1, "float32")):
         s = setup(murcl_args(dev, ds, results, arch, stage, exist_ok=True, compute_dtype=dtype))
         gen = torch.Generator().manual_seed(0)
         ids = torch.arange(BATCH, device=dev) % SLIDES
@@ -2238,20 +2373,33 @@ PARENT_TREE = REPO / "build" / "parent"
 
 
 # K7's timed calls in the A/B: the supervised stage-1 shape (gated, D 256,
-# dropout 0.25) and ABMIL's mode (ungated, D 128, dropout 0)
-AB_POOL = {"sup": (POOL_BAGS, D, True, 0.25), "abmil": (B_MAIN, ABMIL_D, False, 0.0)}
+# dropout 0.25) and ABMIL's mode (ungated, D 128, dropout 0), in bf16 and in
+# f32 (the supervised CLIs' default)
+AB_POOL = {"sup": (POOL_BAGS, D, True, 0.25, "bf16"),
+           "abmil": (B_MAIN, ABMIL_D, False, 0.0, "bf16"),
+           "sup_f32": (POOL_BAGS, D, True, 0.25, "f32"),
+           "abmil_f32": (B_MAIN, ABMIL_D, False, 0.0, "f32")}
+# the steady steps of the A/B: (package module, arch, stage, compute dtype)
+AB_STEPS = {"supervised": ("rlmil", "CLAM_SB", 1, "bfloat16"),
+            "murcl_abmil": ("murcl", "ABMIL", 1, "bfloat16"),
+            "murcl_clam_f32": ("murcl", "CLAM_SB", 1, "float32"),
+            "supervised_f32": ("rlmil", "CLAM_SB", 1, "float32"),
+            "supervised_s3_f32": ("rlmil", "CLAM_SB", 3, "float32"),
+            "supervised_abmil_f32": ("rlmil", "ABMIL", 1, "float32"),
+            "murcl_abmil_f32": ("murcl", "ABMIL", 1, "float32")}
 
 
 def ab_side(tree: str, ds: dict, results: str) -> dict:
     """One side of the A/B, in a process of its own that imports the port
     from ``tree``: K7f and K7b through ``_pool_fwd_cuda`` / ``_pool_bwd_cuda``
-    at ``AB_POOL``'s shapes and K2 (the op's forward, under no_grad) and K3
-    (its backward) at the timed call of ``check_fused``, in bf16 and in f32
-    (median ms of 5, and one call's device ms by kernel), then steady
-    supervised CLAM_SB stage-1 (batch 64, finetuned from
-    ``ds["pretrained"]``), MuRCL ABMIL stage-1 (batch 128) and MuRCL CLAM_SB
-    stage-1 f32 (batch 128) steps as ``steady_steps`` times them (step and
-    enqueue ms, the device's busy ms over 3 traced steps, peak memory)."""
+    at ``AB_POOL``'s shapes and dtypes and K2 (the op's forward, under
+    no_grad) and K3 (its backward) at the timed call of ``check_fused``, in
+    bf16 and in f32 (median ms of 5, and one call's device ms by kernel),
+    then the steady steps of ``AB_STEPS`` (supervised at batch 64, finetuned
+    from ``ds["pretrained"]`` or, ABMIL, ``ds["abmil_pretrained"]``, stage 3
+    chaining on the RLMIL path's stage 2 under ``<results>/rlmil``; MuRCL at
+    batch 128) as ``steady_steps`` times them (step and enqueue ms, the
+    device's busy ms over 3 traced steps, peak memory)."""
     sys.path.insert(0, tree)
     import torch
 
@@ -2266,8 +2414,9 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
     _cuda.library()
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"tree": tree}
-    for key, (b, d, gated, rate) in AB_POOL.items():
-        x, w, mask, cots = pool_inputs(b, torch.bfloat16, gen, dev, False, d)
+    for key, (b, d, gated, rate, dt) in AB_POOL.items():
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        x, w, mask, cots = pool_inputs(b, dtype, gen, dev, False, d)
         p = att._pool_fwd_cuda(x, *w, mask, gated, rate, 77)[1]
 
         def fwd():
@@ -2298,19 +2447,17 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
                     f"k2{tag}_split": kernel_split(k2), f"k3{tag}_split": kernel_split(k3)})
         del outs, ws, h
         torch.cuda.empty_cache()
-    steps = {
-        "supervised": lambda: rlmil.setup(rlmil_args(dev, ds, Path(results) / "ab_rlmil", 1,
-                                                     ds["pretrained"], exist_ok=True)),
-        "murcl_abmil": lambda: murcl.setup(murcl_args(dev, ds, Path(results) / "murcl",
-                                                      "ABMIL", 1, exist_ok=True)),
-        "murcl_clam_f32": lambda: murcl.setup(murcl_args(dev, ds, Path(results) / "murcl",
-                                                         "CLAM_SB", 1, exist_ok=True,
-                                                         compute_dtype="float32")),
-    }
-    for key, make in steps.items():
-        s = make()
+    for key, (mod, arch, stage, dtype) in AB_STEPS.items():
+        if mod == "rlmil":
+            pretrained = ds["pretrained" if arch == "CLAM_SB" else "abmil_pretrained"]
+            base = Path(results) / ("rlmil" if stage == 3 else "ab_rlmil")
+            s = rlmil.setup(rlmil_args(dev, ds, base, stage, pretrained, arch=arch,
+                                       exist_ok=True, compute_dtype=dtype))
+        else:
+            s = murcl.setup(murcl_args(dev, ds, Path(results) / "murcl", arch, stage,
+                                       exist_ok=True, compute_dtype=dtype))
         g = torch.Generator().manual_seed(0)
-        if key == "supervised":
+        if mod == "rlmil":
             bank, ids = s.sources["train"].bank, torch.arange(RL_BATCH, device=dev)
         else:
             bank, ids = s.source.bank, torch.arange(BATCH, device=dev) % SLIDES
@@ -2319,7 +2466,7 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
             s.engine.train_step(bank, ids, g)
 
         ms, enqueue, peak = timed_step(step)
-        busy = profile_steps(step, f"A/B {Path(tree).name} {key} stage 1", ms)
+        busy = profile_steps(step, f"A/B {Path(tree).name} {key}", ms)
         res[key] = {"ms": ms, "enqueue_ms": enqueue, "busy_ms": busy, "busy_pct": 100 * busy / ms,
                     "peak_gib": peak}
         del s, bank
@@ -2328,13 +2475,14 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
 
 
 def ab_parent(ds, results):
-    """K7f/K7b, K2/K3 in bf16 and f32, and the supervised CLAM_SB, MuRCL
-    ABMIL and MuRCL CLAM_SB f32 stage-1 steps of the parent's tree and of
-    this one, in turns (parent, this, this, parent), each side a process of
-    its own on this card; fails unless this tree's f32 K2 and K3 (the f32
-    route redesigned here) are faster than the parent's (median of each
-    side's two runs). The rest is printed, not gated. Returns ``{"parent":
-    [side, side], "this": [side, side]}``, or None without a parent tree."""
+    """K7f/K7b and K2/K3 in bf16 and f32, and the steady steps of
+    ``AB_STEPS`` of the parent's tree and of this one, in turns (parent,
+    this, this, parent), each side a process of its own on this card; fails
+    unless this tree's f32 K7f and K7b (the f32 route redesigned here) are
+    faster than the parent's at both of ``AB_POOL``'s f32 shapes (median of
+    each side's two runs). The rest is printed, not gated. Returns
+    ``{"parent": [side, side], "this": [side, side]}``, or None without a
+    parent tree."""
     import torch
 
     if not (PARENT_TREE / "murcl_tpu_torch").is_dir():
@@ -2355,9 +2503,9 @@ def ab_parent(ds, results):
         sides[name].append(json.loads(lines[-1]))
         print(f"A/B side {name} ({tree}) in {time.time() - t0:.1f} s")
     card = card_line()
-    calls = [(f"k7{k}_{key}", f"K7{k} at ({b}, {N_MAIN}, {L1}) bf16 "
+    calls = [(f"k7{k}_{key}", f"K7{k} at ({b}, {N_MAIN}, {L1}) {dt} "
               f"{'gated' if gated else 'ungated'}, D {d}, dropout {rate}")
-             for key, (b, d, gated, rate) in AB_POOL.items() for k in ("f", "b")]
+             for key, (b, d, gated, rate, dt) in AB_POOL.items() for k in ("f", "b")]
     calls += [("k2", f"K2 (the op's forward) at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 gated, mixed, "
                      "dropout 0.25"),
               ("k3", "K3 (the op's backward), the same call"),
@@ -2372,15 +2520,15 @@ def ab_parent(ds, results):
         for n, v in sides.items():
             print(f"  {n} {key} one call by kernel: "
                   + ", ".join(f"{k} {ms:.3f}" for k, ms in v[0][key + "_split"]))
-    for key, what in (("supervised", f"supervised CLAM_SB stage 1, batch {RL_BATCH}"),
-                      ("murcl_abmil", f"MuRCL ABMIL stage 1, batch {BATCH}"),
-                      ("murcl_clam_f32", f"MuRCL CLAM_SB stage 1 f32, batch {BATCH}")):
+    for key, (mod, arch, stage, dtype) in AB_STEPS.items():
+        what = (f"{'supervised' if mod == 'rlmil' else 'MuRCL'} {arch} stage {stage} "
+                f"{dtype}, batch {RL_BATCH if mod == 'rlmil' else BATCH}")
         print(f"A/B {what}, in turns: " + "; ".join(
             f"{n} " + ", ".join(
                 f"{s[key]['ms']:.2f} ms (enqueue {s[key]['enqueue_ms']:.2f}, busy "
                 f"{s[key]['busy_pct']:.2f}%, peak {s[key]['peak_gib']:.2f} GiB)" for s in v)
             for n, v in sides.items()) + f" ({card})")
-    for key in ("k2_f32", "k3_f32"):
+    for key in ("k7f_sup_f32", "k7b_sup_f32", "k7f_abmil_f32", "k7b_abmil_f32"):
         mine = statistics.median(s[key + "_ms"] for s in sides["this"])
         theirs = statistics.median(s[key + "_ms"] for s in sides["parent"])
         check(mine < theirs, f"A/B: this tree's {key} ({mine:.3f} ms) not faster than the "
@@ -2994,7 +3142,7 @@ def main() -> int:
           f"{f32['bwd_bound_ms']:.3f} ms; K2 ungated {f32['fwd_ungated_ms']:.2f} ms; K3 ungated "
           f"{f32['bwd_ungated_ms']:.2f}, unmixed {f32['bwd_unmixed_ms']:.2f}, unmixed with dh "
           f"{f32['bwd_dh_ms']:.2f} ms; largest rel err {f32['max_rel']:.2e} ({card})")
-    k7f, k7b = check_pool(dev, gen)
+    k7f, k7b, k7_f32 = check_pool(dev, gen)
     print(f"K7 pool fwd {k7f['ms']:.2f} ms vs plain {k7f['plain_ms']:.2f} ms, bound "
           f"{k7f['bound_ms']:.4f} ms; K7 bwd {k7b['ms']:.2f} ms vs plain {k7b['plain_ms']:.2f} ms, "
           f"bound {k7b['bound_ms']:.4f} ms at ({POOL_BAGS}, {N_MAIN}, {L1}) bf16 gated, D {D}, "
@@ -3003,6 +3151,17 @@ def main() -> int:
           f"bf16: fwd {k7f['abmil_ms']:.2f} ms vs plain {k7f['abmil_plain_ms']:.2f} ms, bound "
           f"{k7f['abmil_bound_ms']:.4f} ms; bwd {k7b['abmil_ms']:.2f} ms vs plain "
           f"{k7b['abmil_plain_ms']:.2f} ms, bound {k7b['abmil_bound_ms']:.4f} ms ({card})")
+    print(f"K7 f32 (three bf16 products per product) at ({POOL_BAGS}, {N_MAIN}, {L1}) gated, D "
+          f"{D}, dropout 0.25: fwd {k7_f32['sup_fwd_ms']:.3f} ms vs plain "
+          f"{k7_f32['sup_fwd_plain_ms']:.3f} ms, bound {k7_f32['sup_fwd_bound_ms']:.4f} ms "
+          f"({k7_f32['sup_fwd_bound_by']}); bwd {k7_f32['sup_bwd_ms']:.3f} ms vs plain "
+          f"{k7_f32['sup_bwd_plain_ms']:.3f} ms, bound {k7_f32['sup_bwd_bound_ms']:.4f} ms; ABMIL "
+          f"mode ({B_MAIN}, {N_MAIN}, {L1}) ungated D {ABMIL_D}: fwd {k7_f32['abmil_fwd_ms']:.3f} "
+          f"vs {k7_f32['abmil_fwd_plain_ms']:.3f} ms (bound {k7_f32['abmil_fwd_bound_ms']:.4f}), "
+          f"bwd {k7_f32['abmil_bwd_ms']:.3f} vs {k7_f32['abmil_bwd_plain_ms']:.3f} ms (bound "
+          f"{k7_f32['abmil_bwd_bound_ms']:.4f}); K8's op backward at {K8_MAIN} "
+          f"{k7_f32['k8_bwd_ms']:.3f} vs {k7_f32['k8_bwd_plain_ms']:.3f} ms; largest rel err "
+          f"{k7_f32['max_rel']:.2e} ({card})")
     k6 = check_mixup(dev, gen)
     print(f"K6 mixup bitwise ok; {k6['ms']:.3f} ms vs plain {k6['plain_ms']:.3f} ms at "
           f"({B_MAIN}, {N_MAIN}, {FIN}) bf16 ({k6['gbps']:.0f} GB/s moved); "
@@ -3039,15 +3198,20 @@ def main() -> int:
                      rlmil_path(dev, ds, tmp / "rlmil", abmil_pretrained, "ABMIL"),
                      rlmil_path(dev, ds, tmp / "rlmil", None, "DSMIL")]
         supervised_step_check(dev, ds, tmp / "rlmil", abmil_pretrained)
-        steady_steps(dev, ds, tmp / "rlmil", [("CLAM_SB", 3, pretrained),
-                                              ("CLAM_SB", 1, pretrained),
-                                              ("ABMIL", 1, abmil_pretrained),
-                                              ("DSMIL", 1, None)])
+        rl_cli = rlmil_cli_path(dev, ds, tmp / "rlmil_cli", pretrained)
+        steady_steps(dev, ds, tmp / "rlmil", [("CLAM_SB", 3, pretrained, "bfloat16"),
+                                              ("CLAM_SB", 1, pretrained, "bfloat16"),
+                                              ("ABMIL", 1, abmil_pretrained, "bfloat16"),
+                                              ("DSMIL", 1, None, "bfloat16"),
+                                              ("CLAM_SB", 1, pretrained, "float32"),
+                                              ("CLAM_SB", 3, pretrained, "float32"),
+                                              ("ABMIL", 1, abmil_pretrained, "float32")])
         steady_murcl_steps(dev, ds, tmp / "murcl")
         t0 = time.time()
         ab = ab_parent({**{k: str(ds[k]) for k in ("data_csv", "data_split_json",
                                                    "rlmil_split_json")},
-                        "pretrained": str(pretrained)}, tmp)
+                        "pretrained": str(pretrained),
+                        "abmil_pretrained": str(abmil_pretrained)}, tmp)
         print(f"A/B phase in {time.time() - t0:.1f} s")
         t0 = time.time()
         dp_counts = dp_cli_path(dev, ds, tmp / "dp")
@@ -3059,6 +3223,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
     for counts in [pre, *clam_stages.values(), *cli_stages.values(), *abmil_stages.values(), heat,
+                   rl_cli,
                    *(c for path in rl_stages for c in path.values()), *dp_counts,
                    *stream_counts]:
         for k, v in counts.items():
@@ -3110,9 +3275,19 @@ def main() -> int:
         if row["name"] in ("attention_pool_fwd", "attention_pool_bwd"):
             row["modes"] = (f"gated and ungated at D {D}; gated at D {CLAM_BIG_D} (bf16) and on "
                             f"{TAIL_N}-row bags; ungated at D {ABMIL_D} (ABMIL: MuRCL and "
-                            "supervised)")
+                            "supervised); f32 as three bf16 products (f32): gated and ungated "
+                            f"at D {ABMIL_D}, {D} and {CLAM_BIG_D}, dropout 0 and 0.25, "
+                            f"{TAIL_N}-row bags ending at the 128-row tiles' edges")
+            # the f32 route (the supervised CLIs' default) at the supervised
+            # shape and in ABMIL's mode, and (K7b) K8's op backward; its
+            # bounds count the f32 products at TF32's rate
+            side = "fwd" if row["name"].endswith("fwd") else "bwd"
+            row["f32"] = {k.replace(f"_{side}_", "_", 1): v for k, v in k7_f32.items()
+                          if f"_{side}_" in k}
+            row["f32"]["max_rel"] = k7_f32["max_rel"]
+            row["f32"]["max_abs_err"] = k7_f32[f"max_abs_err_{side}"]
             if ab:  # timed in turns beside the parent's, ms per side run, per AB_POOL shape
-                k = "k7f" if row["name"].endswith("fwd") else "k7b"
+                k = "k7f" if side == "fwd" else "k7b"
                 row["ab_ms"] = {s: [r[f"{k}_{s}_ms"] for r in ab["this"]] for s in AB_POOL}
                 row["ab_parent_ms"] = {s: [r[f"{k}_{s}_ms"] for r in ab["parent"]]
                                        for s in AB_POOL}

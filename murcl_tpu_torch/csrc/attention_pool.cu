@@ -12,66 +12,86 @@
 // dza = ds wc g_eff ka (1 - a^2), dzb = ds wc a_eff kb g (1 - g) in f32;
 // dWa = x^T @ rnd(dza) (same for Wb), dba/dbb sum the f32 dza/dzb, and
 // dx = p gm + dza @ Wa^T + dzb @ Wb^T with the f32 dza, dzb and weights,
-// rounded once.
+// rounded once to the bag dtype. In f32 nothing is rounded.
 //
 // Bound on the H100: at the supervised stage-1 shape (384 bags x 1024 rows,
 // 512 -> 256, gated; R = 393,216 rows) the gate products are 0.21 TFLOP
-// forward; the backward recomputes them and adds dx's (0.62 TFLOP as three
-// bf16 products, below) and dWa + dWb (0.21). A bag (1 MiB in bf16) does not
-// fit a block's shared memory, so blocks take row tiles: the forward writes
-// the raw scores s and pool_kernel (tiles.cuh) then takes the softmax over
-// the whole bag and M = rnd(p) @ x (the bag itself is the pooled tensor, so
-// nothing is written besides s); the backward writes dp in a pass of its own
-// (dp_kernel, a GEMV that reads x once: ds needs each bag's sum of p dp
-// before any gate gradient), recomputes the gates, writes dza/dzb to
-// scratch, forms dx, and contracts x^T @ rnd(dza) and x^T @ rnd(dzb)
-// split-K with f32 atomics. No backward block holds a term in N, so K7b
-// takes any bag length (K7f's softmax pass holds N scores).
-// Two instantiations:
-//  * bf16 (supervised CLAM and ABMIL): warpgroup products (wgmma m64n128k16)
-//    over 128-row tiles, both operands copied by TMA into an mbarrier ring
-//    by one producer thread (wgmma_tiles.cuh, as K2/K3), persistent kernels
-//    of one 384-thread block per SM whose producer warpgroup's three other
-//    warps hash each pass's dropout keep bits ahead of its epilogue, biases
-//    and wc staged in shared memory once per block, bf16 tiles stored by TMA
-//    through swizzled staging:
-//    - pool_gates_fwd_wg: the gate products (x K-major, Wa and Wb read
-//      MN-major as stored: 64 columns of each per pass gated, 128 of Wa
-//      ungated) and an f32 epilogue that sums s per row;
-//    - pool_gates_bwd_wg: the same products, then the gate backward in f32
-//      from each row's ds (softmax_bwd_kernel's, per bag); dza and dzb go to
-//      scratch as two bf16 planes, hi = rnd(dz) (the operand of dWa, dWb)
-//      and lo = rnd(dz - hi); dwc, dba and dbb are summed from the f32 values
-//      as block partials;
-//    - pool_dx_wg: dx's products take f32 operands in the TPU kernel, which
-//      one bf16 product would round to 2^-9. Three bf16 products, hi Whi +
-//      hi Wlo + lo Whi (W split into hi and lo planes by the caller), keep
-//      about 2^-16; a block owns a 128-row tile and walks its F / 128 column
-//      passes, gate a then gate b into one accumulator. Where the tile's
-//      planes fit beside the ring (ungated D 128: 64 KB) they are copied
-//      into shared memory once per tile and only W's planes stream; else
-//      (gated D 256: 256 KB, more than a block's 227 KB) each stage holds a
-//      k-slice of the tile's hi and lo planes beside W's, so each A slice
-//      feeds two products and the passes after the first read the tile
-//      again from L2, not device memory;
-//    - wgrad_wg (shared with K3): dWa and dWb in one pass over x against
-//      the scratch's hi plane [dza | dzb].
+// forward; the backward recomputes them and adds dx's and dWa + dWb (0.21
+// each). A bag (1 MiB in bf16) does not fit a block's shared memory, so
+// blocks take row tiles: the forward writes the raw scores s and
+// pool_kernel (tiles.cuh) then takes the softmax over the whole bag and M =
+// rnd(p) @ x (the bag itself is the pooled tensor, so nothing is written
+// besides s); the backward writes dp in a pass of its own (dp_kernel, a GEMV
+// that reads x once: ds needs each bag's sum of p dp before any gate
+// gradient), recomputes the gates, writes dza/dzb to scratch, forms dx, and
+// contracts x^T @ dza and x^T @ dzb split-K with f32 atomics. No backward
+// block holds a term in N, so K7b takes any bag length (K7f's softmax pass
+// holds N scores).
+// Both dtypes run the same warpgroup kernels, templates on the bag dtype T:
+// warpgroup products (wgmma m64n128k16, bf16 in, f32 accumulate) over
+// 128-row tiles, both operands copied by TMA into an mbarrier ring by one
+// producer thread (wgmma_tiles.cuh, as K2/K3), persistent kernels of one
+// 384-thread block per SM whose producer warpgroup's three other warps hash
+// each pass's dropout keep bits ahead of its epilogue, biases and wc staged
+// in shared memory once per block:
+//  - pool_gates_fwd_wg: the gate products (x K-major, Wa and Wb read
+//    MN-major as stored: 64 columns of each per pass gated, 128 of Wa
+//    ungated) and an f32 epilogue that sums s per row;
+//  - pool_gates_bwd_wg: the same products, then the gate backward in f32
+//    from each row's ds (softmax_bwd_kernel's, per bag); dza and dzb go to
+//    scratch as two bf16 planes, hi = rnd(dz) and lo = rnd(dz - hi), stored
+//    by TMA through swizzled staging; dwc, dba and dbb are summed from the
+//    f32 values as block partials;
+//  - pool_dx_wg: dx's products take f32 operands in the TPU kernel, which
+//    one bf16 product would round to 2^-9. Three bf16 products, hi Whi +
+//    hi Wlo + lo Whi of the dz planes and W's planes, keep about 2^-16; a
+//    block owns a 128-row tile and walks its F / 128 column passes, gate a
+//    then gate b into one accumulator. Where the tile's planes fit beside
+//    the ring (ungated D 128: 64 KB) they are copied into shared memory once
+//    per tile and only W's planes stream; else (gated D 256: 256 KB, more
+//    than a block's 227 KB) each stage holds a k-slice of the tile's hi and
+//    lo planes beside W's, so each A slice feeds two products and the
+//    passes after the first read the tile again from L2;
+//  - wgrad_wg (shared with K3): dWa and dWb in one pass over x against the
+//    scratch [dza | dzb].
+//  * bf16 (--compute_dtype bfloat16): a stage holds a 16 KB slice of each
+//    operand; dWa's operand is the scratch's hi plane, rnd(dza), as the TPU
+//    kernel rounds it; dx is rounded to bf16 once and stored by TMA through
+//    a 64-column staging box per warpgroup.
 //    Device-memory bytes of the backward at the supervised shape: x read by
 //    dp_kernel, the gates and the weight gradients (3 x 0.40 GB), the
 //    scratch written once and read by dx (2 x 0.81) and its hi plane by the
 //    weight gradients (0.40), dx written (0.40): 3.6 GB, 1.08 ms at 3.35
 //    TB/s, beside 1.04 ms for its 1.03 TFLOP of bf16 products.
-//  * f32 (the supervised CLIs' and the runbook's default dtype, and K8's
-//    backward on f32 heatmap bags): still the FP32 FMA tiles (tiles.cuh),
-//    32 rows per block, in gate_fwd_kernel, gate_bwd_kernel (which forms dx
-//    from the f32 dza/dzb it keeps in shared memory) and wgrad_kernel; their
-//    redesign as three bf16 wgmma products, as K2/K3's f32 route has it, is
-//    queued (ROADMAP Queue 2). TF32 would round beyond the f32 tolerance of
-//    1e-4.
+//  * f32 (the supervised CLIs' and the runbook's default dtype, MuRCL ABMIL
+//    at its default, and K8's backward on f32 heatmap bags): no f32 operand
+//    reaches the tensor cores within the tolerance of 1e-4 (TF32 keeps 10
+//    mantissa bits, and its wgmma reads both operands K-major only, where
+//    Wa and Wb are read as stored), so each f32 operand t goes to them as
+//    two bf16 planes, hi = rnd(t) and lo = rnd(t - hi), and each product as
+//    three bf16 products hi hi + hi lo + lo hi into the one f32 accumulator
+//    (about 2^-16 relative; mainloop<.., X3>), a stage holding the hi and lo
+//    slices of both operands (64 KB; 2-3 stages). split_kernel writes x's
+//    planes (2, B, N, F), in the forward and again in the backward (the
+//    forward's planes are not held through the step); W's planes (2 F, D)
+//    come from the caller. The gate epilogues are the bf16 route's; dWa =
+//    x^T @ dza takes three products of x's and the scratch's planes
+//    (wgrad_wg<float>, its sums promoted to f32 every 8 k-slices); pool_dx_wg
+//    writes f32 dx straight from its accumulators; pool_kernel takes M = p @
+//    x from the f32 bag.
+//    Device-memory bytes at the supervised shape (GB): forward split_kernel
+//    0.81 + 0.81, pool_gates_fwd_wg 0.81 (the planes), pool_kernel 0.81:
+//    3.2 GB (0.96 ms); backward dp_kernel 0.81, split_kernel 1.61,
+//    pool_gates_bwd_wg 0.81 + 0.81 (the scratch's planes), pool_dx_wg 0.81
+//    + 0.81 (f32 dx), wgrad_wg 0.81 + 0.81: 8.1 GB (2.4 ms), beside 1.9
+//    TFLOP of bf16 products (1.9 ms at 989 TFLOP/s); the function's own
+//    0.62 TFLOP of f32 products take 1.25 ms at TF32's 495.
+// Launches: forward (f32: split_kernel), pool_gates_fwd_wg, pool_kernel;
+// backward dp_kernel, softmax_bwd_kernel, (f32: split_kernel),
+// pool_gates_bwd_wg, pool_dx_wg, wgrad_wg.
 // Gate dropout keep bits come from the counter hash of common.cuh, streams 1
 // (a) and 2 (b), the streams K2 uses, so the backward regenerates the
 // forward's masks.
-#include "tiles.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -81,68 +101,6 @@ struct GateDropout {
   uint32_t seed, thresh;
   float scale;  // 1 / (1 - rate) in f32, applied in f32
 };
-
-__device__ __forceinline__ float keep_f32(const GateDropout& dp, uint32_t key, uint32_t idx) {
-  return murcl::dropout_bits(key, idx) >= dp.thresh ? dp.scale : 0.f;
-}
-
-// f32 on FMA tiles. Xs[r][c] = bag rows r0 + r (zeros past N).
-__device__ void load_tile(const float* __restrict__ x, int bag, int r0, int N, int F, float* Xs,
-                          int ldx) {
-  const float* xb = x + (size_t)bag * N * F;
-  for (int e = threadIdx.x; e < TM * F; e += THREADS) {
-    const int r = e / F, c = e % F;
-    Xs[r * ldx + c] = r0 + r < N ? xb[(size_t)(r0 + r) * F + c] : 0.f;
-  }
-}
-
-// Forward pass 1: the raw scores s of one 32-row tile.
-template <bool GATED>
-__global__ void __launch_bounds__(THREADS)
-gate_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wa,
-                const float* __restrict__ ba, const float* __restrict__ wb,
-                const float* __restrict__ bb,
-                const float* __restrict__ wc, const float* __restrict__ bc, GateDropout dp,
-                float* __restrict__ s_out, int N, int F, int D) {
-  extern __shared__ float smem[];
-  const int ldx = F + 1;
-  float* Xs = smem;
-  float* Bs = Xs + TM * ldx;
-  const int bag = blockIdx.y, r0 = blockIdx.x * TM;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  load_tile(x, bag, r0, N, F, Xs, ldx);  // gemm_tile synchronises before reading
-
-  const uint32_t key_a = murcl::bag_key(dp.seed, bag, 1), key_b = murcl::bag_key(dp.seed, bag, 2);
-  float sacc[RM] = {};
-  float ga[RM][RN], gb[RM][RN];
-  for (int n0 = 0; n0 < D; n0 += TN) {
-    gemm_tile<float>(Xs, ldx, wa, D, F, n0, Bs, ga);
-    if (GATED) gemm_tile<float>(Xs, ldx, wb, D, F, n0, Bs, gb);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const uint32_t row = r0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int col = n0 + tx + 16 * j;
-        float u = tanhf(ga[i][j] + ba[col]);
-        if (dp.on) u *= keep_f32(dp, key_a, row * D + col);
-        if (GATED) {
-          float g = sigmoidf(gb[i][j] + bb[col]);
-          if (dp.on) g *= keep_f32(dp, key_b, row * D + col);
-          u *= g;
-        }
-        sacc[i] = fmaf(u, wc[col], sacc[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    float v = sacc[i];
-    for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(murcl::kFull, v, o);  // over tx
-    const int row = r0 + ty + 16 * i;
-    if (tx == 0 && row < N) s_out[(size_t)bag * N + row] = v + bc[0];
-  }
-}
 
 // Backward pass 1: dp = x @ rnd(gm) + gp (gp null: x @ rnd(gm)), one warp per
 // row.
@@ -161,154 +119,6 @@ dp_kernel(const T* __restrict__ x, const float* __restrict__ gm, const float* __
   if (lane == 0) dp_out[(size_t)bag * N + row] = acc + (gp ? gp[(size_t)bag * N + row] : 0.f);
 }
 
-// Backward pass 2: softmax backward, gate backward (dza, dzb, dwc, dbc, dba,
-// dbb) and dx = p gm + dza @ Wa^T + dzb @ Wb^T for one 32-row tile.
-template <bool GATED>
-__global__ void __launch_bounds__(THREADS)
-gate_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wa,
-                const float* __restrict__ ba, const float* __restrict__ wb,
-                const float* __restrict__ bb, const float* __restrict__ wc,
-                const float* __restrict__ waT, const float* __restrict__ wbT,
-                const uint8_t* __restrict__ mask, GateDropout dp, const float* __restrict__ p,
-                const float* __restrict__ gm, const float* __restrict__ gs,
-                const float* __restrict__ dpv, float* __restrict__ dza_out,
-                float* __restrict__ dzb_out, float* __restrict__ dx_out,
-                float* __restrict__ dba, float* __restrict__ dbb, float* __restrict__ dwc,
-                float* __restrict__ dbc, int N, int F, int D) {
-  extern __shared__ float smem[];
-  const int ldx = F + 1, ldd = D + 1;
-  float* Xs = smem;
-  float* DAs = Xs + TM * ldx;
-  float* DBs = DAs + TM * ldd;
-  float* Bs = DBs + TM * ldd;
-  float* Ds = Bs + KC * TN;  // TM: ds per row
-  float* Ps = Ds + TM;       // TM: p per row
-  float* Wcs = Ps + TM;      // D: this block's dwc partial
-  float* Sa = Wcs + D;       // D: this block's dba partial
-  float* Sb = Sa + D;        // D: this block's dbb partial
-  float* red = Sb + D;       // 32
-  const int bag = blockIdx.y, r0 = blockIdx.x * TM;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* pb = p + (size_t)bag * N;
-  const float* dpb = dpv + (size_t)bag * N;
-
-  // cross-tile sum over the whole bag: c = sum_r p_r dp_r
-  float part = 0.f;
-  for (int r = threadIdx.x; r < N; r += THREADS) part += pb[r] * dpb[r];
-  const float csum = block_sum(part, red);
-  float dbc_part = 0.f;
-  if (threadIdx.x < TM) {
-    const int row = r0 + threadIdx.x;
-    float ds = 0.f, pr = 0.f;
-    if (row < N) {
-      pr = pb[row];
-      ds = pr * (dpb[row] - csum);
-      if (!mask[(size_t)bag * N + row]) ds = 0.f;
-      ds += gs[(size_t)bag * N + row];
-    }
-    Ds[threadIdx.x] = ds;
-    Ps[threadIdx.x] = pr;
-    dbc_part = ds;
-  }
-  for (int c = threadIdx.x; c < D; c += THREADS) Wcs[c] = Sa[c] = Sb[c] = 0.f;
-  load_tile(x, bag, r0, N, F, Xs, ldx);
-  const float dbc_blk = block_sum(dbc_part, red);  // also orders the smem writes above
-  if (threadIdx.x == 0) atomicAdd(dbc, dbc_blk);
-
-  const uint32_t key_a = murcl::bag_key(dp.seed, bag, 1), key_b = murcl::bag_key(dp.seed, bag, 2);
-  float ga[RM][RN], gb[RM][RN];
-  for (int n0 = 0; n0 < D; n0 += TN) {
-    gemm_tile<float>(Xs, ldx, wa, D, F, n0, Bs, ga);
-    if (GATED) gemm_tile<float>(Xs, ldx, wb, D, F, n0, Bs, gb);
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int col = n0 + tx + 16 * j;
-      const float wc_c = wc[col];
-      float wsum = 0.f, asum = 0.f, bsum = 0.f;
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int r = ty + 16 * i;
-        const uint32_t idx = (uint32_t)(r0 + r) * D + col;
-        const float a = tanhf(ga[i][j] + ba[col]);
-        const float ka = dp.on ? keep_f32(dp, key_a, idx) : 1.f;
-        const float a_eff = a * ka;
-        float g = 0.f, kb = 1.f, g_eff = 0.f, u = a_eff;
-        if (GATED) {
-          g = sigmoidf(gb[i][j] + bb[col]);
-          kb = dp.on ? keep_f32(dp, key_b, idx) : 1.f;
-          g_eff = g * kb;
-          u = a_eff * g_eff;
-        }
-        const float ds = Ds[r];
-        wsum = fmaf(u, ds, wsum);
-        const float du = ds * wc_c;
-        const float dza = (GATED ? du * g_eff : du) * ka * (1.f - a * a);
-        const bool live = r0 + r < N;
-        DAs[r * ldd + col] = live ? dza : 0.f;
-        if (live) {
-          dza_out[((size_t)bag * N + r0 + r) * D + col] = dza;
-          asum += dza;
-        }
-        if (GATED) {
-          const float dzb = du * a_eff * kb * g * (1.f - g);
-          DBs[r * ldd + col] = live ? dzb : 0.f;
-          if (live) {
-            dzb_out[((size_t)bag * N + r0 + r) * D + col] = dzb;
-            bsum += dzb;
-          }
-        }
-      }
-      atomicAdd(&Wcs[col], wsum);
-      atomicAdd(&Sa[col], asum);
-      if (GATED) atomicAdd(&Sb[col], bsum);
-    }
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < D; c += THREADS) {
-    atomicAdd(&dwc[c], Wcs[c]);
-    atomicAdd(&dba[c], Sa[c]);
-    if (GATED) atomicAdd(&dbb[c], Sb[c]);
-  }
-
-  const float* gmb = gm + (size_t)bag * F;
-  float a1[RM][RN], a2[RM][RN];
-  for (int n0 = 0; n0 < F; n0 += TN) {
-    gemm_tile<float>(DAs, ldd, waT, F, D, n0, Bs, a1);
-    if (GATED) gemm_tile<float>(DBs, ldd, wbT, F, D, n0, Bs, a2);
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int r = ty + 16 * i;
-      if (r0 + r >= N) continue;
-#pragma unroll
-      for (int j = 0; j < RN; ++j) {
-        const int col = n0 + tx + 16 * j;
-        float dx = Ps[r] * gmb[col] + a1[i][j];
-        if (GATED) dx += a2[i][j];
-        dx_out[((size_t)bag * N + r0 + r) * F + col] = dx;
-      }
-    }
-  }
-}
-
-size_t fwd_smem(int F) { return sizeof(float) * (TM * (F + 1) + KC * TN); }
-size_t bwd_smem(int F, int D) {
-  return sizeof(float) * (TM * (F + 1) + 2 * TM * (D + 1) + KC * TN + 2 * TM + 3 * D + 32);
-}
-
-template <bool GATED>
-int fwd_impl(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
-             const void* wc, const void* bc, const void* mask, GateDropout dp, void* m, void* p,
-             void* s, int B, int N, int F, int D, cudaStream_t stream) {
-  const size_t smem = fwd_smem(F);
-  MURCL_TRY(allow_smem(gate_fwd_kernel<GATED>, smem));
-  gate_fwd_kernel<GATED><<<dim3((N + TM - 1) / TM, B), THREADS, smem, stream>>>(
-      (const float*)x, (const float*)wa, (const float*)ba, (const float*)wb, (const float*)bb,
-      (const float*)wc, (const float*)bc, dp, (float*)s, N, F, D);
-  MURCL_TRY(cudaGetLastError());
-  return pool<float>((const float*)s, (const uint8_t*)mask, (const float*)x, (float*)m,
-                     (float*)p, B, N, F, stream);
-}
-
 template <typename T>
 cudaError_t launch_dp(const void* x, const void* gm, const void* gp, void* dpv, int B, int N,
                       int F, cudaStream_t stream) {
@@ -317,42 +127,23 @@ cudaError_t launch_dp(const void* x, const void* gm, const void* gp, void* dpv, 
   return cudaGetLastError();
 }
 
-template <bool GATED>
-int bwd_impl(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
-             const void* wc, const void* waT, const void* wbT, const void* mask, GateDropout dp,
-             const void* p, const void* gm, const void* gp, const void* gs, void* dpv,
-             void* dza, void* dzb, void* dx, void* dwa, void* dba, void* dwb, void* dbb,
-             void* dwc, void* dbc, int B, int N, int F, int D, cudaStream_t stream) {
-  MURCL_TRY(launch_dp<float>(x, gm, gp, dpv, B, N, F, stream));
-  const size_t smem = bwd_smem(F, D);
-  MURCL_TRY(allow_smem(gate_bwd_kernel<GATED>, smem));
-  gate_bwd_kernel<GATED><<<dim3((N + TM - 1) / TM, B), THREADS, smem, stream>>>(
-      (const float*)x, (const float*)wa, (const float*)ba, (const float*)wb, (const float*)bb,
-      (const float*)wc, (const float*)waT, (const float*)wbT, (const uint8_t*)mask, dp,
-      (const float*)p, (const float*)gm, (const float*)gs, (const float*)dpv, (float*)dza,
-      (float*)dzb, (float*)dx, (float*)dba, (float*)dbb, (float*)dwc, (float*)dbc, N, F, D);
-  MURCL_TRY(cudaGetLastError());
-
-  const long long R = (long long)B * N;
-  const int err = wgrad<float>(x, F, dza, D, R, (float*)dwa, nullptr, stream);
-  if (err || !GATED) return err;
-  return wgrad<float>(x, F, dzb, D, R, (float*)dwb, nullptr, stream);
-}
-
 // ---------------------------------------------------------------------------
-// bf16: warpgroup products (wgmma) fed by TMA over 128-row tiles
-// (wgmma_tiles.cuh), one persistent kernel per pass, each block walking the
-// (bag, 128-row tile) pairs t = blockIdx.x, + gridDim.x, ...:
-//   forward:  pool_gates_fwd_wg (the scores s), then pool_kernel;
+// The warpgroup kernels (wgmma_tiles.cuh), one persistent kernel per pass,
+// each block walking the (bag, 128-row tile) pairs t = blockIdx.x, +
+// gridDim.x, ...:
+//   forward:  (f32: split_kernel) pool_gates_fwd_wg (the scores s), then
+//             pool_kernel;
 //   backward: dp_kernel (x @ rnd(gm) per row), softmax_bwd_kernel (per bag:
-//             c = sum_r p_r dp_r, ds and dbc), pool_gates_bwd_wg (the dz
-//             scratch, dwc, dba, dbb), pool_dx_wg (dx), then wgrad_wg once:
-//             dWa and dWb in one pass over x against the scratch's hi plane.
+//             c = sum_r p_r dp_r, ds and dbc), (f32: split_kernel)
+//             pool_gates_bwd_wg (the dz scratch, dwc, dba, dbb), pool_dx_wg
+//             (dx), then wgrad_wg once: dWa and dWb in one pass over x
+//             against the scratch.
 // The dz scratch is two planes of (B, N, Wg), Wg = 2 D gated ([dza | dzb]
-// per row) or D: hi = rnd(dz) (the weight gradients' operand), then lo =
-// rnd(dz - hi), B N Wg elements on; its tensor maps read it as 2 B bags, the
-// lo plane's bag b as bag B + b. Wa and Wb reach dx as planes (2 F, D) each:
-// rnd(W) (F rows), then rnd(W - rnd(W)).
+// per row) or D: hi = rnd(dz), then lo = rnd(dz - hi), B N Wg elements on;
+// its tensor maps read it as 2 B bags, the lo plane's bag b as bag B + b.
+// Wa and Wb reach dx (and, in f32, the gate products) as planes (2 F, D)
+// each: rnd(W) (F rows), then rnd(W - rnd(W)); in f32 x's planes are read
+// the same way, its lo plane as bags B .. 2 B - 1.
 // ops/attention.py (pool_plans) reckons the same shared-memory sums.
 // ---------------------------------------------------------------------------
 using wg::bf16;
@@ -394,7 +185,9 @@ __device__ __forceinline__ void gate_params(float* ps, const float* __restrict__
 }
 
 // Forward: the raw scores s of each 128-row tile of x (B, N, F); rows past N
-// read as zeros and are not written.
+// read as zeros and are not written. f32: x_map reads x's planes and
+// wa_map, wb_map W's (a stage: x hi, x lo, W hi, W lo).
+template <typename T>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 pool_gates_fwd_wg(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap wa_map,
@@ -402,12 +195,14 @@ pool_gates_fwd_wg(const __grid_constant__ CUtensorMap x_map,
                   const float* __restrict__ bb, const float* __restrict__ wc,
                   const float* __restrict__ bc, GateDropout dp, int gated,
                   float* __restrict__ s_out, int stages, int B, int N, int F, int D) {
+  constexpr bool X3 = kX3<T>;
+  constexpr int P = kPlanes<T>;
   extern __shared__ uint8_t smem_raw[];
-  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 0, false);
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, P * (TILE_A + TILE_B), stages, 0, false);
   if (wg::is_producer()) {
     wg::producer_regs();
     if (threadIdx.x == wg::PRODUCER)
-      produce_gates(pipe, &x_map, &wa_map, &wb_map, gated, B, N, F, D);
+      produce_gates(pipe, &x_map, &wa_map, &wb_map, gated, B, N, F, D, X3);
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
       bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
     return;
@@ -423,7 +218,8 @@ pool_gates_fwd_wg(const __grid_constant__ CUtensorMap x_map,
     const int bag = t / tiles, r0 = (t % tiles) * BM;
     float rowp[2] = {};
     for (int n0 = 0; n0 < D; n0 += step) {
-      wg::mainloop<0, 1>(pipe, F / BK, 0, TILE_A, acc, wg::NoPre{});
+      wg::mainloop<0, 1, X3>(pipe, F / BK, 0, P * TILE_A, acc, wg::NoPre{}, TILE_A,
+                             2 * TILE_A + TILE_B);
       const uint2 kb = dp.on ? wg::take_bits(pipe) : make_uint2(0u, 0u);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
@@ -455,10 +251,14 @@ pool_gates_fwd_wg(const __grid_constant__ CUtensorMap x_map,
 // rows' ds, in f32: dza and dzb into the scratch's two planes (staged in
 // four 64-column boxes a warpgroup, stored by TMA: hi at columns c0 and c1
 // of bag `bag`, lo of bag B + bag), and the block's partials of dwc, dba
-// and dbb, added to the outputs once at the end. Each consumer warp keeps
-// its own partials in shared memory and adds to them without atomics (a
-// shared-memory f32 atomic is a compare-and-swap loop, and eight warps
-// would contend for each column).
+// and dbb, added to the outputs once at the end. The products as in
+// pool_gates_fwd_wg. With OWN each consumer warp keeps its own partials in
+// shared memory and adds to them without atomics (a shared-memory f32
+// atomic is a compare-and-swap loop, and eight warps would contend for each
+// column); without (where eight copies leave fewer than 2 stages: f32 at D
+// 384, bf16 from D 896) each warpgroup keeps one, its four warps adding by
+// atomics.
+template <typename T, bool OWN>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
                   const __grid_constant__ CUtensorMap wa_map,
@@ -468,27 +268,31 @@ pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
                   int gated, const float* __restrict__ ds, float* __restrict__ dwc,
                   float* __restrict__ dba, float* __restrict__ dbb, int stages, int B, int N,
                   int F, int D) {
+  constexpr bool X3 = kX3<T>;
+  constexpr int P = kPlanes<T>;
+  constexpr int PARTS = OWN ? 8 : 2;  // copies of the partials
   extern __shared__ uint8_t smem_raw[];
-  wg::Pipe pipe = wg::pipe_setup(smem_raw, TILE_A + TILE_B, stages, 4 * wg::OUT_TILE, false);
+  wg::Pipe pipe =
+      wg::pipe_setup(smem_raw, P * (TILE_A + TILE_B), stages, 4 * wg::OUT_TILE, false);
   if (wg::is_producer()) {
     wg::producer_regs();
     if (threadIdx.x == wg::PRODUCER)
-      produce_gates(pipe, &x_map, &wa_map, &wb_map, gated, B, N, F, D);
+      produce_gates(pipe, &x_map, &wa_map, &wb_map, gated, B, N, F, D, X3);
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
       bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
     return;
   }
   wg::consumer_regs();
-  // ba, bb, wc (D each), then per consumer warp its partials of dwc, dba
+  // ba, bb, wc (D each), then PARTS copies of the partials of dwc, dba
   // and dbb (3 D)
   float* bas = reinterpret_cast<float*>(pipe.extra);
   const float *bbs = bas + D, *wcs = bas + 2 * D;
-  float* parts = bas + 3 * D;
+  float* all_parts = bas + 3 * D;
   const int tid = threadIdx.x, lane = tid & 31, w = wg::wg_index();
-  float* part = parts + (tid >> 5) * 3 * D;       // this warp's
+  float* part = all_parts + (OWN ? tid >> 5 : w) * 3 * D;
   uint8_t* lo_out = pipe.out + 2 * wg::OUT_TILE;  // this warpgroup's lo staging
   gate_params(bas, ba, bb, wc, gated, D);
-  for (int c = tid; c < 8 * 3 * D; c += wg::CONSUMERS) parts[c] = 0.f;
+  for (int c = tid; c < PARTS * 3 * D; c += wg::CONSUMERS) all_parts[c] = 0.f;
   wg::sync_consumers();
   const int tiles = (N + BM - 1) / BM, step = gated ? 64 : BN;
   float acc[64];
@@ -501,7 +305,8 @@ pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
       ds_t[hh] = r < N ? ds[(size_t)bag * N + r] : 0.f;
     }
     for (int n0 = 0; n0 < D; n0 += step) {
-      wg::mainloop<0, 1>(pipe, F / BK, 0, TILE_A, acc, wg::NoPre{});
+      wg::mainloop<0, 1, X3>(pipe, F / BK, 0, P * TILE_A, acc, wg::NoPre{}, TILE_A,
+                             2 * TILE_A + TILE_B);
       const uint2 kb = dp.on ? wg::take_bits(pipe) : make_uint2(0u, 0u);
       wg::stage_begin();
 #pragma unroll
@@ -539,7 +344,12 @@ pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
             v += __shfl_xor_sync(murcl::kFull, v, 4);
             v += __shfl_xor_sync(murcl::kFull, v, 8);
             v += __shfl_xor_sync(murcl::kFull, v, 16);
-            if (lane < 4) part[k * D + col + eb] += v;  // lanes 0-3: distinct columns
+            if (lane < 4) {  // lanes 0-3: distinct columns
+              if constexpr (OWN)
+                part[k * D + col + eb] += v;
+              else
+                atomicAdd(&part[k * D + col + eb], v);
+            }
           }
         }
       }
@@ -560,18 +370,19 @@ pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
   for (int c = tid; c < 3 * D; c += wg::CONSUMERS) {
     if (c >= 2 * D && !gated) break;
     float v = 0.f;
-    for (int wp = 0; wp < 8; ++wp) v += parts[wp * 3 * D + c];
+    for (int wp = 0; wp < PARTS; ++wp) v += all_parts[wp * 3 * D + c];
     atomicAdd(c < D ? &dwc[c] : c < 2 * D ? &dba[c - D] : &dbb[c - 2 * D], v);
   }
 }
 
 // Backward pass 4: dx = p gm + dza @ Wa^T + dzb @ Wb^T for each 128-row
 // tile, 128 columns of dx a pass, each product as three bf16 products
-// hi Whi + hi Wlo + lo Whi into one f32 accumulator (gate a, then gate b),
-// rounded to bf16 once and stored by TMA through a 64-column staging box per
-// warpgroup (two rounds a pass). Every operand is K-major: the scratch as
-// stored, and W's planes as stored (a row of W is a column of W^T). Two
-// layouts of a stage:
+// hi Whi + hi Wlo + lo Whi into one f32 accumulator (gate a, then gate b).
+// bf16: rounded to bf16 once and stored by TMA through a 64-column staging
+// box per warpgroup (two rounds a pass); f32: written to dx32 straight from
+// the accumulators (rows past N not written). Every operand is K-major: the
+// scratch as stored, and W's planes as stored (a row of W is a column of
+// W^T). Two layouts of a stage:
 //  * streamed: a 64-deep k-slice of the tile's hi and lo planes beside W's
 //    hi and lo slices (64 KB): each A slice feeds two products, each B
 //    slice of Whi two; the passes after a tile's first read its planes
@@ -580,14 +391,16 @@ pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
 //    the producer copies the tile's planes once into shared memory, and a
 //    stage holds W's two slices alone (32 KB); the planes are released for
 //    the next tile when the last pass's products have completed.
+template <typename T>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 pool_dx_wg(const __grid_constant__ CUtensorMap z_map, const __grid_constant__ CUtensorMap wa_map,
            const __grid_constant__ CUtensorMap wb_map, const __grid_constant__ CUtensorMap dx_st,
-           const float* __restrict__ p, const float* __restrict__ gm, int gated, int resident,
-           int stages, int B, int N, int F, int D) {
+           float* __restrict__ dx32, const float* __restrict__ p, const float* __restrict__ gm,
+           int gated, int resident, int stages, int B, int N, int F, int D) {
+  constexpr bool X3 = kX3<T>;
   extern __shared__ uint8_t smem_raw[];
   const int stage_bytes = resident ? 2 * TILE_B : 2 * TILE_A + 2 * TILE_B;
-  wg::Pipe pipe = wg::pipe_setup(smem_raw, stage_bytes, stages, 2 * wg::BOX, false);
+  wg::Pipe pipe = wg::pipe_setup(smem_raw, stage_bytes, stages, X3 ? 0 : 2 * wg::BOX, false);
   // the resident planes' barriers (landed; released by the 8 consumer
   // warps), gm per warpgroup, then the planes from a 1024-aligned offset
   uint64_t* res_full = reinterpret_cast<uint64_t*>(pipe.extra);
@@ -637,7 +450,7 @@ pool_dx_wg(const __grid_constant__ CUtensorMap z_map, const __grid_constant__ CU
   }
   wg::consumer_regs();
   const int w = wg::wg_index(), lane = threadIdx.x & 31;
-  pipe.out = pipe.base + stages * stage_bytes + w * wg::BOX;  // one box a warpgroup
+  pipe.out = pipe.base + stages * stage_bytes + w * wg::BOX;  // bf16: one box a warpgroup
   float* gmw = gms + w * F;
   float acc[64];
   for (int t = blockIdx.x, ord = 0; t < tiles * B; t += gridDim.x, ++ord) {
@@ -687,108 +500,161 @@ pool_dx_wg(const __grid_constant__ CUtensorMap z_map, const __grid_constant__ CU
         __syncwarp();
         if (lane == 0) wg::bar_arrive(res_empty);
       }
-#pragma unroll
-      for (int box = 0; box < 2; ++box) {
-        wg::stage_begin();
+      if constexpr (X3) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int rl = wg::frag_row(hh) - 64 * w;
+          const int row = r0 + wg::frag_row(hh);
+          if (row >= N) continue;
+          float* o = dx32 + ((size_t)bag * N + row) * F + n0;
 #pragma unroll
-          for (int j = 8 * box; j < 8 * box + 8; ++j) {
-            const int c = wg::frag_col(j), col = n0 + c, e = 4 * j + 2 * hh;
-            wg::stage_pair(pipe.out, rl, c - 64 * box, fmaf(pr[hh], gmw[col], acc[e]),
-                           fmaf(pr[hh], gmw[col + 1], acc[e + 1]));
+          for (int j = 0; j < 16; ++j) {
+            const int c = wg::frag_col(j), e = 4 * j + 2 * hh;
+            *reinterpret_cast<float2*>(o + c) = make_float2(
+                fmaf(pr[hh], gmw[n0 + c], acc[e]), fmaf(pr[hh], gmw[n0 + c + 1], acc[e + 1]));
           }
         }
-        wg::stage_end(pipe, &dx_st, n0 + 64 * box, -1, r0 + 64 * w, bag);
+      } else {
+#pragma unroll
+        for (int box = 0; box < 2; ++box) {
+          wg::stage_begin();
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int rl = wg::frag_row(hh) - 64 * w;
+#pragma unroll
+            for (int j = 8 * box; j < 8 * box + 8; ++j) {
+              const int c = wg::frag_col(j), col = n0 + c, e = 4 * j + 2 * hh;
+              wg::stage_pair(pipe.out, rl, c - 64 * box, fmaf(pr[hh], gmw[col], acc[e]),
+                             fmaf(pr[hh], gmw[col + 1], acc[e + 1]));
+            }
+          }
+          wg::stage_end(pipe, &dx_st, n0 + 64 * box, -1, r0 + 64 * w, bag);
+        }
       }
     }
   }
   wg::stage_drain();
 }
 
-// Launch plans (ops/attention.py pool_plans mirrors them): the gate kernels'
-// stages of a 128-row x slice and a B slice, beside their f32 arrays (ba,
-// bb, wc; the backward also each consumer warp's three partials) and,
-// backward, the hi and lo staging of two warpgroups (at least 2 stages); pool_dx_wg resident where the tile's planes fit
-// beside at least 3 stages, else streamed, with at least 2 stages.
-Plan fwd_plan(int D) { return plan(TILE_A + TILE_B, 0, sizeof(float) * 3 * D); }
-Plan bwd_plan(int D) {  // 3-4 stages at D <= 512, 2 beyond
-  return plan(TILE_A + TILE_B, 4 * wg::OUT_TILE, sizeof(float) * (3 + 8 * 3) * D, 2);
+// Launch plans (ops/attention.py pool_plans mirrors them). A stage of the
+// gate kernels holds a 128-row x slice and a W slice (T = float: each as two
+// planes), beside their f32 arrays (ba, bb, wc; the backward also its
+// partials of dwc, dba and dbb) and, backward, the hi and lo staging of two
+// warpgroups: at least 3 stages forward in bf16, else 2. The backward keeps
+// a copy of the partials per consumer warp where that leaves 2 stages, else
+// one per warpgroup. pool_dx_wg: resident where the tile's planes fit beside
+// at least 3 stages, else streamed, with at least 2 stages; its staging is
+// two 64-column boxes in bf16, none in f32.
+template <typename T>
+Plan fwd_plan(int D) {
+  constexpr int P = kPlanes<T>;
+  return plan(P * (TILE_A + TILE_B), 0, sizeof(float) * 3 * D, P == 2 ? 2 : 3);
+}
+struct BwdPlan {
+  Plan plan;
+  bool own;  // a copy of the partials per warp
+};
+template <typename T>
+BwdPlan bwd_plan(int D) {
+  const int stage = kPlanes<T> * (TILE_A + TILE_B);
+  const Plan per_warp = plan(stage, 4 * wg::OUT_TILE, sizeof(float) * (3 + 8 * 3) * D, 2);
+  if (per_warp.smem <= wg::SMEM_LIMIT) return {per_warp, true};
+  return {plan(stage, 4 * wg::OUT_TILE, sizeof(float) * (3 + 2 * 3) * D, 2), false};
 }
 struct DxPlan {
   Plan plan;
   int resident;
 };
+template <typename T>
 DxPlan dx_plan(int F, int D, int gated) {
+  const int staging = kX3<T> ? 0 : 2 * wg::BOX;
   const size_t arrays = 2 * sizeof(uint64_t) + sizeof(float) * 2 * F;
   const size_t planes = (size_t)(gated ? 2 : 1) * 2 * (D / BK) * TILE_A;
-  const Plan r = plan(2 * TILE_B, 2 * wg::BOX, arrays + 1024 + planes);
+  const Plan r = plan(2 * TILE_B, staging, arrays + 1024 + planes);
   if (r.smem <= wg::SMEM_LIMIT) return {r, 1};
-  return {plan(2 * TILE_A + 2 * TILE_B, 2 * wg::BOX, arrays, 2), 0};
+  return {plan(2 * TILE_A + 2 * TILE_B, staging, arrays, 2), 0};
 }
 
+// bf16: wa, wb (F, D) bf16, xpl unread. f32: wa, wb W's planes (2 F, D), xpl
+// the (2, B, N, F) scratch of x's planes.
+template <typename T>
 int fwd_wg(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
-           const void* wc, const void* bc, const void* mask, GateDropout dp, int gated, void* m,
-           void* p, void* s, int B, int N, int F, int D, cudaStream_t stream) {
+           const void* wc, const void* bc, const void* mask, GateDropout dp, int gated, void* xpl,
+           void* m, void* p, void* s, int B, int N, int F, int D, cudaStream_t stream) {
+  constexpr int P = kPlanes<T>;
   const unsigned grid = persistent_grid((long long)((N + BM - 1) / BM) * B);
+  const void* xa = x;  // what the gate products read
+  if (kX3<T>) {
+    MURCL_TRY(split(x, nullptr, nullptr, xpl, nullptr, (long long)B * N, F, N, stream));
+    xa = xpl;
+  }
   CUtensorMap xm, wam, wbm;
-  MURCL_TRY((cudaError_t)wg::map3(&xm, x, F, N, B, BM));
-  MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, F, BK));
-  MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, F, BK));
-  const Plan pl = fwd_plan(D);
-  MURCL_TRY(allow_smem(pool_gates_fwd_wg, pl.smem));
-  pool_gates_fwd_wg<<<grid, wg::THREADS, pl.smem, stream>>>(
+  MURCL_TRY((cudaError_t)wg::map3(&xm, xa, F, N, P * B, BM));
+  MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, P * F, BK));
+  MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, P * F, BK));
+  const Plan pl = fwd_plan<T>(D);
+  MURCL_TRY(allow_smem(pool_gates_fwd_wg<T>, pl.smem));
+  pool_gates_fwd_wg<T><<<grid, wg::THREADS, pl.smem, stream>>>(
       xm, wam, wbm, (const float*)ba, (const float*)bb, (const float*)wc, (const float*)bc, dp,
       gated, (float*)s, pl.stages, B, N, F, D);
   MURCL_TRY(cudaGetLastError());
-  return pool<bf16>((const float*)s, (const uint8_t*)mask, (const bf16*)x, (float*)m, (float*)p,
-                    B, N, F, stream);
+  return pool<T>((const float*)s, (const uint8_t*)mask, (const T*)x, (float*)m, (float*)p, B, N,
+                 F, stream);
 }
 
 // dpv: (2, B, N) f32 scratch, dp then ds; z: the dz scratch (2, B, N, Wg);
-// wa2, wb2: W's planes (2 F, D).
+// wa2, wb2: W's planes (2 F, D); wa, wb and xpl as in fwd_wg (in f32 wa is
+// wa2 and wb wb2); dx in the bag dtype.
+template <typename T>
 int bwd_wg(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
            const void* wc, const void* wa2, const void* wb2, const void* mask, GateDropout dp,
            int gated, const void* p, const void* gm, const void* gp, const void* gs, void* dpv,
-           void* z, void* dx, void* dwa, void* dba, void* dwb, void* dbb, void* dwc, void* dbc,
-           int B, int N, int F, int D, cudaStream_t stream) {
+           void* z, void* xpl, void* dx, void* dwa, void* dba, void* dwb, void* dbb, void* dwc,
+           void* dbc, int B, int N, int F, int D, cudaStream_t stream) {
+  constexpr bool X3 = kX3<T>;
+  constexpr int P = kPlanes<T>;
   float* dpp = (float*)dpv;
   float* ds = dpp + (size_t)B * N;
-  MURCL_TRY(launch_dp<bf16>(x, gm, nullptr, dpp, B, N, F, stream));
+  MURCL_TRY(launch_dp<T>(x, gm, nullptr, dpp, B, N, F, stream));
   softmax_bwd_kernel<<<B, THREADS, 0, stream>>>(dpp, 1, (const float*)p, (const float*)gp,
                                                 (const float*)gs, (const uint8_t*)mask, ds,
                                                 (float*)dbc, B, N);
   MURCL_TRY(cudaGetLastError());
+  const void* xa = x;  // what the gate products and the weight gradients read
+  if (X3) {
+    MURCL_TRY(split(x, nullptr, nullptr, xpl, nullptr, (long long)B * N, F, N, stream));
+    xa = xpl;
+  }
 
   const unsigned grid = persistent_grid((long long)((N + BM - 1) / BM) * B);
   const int wz = gated ? 2 * D : D;
   CUtensorMap xm, wam, wbm, zst, zm, wak, wbk, dxst;
-  MURCL_TRY((cudaError_t)wg::map3(&xm, x, F, N, B, BM));
-  MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, F, BK));
-  MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, F, BK));
+  MURCL_TRY((cudaError_t)wg::map3(&xm, xa, F, N, P * B, BM));
+  MURCL_TRY((cudaError_t)wg::map2(&wam, wa, D, P * F, BK));
+  MURCL_TRY((cudaError_t)wg::map2(&wbm, wb, D, P * F, BK));
   MURCL_TRY((cudaError_t)wg::map3(&zst, z, wz, N, 2 * B, 64));
   MURCL_TRY((cudaError_t)wg::map3(&zm, z, wz, N, 2 * B, BM));
   MURCL_TRY((cudaError_t)wg::map2(&wak, wa2, D, 2 * F, BN));
   MURCL_TRY((cudaError_t)wg::map2(&wbk, wb2, D, 2 * F, BN));
-  MURCL_TRY((cudaError_t)wg::map3(&dxst, dx, F, N, B, 64));
+  dxst = zm;  // f32 writes dx from the accumulators
+  if (!X3) MURCL_TRY((cudaError_t)wg::map3(&dxst, dx, F, N, B, 64));
 
-  const Plan p3 = bwd_plan(D);
-  MURCL_TRY(allow_smem(pool_gates_bwd_wg, p3.smem));
-  pool_gates_bwd_wg<<<grid, wg::THREADS, p3.smem, stream>>>(
+  const BwdPlan p3 = bwd_plan<T>(D);
+  const auto gates_bwd = p3.own ? pool_gates_bwd_wg<T, true> : pool_gates_bwd_wg<T, false>;
+  MURCL_TRY(allow_smem(gates_bwd, p3.plan.smem));
+  gates_bwd<<<grid, wg::THREADS, p3.plan.smem, stream>>>(
       xm, wam, wbm, zst, (const float*)ba, (const float*)bb, (const float*)wc, dp, gated, ds,
-      (float*)dwc, (float*)dba, (float*)dbb, p3.stages, B, N, F, D);
+      (float*)dwc, (float*)dba, (float*)dbb, p3.plan.stages, B, N, F, D);
   MURCL_TRY(cudaGetLastError());
 
-  const DxPlan p4 = dx_plan(F, D, gated);
-  MURCL_TRY(allow_smem(pool_dx_wg, p4.plan.smem));
-  pool_dx_wg<<<grid, wg::THREADS, p4.plan.smem, stream>>>(zm, wak, wbk, dxst, (const float*)p,
-                                                          (const float*)gm, gated, p4.resident,
-                                                          p4.plan.stages, B, N, F, D);
+  const DxPlan p4 = dx_plan<T>(F, D, gated);
+  MURCL_TRY(allow_smem(pool_dx_wg<T>, p4.plan.smem));
+  pool_dx_wg<T><<<grid, wg::THREADS, p4.plan.smem, stream>>>(
+      zm, wak, wbk, dxst, X3 ? (float*)dx : nullptr, (const float*)p, (const float*)gm, gated,
+      p4.resident, p4.plan.stages, B, N, F, D);
   MURCL_TRY(cudaGetLastError());
 
-  return wgrad_wg_launch(x, F, z, wz, (long long)B * N, (float*)dwa, (float*)dwb, D, D, nullptr,
-                         nullptr, stream);
+  return wgrad_wg_launch<T>(xa, F, z, wz, (long long)B * N, (float*)dwa, (float*)dwb, D, D,
+                            nullptr, nullptr, stream);
 }
 
 // The backward's outputs are sums: zero them before any pass adds to them.
@@ -805,29 +671,32 @@ int zero_grads(void* dwa, void* dba, void* dwb, void* dbb, void* dwc, void* dbc,
 
 }  // namespace
 
+// bf16: wa, wb the bf16 weights (F, D), xpl null; f32: wa, wb W's planes
+// (2 F, D: rnd(W), then rnd(W - rnd(W))) and xpl the (2, B, N, F) bf16
+// scratch of x's planes.
 MURCL_API int murcl_attention_pool_fwd(int is_bf16, int gated, const void* x, const void* wa,
                                        const void* ba, const void* wb, const void* bb,
                                        const void* wc, const void* bc, const void* mask,
                                        int use_dropout, uint32_t seed, uint32_t thresh,
-                                       float scale, void* m, void* p, void* s, int B, int N,
-                                       int F, int D, void* stream) {
+                                       float scale, void* xpl, void* m, void* p, void* s, int B,
+                                       int N, int F, int D, void* stream) {
   const GateDropout dp{use_dropout, seed, thresh, scale};
   auto strm = (cudaStream_t)stream;
   if (is_bf16)
-    return fwd_wg(x, wa, ba, wb, bb, wc, bc, mask, dp, gated, m, p, s, B, N, F, D, strm);
-  if (gated) return fwd_impl<true>(x, wa, ba, wb, bb, wc, bc, mask, dp, m, p, s, B, N, F, D, strm);
-  return fwd_impl<false>(x, wa, ba, wb, bb, wc, bc, mask, dp, m, p, s, B, N, F, D, strm);
+    return fwd_wg<bf16>(x, wa, ba, wb, bb, wc, bc, mask, dp, gated, xpl, m, p, s, B, N, F, D,
+                        strm);
+  return fwd_wg<float>(x, wa, ba, wb, bb, wc, bc, mask, dp, gated, xpl, m, p, s, B, N, F, D,
+                       strm);
 }
 
-// In bf16, dpv holds 2 B N floats (dp, then ds), dza is the dz scratch (see
-// bwd_wg: 2 B N Wg elements) and dzb is unread, and waT, wbT are W's bf16
-// planes (2 F x D: rnd(W), then rnd(W - rnd(W))); in f32 dpv holds B N
-// floats, dza and dzb (null when ungated) B N D each, and waT, wbT are W^T.
+// dpv holds 2 B N floats (dp, then ds), z is the dz scratch (see bwd_wg:
+// 2 B N Wg bf16 elements), wa2, wb2 are W's bf16 planes (2 F x D), and wa,
+// wb and xpl as in murcl_attention_pool_fwd.
 MURCL_API int murcl_attention_pool_bwd(
     int is_bf16, int gated, const void* x, const void* wa, const void* ba, const void* wb,
-    const void* bb, const void* wc, const void* waT, const void* wbT, const void* mask,
+    const void* bb, const void* wc, const void* wa2, const void* wb2, const void* mask,
     int use_dropout, uint32_t seed, uint32_t thresh, float scale, const void* p, const void* gm,
-    const void* gp, const void* gs, void* dpv, void* dza, void* dzb, void* dx, void* dwa,
+    const void* gp, const void* gs, void* dpv, void* z, void* xpl, void* dx, void* dwa,
     void* dba, void* dwb, void* dbb, void* dwc, void* dbc, int B, int N, int F, int D,
     void* stream) {
   const GateDropout dp{use_dropout, seed, thresh, scale};
@@ -835,12 +704,8 @@ MURCL_API int murcl_attention_pool_bwd(
   const int err = zero_grads(dwa, dba, dwb, dbb, dwc, dbc, F, D, strm);
   if (err) return err;
   if (is_bf16)
-    return bwd_wg(x, wa, ba, wb, bb, wc, waT, wbT, mask, dp, gated, p, gm, gp, gs, dpv, dza, dx,
-                  dwa, dba, dwb, dbb, dwc, dbc, B, N, F, D, strm);
-#define MURCL_POOL_BWD(G)                                                                     \
-  bwd_impl<G>(x, wa, ba, wb, bb, wc, waT, wbT, mask, dp, p, gm, gp, gs, dpv, dza, dzb, dx, dwa, \
-              dba, dwb, dbb, dwc, dbc, B, N, F, D, strm)
-  if (gated) return MURCL_POOL_BWD(true);
-  return MURCL_POOL_BWD(false);
-#undef MURCL_POOL_BWD
+    return bwd_wg<bf16>(x, wa, ba, wb, bb, wc, wa2, wb2, mask, dp, gated, p, gm, gp, gs, dpv, z,
+                        xpl, dx, dwa, dba, dwb, dbb, dwc, dbc, B, N, F, D, strm);
+  return bwd_wg<float>(x, wa, ba, wb, bb, wc, wa2, wb2, mask, dp, gated, p, gm, gp, gs, dpv, z,
+                       xpl, dx, dwa, dba, dwb, dbb, dwc, dbc, B, N, F, D, strm);
 }

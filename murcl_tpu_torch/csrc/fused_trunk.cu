@@ -106,65 +106,6 @@ using wg::BN;
 using wg::TILE_A;
 using wg::TILE_B;
 
-// T = float: the f32 route, every operand as two bf16 planes (kPlanes).
-template <typename T>
-constexpr bool kX3 = std::is_same<T, float>::value;
-template <typename T>
-constexpr int kPlanes = kX3<T> ? 2 : 1;
-
-// The f32 route's operands as bf16 planes, a warp a row of K values: out[i]
-// = rnd(v_i) and out[rows K + i] = rnd(v_i - rnd(v_i)); with perm, v = lam x
-// + (1 - lam) x[perm] of each bag of `per` rows first, in f32 (1 - lam in
-// f32, as the mixup twin apply_mix computes it); with rn, rn[row] = the
-// norm of the row's v. K % 4 == 0.
-__global__ void __launch_bounds__(256)
-split_kernel(const float* __restrict__ x, const int64_t* __restrict__ perm,
-             const float* __restrict__ lam, bf16* __restrict__ out, float* __restrict__ rn,
-             long long rows, int K, int per) {
-  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const long long bag = row / per;
-  const float* a = x + row * K;
-  const float* q = perm ? x + (perm[bag] * per + row % per) * K : nullptr;
-  const float l = perm ? lam[bag] : 1.f, o = 1.f - l;
-  bf16* hi = out + row * K;
-  bf16* lo = hi + rows * K;
-  float ss = 0.f;
-  for (int i = 4 * lane; i < K; i += 128) {
-    float v[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      v[e] = a[i + e];
-      if (q) v[e] = __fadd_rn(__fmul_rn(l, v[e]), __fmul_rn(o, q[i + e]));
-      ss = fmaf(v[e], v[e], ss);
-    }
-    uint2 hv, lv;
-    __nv_bfloat162* ph = reinterpret_cast<__nv_bfloat162*>(&hv);
-    __nv_bfloat162* pl = reinterpret_cast<__nv_bfloat162*>(&lv);
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      ph[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-      const float2 hf = __bfloat1622float2(ph[e]);
-      pl[e] = __floats2bfloat162_rn(v[2 * e] - hf.x, v[2 * e + 1] - hf.y);
-    }
-    *reinterpret_cast<uint2*>(hi + i) = hv;
-    *reinterpret_cast<uint2*>(lo + i) = lv;
-  }
-  if (rn) {
-    ss = warp_sum(ss);
-    if (lane == 0) rn[row] = sqrtf(ss);
-  }
-}
-
-cudaError_t split(const void* x, const void* perm, const void* lam, void* out, float* rn,
-                  long long rows, int K, long long per, cudaStream_t stream) {
-  split_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      (const float*)x, (const int64_t*)perm, (const float*)lam, (bf16*)out, rn, rows, K,
-      (int)per);
-  return cudaGetLastError();
-}
-
 // Wf^T (L1, Fin) in f32 and the norms of Wf's columns, a warp a column.
 __global__ void __launch_bounds__(256)
 wf_columns_kernel(const float* __restrict__ wf, float* __restrict__ wft, float* __restrict__ cn,

@@ -1,5 +1,5 @@
-// Hopper tile machinery for the kernels of K2/K3 (fused_trunk.cu, bf16 and
-// f32) and K7 (attention_pool.cu, bf16): warpgroup products
+// Hopper tile machinery for the kernels of K2/K3 (fused_trunk.cu) and K7
+// (attention_pool.cu), bf16 and f32: warpgroup products
 // (wgmma.mma_async m64n128k16, bf16 in, f32 accumulate) over operands that
 // the Tensor Memory Accelerator (TMA) copies into a ring of shared-memory
 // stages, each guarded by a pair of mbarriers. An f32 operand t reaches
@@ -563,8 +563,8 @@ inline int map3(CUtensorMap* map, const void* ptr, int cols, int rows, int bags,
 
 // ---------------------------------------------------------------------------
 // What the kernels of K2/K3 (fused_trunk.cu) and K7 (attention_pool.cu)
-// share: launch plans, persistent grids, the gate passes' producer and keep
-// bits, and the weight-gradient kernel.
+// share: launch plans, persistent grids, the f32 route's split into planes,
+// the gate passes' producer and keep bits, and the weight-gradient kernel.
 // ---------------------------------------------------------------------------
 
 // A kernel's launch plan: ring stages (as many as fit beside `staging` bytes
@@ -601,6 +601,65 @@ inline unsigned persistent_grid(long long tiles) {
 __device__ __forceinline__ void to_shared(float* dst, const float* __restrict__ src, int n,
                                           bool round, int tid, int threads) {
   for (int i = tid; i < n; i += threads) dst[i] = round ? rnd<wg::bf16>(src[i]) : src[i];
+}
+
+// T = float: the f32 route, every operand as two bf16 planes (kPlanes).
+template <typename T>
+constexpr bool kX3 = std::is_same<T, float>::value;
+template <typename T>
+constexpr int kPlanes = kX3<T> ? 2 : 1;
+
+// The f32 route's operands as bf16 planes, a warp a row of K values: out[i]
+// = rnd(v_i) and out[rows K + i] = rnd(v_i - rnd(v_i)); with perm, v = lam x
+// + (1 - lam) x[perm] of each bag of `per` rows first, in f32 (1 - lam in
+// f32, as the mixup twin apply_mix computes it); with rn, rn[row] = the
+// norm of the row's v. K % 4 == 0.
+__global__ void __launch_bounds__(256)
+split_kernel(const float* __restrict__ x, const int64_t* __restrict__ perm,
+             const float* __restrict__ lam, wg::bf16* __restrict__ out, float* __restrict__ rn,
+             long long rows, int K, int per) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const long long bag = row / per;
+  const float* a = x + row * K;
+  const float* q = perm ? x + (perm[bag] * per + row % per) * K : nullptr;
+  const float l = perm ? lam[bag] : 1.f, o = 1.f - l;
+  wg::bf16* hi = out + row * K;
+  wg::bf16* lo = hi + rows * K;
+  float ss = 0.f;
+  for (int i = 4 * lane; i < K; i += 128) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = a[i + e];
+      if (q) v[e] = __fadd_rn(__fmul_rn(l, v[e]), __fmul_rn(o, q[i + e]));
+      ss = fmaf(v[e], v[e], ss);
+    }
+    uint2 hv, lv;
+    __nv_bfloat162* ph = reinterpret_cast<__nv_bfloat162*>(&hv);
+    __nv_bfloat162* pl = reinterpret_cast<__nv_bfloat162*>(&lv);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      ph[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      const float2 hf = __bfloat1622float2(ph[e]);
+      pl[e] = __floats2bfloat162_rn(v[2 * e] - hf.x, v[2 * e + 1] - hf.y);
+    }
+    *reinterpret_cast<uint2*>(hi + i) = hv;
+    *reinterpret_cast<uint2*>(lo + i) = lv;
+  }
+  if (rn) {
+    ss = warp_sum(ss);
+    if (lane == 0) rn[row] = sqrtf(ss);
+  }
+}
+
+inline cudaError_t split(const void* x, const void* perm, const void* lam, void* out, float* rn,
+                         long long rows, int K, long long per, cudaStream_t stream) {
+  split_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      (const float*)x, (const int64_t*)perm, (const float*)lam, (wg::bf16*)out, rn, rows, K,
+      (int)per);
+  return cudaGetLastError();
 }
 
 // The helper warps' keep bits of every pass of a kernel's tiles, in the

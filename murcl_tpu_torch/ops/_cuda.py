@@ -3,7 +3,7 @@
 Each ``.cu`` source is compiled with ``nvcc`` for ``sm_90a`` by its own
 process, all started together, and the objects are linked into one shared
 library with a plain C interface, loaded with :mod:`ctypes`. The library
-links only the CUDA runtime: the bf16 K2/K3 kernels' TMA descriptors come
+links only the CUDA runtime: the warpgroup kernels' TMA descriptors come
 from the driver's ``cuTensorMapEncodeTiled``, reached at run time through
 the runtime's ``cudaGetDriverEntryPointByVersion`` (``csrc/wgmma_tiles.cuh``),
 so no ``-lcuda`` is needed at build time. The library is
@@ -80,11 +80,11 @@ _SIGNATURES = {
     "murcl_fused_trunk_bwd": [_I, _I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 18
     + [_I] * 5 + [_P],
     # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, use_dropout, seed,
-    # thresh, scale, m, p, s, B, N, F, D, stream
-    "murcl_attention_pool_fwd": [_I, _I] + [_P] * 8 + [_I, _U, _U, _F] + [_P] * 3
+    # thresh, scale, xpl, m, p, s, B, N, F, D, stream
+    "murcl_attention_pool_fwd": [_I, _I] + [_P] * 8 + [_I, _U, _U, _F] + [_P] * 4
     + [_I] * 4 + [_P],
-    # is_bf16, gated, x, wa, ba, wb, bb, wc, waT, wbT, mask, use_dropout, seed,
-    # thresh, scale, p, gm, gp, gs, dp, dza, dzb, dx, dwa, dba, dwb, dbb, dwc,
+    # is_bf16, gated, x, wa, ba, wb, bb, wc, wa2, wb2, mask, use_dropout, seed,
+    # thresh, scale, p, gm, gp, gs, dp, z, xpl, dx, dwa, dba, dwb, dbb, dwc,
     # dbc, B, N, F, D, stream
     "murcl_attention_pool_bwd": [_I, _I] + [_P] * 9 + [_I, _U, _U, _F] + [_P] * 14
     + [_I] * 4 + [_P],

@@ -45,12 +45,14 @@ from murcl_tpu_torch.ops.mixup import apply_mix
 _NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-_TM, _TN, _KC = 32, 128, 32  # csrc/tiles.cuh tile constants (K7 in f32; K8)
+# the column tile of the attention kernels' passes (csrc/tiles.cuh TN), and
+# the rows over which K8 keeps a running max (a half of its 64-row tile)
+_TM, _TN = 32, 128
 # csrc/mma_tiles.cuh: rows per block, bf16 padding of a shared row, and the
 # bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K8 in bf16
 _TC_BM, _TC_PAD, _TC_RING = 64, 8, 2 * 2 * 64 * (128 + 8)
-# csrc/wgmma_tiles.cuh (K2/K3, K7 in bf16): stages of 16 KB slices (128 x
-# 64 bf16) of A and B, three 8-byte barriers a stage, as many stages as fit
+# csrc/wgmma_tiles.cuh (K2/K3, K7): stages of 16 KB slices (128 x 64 bf16)
+# of A and B, three 8-byte barriers a stage, as many stages as fit
 # (at most 6, at least 3 unless said) beside 1,024 bytes of alignment, the
 # output staging (two warpgroups' 16 KB tiles), the dropout keep bits (two
 # buffers of 64 per consumer thread) with five barriers (the bits' four and
@@ -442,10 +444,15 @@ def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
 # on its Pallas route (forward ``_make_fwd_kernel``, backward
 # ``_make_bwd_kernel``). Its rounding points differ from K2/K3: ``a``, ``g``,
 # ``u`` and the gate dropout scale stay f32, only Wa/Wb are rounded to the bag
-# dtype for the gate products, and wc stays f32. In bf16 the kernels run
-# warpgroup products (wgmma) fed by TMA over 128-row tiles (:func:`pool_plans`),
-# and K7b's dx, an f32 product in the TPU kernel, takes three bf16 products
-# of :func:`split_bf16`'s planes. K7f's softmax pass holds a bag's N scores
+# dtype for the gate products, and wc stays f32. Both dtypes run warpgroup
+# products (wgmma) fed by TMA over 128-row tiles (:func:`pool_plans`), and
+# K7b's dx, an f32 product in the TPU kernel, takes three bf16 products of
+# :func:`split_bf16`'s planes. In float32 (the supervised CLIs' default)
+# every product is three bf16 products of the operands' planes, x's written
+# by the kernels' ``split_kernel`` (forward and backward: 1.6 GB a pass at
+# the supervised shape, (384, 1024, 512) f32) and W's by
+# :func:`_split_planes_cuda`, and the dz scratch's planes feed dWa and dWb
+# too. K7f's softmax pass holds a bag's N scores
 # in shared memory, so K7f takes N up to about 58,000 (``4 (N + 32) <=
 # 232,448`` bytes; :func:`pool_tile_smem`); K7b holds no term in N
 # (:func:`pool_bwd_tile_smem`) and takes any bag. A dropout-free
@@ -525,59 +532,58 @@ def split_bf16(t):
     """``(hi, lo)`` in bfloat16 with ``hi = rnd(t)`` and ``lo = rnd(t - hi)``:
     ``hi + lo`` holds ``t`` to about ``2**-16`` relative, so three bf16
     products ``hi_a hi_b + hi_a lo_b + lo_a hi_b``, summed in f32, stand in
-    for one f32 product (K7b's dx, ``csrc/attention_pool.cu``)."""
+    for one f32 product (K7b's dx, K7's float32 route,
+    ``csrc/attention_pool.cu``)."""
     hi = t.to(torch.bfloat16)
     return hi, (t.float() - hi.float()).to(torch.bfloat16)
 
 
-def pool_plans(f: int, d: int, gated: bool) -> dict:
-    """K7's bf16 launch plans at widths ``f -> d``, ``{kernel: (stages,
-    bytes)}``, as ``csrc/attention_pool.cu`` makes them (``fwd_plan``,
-    ``bwd_plan``, ``dx_plan``; ``wgrad_wg`` K3's): the gate kernels' stages
-    hold a 128-row slice of x and a slice of Wa/Wb, beside ``ba``, ``bb``,
-    ``wc`` (and the backward's three partials per consumer warp and two
-    warpgroups' hi and lo staging, at least 2 stages); ``pool_dx_wg`` keeps
-    a tile's hi and lo dz planes resident (its stages W's two slices) where
-    that leaves 3 stages, else streams them (a stage holds the planes' and
-    W's slices, at least 2), beside one 64-column staging box and a row of
-    ``gm`` per warpgroup. None has a term in N."""
+def pool_plans(f: int, d: int, gated: bool, dtype: torch.dtype) -> dict:
+    """K7's launch plans at widths ``f -> d``, ``{kernel: (stages, bytes)}``,
+    as ``csrc/attention_pool.cu`` makes them (``fwd_plan``, ``bwd_plan``,
+    ``dx_plan``; ``wgrad_wg`` K3's): the gate kernels' stages hold a 128-row
+    slice of x and a slice of Wa/Wb (in float32 each as its two bf16 planes),
+    beside ``ba``, ``bb``, ``wc`` (and the backward's three partials per
+    consumer warp, or per warpgroup where eight copies leave fewer than 2
+    stages, and two warpgroups' hi and lo staging; at least 2 stages, and
+    the float32 forward too); ``pool_dx_wg`` keeps a tile's hi and lo dz
+    planes resident (its stages W's two slices) where that leaves 3 stages,
+    else streams them (a stage holds the planes' and W's slices, at least
+    2), beside one 64-column staging box per warpgroup in bf16 (none in
+    float32: dx goes out from the accumulators) and a row of ``gm`` per
+    warpgroup. None has a term in N."""
+    x3 = dtype == torch.float32
     sl, box = _WG_SLICE, 64 * 64 * 2
+    stage = (2 if x3 else 1) * 2 * sl  # a slice of x and of W
+    staging = 0 if x3 else 2 * box
     arrays = 16 + 4 * 2 * f  # dx's two barriers, gm per warpgroup
     planes = (2 if gated else 1) * 2 * (d // 64) * sl
-    resident = _wg_plan(2 * sl, 2 * box, arrays + 1024 + planes)
-    return {"pool_gates_fwd_wg": _wg_plan(2 * sl, 0, 4 * 3 * d),
-            "pool_gates_bwd_wg": _wg_plan(2 * sl, 2 * _WG_OUT, 4 * (3 + 8 * 3) * d, 2),
+    resident = _wg_plan(2 * sl, staging, arrays + 1024 + planes)
+    gates_bwd = _wg_plan(stage, 2 * _WG_OUT, 4 * (3 + 8 * 3) * d, 2)
+    if gates_bwd[1] > _SMEM_LIMIT:
+        gates_bwd = _wg_plan(stage, 2 * _WG_OUT, 4 * (3 + 2 * 3) * d, 2)
+    return {"pool_gates_fwd_wg": _wg_plan(stage, 0, 4 * 3 * d, 2 if x3 else 3),
+            "pool_gates_bwd_wg": gates_bwd,
             "pool_dx_wg": (resident if resident[1] <= _SMEM_LIMIT
-                           else _wg_plan(4 * sl, 2 * box, arrays, 2)),
-            "wgrad_wg": _wg_plan(2 * sl, 0, 0)}
+                           else _wg_plan(4 * sl, staging, arrays, 2)),
+            "wgrad_wg": _wg_plan(stage, 0, 0, 2 if x3 else 3)}
 
 
 def pool_tile_smem(n: int, f: int, d: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory the widest block of K7 takes at bags of ``n``
-    rows and widths ``f -> d``: in bf16 the widest plan of
-    :func:`pool_plans`, gated or not; in f32 the FMA backward's tiles
-    (``bwd_smem`` in ``csrc/attention_pool.cu``); and the pool pass's
-    ``n + 32`` floats."""
-    if dtype == torch.bfloat16:
-        tiles = max(nb for g in (True, False) for _, nb in pool_plans(f, d, g).values())
-    else:
-        tiles = 4 * (_TM * (f + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + 3 * d + 32)
+    rows and widths ``f -> d``: the widest plan of :func:`pool_plans` in the
+    bag dtype, gated or not, and the pool pass's ``n + 32`` floats."""
+    tiles = max(nb for g in (True, False) for _, nb in pool_plans(f, d, g, dtype).values())
     return max(tiles, 4 * (n + 32))
 
 
 def pool_bwd_tile_smem(f: int, d: int, dtype: torch.dtype) -> int:
     """Bytes of shared memory the widest block of K7b takes at widths
-    ``f -> d``, at any bag length: in bf16 the widest backward plan of
-    :func:`pool_plans`, gated or not; in f32 the FMA backward's tiles
-    (``bwd_smem``) and the weight-gradient stage, 16,640 bytes (``tiles.cuh``
-    ``wgrad_kernel``). The bag's sum of ``p dp`` is taken per bag by its own
-    kernel (bf16) or over rows read from global memory (f32), so no term
-    grows with N."""
-    if dtype == torch.bfloat16:
-        return max(nb for g in (True, False) for k, (_, nb) in pool_plans(f, d, g).items()
-                   if k != "pool_gates_fwd_wg")
-    return max(4 * (_TM * (f + 1) + 2 * _TM * (d + 1) + _KC * _TN + 2 * _TM + 3 * d + 32),
-               4 * 2 * 32 * 65)
+    ``f -> d``, at any bag length: the widest backward plan of
+    :func:`pool_plans` in the bag dtype, gated or not. The bag's sum of ``p
+    dp`` is taken per bag by its own kernel, so no term grows with N."""
+    return max(nb for g in (True, False) for k, (_, nb) in pool_plans(f, d, g, dtype).items()
+               if k != "pool_gates_fwd_wg")
 
 
 def _check_pool_shapes(name, x, wa, backward=False):
@@ -596,31 +602,47 @@ def _check_pool_shapes(name, x, wa, backward=False):
                          f"({n}, {f}, {d})")
 
 
-def _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed):
-    """Kernel operands: Wa/Wb in the bag dtype, biases and wc f32, all
-    contiguous; and the dropout arguments."""
+def _pool_args(name, x, wa, ba, wb, bb, wc, mask, dropout, seed, gated):
+    """Kernel operands: the gate products' Wa/Wb (bf16 bags: rounded to
+    bf16; float32 bags: their :func:`_split_planes_cuda` planes, Wb's planes
+    Wa's when ungated), biases and wc f32, all contiguous; and the dropout
+    arguments."""
     c = lambda t, ty: t.to(ty).contiguous()  # noqa: E731
     f32 = torch.float32
-    ops = dict(x=x.contiguous(), wa=c(wa, x.dtype), ba=c(ba, f32), wb=c(wb, x.dtype),
-               bb=c(bb, f32), wc=c(wc, f32), mask=c(mask, torch.bool))
+    if x.dtype == torch.bfloat16:
+        wa_k, wb_k = c(wa, x.dtype), c(wb, x.dtype)
+    else:
+        wa_k = _split_planes_cuda(name, wa, x.shape[-1])
+        wb_k = _split_planes_cuda(name, wb, x.shape[-1]) if gated else wa_k
+    ops = dict(x=x.contiguous(), wa=wa_k, ba=c(ba, f32), wb=wb_k, bb=c(bb, f32), wc=c(wc, f32),
+               mask=c(mask, torch.bool))
     drop = (int(dropout > 0), int(seed) & _M32,
             dropout_threshold(dropout) if dropout > 0 else 0, float(1.0 / (1.0 - dropout)))
     return ops, drop
 
 
+def _x_planes(x):
+    """The float32 route's scratch of x's two bf16 planes, ``(2, B, N, F)``
+    (``split_kernel`` writes it); None for bf16 bags."""
+    if x.dtype == torch.bfloat16:
+        return None
+    return torch.empty((2, *x.shape), dtype=torch.bfloat16, device=x.device)
+
+
 def _pool_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed):
     name = "gated_attention_pool"
     _check_pool_shapes(name, x, wa)
-    o, drop = _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed)
+    o, drop = _pool_args(name, x, wa, ba, wb, bb, wc, mask, dropout, seed, gated)
     bc32 = bc.to(torch.float32).reshape(1).contiguous()
     _cuda.require_cuda(name, *o.values(), bc32)
     b, n, f = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
     m, p, s = torch.empty((b, f), **f32), torch.empty((b, n), **f32), torch.empty((b, n), **f32)
+    xpl = _x_planes(x)
     err = _cuda.library().murcl_attention_pool_fwd(
         int(x.dtype == torch.bfloat16), int(gated), _p(o["x"]), _p(o["wa"]), _p(o["ba"]),
-        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop, _p(m), _p(p),
-        _p(s), b, n, f, wa.shape[1], _cuda.stream())
+        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop, _p(xpl), _p(m),
+        _p(p), _p(s), b, n, f, wa.shape[1], _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["attention_pool_fwd"] += 1
     return m, p, s
@@ -633,44 +655,40 @@ def _pool_bwd_cuda(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, s
 
 
 def _pool_bwd_launch(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, seed):
-    """K7b's launch: ``(grads, dza)``, ``dza`` its dz scratch. In bf16 the
-    scratch is ``(2, B, N, Wg)``: ``rnd(dz)``, then the rest
-    (:func:`split_bf16`), of ``[dza | dzb]`` per row gated (``Wg = 2 D``) or
-    ``dza`` (``Wg = D``); the dx products take W's two planes
-    (:func:`_slab_planes` at one slab). In f32 it is ``dza (B, N, D)`` and
-    the dx products take W^T."""
+    """K7b's launch: ``(grads, z)``, ``z`` its dz scratch ``(2, B, N, Wg)``:
+    ``rnd(dz)``, then the rest (:func:`split_bf16`), of ``[dza | dzb]`` per
+    row gated (``Wg = 2 D``) or ``dza`` (``Wg = D``). The dx products take
+    W's two planes (:func:`_slab_planes` at one slab), as do the gate
+    products of float32 bags."""
     name = "gated_attention_pool backward"
     _check_pool_shapes(name, x, wa, backward=True)
-    o, drop = _pool_args(x, wa, ba, wb, bb, wc, mask, dropout, seed)
+    o, drop = _pool_args(name, x, wa, ba, wb, bb, wc, mask, dropout, seed, gated)
     dev, dt = x.device, x.dtype
     b, n, f = x.shape
     d = wa.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
     if dt == torch.bfloat16:
-        waT = _split_planes_cuda(name, wa, f)
-        wbT = _split_planes_cuda(name, wb, f) if gated else waT
-        dpv = torch.empty((2, b, n), **f32)  # dp, then ds
-        dza = torch.empty((2, b, n, 2 * d if gated else d), dtype=dt, device=dev)
-        dzb = None
+        wa2 = _split_planes_cuda(name, wa, f)
+        wb2 = _split_planes_cuda(name, wb, f) if gated else wa2
     else:
-        waT, wbT = (w.to(torch.float32).T.contiguous() for w in (wa, wb))
-        dpv = torch.empty((b, n), **f32)
-        dza = torch.empty((b, n, d), **f32)
-        dzb = torch.empty((b, n, d), **f32) if gated else None
+        wa2, wb2 = o["wa"], o["wb"]
+    dpv = torch.empty((2, b, n), **f32)  # dp, then ds
+    z = torch.empty((2, b, n, 2 * d if gated else d), dtype=torch.bfloat16, device=dev)
+    xpl = _x_planes(x)
     p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
-    _cuda.require_cuda(name, *o.values(), waT, wbT, p, gm, gp, gs)
+    _cuda.require_cuda(name, *o.values(), wa2, wb2, p, gm, gp, gs)
     dx = torch.empty((b, n, f), dtype=dt, device=dev)
     dwa, dba = torch.empty((f, d), **f32), torch.empty((d,), **f32)
     dwb, dbb = torch.empty((f, d), **f32), torch.empty((d,), **f32)
     dwc, dbc = torch.empty((d,), **f32), torch.empty((), **f32)
     err = _cuda.library().murcl_attention_pool_bwd(
         int(dt == torch.bfloat16), int(gated), _p(o["x"]), _p(o["wa"]), _p(o["ba"]),
-        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(waT), _p(wbT), _p(o["mask"]), *drop, _p(p),
-        _p(gm), _p(gp), _p(gs), _p(dpv), _p(dza), _p(dzb), _p(dx), _p(dwa), _p(dba), _p(dwb),
+        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(wa2), _p(wb2), _p(o["mask"]), *drop, _p(p),
+        _p(gm), _p(gp), _p(gs), _p(dpv), _p(z), _p(xpl), _p(dx), _p(dwa), _p(dba), _p(dwb),
         _p(dbb), _p(dwc), _p(dbc), b, n, f, d, _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["attention_pool_bwd"] += 1
-    return (dx, dwa, dba, dwb, dbb, dwc, dbc), dza
+    return (dx, dwa, dba, dwb, dbb, dwc, dbc), z
 
 
 class _AttentionPool(torch.autograd.Function):

@@ -15,7 +15,10 @@ at the edges of their 128-row tiles in bf16 and f32 (lengths 1, 63, 65,
 127, 129 and 1000; Fin 192 and 1024; D 384; gated and ungated, with and
 without dh, mixed and unmixed, dropout 0 and 0.25) and, f32, on the
 heatmap's largest bag of 3,072 padded patches; K7 also at ABMIL's D 128 with F
-512. K8
+512, in f32 (three bf16 products per product) at dropout 0 and 0.25 too,
+its dx bitwise in two runs in both dtypes, and its f32 weight gradients at
+ABMIL's full stage-1 shape (1536, 1024, 512), where the tensor cores' f32
+sums run longest. K8
 (whose f32 gate products are three bf16 products on the tensor cores) also
 at F 1024 (two f32 slabs) and D 384, with a bag that ends mid-tile and one
 whose later chunks are all masked; one backward through K8's op at the
@@ -196,6 +199,7 @@ TILE_EDGES = [1, 63, 65, 127, 129, 1000]
 
 @pytest.mark.parametrize("gated", [True, False])
 @pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
+                                            (torch.float32, 0.25, 1e-4),
                                             (torch.bfloat16, 0.0, 2e-2),
                                             (torch.bfloat16, 0.25, 2e-2)])
 @pytest.mark.parametrize("n,f,d,lengths", [(100, 256, 128, [100, 90, 33, 64, 1]),
@@ -210,6 +214,22 @@ TILE_EDGES = [1, 63, 65, 127, 129, 1000]
                                            (1000, 1024, 256, TILE_EDGES),
                                            (1000, 512, 384, TILE_EDGES)])
 def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol, n, f, d, lengths):
+    _check_pool_op(dev, gated, dtype, rate, tol, n, f, d, lengths)
+
+
+@pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("d", [896, 1024])
+def test_attention_pool_bf16_wide_attention(dev, gated, rate, d):
+    """bf16 from D 896: eight warps' copies of the gates backward's partials
+    would leave it less than 2 stages, so each warpgroup keeps one copy, as
+    f32 does at D 384. Both ops launch and hold to the plain twin."""
+    _check_pool_op(dev, gated, torch.bfloat16, rate, 2e-2, 300, 512, d, [300, 129, 1, 64, 255])
+
+
+def _check_pool_op(dev, gated, dtype, rate, tol, n, f, d, lengths):
+    """K7f and K7b through the op, one launch each, against the plain twin:
+    every output within ``tol``, ungated dwb and dbb zero."""
     gen = torch.Generator(device=dev).manual_seed(3)
     b = len(lengths)
 
@@ -240,7 +260,7 @@ def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol, n, f, d, len
         assert _rel(g, wv) <= tol, name
 
 
-def _pool_case(dev, b, n, f, d, seed=3):
+def _pool_case(dev, b, n, f, d, seed=3, dtype=torch.bfloat16):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def r(*s, sc=1.0):
@@ -248,7 +268,7 @@ def _pool_case(dev, b, n, f, d, seed=3):
 
     w = [r(f, d, sc=f ** -0.5), r(d, sc=0.1), r(f, d, sc=f ** -0.5), r(d, sc=0.1),
          r(d, sc=d ** -0.5), r((), sc=0.1)]
-    x = torch.relu(r(b, n, f)).to(torch.bfloat16)
+    x = torch.relu(r(b, n, f)).to(dtype)
     cots = [r(b, f), r(b, n, sc=0.1), r(b, n, sc=0.01)]
     return x, w, cots
 
@@ -256,20 +276,41 @@ def _pool_case(dev, b, n, f, d, seed=3):
 @pytest.mark.parametrize("gated", [True, False])
 @pytest.mark.parametrize("d", [128, 256, 384])
 @pytest.mark.parametrize("rate", [0.0, 0.25])
-def test_attention_pool_backward_dx_bitwise_twice(dev, gated, d, rate):
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_attention_pool_backward_dx_bitwise_twice(dev, gated, d, rate, dtype, tol):
     """K7b's dx has no atomics on its path: two runs on the same inputs give
-    the same bits, at every attention width, over bags that end mid-tile."""
+    the same bits, at every attention width, over bags that end mid-tile,
+    in bf16 and in f32 (three bf16 products per product)."""
     from murcl_tpu_torch.ops.attention import _pool_bwd_cuda, _pool_fwd_cuda
 
     n = 1000
-    x, w, cots = _pool_case(dev, len(TILE_EDGES), n, 1024, d)
+    x, w, cots = _pool_case(dev, len(TILE_EDGES), n, 1024, d, dtype=dtype)
     mask = torch.arange(n, device=dev)[None, :] < torch.tensor(TILE_EDGES, device=dev)[:, None]
     p = _pool_fwd_cuda(x, *w, mask, gated, rate, 4)[1]
     first = _pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 4)
     second = _pool_bwd_cuda(x, *w[:5], mask, p, *cots, gated, rate, 4)
     assert torch.equal(first[0], second[0])
     want = gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots, gated, rate, 4)
-    assert _rel(first[0], want[0]) <= 2e-2
+    assert _rel(first[0], want[0]) <= tol
+
+
+def test_attention_pool_f32_weight_grads_at_abmil_shape(dev):
+    """K7b in f32 at ABMIL's stage-1 shape, (1536, 1024, 512) ungated at D
+    128 (R = 1,572,864 rows): dWa's three-product sums over each row split
+    stay within 1e-4 of the f32 twin, as every other output does."""
+    from murcl_tpu_torch.ops.attention import _pool_bwd_cuda, _pool_fwd_cuda
+
+    b, n = 1536, 1024
+    x, w, cots = _pool_case(dev, b, n, 512, 128, seed=5, dtype=torch.float32)
+    mask = torch.ones(b, n, dtype=torch.bool, device=dev)
+    p = _pool_fwd_cuda(x, *w, mask, False, 0.0, 0)[1]
+    got = _pool_bwd_cuda(x, *w[:5], mask, p, *cots, False, 0.0, 0)
+    want = gated_attention_pool_plain_bwd(x, *w[:5], mask, p, *cots, False)
+    for name, g, wv in zip(["dx", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"], got, want):
+        if name in ("dwb", "dbb"):
+            assert not g.any(), name
+            continue
+        assert _rel(g, wv) <= 1e-4, name
 
 
 @pytest.mark.parametrize("b,n", [(1, 60416), (2, 100000)])

@@ -1,10 +1,12 @@
 """K7's shape rules and dx's bf16 split on the CPU.
 
-``pool_plans`` reckons K7's bf16 launch plans (``csrc/attention_pool.cu``):
+``pool_plans`` reckons K7's launch plans (``csrc/attention_pool.cu``):
 persistent warpgroup kernels over 128-row tiles, each a ring of TMA stages
-beside its staging and arrays; ``pool_tile_smem`` takes the widest. Every
-width the port gives K7 (ABMIL at D 128, CLAM "small" at 256, "big" at 384)
-must fit one H100 block's 232,448 bytes with a ring of at least 3 stages.
+beside its staging and arrays, in bf16 and in float32 (each operand as two
+bf16 planes); ``pool_tile_smem`` takes the widest. Every width the port
+gives K7 (ABMIL at D 128, CLAM "small" at 256, "big" at 384) must fit one
+H100 block's 232,448 bytes with a ring of at least 3 stages in bf16 and 2
+in float32.
 ``_check_pool_shapes`` raises, naming the shape, on what the tiles cannot
 take, on the meta device: no data and no card needed. K7b's own rule
 (``pool_bwd_tile_smem``, ``_check_pool_shapes(backward=True)``) counts only
@@ -47,8 +49,48 @@ def test_two_blocks_per_sm_at_clam_small():
     for f in (512, 1024):
         for d in (128, 256, 384):
             for gated in (True, False):
-                for kernel, (stages, nbytes) in tat.pool_plans(f, d, gated).items():
+                plans = tat.pool_plans(f, d, gated, torch.bfloat16)
+                for kernel, (stages, nbytes) in plans.items():
                     assert stages >= 3 and nbytes <= tat._SMEM_LIMIT, (f, d, gated, kernel)
+
+
+@pytest.mark.parametrize("f", [512, 1024])
+@pytest.mark.parametrize("d", [128, 256, 384])
+def test_f32_plans_fit(f, d):
+    """The float32 route (the supervised CLIs' default) runs the same
+    kernels with stages of 64 KB (x's and W's hi and lo slices): every f32
+    kernel's ring holds at least 2 stages at F 512 and 1024 and every width,
+    gated or not, within one block's shared memory. At CLAM "big" (gated, D
+    384) the gates backward keeps its partials per warpgroup, where eight
+    warps' copies would leave it one stage."""
+    for gated in (True, False):
+        for kernel, (stages, nbytes) in tat.pool_plans(f, d, gated, torch.float32).items():
+            assert stages >= 2 and nbytes <= tat._SMEM_LIMIT, (f, d, gated, kernel)
+    tat._check_pool_shapes(NAME, *_operands(1024, f, d, torch.float32))
+    tat._check_pool_shapes(NAME + " backward", *_operands(1024, f, d, torch.float32),
+                           backward=True)
+
+
+@pytest.mark.parametrize("f", [512, 1024])
+@pytest.mark.parametrize("d", [896, 1024])
+def test_wide_bf16_keeps_partials_per_warpgroup(f, d):
+    """From D 896 in bf16, eight warps' copies of the gates backward's
+    partials (27 D floats with ba, bb and wc) leave less than 2 stages: the
+    plan keeps one copy per warpgroup (9 D floats), as the f32 route does
+    at D 384 (``bwd_plan`` in ``csrc/attention_pool.cu``), and both ops'
+    checks take the shape."""
+    stage = 2 * tat._WG_SLICE
+    per_warp = tat._wg_plan(stage, 2 * tat._WG_OUT, 4 * (3 + 8 * 3) * d, 2)
+    assert per_warp[1] > tat._SMEM_LIMIT
+    for gated in (True, False):
+        plans = tat.pool_plans(f, d, gated, torch.bfloat16)
+        assert plans["pool_gates_bwd_wg"] == tat._wg_plan(stage, 2 * tat._WG_OUT,
+                                                          4 * (3 + 2 * 3) * d, 2)
+        for kernel, (stages, nbytes) in plans.items():
+            assert stages >= 2 and nbytes <= tat._SMEM_LIMIT, (gated, kernel)
+    tat._check_pool_shapes(NAME, *_operands(1024, f, d, torch.bfloat16))
+    tat._check_pool_shapes(NAME + " backward", *_operands(1024, f, d, torch.bfloat16),
+                           backward=True)
 
 
 @pytest.mark.parametrize("n,f,d,dtype,match", [
@@ -60,6 +102,9 @@ def test_two_blocks_per_sm_at_clam_small():
     # 128-row plan, which holds no term in F but a row of gm
     (1024, 4096, 256, torch.bfloat16, None),
     (1024, 512, 256, torch.float16, r"float32 or bfloat16"),
+    # f32's gates backward leaves 1 stage from D 896, even with its
+    # partials per warpgroup
+    (1024, 512, 1024, torch.float32, r"238680 bytes .* \(N, F, D\) = \(1024, 512, 1024\)"),
 ])
 def test_check_pool_shapes_refuses(n, f, d, dtype, match):
     if match is None:
@@ -88,17 +133,15 @@ def test_forward_check_still_refuses_past_its_pool_pass(dtype):
         tat._check_pool_shapes(NAME, x, wa)
 
 
-@pytest.mark.parametrize("f,d,dtype,refused", [(4096, 256, torch.bfloat16, False),
-                                               (2048, 256, torch.float32, True)])
-def test_backward_check_refuses_wide_tiles(f, d, dtype, refused):
-    """The f32 FMA tiles hold an x tile of F columns; the bf16 plan does
-    not (it was refused at F 4096 by the 64-row tiles)."""
+@pytest.mark.parametrize("f,d,dtype", [(4096, 256, torch.bfloat16), (2048, 256, torch.float32)])
+def test_backward_check_refuses_wide_tiles(f, d, dtype):
+    """No plan holds an x tile of F columns: the bf16 plan (refused at F
+    4096 by the 64-row tiles) and, since the f32 route runs the same
+    warpgroup kernels, the f32 plan (refused at F 2048 by the FMA tiles,
+    whose block held an f32 x tile of 32 rows x F columns) take both; only
+    a row of ``gm`` per warpgroup grows with F."""
     x, wa = _operands(1024, f, d, dtype)
-    if not refused:
-        tat._check_pool_shapes(NAME + " backward", x, wa, backward=True)
-        return
-    with pytest.raises(ValueError, match=rf"bytes .* \(N, F, D\) = \(1024, {f}, {d}\)"):
-        tat._check_pool_shapes(NAME + " backward", x, wa, backward=True)
+    tat._check_pool_shapes(NAME + " backward", x, wa, backward=True)
 
 
 def test_split_bf16_three_products_match_f32():
