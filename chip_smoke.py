@@ -128,9 +128,16 @@
      the JAX package). Then one supervised ABMIL stage-1 step through the
      kernels and through their plain twins, compared as
      ``abmil_step_check`` compares (``supervised_step_check``). Then
-     supervised CLAM_SB stage 1 through the CLI, ``train_RLMIL.main``,
-     with the runbook's fine-tuning flags and no ``--compute_dtype``:
-     float32, K7's f32 route (``rlmil_cli_path``).
+     the PPO learning check, ``murcl_tpu_torch/scripts/ppo_sanity.py``, at
+     ABMIL's widths (dim 512, L 512, D 128; 150 stage-1 steps and 15 x 8
+     PPO steps of 8 slides), four times with the same seeds: through the
+     kernels in f32 twice, through their plain twins in f32, and through
+     the kernels in bf16 (``ppo_sanity_path``): each run's report line, its
+     directions, the differences between the runs, and the checks of its
+     docstring; the kernel runs' launches of K1, K7f and K7b count in the
+     kernels line. Then supervised CLAM_SB stage 1 through the CLI,
+     ``train_RLMIL.main``, with the runbook's fine-tuning flags and no
+     ``--compute_dtype``: float32, K7's f32 route (``rlmil_cli_path``).
 7. Times steady steps: supervised at batch 64 (CLAM_SB stage 3 and stage
    1, ABMIL stage 1, DSMIL stage 1; CLAM_SB stages 1 and 3 and ABMIL stage
    1 in float32), and MuRCL CLAM_SB stage 1 (the ``bench.py`` step), ABMIL
@@ -2057,6 +2064,105 @@ def supervised_step_check(dev, ds, results, pretrained):
     return {"loss_err": loss_err, "grad_rel_err": max(rels.values())}
 
 
+# the PPO learning check's runs at the card's widths, with the same seeds:
+# route and compute dtype
+PPO_RUNS = {"a": ("kernels", "float32"), "b": ("kernels", "float32"),
+            "c": ("plain twins", "float32"), "d": ("kernels", "bfloat16")}
+PPO_KERNELS = ("compact", "attention_pool_fwd", "attention_pool_bwd")
+
+
+def ppo_run_diffs(x, y) -> dict:
+    """Largest differences of two ``ppo_sanity`` runs: per-epoch rewards,
+    mean actions, the two confidences, the first stage-1 loss and the first
+    stage-1 step whose losses differ by over 1e-3 (None if none), and the
+    largest relative Frobenius difference of a final weight (aggregator,
+    head, policy) with its name."""
+    rel = {k: float((x.weights[k].double() - y.weights[k].double()).norm()
+                    / y.weights[k].double().norm().clamp_min(1e-30)) for k in x.weights}
+    worst = max(rel, key=rel.get)
+    apart = [i for i, (u, v) in enumerate(zip(x.stage1_losses, y.stage1_losses))
+             if abs(u - v) > 1e-3]
+    return {"rewards": max(abs(u - v) for u, v in zip(x.rewards, y.rewards)),
+            "actions": max(abs(u - v) for u, v in zip(x.actions, y.actions)),
+            "confidence_random": abs(x.conf_random - y.conf_random),
+            "confidence_policy": abs(x.conf_policy - y.conf_policy),
+            "stage1_first_loss": abs(x.stage1_losses[0] - y.stage1_losses[0]),
+            "stage1_apart_from_step": apart[0] if apart else None,
+            "weights_rel": rel[worst], "weights_rel_at": worst}
+
+
+def ppo_sanity_path(dev):
+    """The PPO learning check (``murcl_tpu_torch/scripts/ppo_sanity.py``) at
+    the card's widths (dim 512, L 512, D 128), four times with the same seeds
+    (``PPO_RUNS``): (a) and (b) through the kernels in f32, (c) through
+    their plain twins in f32, (d) through the kernels in bf16. The draws are
+    on the host's generators, so K1 and the draws are the same in every run;
+    what separates (a) from (b) is K7b's split-K atomics. Prints each run's
+    report line, wall time and directions, and the (a)-(b) and (a)-(c)
+    differences (``ppo_run_diffs``).
+
+    Holds in every run: finite readings and weights, the path's kernels
+    (K1, K7f, K7b) launched by the kernel runs and nothing launched by (c),
+    stage 1's last ten losses below half its first ten, and both
+    confidences above 0.75 (chance is 0.5); the first stage-1 loss (the same
+    weights and draws, before any update) of (a) and (b) within 1e-4 of
+    (c)'s, of (d) within 2e-2. The three PPO directions are printed, not
+    held: at these widths stage 1 alone reaches a confidence of 0.93-0.998
+    with random windows, and on the plain path on the CPU the thread count
+    alone decides which directions hold (PERF.md, section 6). Returns the kernel
+    runs' launch counts."""
+    import torch
+
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.scripts import ppo_sanity as ps
+
+    card = card_line()
+    runs, launches = {}, []
+    for key, (route, dtype) in PPO_RUNS.items():
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        with plain_twins() if route == "plain twins" else contextlib.nullcontext():
+            s = ps.run(dev, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        report = s.report()
+        runs[key] = s
+        print(f"ppo_sanity ({key}) {route}, {dtype}: {wall:.2f} s, launches {counts}, "
+              f"directions {ps.directions(report)} ({card})")
+        print(f"ppo_sanity ({key}) report: {json.dumps(report)}")
+        if route == "kernels":
+            check(set(counts) == set(PPO_KERNELS), f"ppo_sanity ({key}): launches {counts}")
+            launches.append(dict(_cuda.LAUNCHES))
+        else:
+            check(not counts, f"ppo_sanity ({key}): the plain twins launched {counts}")
+        values = [*s.stage1_losses, *s.rewards, *s.actions, s.conf_random, s.conf_policy]
+        check(all(math.isfinite(v) for v in values)
+              and all(bool(w.isfinite().all()) for w in s.weights.values()),
+              f"ppo_sanity ({key}): readings or weights not finite")
+        l1 = s.stage1_losses
+        check(statistics.mean(l1[-10:]) < 0.5 * statistics.mean(l1[:10]),
+              f"ppo_sanity ({key}): stage 1 did not learn: losses {l1[:10]} ... {l1[-10:]}")
+        check(min(s.conf_random, s.conf_policy) > 0.75,
+              f"ppo_sanity ({key}): confidences {s.conf_random}, {s.conf_policy}")
+    for x, y in (("a", "b"), ("a", "c"), ("b", "c"), ("d", "c")):
+        diff = ppo_run_diffs(runs[x], runs[y])
+        print(f"ppo_sanity ({x}) - ({y}): {json.dumps(diff)} ({card})")
+        tol = 2e-2 if PPO_RUNS[x][1] == "bfloat16" else 1e-4
+        if y == "c":
+            check(diff["stage1_first_loss"] <= tol,
+                  f"ppo_sanity ({x}): first stage-1 loss {runs[x].stage1_losses[0]} against the "
+                  f"plain twins' {runs['c'].stage1_losses[0]}")
+    plain = ps.directions(runs["c"].report())
+    for key in ("a", "b", "d"):
+        same = ps.directions(runs[key].report()) == plain
+        print(f"ppo_sanity ({key}): directions {'the same as' if same else 'other than'} the "
+              "plain twins' (c)")
+    del runs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def make_slides(root):
     """The heatmap path's data: one feature npz per slide (dim 512, f32) in
     the data contract, a manifest, coord JSONs as the tiling step writes
@@ -3198,6 +3304,9 @@ def main() -> int:
                      rlmil_path(dev, ds, tmp / "rlmil", abmil_pretrained, "ABMIL"),
                      rlmil_path(dev, ds, tmp / "rlmil", None, "DSMIL")]
         supervised_step_check(dev, ds, tmp / "rlmil", abmil_pretrained)
+        t0 = time.time()
+        ppo_counts = ppo_sanity_path(dev)
+        print(f"ppo_sanity phase in {time.time() - t0:.1f} s")
         rl_cli = rlmil_cli_path(dev, ds, tmp / "rlmil_cli", pretrained)
         steady_steps(dev, ds, tmp / "rlmil", [("CLAM_SB", 3, pretrained, "bfloat16"),
                                               ("CLAM_SB", 1, pretrained, "bfloat16"),
@@ -3223,7 +3332,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
     for counts in [pre, *clam_stages.values(), *cli_stages.values(), *abmil_stages.values(), heat,
-                   rl_cli,
+                   rl_cli, *ppo_counts,
                    *(c for path in rl_stages for c in path.values()), *dp_counts,
                    *stream_counts]:
         for k, v in counts.items():

@@ -6,8 +6,10 @@ Run as ``python -m murcl_tpu_torch.extract_features``; the same flags.
 ``--device`` is a CUDA device index (the default ``0``) or ``cpu``. Without
 ``--weights`` the encoder takes torchvision's ImageNet weights where
 torchvision imports, else random weights with a warning: on a machine
-without torchvision, write the pickle where it is
-(``scripts/export_torchvision_weights.py``) and pass it here.
+without torchvision, write the pickle with torch alone from a downloaded
+torchvision ``.pth`` (``python -m
+murcl_tpu_torch.scripts.export_torchvision_weights --state_dict <pth>
+--out <pkl>``) and pass it here.
 """
 
 import argparse
@@ -28,7 +30,8 @@ def parse_args(argv=None):
     parser.add_argument('--batch_size', type=int, default=256)
     parser.add_argument('--num_workers', type=int, default=8)
     parser.add_argument('--weights', type=str, default=None,
-                        help="pickled flax params (scripts/export_torchvision_weights.py)")
+                        help="pickled flax params (python -m "
+                             "murcl_tpu_torch.scripts.export_torchvision_weights)")
     parser.add_argument('--imagenet_norm', action='store_true', default=False,
                         help="apply ImageNet normalization (the reference does NOT)")
     parser.add_argument('--resize_on_device', action='store_true', default=False,

@@ -23,7 +23,8 @@ the JAX package's f32 is. ``dtype="bfloat16"`` runs the encoder's weights
 and activations in bf16.
 
 Weights: ``--weights`` (a pickle of the JAX package's flax tree, written by
-``scripts/export_torchvision_weights.py`` on a machine with torchvision),
+``python -m murcl_tpu_torch.scripts.export_torchvision_weights`` from
+torchvision, or with torch alone from a downloaded ``.pth``),
 else torchvision's ImageNet weights where it imports, else a random
 initialisation with a loud warning (``extract.py:69-81``).
 """

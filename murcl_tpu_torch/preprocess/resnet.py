@@ -14,7 +14,9 @@ fully connected layer (``resnet.py:154``), which the reference's
 
 Weights: :func:`state_dict_from_jax` maps a flax tree (the JAX package's
 ``--weights`` pickle, read by :func:`load_params_npz`) onto these keys,
-the inverse of ``resnet_params_from_torch`` / ``vgg16_params_from_torch``;
+the inverse of ``resnet_params_from_torch`` / ``vgg16_params_from_torch``,
+and :func:`jax_params_from_state_dict` writes that tree from these keys
+(``murcl_tpu_torch/scripts/export_torchvision_weights.py``);
 :func:`load_torchvision_weights` takes ImageNet weights from torchvision
 where it imports.
 """
@@ -199,6 +201,53 @@ def state_dict_from_jax(params, name: str) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
 
 
+def jax_params_from_state_dict(state_dict, name: str) -> dict:
+    """A torchvision-layout ``state_dict`` as the JAX package's flax encoder
+    tree, ``{"params": ...}`` of numpy arrays: the ``--weights`` pickle's
+    content and the inverse of :func:`state_dict_from_jax`. Leaf for leaf,
+    array for array (views included, so the pickle is byte for byte the
+    same), ``resnet_params_from_torch`` / ``vgg16_params_from_torch`` of
+    ``murcl_tpu/preprocess/resnet.py:171-229``: conv kernels OIHW -> HWIO,
+    BatchNorm buffers as ``scale/bias/mean/var``, dense kernels transposed,
+    VGG's convs numbered in the order of their ``features.{n}`` indices, each
+    leaf in the state_dict's dtype. Other keys (``num_batches_tracked``,
+    ``fc.*``, ``classifier.6.*``) are ignored."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+          for k, v in state_dict.items()}
+    hwio = lambda w: np.transpose(w, (2, 3, 1, 0))  # noqa: E731
+
+    def bn(prefix):
+        return {dst: sd[f"{prefix}.{src}"] for src, dst in (
+            ("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"),
+            ("running_var", "var"))}
+
+    p: dict = {}
+    if name in RESNET_ARCH:
+        stage_sizes, bottleneck = RESNET_ARCH[name]
+        p["conv1"], p["bn1"] = {"kernel": hwio(sd["conv1.weight"])}, bn("bn1")
+        for i, n in enumerate(stage_sizes):
+            for j in range(n):
+                key, blk = f"layer{i + 1}.{j}", {}
+                for c in range(1, (3 if bottleneck else 2) + 1):
+                    blk[f"conv{c}"] = {"kernel": hwio(sd[f"{key}.conv{c}.weight"])}
+                    blk[f"bn{c}"] = bn(f"{key}.bn{c}")
+                if f"{key}.downsample.0.weight" in sd:
+                    blk["down_conv"] = {"kernel": hwio(sd[f"{key}.downsample.0.weight"])}
+                    blk["down_bn"] = bn(f"{key}.downsample.1")
+                p[f"layer{i + 1}_{j}"] = blk
+    elif name == "vgg16":
+        convs = sorted((k for k in sd if k.startswith("features.") and k.endswith(".weight")),
+                       key=lambda k: int(k.split(".")[1]))
+        for c, k in enumerate(convs):
+            idx = k.split(".")[1]
+            p[f"conv{c}"] = {"kernel": hwio(sd[k]), "bias": sd[f"features.{idx}.bias"]}
+        for flax_name, key in (("fc1", "classifier.0"), ("fc2", "classifier.3")):
+            p[flax_name] = {"kernel": sd[f"{key}.weight"].T, "bias": sd[f"{key}.bias"]}
+    else:
+        raise ValueError(f"image encoder {name!r} not supported")
+    return {"params": p}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -208,8 +257,9 @@ def _leaves(tree):
 
 
 def load_params_npz(path) -> dict:
-    """The ``--weights`` pickle (``scripts/export_torchvision_weights.py``, or
-    the JAX package's ``save_params_npz``): a tree of numpy arrays, read by
+    """The ``--weights`` pickle (``python -m
+    murcl_tpu_torch.scripts.export_torchvision_weights``, or the JAX
+    package's ``save_params_npz``): a tree of numpy arrays, read by
     the checkpoint reader's restricted unpickler, so no code runs and no jax
     is needed; a tree with anything but arrays at its leaves is refused."""
     from murcl_tpu_torch.engine.checkpoint import _JaxUnpickler

@@ -25,8 +25,9 @@
 # Tunables (env): WSI_FORMAT=.tif MAG=20 PATCH=256 K=10 FEAT_SIZE=1024 T=6
 #   PRE_EPOCHS=100 FT_EPOCHS=40 BATCH=128 SEED=985 ENCODER=resnet18
 #   DATASET=camelyon16 WEIGHTS=<pickled encoder params> (torchvision's
-#   ImageNet weights, exported by scripts/export_torchvision_weights.py on
-#   a machine that has torchvision)
+#   ImageNet weights, exported by python -m
+#   murcl_tpu_torch.scripts.export_torchvision_weights, with torch alone
+#   from a downloaded .pth: --state_dict resnet18-f37072fd.pth)
 
 set -eu
 

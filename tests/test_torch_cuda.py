@@ -29,6 +29,8 @@ and prefetch thread exist only on the card): each staged batch bitwise the
 CPU's staging of it, in f32 and bf16 banks, while the consumer's stream
 lags behind the producer; the producer's error reaches the caller; and
 repeated whole-split stages (the evaluations) hold one pinned buffer.
+The PPO learning check (``murcl_tpu_torch/scripts/ppo_sanity.py``) runs
+once at ABMIL's widths through the kernels in f32.
 """
 
 import pytest
@@ -754,3 +756,24 @@ def test_data_parallel_step_on_one_card(dev, tmp_path):
                 continue
             np.testing.assert_allclose(outs[0][part][k].numpy(), v.numpy(), rtol=1e-4,
                                        atol=1e-6, err_msg=f"{part}.{k}")
+
+
+def test_ppo_sanity_on_card(dev):
+    """The PPO learning check at the card's widths (dim 512, L 512, D 128)
+    through the kernels in f32: the JAX script's keys, K1, K7f and K7b
+    launched and nothing else, finite readings, stage 1 learning and both
+    confidences above 0.75 (the PPO directions are rounding's at these widths:
+    ``murcl_tpu_torch/scripts/ppo_sanity.py``)."""
+    import math
+
+    from murcl_tpu_torch.scripts import ppo_sanity
+
+    _cuda.reset_launch_counts()
+    s = ppo_sanity.run(dev)
+    launched = {k for k, v in _cuda.LAUNCHES.items() if v}
+    assert launched == {"compact", "attention_pool_fwd", "attention_pool_bwd"}, _cuda.LAUNCHES
+    report = s.report()
+    assert len(report) == 9 and len(report["rewards_per_epoch"]) == ppo_sanity.EPOCHS
+    assert all(math.isfinite(v) for v in [*s.stage1_losses, *s.rewards, *s.actions])
+    assert sum(s.stage1_losses[-10:]) < 0.5 * sum(s.stage1_losses[:10])
+    assert min(s.conf_random, s.conf_policy) > 0.75, report
