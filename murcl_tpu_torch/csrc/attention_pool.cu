@@ -74,8 +74,9 @@
 //    slices of both operands (64 KB; 2-3 stages). split_kernel writes x's
 //    planes (2, B, N, F), in the forward and again in the backward (the
 //    forward's planes are not held through the step); W's planes (2 F, D)
-//    come from the caller. The gate epilogues are the bf16 route's; dWa =
-//    x^T @ dza takes three products of x's and the scratch's planes
+//    come from the caller (murcl_split_bf16, the same split_kernel). The
+//    gate epilogues are the bf16 route's; dWa = x^T @ dza takes three
+//    products of x's and the scratch's planes
 //    (wgrad_wg<float>, its sums promoted to f32 every 8 k-slices); pool_dx_wg
 //    writes f32 dx straight from its accumulators; pool_kernel takes M = p @
 //    x from the f32 bag.
@@ -92,6 +93,15 @@
 // Gate dropout keep bits come from the counter hash of common.cuh, streams 1
 // (a) and 2 (b), the streams K2 uses, so the backward regenerates the
 // forward's masks.
+// Widths: the kernels take F and D in multiples of 128 (the gate passes'
+// and dx's 128-column passes, 64-deep k-slices); the JAX kernels take any.
+// The wrapper (ops/attention.py) zero-pads the others: x's columns and W's
+// rows to F's multiple, W's columns, ba, bb and wc to D's. That is exact: a
+// padded gate has u = tanh(0) (sigmoid(0)) = 0 and wc 0, its dz is 0, and a
+// zero column of x meets a zero row of W. The keep bits hash each unit at
+// the logical D (GateDropout::cols), so padding moves no real unit's bit.
+// K8 (attention_tiled.cu) takes its scores from pool_gates_fwd_wg, through
+// murcl_attention_pool_fwd without m.
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -100,6 +110,7 @@ struct GateDropout {
   int on;
   uint32_t seed, thresh;
   float scale;  // 1 / (1 - rate) in f32, applied in f32
+  int cols;     // the hash's row width: the logical D (D itself unless zero-padded)
 };
 
 // Backward pass 1: dp = x @ rnd(gm) + gp (gp null: x @ rnd(gm)), one warp per
@@ -204,7 +215,7 @@ pool_gates_fwd_wg(const __grid_constant__ CUtensorMap x_map,
     if (threadIdx.x == wg::PRODUCER)
       produce_gates(pipe, &x_map, &wa_map, &wb_map, gated, B, N, F, D, X3);
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
-      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
+      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N, dp.cols);
     return;
   }
   wg::consumer_regs();
@@ -279,7 +290,7 @@ pool_gates_bwd_wg(const __grid_constant__ CUtensorMap x_map,
     if (threadIdx.x == wg::PRODUCER)
       produce_gates(pipe, &x_map, &wa_map, &wb_map, gated, B, N, F, D, X3);
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
-      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
+      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N, dp.cols);
     return;
   }
   wg::consumer_regs();
@@ -575,7 +586,8 @@ DxPlan dx_plan(int F, int D, int gated) {
 }
 
 // bf16: wa, wb (F, D) bf16, xpl unread. f32: wa, wb W's planes (2 F, D), xpl
-// the (2, B, N, F) scratch of x's planes.
+// the (2, B, N, F) scratch of x's planes. With m null, the scores s alone
+// (K8's gate pass, attention_tiled.cu).
 template <typename T>
 int fwd_wg(const void* x, const void* wa, const void* ba, const void* wb, const void* bb,
            const void* wc, const void* bc, const void* mask, GateDropout dp, int gated, void* xpl,
@@ -597,6 +609,7 @@ int fwd_wg(const void* x, const void* wa, const void* ba, const void* wb, const 
       xm, wam, wbm, (const float*)ba, (const float*)bb, (const float*)wc, (const float*)bc, dp,
       gated, (float*)s, pl.stages, B, N, F, D);
   MURCL_TRY(cudaGetLastError());
+  if (!m) return 0;
   return pool<T>((const float*)s, (const uint8_t*)mask, (const T*)x, (float*)m, (float*)p, B, N,
                  F, stream);
 }
@@ -671,16 +684,24 @@ int zero_grads(void* dwa, void* dba, void* dwb, void* dbb, void* dwc, void* dbc,
 
 }  // namespace
 
+// src (rows, cols) f32 -> out (2 rows, cols) bf16: rnd(src), then
+// rnd(src - rnd(src)); W's planes of the f32 route (cols % 4 == 0).
+MURCL_API int murcl_split_bf16(const void* src, void* out, int rows, int cols, void* stream) {
+  return (int)split(src, nullptr, nullptr, out, nullptr, rows, cols, rows, (cudaStream_t)stream);
+}
+
 // bf16: wa, wb the bf16 weights (F, D), xpl null; f32: wa, wb W's planes
 // (2 F, D: rnd(W), then rnd(W - rnd(W))) and xpl the (2, B, N, F) bf16
-// scratch of x's planes.
+// scratch of x's planes. F and D are multiples of 128 (the wrapper pads
+// other widths with zeros), Dl the logical D, the dropout hash's row width.
+// m and p null: the scores s alone.
 MURCL_API int murcl_attention_pool_fwd(int is_bf16, int gated, const void* x, const void* wa,
                                        const void* ba, const void* wb, const void* bb,
                                        const void* wc, const void* bc, const void* mask,
                                        int use_dropout, uint32_t seed, uint32_t thresh,
                                        float scale, void* xpl, void* m, void* p, void* s, int B,
-                                       int N, int F, int D, void* stream) {
-  const GateDropout dp{use_dropout, seed, thresh, scale};
+                                       int N, int F, int D, int Dl, void* stream) {
+  const GateDropout dp{use_dropout, seed, thresh, scale, Dl};
   auto strm = (cudaStream_t)stream;
   if (is_bf16)
     return fwd_wg<bf16>(x, wa, ba, wb, bb, wc, bc, mask, dp, gated, xpl, m, p, s, B, N, F, D,
@@ -691,15 +712,15 @@ MURCL_API int murcl_attention_pool_fwd(int is_bf16, int gated, const void* x, co
 
 // dpv holds 2 B N floats (dp, then ds), z is the dz scratch (see bwd_wg:
 // 2 B N Wg bf16 elements), wa2, wb2 are W's bf16 planes (2 F x D), and wa,
-// wb and xpl as in murcl_attention_pool_fwd.
+// wb, xpl, F, D and Dl as in murcl_attention_pool_fwd.
 MURCL_API int murcl_attention_pool_bwd(
     int is_bf16, int gated, const void* x, const void* wa, const void* ba, const void* wb,
     const void* bb, const void* wc, const void* wa2, const void* wb2, const void* mask,
     int use_dropout, uint32_t seed, uint32_t thresh, float scale, const void* p, const void* gm,
     const void* gp, const void* gs, void* dpv, void* z, void* xpl, void* dx, void* dwa,
-    void* dba, void* dwb, void* dbb, void* dwc, void* dbc, int B, int N, int F, int D,
+    void* dba, void* dwb, void* dbb, void* dwc, void* dbc, int B, int N, int F, int D, int Dl,
     void* stream) {
-  const GateDropout dp{use_dropout, seed, thresh, scale};
+  const GateDropout dp{use_dropout, seed, thresh, scale, Dl};
   auto strm = (cudaStream_t)stream;
   const int err = zero_grads(dwa, dba, dwb, dbb, dwc, dbc, F, D, strm);
   if (err) return err;

@@ -33,7 +33,7 @@
 // Every sim entry is one fmaf chain over k = 0..d_pad-1 in order, whatever the
 // tiling, so s_ij == s_ji bitwise and the backward's s equals the forward's.
 // Any B >= 1 and d >= 1: rows, columns and k are tiled, padded with zeros.
-#include "mma_tiles.cuh"  // cp.async: tc::cp16, cp_commit, cp_wait
+#include "cp_async.cuh"
 
 namespace {
 
@@ -117,7 +117,7 @@ template <int R>
 __device__ __forceinline__ void stage(const float* zn, int d_pad, int r0, int k0, float* dst) {
   for (int e = threadIdx.x; e < R * kDepth / 4; e += kThreads) {
     const int r = e / (kDepth / 4), q = e % (kDepth / 4);
-    tc::cp16(dst + r * kLd + 4 * q, zn + (size_t)(r0 + r) * d_pad + k0 + 4 * q, true);
+    cpa::cp16(dst + r * kLd + 4 * q, zn + (size_t)(r0 + r) * d_pad + k0 + 4 * q, true);
   }
 }
 
@@ -136,8 +136,8 @@ __device__ __forceinline__ void sim_column(const float* zn, int d_pad, int i0, i
     __syncthreads();  // the last chunk's readers are done
     stage<kCols>(zn, d_pad, j0, k0, tile);
     stage<kRows>(zn, d_pad, i0, k0, tile + kCols * kLd);
-    tc::cp_commit();
-    tc::cp_wait<0>();
+    cpa::cp_commit();
+    cpa::cp_wait<0>();
     __syncthreads();
 #pragma unroll 8
     for (int q = 0; q < kDepth / 4; ++q) {
@@ -302,8 +302,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (d_pad > kDepth) {  // the tile holds the last k chunk: stage chunk ko
         __syncthreads();
         stage<kCols>(zn, d_pad, j0, ko, tile);
-        tc::cp_commit();
-        tc::cp_wait<0>();
+        cpa::cp_commit();
+        cpa::cp_wait<0>();
       }
       __syncthreads();
       const int jn = min(kSpan, n - j0 - h * kSpan);  // this half's columns

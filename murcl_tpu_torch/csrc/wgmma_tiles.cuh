@@ -663,17 +663,21 @@ inline cudaError_t split(const void* x, const void* perm, const void* lam, void*
 }
 
 // The helper warps' keep bits of every pass of a kernel's tiles, in the
-// consumers' order: passes of `step` columns over `width` (the hash
-// stream's row width), stream `stream` (and, gated gates, streams 1 and 2).
+// consumers' order: passes of `step` columns over `width`, stream `stream`
+// (and, gated gates, streams 1 and 2). `stride` is the hash stream's row
+// width (0: `width`): K7 given widths zero-padded to 128 hashes at the
+// logical width, so that every real unit keeps its bit (ops/attention.py
+// _keep_bits); a padded column's bit falls on no real unit's and is unused,
+// its gate being 0.
 __device__ __forceinline__ void bits_passes(wg::Pipe& pipe, uint32_t seed, uint32_t thresh,
                                             int stream, bool two, int step, int width, int B,
-                                            int N) {
+                                            int N, int stride = 0) {
   const int tiles = (N + wg::BM - 1) / wg::BM, ht = threadIdx.x - wg::PRODUCER - 32;
   for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
     const int bag = t / tiles, r0 = (t % tiles) * wg::BM;
     const uint32_t k0 = murcl::bag_key(seed, bag, stream), k1 = murcl::bag_key(seed, bag, 2);
     for (int n0 = 0; n0 < width; n0 += step)
-      wg::make_bits(pipe, k0, k1, two, width, r0, n0, thresh, ht);
+      wg::make_bits(pipe, k0, k1, two, stride ? stride : width, r0, n0, thresh, ht);
   }
 }
 

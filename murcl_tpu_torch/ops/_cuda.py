@@ -80,19 +80,18 @@ _SIGNATURES = {
     "murcl_fused_trunk_bwd": [_I, _I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 18
     + [_I] * 5 + [_P],
     # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, use_dropout, seed,
-    # thresh, scale, xpl, m, p, s, B, N, F, D, stream
+    # thresh, scale, xpl, m, p, s, B, N, F, D, Dl (the logical D), stream
     "murcl_attention_pool_fwd": [_I, _I] + [_P] * 8 + [_I, _U, _U, _F] + [_P] * 4
-    + [_I] * 4 + [_P],
+    + [_I] * 5 + [_P],
     # is_bf16, gated, x, wa, ba, wb, bb, wc, wa2, wb2, mask, use_dropout, seed,
     # thresh, scale, p, gm, gp, gs, dp, z, xpl, dx, dwa, dba, dwb, dbb, dwc,
-    # dbc, B, N, F, D, stream
+    # dbc, B, N, F, D, Dl, stream
     "murcl_attention_pool_bwd": [_I, _I] + [_P] * 9 + [_I, _U, _U, _F] + [_P] * 14
-    + [_I] * 4 + [_P],
-    # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, s, m_part, mx_part,
-    # l_part, m, B, N, F, D, slab, chunk, stream
-    "murcl_attention_pool_tiled": [_I, _I] + [_P] * 13 + [_I] * 6 + [_P],
-    # w, out, F, D, slab, stream
-    "murcl_split_planes": [_P, _P, _I, _I, _I, _P],
+    + [_I] * 5 + [_P],
+    # is_bf16, x, s, mask, m_part, mx_part, l_part, m, B, N, F, chunk, stream
+    "murcl_attention_pool_tiled": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    # src, out, rows, cols, stream
+    "murcl_split_bf16": [_P, _P, _I, _I, _P],
     # y, cb, cr, out, h, w, ch, cw, fv, fh, stream
     "murcl_ycc_to_rgb": [_P] * 4 + [_I] * 6 + [_P],
 }

@@ -45,12 +45,9 @@ from murcl_tpu_torch.ops.mixup import apply_mix
 _NEG_INF = -1e30
 _M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-# the column tile of the attention kernels' passes (csrc/tiles.cuh TN), and
-# the rows over which K8 keeps a running max (a half of its 64-row tile)
-_TM, _TN = 32, 128
-# csrc/mma_tiles.cuh: rows per block, bf16 padding of a shared row, and the
-# bytes of the B ring (2 stages of 64 x (128 + 8) bf16) of K8 in bf16
-_TC_BM, _TC_PAD, _TC_RING = 64, 8, 2 * 2 * 64 * (128 + 8)
+# the column tile of the attention kernels' passes (csrc/tiles.cuh TN), the
+# rows over which K8 keeps a running max, and the rows of its chunks' tiles
+_TM, _TN, _K8_ROWS = 32, 128, 64
 # csrc/wgmma_tiles.cuh (K2/K3, K7): stages of 16 KB slices (128 x 64 bf16)
 # of A and B, three 8-byte barriers a stage, as many stages as fit
 # (at most 6, at least 3 unless said) beside 1,024 bytes of alignment, the
@@ -101,13 +98,16 @@ def _fmix32(h):
     return h ^ (h >> 16)
 
 
-def _keep_bits(seed: int, bags, rows: int, cols: int, stream: int):
+def _keep_bits(seed: int, bags, rows: int, cols: int, stream: int, stride=None):
     """Dropout bits ``(len(bags), rows, cols)`` as int64 in [0, 2**32): bag
-    ``i``, element ``(r, c)`` gets ``fmix32(key_i ^ (r*cols + c) * 0x7feb352d)``
-    with ``key_i = fmix32(seed ^ (4 i + stream + 1) * 0x9e3779b1)``."""
+    ``i``, element ``(r, c)`` gets ``fmix32(key_i ^ (r*stride + c) * 0x7feb352d)``
+    with ``key_i = fmix32(seed ^ (4 i + stream + 1) * 0x9e3779b1)``. The row
+    stride is ``cols`` unless given: K7's kernels hash zero-padded gates at
+    the logical width, so that every real unit keeps its bit."""
     key = _fmix32((seed & _M32) ^ _mul32(bags * 4 + stream + 1, 0x9E3779B1))
-    idx = _mul32(torch.arange(rows * cols, device=bags.device, dtype=torch.int64),
-                 0x7FEB352D)
+    ar = lambda k: torch.arange(k, device=bags.device, dtype=torch.int64)  # noqa: E731
+    pos = (ar(rows)[:, None] * (stride or cols) + ar(cols)).reshape(-1)
+    idx = _mul32(pos, 0x7FEB352D)
     return _fmix32(key[:, None] ^ idx[None, :]).reshape(len(bags), rows, cols)
 
 
@@ -115,8 +115,9 @@ def dropout_threshold(rate: float) -> int:
     return min(2**32 - 1, int(rate * 2**32))
 
 
-def _keep_scale(seed, rate, b, rows, cols, stream, device, dt):
-    """{0, scale} multipliers in ``dt`` (scale taken in f32, then cast)."""
+def _keep_scale(seed, rate, b, rows, cols, stream, device, dt, stride=None):
+    """{0, scale} multipliers in ``dt`` (scale taken in f32, then cast) from
+    :func:`_keep_bits`' bits."""
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=device).to(dt)
     out = torch.empty((b, rows, cols), dtype=dt, device=device)
     # the int64 bits take 8 bytes per element: build them a few bags at a time
@@ -124,7 +125,7 @@ def _keep_scale(seed, rate, b, rows, cols, stream, device, dt):
     thresh = dropout_threshold(rate)
     for b0 in range(0, b, step):
         bags = torch.arange(b0, min(b, b0 + step), device=device, dtype=torch.int64)
-        bits = _keep_bits(seed, bags, rows, cols, stream)
+        bits = _keep_bits(seed, bags, rows, cols, stream, stride)
         out[b0:b0 + step] = torch.where(bits >= thresh, scale, torch.zeros_like(scale))
     return out
 
@@ -451,29 +452,39 @@ def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
 # every product is three bf16 products of the operands' planes, x's written
 # by the kernels' ``split_kernel`` (forward and backward: 1.6 GB a pass at
 # the supervised shape, (384, 1024, 512) f32) and W's by
-# :func:`_split_planes_cuda`, and the dz scratch's planes feed dWa and dWb
+# :func:`_w_planes_cuda`, and the dz scratch's planes feed dWa and dWb
 # too. K7f's softmax pass holds a bag's N scores
 # in shared memory, so K7f takes N up to about 58,000 (``4 (N + 32) <=
 # 232,448`` bytes; :func:`pool_tile_smem`); K7b holds no term in N
 # (:func:`pool_bwd_tile_smem`) and takes any bag. A dropout-free
 # bag over 6 MiB takes K8 instead (:func:`attention_pool_tiled`, at the end
 # of the module), by the JAX package's route rule.
+# The kernels take F and D in multiples of 128; the JAX kernels take any
+# width. The wrappers zero-pad the others (:func:`pad_pool_widths`) and
+# slice the outputs back: exact, since a padded gate has u = 0 and wc 0 and
+# a zero column of x meets a zero row of W. The dropout hash keeps the
+# logical D as its row stride (``hash_width``), so the padded route drops
+# the units the twin drops at the logical widths.
 
 
 def gated_attention_pool_plain_fwd(x, wa, ba, wb, bb, wc, bc, mask, gated=True,
-                                   dropout=0.0, seed=0):
-    """Plain PyTorch forward (mirror of the TPU forward kernel): ``(M, p, s)``."""
+                                   dropout=0.0, seed=0, hash_width=None):
+    """Plain PyTorch forward (mirror of the TPU forward kernel): ``(M, p, s)``.
+    ``hash_width``: the dropout hash's row stride, D unless given (the
+    kernels' at widths zero-padded by :func:`pad_pool_widths`)."""
     dt = x.dtype
     b, n, _ = x.shape
     d = wa.shape[1]
     xf = x.float()
     u = torch.tanh(xf @ wa.to(dt).float() + ba)
+    keep = lambda stream: _keep_scale(seed, dropout, b, n, d, stream, x.device,  # noqa: E731
+                                      torch.float32, hash_width)
     if dropout > 0:
-        u = u * _keep_scale(seed, dropout, b, n, d, 1, x.device, torch.float32)
+        u = u * keep(1)
     if gated:
         g = torch.sigmoid(xf @ wb.to(dt).float() + bb)
         if dropout > 0:
-            g = g * _keep_scale(seed, dropout, b, n, d, 2, x.device, torch.float32)
+            g = g * keep(2)
         u = u * g
     s = u @ wc.float() + bc
     p = torch.softmax(torch.where(mask, s, torch.full_like(s, _NEG_INF)), dim=-1)
@@ -482,23 +493,24 @@ def gated_attention_pool_plain_fwd(x, wa, ba, wb, bb, wc, bc, mask, gated=True,
 
 
 def gated_attention_pool_plain_bwd(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated=True,
-                                   dropout=0.0, seed=0):
+                                   dropout=0.0, seed=0, hash_width=None):
     """Plain PyTorch backward (mirror of the TPU backward kernel):
     ``(dx, dwa, dba, dwb, dbb, dwc, dbc)``; ``dx`` in the bag dtype, the
-    rest f32 summed over bags (``dwb``/``dbb`` zeros when ungated)."""
+    rest f32 summed over bags (``dwb``/``dbb`` zeros when ungated);
+    ``hash_width`` as in :func:`gated_attention_pool_plain_fwd`."""
     dt = x.dtype
     b, n, f = x.shape
     d = wa.shape[1]
     xf = x.float()
+    keep = lambda stream: (_keep_scale(seed, dropout, b, n, d, stream, x.device,  # noqa: E731
+                                       torch.float32, hash_width) if dropout > 0 else None)
     a = torch.tanh(xf @ wa.to(dt).float() + ba)
-    ka = (_keep_scale(seed, dropout, b, n, d, 1, x.device, torch.float32)
-          if dropout > 0 else None)
+    ka = keep(1)
     a_eff = a * ka if ka is not None else a
     u = a_eff
     if gated:
         g = torch.sigmoid(xf @ wb.to(dt).float() + bb)
-        kb = (_keep_scale(seed, dropout, b, n, d, 2, x.device, torch.float32)
-              if dropout > 0 else None)
+        kb = keep(2)
         g_eff = g * kb if kb is not None else g
         u = a_eff * g_eff
 
@@ -586,34 +598,63 @@ def pool_bwd_tile_smem(f: int, d: int, dtype: torch.dtype) -> int:
                if k != "pool_gates_fwd_wg")
 
 
+def _padded(n: int) -> int:
+    """``n`` rounded up to the kernels' multiple of 128."""
+    return -(-n // _TN) * _TN
+
+
+def pad_pool_widths(x, wa, ba, wb, bb, wc):
+    """K7's and K8's operands at widths the kernels take: F and D
+    zero-padded to multiples of 128 (x's columns and Wa's and Wb's rows; Wa's
+    and Wb's columns, ``ba``, ``bb`` and ``wc``), each tensor as given where
+    its widths are already so. The pool's outputs are the same on the
+    logical columns: a padded gate has ``u = tanh(0) (sigmoid(0)) = 0`` and
+    ``wc`` 0, and a zero column of x meets a zero row of W. No width the
+    feature extractors give (512, 2048, 4096) copies the bag."""
+    f, d = wa.shape
+    fp, dp = _padded(f), _padded(d)
+    pad = torch.nn.functional.pad
+    if fp != f:
+        x = pad(x, (0, fp - f))
+    if (fp, dp) != (f, d):
+        wa, wb = (pad(w, (0, dp - d, 0, fp - f)) for w in (wa, wb))
+        ba, bb, wc = (pad(v, (0, dp - d)) for v in (ba, bb, wc))
+    return x, wa, ba, wb, bb, wc
+
+
+def _unpad(t, n: int):
+    """``t``'s first ``n`` columns (the last dimension), contiguous."""
+    return t if t.shape[-1] == n else t[..., :n].contiguous()
+
+
 def _check_pool_shapes(name, x, wa, backward=False):
-    """K7's rule: K7f's blocks, its softmax pass included; with ``backward``
-    K7b's own blocks, which take any bag length."""
+    """K7's rule, at the widths the kernels take (:func:`pad_pool_widths`):
+    K7f's blocks, its softmax pass included; with ``backward`` K7b's own
+    blocks, which take any bag length."""
     b, n, f = x.shape
     d = wa.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: bags must be float32 or bfloat16")
-    if f % _TN or d % _TN:
-        raise ValueError(f"{name}: needs F and D multiples of {_TN}, F for dx's column passes "
-                         f"and D for the gate passes and dW's column tiles (got F {f}, D {d})")
-    smem = pool_bwd_tile_smem(f, d, x.dtype) if backward else pool_tile_smem(n, f, d, x.dtype)
+    fp, dp = _padded(f), _padded(d)
+    smem = (pool_bwd_tile_smem(fp, dp, x.dtype) if backward
+            else pool_tile_smem(n, fp, dp, x.dtype))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: tiles need {smem} bytes of shared memory at (N, F, D) = "
                          f"({n}, {f}, {d})")
 
 
 def _pool_args(name, x, wa, ba, wb, bb, wc, mask, dropout, seed, gated):
-    """Kernel operands: the gate products' Wa/Wb (bf16 bags: rounded to
-    bf16; float32 bags: their :func:`_split_planes_cuda` planes, Wb's planes
-    Wa's when ungated), biases and wc f32, all contiguous; and the dropout
-    arguments."""
+    """Kernel operands at widths the kernels take (already padded): the
+    gate products' Wa/Wb (bf16 bags: rounded to bf16; float32 bags: their
+    :func:`_w_planes_cuda` planes, Wb's planes Wa's when ungated), biases and
+    wc f32, all contiguous; and the dropout arguments."""
     c = lambda t, ty: t.to(ty).contiguous()  # noqa: E731
     f32 = torch.float32
     if x.dtype == torch.bfloat16:
         wa_k, wb_k = c(wa, x.dtype), c(wb, x.dtype)
     else:
-        wa_k = _split_planes_cuda(name, wa, x.shape[-1])
-        wb_k = _split_planes_cuda(name, wb, x.shape[-1]) if gated else wa_k
+        wa_k = _w_planes_cuda(name, wa)
+        wb_k = _w_planes_cuda(name, wb) if gated else wa_k
     ops = dict(x=x.contiguous(), wa=wa_k, ba=c(ba, f32), wb=wb_k, bb=c(bb, f32), wc=c(wc, f32),
                mask=c(mask, torch.bool))
     drop = (int(dropout > 0), int(seed) & _M32,
@@ -629,23 +670,35 @@ def _x_planes(x):
     return torch.empty((2, *x.shape), dtype=torch.bfloat16, device=x.device)
 
 
-def _pool_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed):
-    name = "gated_attention_pool"
-    _check_pool_shapes(name, x, wa)
+def _pool_gates(name, x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed, pool):
+    """K7f's C entry point on the operands padded to the kernels' widths
+    (:func:`pad_pool_widths`): the scores ``s (B, N)`` and, with ``pool``,
+    the softmax pass's ``M (B, Fp)`` and ``p (B, N)``; without it the gate
+    pass alone (M and p None). Returns the padded operands of
+    :func:`_pool_args` with ``(M, p, s)``; counts no launch."""
+    d = wa.shape[1]
+    x, wa, ba, wb, bb, wc = pad_pool_widths(x, wa, ba, wb, bb, wc)
     o, drop = _pool_args(name, x, wa, ba, wb, bb, wc, mask, dropout, seed, gated)
     bc32 = bc.to(torch.float32).reshape(1).contiguous()
     _cuda.require_cuda(name, *o.values(), bc32)
-    b, n, f = x.shape
+    b, n, fp = x.shape
     f32 = dict(dtype=torch.float32, device=x.device)
-    m, p, s = torch.empty((b, f), **f32), torch.empty((b, n), **f32), torch.empty((b, n), **f32)
-    xpl = _x_planes(x)
-    err = _cuda.library().murcl_attention_pool_fwd(
+    s = torch.empty((b, n), **f32)
+    m, p = (torch.empty((b, fp), **f32), torch.empty((b, n), **f32)) if pool else (None, None)
+    _cuda.check(_cuda.library().murcl_attention_pool_fwd(
         int(x.dtype == torch.bfloat16), int(gated), _p(o["x"]), _p(o["wa"]), _p(o["ba"]),
-        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop, _p(xpl), _p(m),
-        _p(p), _p(s), b, n, f, wa.shape[1], _cuda.stream())
-    _cuda.check(err, name)
+        _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(bc32), _p(o["mask"]), *drop,
+        _p(_x_planes(x)), _p(m), _p(p), _p(s), b, n, fp, wa.shape[1], d, _cuda.stream()), name)
+    return o, m, p, s
+
+
+def _pool_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed):
+    name = "gated_attention_pool"
+    _check_pool_shapes(name, x, wa)
+    _, m, p, s = _pool_gates(name, x, wa, ba, wb, bb, wc, bc, mask, gated, dropout, seed,
+                             pool=True)
     _cuda.LAUNCHES["attention_pool_fwd"] += 1
-    return m, p, s
+    return _unpad(m, wa.shape[0]), p, s
 
 
 def _pool_bwd_cuda(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, seed):
@@ -655,21 +708,24 @@ def _pool_bwd_cuda(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, s
 
 
 def _pool_bwd_launch(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout, seed):
-    """K7b's launch: ``(grads, z)``, ``z`` its dz scratch ``(2, B, N, Wg)``:
-    ``rnd(dz)``, then the rest (:func:`split_bf16`), of ``[dza | dzb]`` per
-    row gated (``Wg = 2 D``) or ``dza`` (``Wg = D``). The dx products take
-    W's two planes (:func:`_slab_planes` at one slab), as do the gate
-    products of float32 bags."""
+    """K7b's launch: ``(grads, z)``, ``z`` its dz scratch ``(2, B, N, Wg)``
+    at the padded widths (:func:`pad_pool_widths`): ``rnd(dz)``, then the
+    rest (:func:`split_bf16`), of ``[dza | dzb]`` per row gated (``Wg = 2
+    D``) or ``dza`` (``Wg = D``). The dx products take W's two planes
+    (:func:`w_planes`), as do the gate products of float32 bags."""
     name = "gated_attention_pool backward"
     _check_pool_shapes(name, x, wa, backward=True)
+    f, dl = wa.shape
+    x, wa, ba, wb, bb, wc = pad_pool_widths(x, wa, ba, wb, bb, wc)
+    gm = torch.nn.functional.pad(gm, (0, x.shape[-1] - f)) if x.shape[-1] != f else gm
     o, drop = _pool_args(name, x, wa, ba, wb, bb, wc, mask, dropout, seed, gated)
     dev, dt = x.device, x.dtype
-    b, n, f = x.shape
+    b, n, fp = x.shape
     d = wa.shape[1]
     f32 = dict(dtype=torch.float32, device=dev)
     if dt == torch.bfloat16:
-        wa2 = _split_planes_cuda(name, wa, f)
-        wb2 = _split_planes_cuda(name, wb, f) if gated else wa2
+        wa2 = _w_planes_cuda(name, wa)
+        wb2 = _w_planes_cuda(name, wb) if gated else wa2
     else:
         wa2, wb2 = o["wa"], o["wb"]
     dpv = torch.empty((2, b, n), **f32)  # dp, then ds
@@ -677,17 +733,20 @@ def _pool_bwd_launch(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, gated, dropout,
     xpl = _x_planes(x)
     p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
     _cuda.require_cuda(name, *o.values(), wa2, wb2, p, gm, gp, gs)
-    dx = torch.empty((b, n, f), dtype=dt, device=dev)
-    dwa, dba = torch.empty((f, d), **f32), torch.empty((d,), **f32)
-    dwb, dbb = torch.empty((f, d), **f32), torch.empty((d,), **f32)
+    dx = torch.empty((b, n, fp), dtype=dt, device=dev)
+    dwa, dba = torch.empty((fp, d), **f32), torch.empty((d,), **f32)
+    dwb, dbb = torch.empty((fp, d), **f32), torch.empty((d,), **f32)
     dwc, dbc = torch.empty((d,), **f32), torch.empty((), **f32)
     err = _cuda.library().murcl_attention_pool_bwd(
         int(dt == torch.bfloat16), int(gated), _p(o["x"]), _p(o["wa"]), _p(o["ba"]),
         _p(o["wb"]), _p(o["bb"]), _p(o["wc"]), _p(wa2), _p(wb2), _p(o["mask"]), *drop, _p(p),
         _p(gm), _p(gp), _p(gs), _p(dpv), _p(z), _p(xpl), _p(dx), _p(dwa), _p(dba), _p(dwb),
-        _p(dbb), _p(dwc), _p(dbc), b, n, f, d, _cuda.stream())
+        _p(dbb), _p(dwc), _p(dbc), b, n, fp, d, dl, _cuda.stream())
     _cuda.check(err, name)
     _cuda.LAUNCHES["attention_pool_bwd"] += 1
+    if (fp, d) != (f, dl):
+        dwa, dwb = (w[:f, :dl].contiguous() for w in (dwa, dwb))
+        dx, dba, dbb, dwc = _unpad(dx, f), dba[:dl], dbb[:dl], dwc[:dl]
     return (dx, dwa, dba, dwb, dbb, dwc, dbc), z
 
 
@@ -740,48 +799,47 @@ def gated_attention_pool(x, wa, ba, wb, bb, wc, bc, mask=None, gated: bool = Tru
 # ---------------------------------------------------------------------------
 # Counterpart of ``murcl_tpu/ops/attention_pallas.py`` ``attention_pool_tiled``
 # (forward ``_make_tiled_fwd_kernel``). The kernel (``csrc/attention_tiled.cu``)
-# splits each bag into chunks of :func:`tiled_chunk` rows, one block each,
-# takes the gate products of a chunk's 64-row tiles on the tensor cores, and
-# walks each tile's rows in ``_TM``-row halves with an online max; a second
-# kernel merges the chunks. ``e = exp(s - running max)`` is rounded to the
-# bag dtype before its product with ``x``; the TPU kernel took the running
-# max over 2048-row tiles of the whole bag, so in bf16 the two round ``e`` at
-# other maxima. In f32 the gate products take f32 operands in the TPU
-# kernel; here they are three bf16 products of :func:`split_bf16`'s planes
-# (``hi hi + hi lo + lo hi``, about ``2**-16`` relative), over slabs of at
-# most 256 columns of F (:func:`tiled_slab`). ``p`` is the masked softmax of
-# ``s``, taken outside the kernel as JAX takes it in XLA. The backward is
-# K7b's (dropout 0), as JAX's is its XLA pool's.
+# runs in two parts, split by what bounds each. The gate products and the
+# scores ``s`` of the whole bag go through K7f's gate kernel
+# (``pool_gates_fwd_wg``: warpgroup products over 128-row tiles fed by TMA; in
+# f32 each product three bf16 products of :func:`split_bf16`'s planes, about
+# ``2**-16`` relative, where the TPU kernel takes f32 operands). Then a
+# bytes-bound chunk pass splits each bag into chunks of :func:`tiled_chunk`
+# rows, one block each, walks each chunk's rows in ``_TM``-row halves with an
+# online max, rounds ``e = exp(s - running max)`` to the bag dtype before its
+# product with ``x`` (read once) and writes the chunk's (max, sum, F sums); a
+# last kernel merges the chunks. The TPU kernel took the running max over
+# 2048-row tiles of the whole bag, so in bf16 the two round ``e`` at other
+# maxima. ``p`` is the masked softmax of ``s``, taken outside the kernel as
+# JAX takes it in XLA. The backward is K7b's (dropout 0), as JAX's is its XLA
+# pool's. Widths are padded as K7's are (:func:`pad_pool_widths`).
 
 
 def tiled_chunk(b: int, n: int) -> int:
-    """Rows per block of K8 for ``b`` bags of ``n`` rows: whole 64-row tiles,
-    one per block until the grid holds more than 8 blocks per H100 SM (four
-    waves at two blocks per SM), then as many per block as keep it near
-    that. The twin takes the same chunks, so in bf16 both round ``e`` at the
-    same running maxima."""
-    tiles = -(-n // _TC_BM)
-    return _TC_BM * max(1, b * tiles // (8 * _cuda.H100_SMS))
+    """Rows per block of K8's chunk pass for ``b`` bags of ``n`` rows: whole
+    64-row tiles, one per block until the grid holds more than 8 blocks per
+    H100 SM (one wave of the pass's 256-thread blocks), then as many per
+    block as keep it near that. The twin takes the same chunks, so in bf16
+    both round ``e`` at the same running maxima."""
+    tiles = -(-n // _K8_ROWS)
+    return _K8_ROWS * max(1, b * tiles // (8 * _cuda.H100_SMS))
 
 
-def tiled_slab(f: int, dtype: torch.dtype) -> int:
-    """Columns of F that one K8 block holds at a time: all of F in bf16; in
-    f32, whose tile sits in shared memory as two bf16 planes, the largest
-    multiple of 64 that divides F and is at most 256, so that two blocks
-    share an SM."""
-    if dtype == torch.bfloat16 or f <= 256:
-        return f
-    return next((w for w in range(256, 63, -64) if f % w == 0), f)
+def tiled_chunk_smem(chunk: int) -> int:
+    """Bytes of shared memory a block of K8's chunk pass takes
+    (``tiled_impl`` in ``csrc/attention_tiled.cu``): each row's rounded ``e``
+    and each ``_TM``-row half's rescale, in f32."""
+    return 4 * (chunk + chunk // _TM)
 
 
-def tiled_tile_smem(f: int, dtype: torch.dtype) -> int:
-    """Bytes of shared memory a K8 block takes at width ``f`` (``tiled_smem``
-    in ``csrc/attention_tiled.cu``): the 64-row x tile (bf16; in f32 its
-    ``[lo | hi]`` planes of one slab) padded by 8, the B ring, and the row
-    partials, scores, weights and the chunk's F running sums in f32."""
-    planes = 1 if dtype == torch.bfloat16 else 2
-    fs = tiled_slab(f, dtype)
-    return 2 * _TC_BM * (planes * fs + _TC_PAD) + _TC_RING + 4 * (6 * _TC_BM + 4 + f)
+def tiled_plans(b: int, n: int, f: int, d: int, dtype: torch.dtype) -> dict:
+    """K8's launch plans at ``b`` bags of ``n`` rows and widths ``f -> d``,
+    ``{kernel: (stages or None, bytes)}``: the gate pass's, K7f's
+    ``pool_gates_fwd_wg`` at the padded widths (no term in N), and the chunk
+    pass's (no ring)."""
+    gates = pool_plans(_padded(f), _padded(d), True, dtype)["pool_gates_fwd_wg"]
+    return {"pool_gates_fwd_wg": gates,
+            "chunk_kernel": (None, tiled_chunk_smem(tiled_chunk(b, n)))}
 
 
 def attention_pool_tiled_plain(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
@@ -818,71 +876,58 @@ def attention_pool_tiled_plain(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
 
 
 def _check_tiled_shapes(name, x, wa):
+    """K8's rule: its gate pass's blocks (K7f's, at the padded widths) and
+    its chunk pass's, neither with a term in F; the chunk grows with the
+    rows only past one wave of 64-row chunks."""
     b, n, f = x.shape
     d = wa.shape[1]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: bags must be float32 or bfloat16")
-    if f % _TN or d % _TN:
-        raise ValueError(f"{name}: needs F and D multiples of {_TN} (got F {f}, D {d})")
-    smem = tiled_tile_smem(f, x.dtype)
+    smem = max(nb for _, nb in tiled_plans(b, n, f, d, x.dtype).values())
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: tiles need {smem} bytes of shared memory at (N, F, D) = "
                          f"({n}, {f}, {d})")
 
 
-def _slab_planes(w, fs: int):
-    """``w (F, D)`` as K8's f32 B operand: per slab of ``fs`` rows of F, its
-    :func:`split_bf16` hi rows, then its lo rows, ``(2 F, D)`` bf16: the
-    plain twin of ``murcl_split_planes``, which writes it on the card."""
-    f, d = w.shape
-    hi, lo = split_bf16(w.float())
-    return torch.stack((hi.reshape(f // fs, fs, d), lo.reshape(f // fs, fs, d)),
-                       1).reshape(2 * f, d).contiguous()
+def w_planes(w):
+    """``w (F, D)`` as the f32 route's B operand: :func:`split_bf16`'s hi
+    rows, then its lo rows, ``(2 F, D)`` bf16: the plain twin of
+    ``murcl_split_bf16``, which writes it on the card."""
+    return torch.cat(split_bf16(w.float()))
 
 
-def _split_planes_cuda(name, w, fs: int):
-    """:func:`_slab_planes` on the card, in one launch where the plain twin
-    takes five."""
+def _w_planes_cuda(name, w):
+    """:func:`w_planes` on the card, in one launch where the plain twin
+    takes four."""
     w = w.to(torch.float32).contiguous()
     _cuda.require_cuda(name, w)
     f, d = w.shape
     out = torch.empty((2 * f, d), dtype=torch.bfloat16, device=w.device)
-    _cuda.check(_cuda.library().murcl_split_planes(_p(w), _p(out), f, d, fs, _cuda.stream()),
-                name)
+    _cuda.check(_cuda.library().murcl_split_bf16(_p(w), _p(out), f, d, _cuda.stream()), name)
     return out
 
 
 def _tiled_fwd_cuda(x, wa, ba, wb, bb, wc, bc, mask, gated=True):
-    """K8: ``(M, p, s)`` of :func:`attention_pool_tiled_plain`."""
+    """K8: ``(M, p, s)`` of :func:`attention_pool_tiled_plain`: the gate
+    pass (K7f's gate kernel, not counted as a K7f launch), then the chunk
+    pass and the merge; one launch of K8."""
     name = "attention_pool_tiled"
     _check_tiled_shapes(name, x, wa)
     b, n, f = x.shape
-    dt, f32 = x.dtype, torch.float32
-    fs, chunk = tiled_slab(f, dt), tiled_chunk(b, n)
-    if dt == torch.bfloat16:
-        wa_k, wb_k = (w.to(dt).contiguous() for w in (wa, wb))
-    else:
-        wa_k = _split_planes_cuda(name, wa, fs)
-        wb_k = _split_planes_cuda(name, wb, fs) if gated else wa_k
-    x = x.contiguous()
-    ops = [x, wa_k, ba.to(f32).contiguous(), wb_k, bb.to(f32).contiguous(),
-           wc.to(f32).contiguous(), bc.to(f32).reshape(1).contiguous(),
-           mask.to(torch.bool).contiguous()]
-    _cuda.require_cuda(name, *ops)
-    if x.data_ptr() % 16:
+    o, _, _, s = _pool_gates(name, x, wa, ba, wb, bb, wc, bc, mask, gated, 0.0, 0, pool=False)
+    if o["x"].data_ptr() % 16:
         raise ValueError(f"{name}: the bags must start on a 16-byte boundary")
+    fp, chunk = o["x"].shape[-1], tiled_chunk(b, n)
     chunks = -(-n // chunk)
-    out = dict(dtype=f32, device=x.device)
-    m, s = torch.empty((b, f), **out), torch.empty((b, n), **out)
-    m_part = torch.empty((b, chunks, f), **out)
+    out = dict(dtype=torch.float32, device=x.device)
+    m, m_part = torch.empty((b, fp), **out), torch.empty((b, chunks, fp), **out)
     mx_part, l_part = torch.empty((b, chunks), **out), torch.empty((b, chunks), **out)
-    err = _cuda.library().murcl_attention_pool_tiled(
-        int(dt == torch.bfloat16), int(gated), *map(_p, ops), _p(s), _p(m_part), _p(mx_part),
-        _p(l_part), _p(m), b, n, f, wa.shape[1], fs, chunk, _cuda.stream())
-    _cuda.check(err, name)
+    _cuda.check(_cuda.library().murcl_attention_pool_tiled(
+        int(x.dtype == torch.bfloat16), _p(o["x"]), _p(s), _p(o["mask"]), _p(m_part),
+        _p(mx_part), _p(l_part), _p(m), b, n, fp, chunk, _cuda.stream()), name)
     _cuda.LAUNCHES["attention_pool_tiled"] += 1
-    p = torch.softmax(torch.where(ops[-1], s, _NEG_INF), dim=-1)
-    return m, p, s
+    p = torch.softmax(torch.where(o["mask"], s, _NEG_INF), dim=-1)
+    return _unpad(m, f), p, s
 
 
 class _AttentionPoolTiled(torch.autograd.Function):

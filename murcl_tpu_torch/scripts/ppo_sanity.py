@@ -22,16 +22,18 @@ confidences), the weights' init from torch's generator at the JAX script's
 seeds (0 for the aggregator and head, 2 for the policy). Torch's streams are
 not JAX's, so the two agree in direction, not in value.
 
-Widths: ``--dim/--L/--D`` default to ABMIL's in the port (512, 512, 128).
-On the card K7 takes L and D in multiples of 128 only, so the JAX script's
-(32, 32, 8) runs on ``--device cpu`` alone. The bank's shape is the JAX
-script's at every width. At the JAX script's widths the three directions
-hold under any rounding; at ABMIL's, stage 1 alone reaches a confidence of
-0.93-0.998 with random windows, the policy has almost nothing left to gain,
-and which directions hold is decided by rounding (``PERF.md``, section 6).
+Widths: ``--dim/--L/--D`` default to the JAX script's (32, 32, 8). K7's
+kernels take F and D in multiples of 128; the op zero-pads other widths, so
+these run on the card as on the CPU. The bank's shape is the JAX script's at
+every width. At the JAX script's widths the three directions held on the
+CPU under every thread count tried; at ABMIL's (512, 512, 128), stage 1
+alone reaches a confidence of 0.93-0.998 with random windows, the policy has
+almost nothing left to gain, and which directions hold is decided by
+rounding (``PERF.md``, section 6).
 
     python -m murcl_tpu_torch.scripts.ppo_sanity             # cuda:0
-    python -m murcl_tpu_torch.scripts.ppo_sanity --device cpu --dim 32 --L 32 --D 8
+    python -m murcl_tpu_torch.scripts.ppo_sanity --device cpu
+    python -m murcl_tpu_torch.scripts.ppo_sanity --dim 512 --L 512 --D 128
 """
 
 from __future__ import annotations
@@ -117,7 +119,7 @@ def directions(report: dict) -> Dict[str, bool]:
             "last_five_rewards_above_first_five": float(np.mean(r[-5:])) > float(np.mean(r[:5]))}
 
 
-def run(device="cuda:0", dim: int = 512, L: int = 512, D: int = 128,
+def run(device="cuda:0", dim: int = 32, L: int = 32, D: int = 8,
         compute_dtype: str = "float32") -> Sanity:
     """Stage 1, then stage 2, on ``device`` (no fallback: a CUDA device that
     is absent raises)."""
@@ -176,7 +178,7 @@ def run(device="cuda:0", dim: int = 512, L: int = 512, D: int = 128,
     return Sanity(conf_random, conf_policy, losses, rewards, actions, weights)
 
 
-def main(device="cuda:0", dim: int = 512, L: int = 512, D: int = 128,
+def main(device="cuda:0", dim: int = 32, L: int = 32, D: int = 8,
          compute_dtype: str = "float32") -> dict:
     """Run the check, print its JSON line and return it."""
     report = run(device, dim, L, D, compute_dtype).report()
@@ -188,9 +190,9 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n", 1)[0])
     ap.add_argument("--device", default="cuda:0", help="cuda:N, or cpu (the plain path)")
     ap.add_argument("--compute_dtype", default="float32", choices=["float32", "bfloat16"])
-    ap.add_argument("--dim", type=int, default=512, help="feature width of the bank")
-    ap.add_argument("--L", type=int, default=512, help="ABMIL's embedding width")
-    ap.add_argument("--D", type=int, default=128, help="ABMIL's attention width")
+    ap.add_argument("--dim", type=int, default=32, help="feature width of the bank")
+    ap.add_argument("--L", type=int, default=32, help="ABMIL's embedding width")
+    ap.add_argument("--D", type=int, default=8, help="ABMIL's attention width")
     return ap.parse_args(argv)
 
 

@@ -18,11 +18,14 @@ heatmap's largest bag of 3,072 padded patches; K7 also at ABMIL's D 128 with F
 512, in f32 (three bf16 products per product) at dropout 0 and 0.25 too,
 its dx bitwise in two runs in both dtypes, and its f32 weight gradients at
 ABMIL's full stage-1 shape (1536, 1024, 512), where the tensor cores' f32
-sums run longest. K8
-(whose f32 gate products are three bf16 products on the tensor cores) also
-at F 1024 (two f32 slabs) and D 384, with a bag that ends mid-tile and one
-whose later chunks are all masked; one backward through K8's op at the
-heatmap's largest bag, (1, 60416, 512) f32, past K7f's softmax pass. K1 also
+sums run longest. K7 also at widths that are not multiples of 128, which
+the wrappers zero-pad: (F, D) = (32, 8), the JAX PPO check's, and (512,
+64), in both dtypes at dropout 0 and 0.25. K8
+(whose gate pass is K7f's gate kernel: in f32 three bf16 products per
+product on the tensor cores) also at F 1024 and D 384 and at the padded
+widths (32, 8) and (448, 192), with a bag that ends mid-tile and one whose
+later chunks are all masked; one backward through K8's op at the heatmap's
+largest bag, (1, 60416, 512) f32, past K7f's softmax pass. K1 also
 at 64 bags of 1000 slots, split over slot slices whose last is partial.
 The streaming feed (not a kernel, but its pinned buffers, side-stream copy
 and prefetch thread exist only on the card): each staged batch bitwise the
@@ -30,7 +33,8 @@ CPU's staging of it, in f32 and bf16 banks, while the consumer's stream
 lags behind the producer; the producer's error reaches the caller; and
 repeated whole-split stages (the evaluations) hold one pinned buffer.
 The PPO learning check (``murcl_tpu_torch/scripts/ppo_sanity.py``) runs
-once at ABMIL's widths through the kernels in f32.
+once at ABMIL's widths through the kernels in f32 (``chip_smoke.py`` runs
+it at the JAX script's).
 """
 
 import pytest
@@ -220,6 +224,22 @@ def test_attention_pool_matches_plain(dev, gated, dtype, rate, tol, n, f, d, len
 
 
 @pytest.mark.parametrize("gated", [True, False])
+@pytest.mark.parametrize("dtype,rate,tol", [(torch.float32, 0.0, 1e-4),
+                                            (torch.float32, 0.25, 1e-4),
+                                            (torch.bfloat16, 0.0, 2e-2),
+                                            (torch.bfloat16, 0.25, 2e-2)])
+@pytest.mark.parametrize("f,d", [(32, 8), (512, 64)])
+def test_attention_pool_padded_widths(dev, gated, dtype, rate, tol, f, d):
+    """Widths the op zero-pads to multiples of 128: the JAX PPO check's (32,
+    8) and ABMIL at --D 64. ``dbc`` sums ``ds = p (dp - c) + gs`` over every
+    row, and its first part sums to zero, so the sum may nearly cancel: it
+    alone is held to ``tol`` of ``sum |ds|``, the scale of its rounding
+    error; every other output as elsewhere."""
+    _check_pool_op(dev, gated, dtype, rate, tol, 300, f, d, [300, 129, 1, 64, 255],
+                   dbc_over_abs_ds=True)
+
+
+@pytest.mark.parametrize("gated", [True, False])
 @pytest.mark.parametrize("rate", [0.0, 0.25])
 @pytest.mark.parametrize("d", [896, 1024])
 def test_attention_pool_bf16_wide_attention(dev, gated, rate, d):
@@ -229,9 +249,11 @@ def test_attention_pool_bf16_wide_attention(dev, gated, rate, d):
     _check_pool_op(dev, gated, torch.bfloat16, rate, 2e-2, 300, 512, d, [300, 129, 1, 64, 255])
 
 
-def _check_pool_op(dev, gated, dtype, rate, tol, n, f, d, lengths):
+def _check_pool_op(dev, gated, dtype, rate, tol, n, f, d, lengths, dbc_over_abs_ds=False):
     """K7f and K7b through the op, one launch each, against the plain twin:
-    every output within ``tol``, ungated dwb and dbb zero."""
+    every output within ``tol``, ungated dwb and dbb zero. With
+    ``dbc_over_abs_ds``, dbc's error is held to ``tol`` of the twin's
+    ``sum |ds|`` in place of its own size."""
     gen = torch.Generator(device=dev).manual_seed(3)
     b = len(lengths)
 
@@ -258,6 +280,12 @@ def _check_pool_op(dev, gated, dtype, rate, tol, n, f, d, lengths):
     for name, g, wv in zip(names, got, want):
         if not gated and name in ("dwb", "dbb"):
             assert not g.any(), name
+            continue
+        if name == "dbc" and dbc_over_abs_ds:
+            gm, gp, gs = cots
+            dp = torch.einsum("bnf,bf->bn", x.float(), gm.to(dtype).float()) + gp
+            ds = torch.where(mask, p * (dp - (p * dp).sum(-1, keepdim=True)), 0.0) + gs
+            assert float((g - wv).abs()) <= tol * float(ds.abs().sum()), name
             continue
         assert _rel(g, wv) <= tol, name
 
@@ -496,11 +524,13 @@ def test_attention_pool_tiled_matches_plain(dev, gated, dtype, tol, b, n):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("f,d,gated", [(1024, 128, True), (512, 384, True), (1024, 256, False)])
+@pytest.mark.parametrize("f,d,gated", [(1024, 128, True), (512, 384, True), (1024, 256, False),
+                                       (32, 8, True), (448, 192, False)])
 def test_attention_pool_tiled_widths(dev, dtype, tol, f, d, gated):
-    """K8 at F 1024 (two f32 slabs, reloaded per column step) and D 384:
-    bags of 5000 rows (78 full tiles and a 8-row one), one live for 4100
-    rows (mid-tile), one for 65 (its later chunks all masked)."""
+    """K8 at F 1024 and D 384, and at widths the wrapper zero-pads to
+    multiples of 128: bags of 5000 rows (78 full 64-row chunks and a 8-row
+    one), one live for 4100 rows (mid-chunk), one for 65 (its later chunks
+    all masked)."""
     gen = torch.Generator(device=dev).manual_seed(9)
 
     def r(*s, sc=1.0):
@@ -544,14 +574,15 @@ def test_attention_pool_tiled_backward_at_the_largest_heatmap_bag(dev):
         assert _rel(g, wv) <= 1e-4, name
 
 
-@pytest.mark.parametrize("f,fs", [(512, 256), (1024, 256), (256, 256)])
-def test_split_planes_bitwise(dev, f, fs):
-    """K8's f32 weights split on the card: the bits of ``_slab_planes``."""
-    from murcl_tpu_torch.ops.attention import _slab_planes, _split_planes_cuda
+@pytest.mark.parametrize("f,d", [(512, 256), (1024, 128), (128, 384)])
+def test_split_planes_bitwise(dev, f, d):
+    """K7's and K8's f32 weights split on the card: the bits of
+    ``w_planes``."""
+    from murcl_tpu_torch.ops.attention import _w_planes_cuda, w_planes
 
-    w = torch.randn(f, 256, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
-    got = _split_planes_cuda("split", w, fs)
-    assert torch.equal(got.view(torch.int16), _slab_planes(w, fs).view(torch.int16))
+    w = torch.randn(f, d, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    got = _w_planes_cuda("split", w)
+    assert torch.equal(got.view(torch.int16), w_planes(w).view(torch.int16))
 
 
 @pytest.mark.parametrize("variant", ["ycbcr444", "ycbcr420", "rgb"])
@@ -759,7 +790,7 @@ def test_data_parallel_step_on_one_card(dev, tmp_path):
 
 
 def test_ppo_sanity_on_card(dev):
-    """The PPO learning check at the card's widths (dim 512, L 512, D 128)
+    """The PPO learning check at ABMIL's widths (dim 512, L 512, D 128)
     through the kernels in f32: the JAX script's keys, K1, K7f and K7b
     launched and nothing else, finite readings, stage 1 learning and both
     confidences above 0.75 (the PPO directions are rounding's at these widths:
@@ -769,7 +800,7 @@ def test_ppo_sanity_on_card(dev):
     from murcl_tpu_torch.scripts import ppo_sanity
 
     _cuda.reset_launch_counts()
-    s = ppo_sanity.run(dev)
+    s = ppo_sanity.run(dev, dim=512, L=512, D=128)
     launched = {k for k, v in _cuda.LAUNCHES.items() if v}
     assert launched == {"compact", "attention_pool_fwd", "attention_pool_bwd"}, _cuda.LAUNCHES
     report = s.report()

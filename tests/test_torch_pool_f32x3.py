@@ -4,7 +4,7 @@ On the card the f32 route of the attention pool (``csrc/attention_pool.cu``
 with T = float) takes every f32 product as three bf16 products of the
 operands' planes (:func:`split_bf16`: ``hi hi + hi lo + lo hi``, summed in
 f32): the gate products ``x @ Wa`` and ``x @ Wb`` from x's planes
-(``split_kernel``) and W's (``_split_planes_cuda``), dx's products from the
+(``split_kernel``) and W's (``_w_planes_cuda``), dx's products from the
 dz scratch's planes and W's, and dWa = ``x^T @ dza`` from x's planes and the
 scratch's. The gates, scores, softmax, ``M = p @ x`` and the bias
 gradients stay f32 (dba and dbb sum the f32 dz, not their planes).

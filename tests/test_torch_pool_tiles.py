@@ -8,7 +8,9 @@ gives K7 (ABMIL at D 128, CLAM "small" at 256, "big" at 384) must fit one
 H100 block's 232,448 bytes with a ring of at least 3 stages in bf16 and 2
 in float32.
 ``_check_pool_shapes`` raises, naming the shape, on what the tiles cannot
-take, on the meta device: no data and no card needed. K7b's own rule
+take, on the meta device: no data and no card needed. It takes every width,
+as the JAX kernels do: the wrappers zero-pad F and D to multiples of 128
+(``pad_pool_widths``), and the rule reckons the padded widths. K7b's own rule
 (``pool_bwd_tile_smem``, ``_check_pool_shapes(backward=True)``) counts only
 its blocks' tiles, so it takes the heatmap's largest bag and longer ones,
 which K7f's softmax pass refuses. ``split_bf16``: three bf16 products of the
@@ -93,10 +95,30 @@ def test_wide_bf16_keeps_partials_per_warpgroup(f, d):
                            backward=True)
 
 
+@pytest.mark.parametrize("n,f,d,dtype", [
+    (1024, 448, 256, torch.bfloat16), (1024, 512, 192, torch.bfloat16),
+    (1024, 512, 96, torch.float32),
+    # the JAX package's PPO learning check (scripts/ppo_sanity.py: L 32, D 8)
+    (1024, 32, 8, torch.float32), (1024, 32, 8, torch.bfloat16),
+])
+def test_check_shapes_take_any_width(n, f, d, dtype):
+    """The JAX kernels take any F and D (their blocks span the arrays' whole
+    widths); K7's and K8's wrappers zero-pad to the kernels' multiples of
+    128 (``pad_pool_widths``), so K7f's, K7b's and K8's rules take every
+    such width, reckoned at the padded widths."""
+    x, wa = _operands(n, f, d, dtype)
+    tat._check_pool_shapes(NAME, x, wa)
+    tat._check_pool_shapes(NAME + " backward", x, wa, backward=True)
+    tat._check_tiled_shapes("attention_pool_tiled", x, wa)
+    fp, dp = -(-f // 128) * 128, -(-d // 128) * 128
+    assert tat.pool_tile_smem(n, fp, dp, dtype) <= tat._SMEM_LIMIT
+    v = torch.empty(d, device="meta")
+    xp, wap, bap, wbp, bbp, wcp = tat.pad_pool_widths(x, wa, v, wa, v, v)
+    assert xp.shape == (2, n, fp) and wap.shape == wbp.shape == (fp, dp)
+    assert bap.shape == bbp.shape == wcp.shape == (dp,)
+
+
 @pytest.mark.parametrize("n,f,d,dtype,match", [
-    (1024, 448, 256, torch.bfloat16, r"multiples of 128.*\(got F 448, D 256\)"),
-    (1024, 512, 192, torch.bfloat16, r"multiples of 128.*\(got F 512, D 192\)"),
-    (1024, 512, 96, torch.float32, r"multiples of 128.*\(got F 512, D 96\)"),
     (60000, 512, 256, torch.bfloat16, r"240128 bytes .* \(N, F, D\) = \(60000, 512, 256\)"),
     # refused by the 64-row tiles (an x tile of 4096 columns), taken by the
     # 128-row plan, which holds no term in F but a row of gm

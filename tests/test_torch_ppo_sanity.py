@@ -5,15 +5,15 @@ against the JAX package's ``scripts/ppo_sanity.py``, on the CPU.
   bitwise (features, cluster lists, labels), and the slide ids come from the
   same ``default_rng(1)`` sequence. The JAX script is imported by path; its
   ``main`` (35 s) runs in no test.
-- The CLI at the JAX script's widths (dim 32, L 32, D 8) prints one JSON
-  line with the JAX script's keys, and it holds the three directions of
-  learning: confidence with the policy's windows above confidence with random
-  windows, the probe's mean action falling, the mean reward of the last five
-  epochs above that of the first five. Directions only, since torch's random
-  streams are not JAX's (``PARITY.md:42-44``); the seeds are the JAX
-  script's. At these widths all three held at every CPU thread count tried
+- The CLI at its default widths, the JAX script's (dim 32, L 32, D 8),
+  prints one JSON line with the JAX script's keys, and it holds the three
+  directions of learning: confidence with the policy's windows above
+  confidence with random windows, the probe's mean action falling, the mean
+  reward of the last five epochs above that of the first five. Directions
+  only, since torch's random streams are not JAX's (``PARITY.md:42-44``);
+  the seeds are the JAX script's. At these widths all three held at every CPU thread count tried
   (1, 2, 3, 4, 6, 8).
-- ``run(device="cpu")`` at ABMIL's widths (512, 512, 128), the shape
+- ``run(device="cpu")`` at ABMIL's widths (512, 512, 128), a shape
   ``chip_smoke.py`` runs on the card: the same keys, finite numbers, stage 1
   learning (its last ten losses below half its first ten) and both
   confidences above 0.75 (chance is 0.5). The three PPO directions are not
@@ -91,8 +91,7 @@ def test_positional_bank_and_slide_ids_match_jax_script():
 
 
 def test_cli_at_jax_widths_learns(capsys):
-    ps.main(**vars(ps.parse_args(["--device", "cpu", "--dim", "32", "--L", "32", "--D",
-                                  "8"])))
+    ps.main(**vars(ps.parse_args(["--device", "cpu"])))
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     report = json.loads(lines[0])
@@ -103,7 +102,7 @@ def test_cli_at_jax_widths_learns(capsys):
 
 
 def test_run_at_card_widths_on_plain_path():
-    s = ps.run(device="cpu")
+    s = ps.run(device="cpu", dim=512, L=512, D=128)
     report = s.report()
     assert list(report) == jax_report_keys()
     values = [*s.stage1_losses, *s.rewards, *s.actions, s.conf_random, s.conf_policy]
@@ -118,7 +117,7 @@ def test_run_at_card_widths_on_plain_path():
 def test_default_device_is_the_card():
     args = ps.parse_args([])
     assert (args.device, args.compute_dtype, args.dim, args.L, args.D) == (
-        "cuda:0", "float32", 512, 512, 128)
+        "cuda:0", "float32", 32, 32, 8)
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):  # no fallback to the CPU
             ps.run(device="cuda:0")

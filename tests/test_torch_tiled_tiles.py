@@ -1,15 +1,21 @@
 """K8's and K1's grid and tile rules on the CPU, with no card.
 
-``tiled_tile_smem`` reckons a K8 block's shared memory (a 64-row x tile as
-bf16, or in f32 as ``[lo | hi]`` planes of a slab of at most 256 columns of
-F, the B ring and the f32 row state); every width the port gives K8 must fit
-one H100 block's 232,448 bytes, and ``_check_tiled_shapes`` refuses what
-does not, naming the shape, on the meta device. In f32 the kernel takes each
-gate product as three bf16 products over ``_slab_planes``' weight layout; a
-CPU mirror of that layout matches an f64 product to 1e-5, where one bf16
-product does not. ``tiled_chunk`` gives whole 64-row tiles per block, and
-``compact_slot_slice`` splits a few bags' slots so that K1's grid fills the
-card, its slices tiling the slots exactly.
+K8 runs in two parts (``csrc/attention_tiled.cu``): its gate pass is K7f's
+gate kernel, whose launch plan ``tiled_plans`` takes from ``pool_plans`` at
+the widths zero-padded to multiples of 128, and a bytes-bound chunk pass of
+``tiled_chunk`` rows a block, whose shared memory (each row's rounded ``e``
+and each 32-row half's rescale, ``tiled_chunk_smem``) lets eight blocks share
+an SM. Every width the port gives K8 must fit one H100 block's 232,448
+bytes, and ``_check_tiled_shapes`` refuses what does not, naming the shape,
+on the meta device. In f32 the gate products are three bf16 products of
+``split_bf16``'s planes, W's laid out by ``w_planes``; a CPU mirror matches
+an f64 product to 1e-5, where one bf16 product does not. The twin
+``attention_pool_tiled_plain`` rounds ``e`` at the running max of each
+chunk's 32-row halves, as the chunk pass does: it matches a row-by-row walk
+in the kernel's order, in f64, to 1e-6, and in bf16 differs from rounding at
+each chunk's final max. ``tiled_chunk`` gives whole 64-row tiles per block,
+and ``compact_slot_slice`` splits a few bags' slots so that K1's grid fills
+the card, its slices tiling the slots exactly.
 """
 
 import numpy as np
@@ -25,26 +31,41 @@ NAME = "attention_pool_tiled"
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [128, 256, 384])
 @pytest.mark.parametrize("f", [512, 1024])
-def test_tiled_tiles_fit(f, d, dtype):
-    smem = tat.tiled_tile_smem(f, dtype)
-    assert smem <= tat._SMEM_LIMIT == 232448
-    fs = tat.tiled_slab(f, dtype)
-    assert f % fs == 0 and fs % 64 == 0 and (dtype == torch.bfloat16 or fs <= 256)
-    planes = 2 if dtype == torch.float32 else 1
-    assert smem >= 2 * 64 * (planes * fs + 8) + 2 * 2 * 64 * 136 + 4 * f
+def test_tiled_plans_fit(f, d, dtype):
+    """At the heatmap's largest bag: the gate pass is K7f's gate kernel at
+    the same widths, with a ring of at least 2 stages in f32 and 3 in bf16;
+    the chunk pass holds 64 rows' ``e`` and two rescales."""
+    plans = tat.tiled_plans(1, 60416, f, d, dtype)
+    assert set(plans) == {"pool_gates_fwd_wg", "chunk_kernel"}
+    gates = plans["pool_gates_fwd_wg"]
+    assert gates == tat.pool_plans(f, d, True, dtype)["pool_gates_fwd_wg"]
+    assert gates[0] >= (2 if dtype == torch.float32 else 3)
+    assert plans["chunk_kernel"] == (None, 4 * (64 + 2))
+    assert max(nb for _, nb in plans.values()) <= tat._SMEM_LIMIT == 232448
     x = torch.empty(1, 60416, f, dtype=dtype, device="meta")
     tat._check_tiled_shapes(NAME, x, torch.empty(f, d, device="meta"))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_two_blocks_per_sm_at_the_heatmap_width(dtype):
-    assert 2 * (tat.tiled_tile_smem(512, dtype) + 1024) <= 228 * 1024
+@pytest.mark.parametrize("b,n", [(1, 60416), (1, 12288)])
+def test_chunk_pass_in_one_wave(b, n):
+    """The chunk pass at the heatmap's bags: eight 256-thread blocks share an
+    SM (their shared memory and the 1 KB the card reserves per block within
+    its 228 KB, 2,048 threads), and the grid of 64-row chunks is one wave
+    of them over 132 SMs."""
+    chunk = tat.tiled_chunk(b, n)
+    assert chunk == 64
+    assert 8 * (tat.tiled_chunk_smem(chunk) + 1024) <= 228 * 1024
+    assert b * -(-n // chunk) <= 8 * 132
 
 
 @pytest.mark.parametrize("n,f,d,dtype,match", [
-    (60416, 448, 256, torch.float32, r"multiples of 128 \(got F 448, D 256\)"),
-    (60416, 512, 192, torch.bfloat16, r"multiples of 128 \(got F 512, D 192\)"),
-    (60416, 2048, 256, torch.bfloat16, r"bytes .* \(N, F, D\) = \(60416, 2048, 256\)"),
+    # the gate pass's ring: one f32 stage beside 3 D floats of ba, bb, wc
+    (60416, 512, 8192, torch.float32, r"234584 bytes .* \(N, F, D\) = \(60416, 512, 8192\)"),
+    (60416, 512, 10752, torch.bfloat16,
+     r"232560 bytes .* \(N, F, D\) = \(60416, 512, 10752\)"),
+    # the chunk pass: past one wave its chunks grow with the bag
+    (60_000_000, 512, 256, torch.float32,
+     r"234168 bytes .* \(N, F, D\) = \(60000000, 512, 256\)"),
     (60416, 512, 256, torch.float16, r"float32 or bfloat16"),
 ])
 def test_check_tiled_shapes_refuses(n, f, d, dtype, match):
@@ -54,23 +75,19 @@ def test_check_tiled_shapes_refuses(n, f, d, dtype, match):
 
 
 @pytest.mark.parametrize("f", [512, 1024])
-def test_three_bf16_products_over_slabs_match_f64(f):
-    """The kernel's f32 gate pre-activation: per slab q, the tile's
-    ``[lo | hi]`` planes against the slab's ``[Whi; Wlo]`` rows, plus
-    ``hi`` against ``Whi``, summed in f32."""
+def test_three_bf16_products_over_w_planes_match_f64(f):
+    """The gate pass's f32 pre-activation: x's ``hi`` and ``lo`` planes
+    against ``w_planes``' ``Whi`` rows (the first F) and ``Wlo`` rows (the
+    next F), ``hi Whi + hi Wlo + lo Whi``, summed in f32."""
     rng = np.random.default_rng(0)
     x = torch.tensor(np.abs(rng.standard_normal((256, f), dtype=np.float32)))
     w = torch.tensor(rng.standard_normal((f, 256), dtype=np.float32) * f ** -0.5)
     want = x.double() @ w.double()
-    fs = tat.tiled_slab(f, torch.float32)
-    planes = tat._slab_planes(w, fs).float()  # bf16 values, exact in f32
-    assert planes.shape == (2 * f, 256)
-    got = torch.zeros(256, 256)
-    for q in range(f // fs):
-        hi, lo = tat.split_bf16(x[:, q * fs:(q + 1) * fs])
-        tile = torch.cat([lo, hi], 1).float()
-        wq = planes[2 * q * fs:2 * (q + 1) * fs]
-        got += tile @ wq + hi.float() @ wq[:fs]
+    planes = tat.w_planes(w)
+    assert planes.shape == (2 * f, 256) and planes.dtype == torch.bfloat16
+    whi, wlo = planes[:f].float(), planes[f:].float()  # bf16 values, exact in f32
+    hi, lo = (t.float() for t in tat.split_bf16(x))
+    got = hi @ whi + hi @ wlo + lo @ whi
     one = x.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
 
     def rel(t):
@@ -78,6 +95,66 @@ def test_three_bf16_products_over_slabs_match_f64(f):
 
     assert rel(got) <= 1e-5, rel(got)
     assert rel(one) > 1e-3, rel(one)
+
+
+def _walk(x, s, mask, chunk, dt, at_running_max=True):
+    """M of K8's chunk pass and merge, row by row in f64: per chunk, one
+    32-row half at a time, the running max, each ``e`` rounded to ``dt`` at
+    its half's running max (or, with ``at_running_max=False``, at the
+    chunk's final max), the sums rescaled on a new max; then the chunks
+    merged."""
+    b, n, f = x.shape
+    rnd = lambda v: float(torch.tensor(v, dtype=torch.float32).to(dt).float())  # noqa: E731
+    out = np.zeros((b, f))
+    for i in range(b):
+        parts = []
+        for c0 in range(0, n, chunk):
+            rows = [r for r in range(c0, min(n, c0 + chunk)) if mask[i, r]]
+            final = max((float(s[i, r]) for r in rows), default=-1e30)
+            mx, total, acc = -1e30, 0.0, np.zeros(f)
+            for h0 in range(c0, min(n, c0 + chunk), 32):
+                half = [r for r in rows if h0 <= r < h0 + 32]
+                new = max([mx] + [float(s[i, r]) for r in half])
+                corr = np.exp(mx - new)
+                acc, total = acc * corr, total * corr
+                for r in half:
+                    e = np.exp(float(s[i, r]) - new)
+                    total += e
+                    if at_running_max:
+                        w = rnd(e)
+                    else:  # rounded at the final max, then on the running max's scale
+                        w = rnd(np.exp(float(s[i, r]) - final)) * np.exp(final - new)
+                    acc += w * x[i, r].double().numpy()
+                mx = new
+            parts.append((mx, total, acc))
+        top = max(p[0] for p in parts)
+        num = sum(np.exp(p[0] - top) * p[2] for p in parts)
+        out[i] = num / sum(np.exp(p[0] - top) * p[1] for p in parts)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,lengths", [(150, [150, 40]), (64, [64, 23]), (200, [97, 200])])
+def test_twin_rounds_e_at_the_32_row_running_max(dtype, n, lengths):
+    """The twin's M against the chunk pass's walk in f64 (1e-6: the twin
+    sums in f32, over 32-row tiles); in bf16 the walk that rounds ``e`` at
+    each chunk's final max instead differs from it by more (about 2^-9 an
+    ``e``)."""
+    rng = np.random.default_rng(len(lengths) + n)
+    f, d = 16, 8
+    w = [torch.tensor(rng.normal(size=sh).astype(np.float32) * sc)
+         for sh, sc in (((f, d), 0.4), ((d,), 0.1), ((f, d), 0.4), ((d,), 0.1), ((d,), 2.0))]
+    bc = torch.tensor(0.05)
+    x = torch.tensor(np.abs(rng.normal(size=(len(lengths), n, f))).astype(np.float32)).to(dtype)
+    mask = torch.arange(n)[None, :] < torch.tensor(lengths)[:, None]
+    m, _, s = tat.attention_pool_tiled_plain(x, *w, bc, mask)
+    chunk = tat.tiled_chunk(len(lengths), n)
+    want = _walk(x, s, mask, chunk, dtype)
+    rel = float(np.linalg.norm(m.double().numpy() - want) / np.linalg.norm(want))
+    assert rel <= 1e-6, rel
+    if dtype == torch.bfloat16:
+        other = _walk(x, s, mask, chunk, dtype, at_running_max=False)
+        assert float(np.linalg.norm(other - want) / np.linalg.norm(want)) > 1e-5
 
 
 @pytest.mark.parametrize("b,n,rows", [(1, 60416, 64), (1, 12288, 64), (4, 12288, 64),
