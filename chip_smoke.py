@@ -8,7 +8,11 @@
    and f32 as three bf16 products) must hold Hopper's warpgroup products
    (HGMMA), K8's gate products among them (K7f's ``pool_gates_fwd_wg``);
    K8's chunk pass (``chunk_kernel``) must be there in both instantiations
-   and the earlier ``mma.sync`` kernel (``tiled_pool_tc``) nowhere.
+   and the earlier ``mma.sync`` kernel (``tiled_pool_tc``) and the probes'
+   kernels nowhere. Then builds the probe library (``csrc/fused_trunk.cu``
+   with the K2/K3 ablations of ``csrc/fused_trunk_ablate.cu`` and the
+   overlap probe of ``csrc/wgmma_overlap.cu``), whose ablation kernels and
+   overlap modes must hold HGMMA, but the overlap's vpu mode.
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape (one block
@@ -62,6 +66,22 @@
    twin and its bound, split by sub-kernel (split_kernel, the gate pass,
    the chunk pass, the merge) with each one's achieved TFLOP/s and GB/s,
    and failing unless faster than the twin in f32.
+   Then the K2/K3 probes (``ablation_path``): the ports of the JAX
+   package's ``scripts/dbg_bwd_ablate.py``, ``dbg_vpu_lean.py`` and
+   ``dbg_mxu_vpu_overlap.py`` at their JAX shapes ((1536, 1024, 512) -> 512
+   -> 256; 256 steps of (1024, 512)), every launch count 0 before and read
+   after: K3 full, nodrop, nowgrad, nodx and recompute in bf16 and f32 and
+   K3's split printed (weight gradients, dx chain, floor, hash), K2/K3
+   pre-lean against lean and K3 lean2 (bf16), the overlap probe's four
+   modes and its verdict. Each variant's outputs from its last timed call
+   are held against its twin on the same inputs at the scripts' shapes (the
+   K2/K3 tolerances; dbc, which cancels near 0 at the scripts' zero score
+   cotangent, against the twin's sum |ds|; lean2's dWf and dbf in bf16 at
+   1e-3 and apart from the production kernel's; the gradients a variant
+   skips exact zeros; K2's pre-lean bitwise its lean), and again at 64 bags
+   with a score cotangent in both dtypes; the overlap's modes against
+   theirs (2e-2) and bitwise against each other; the twins timed; K2/K3 at
+   Fin 1000 (zero-padded) against the twin.
 4. Decodes JPEG tiles on the card with nvJPEG (``nvjpeg_path``): the
    committed fixture's tiles against PIL's decode, within
    ``FIXTURE_BOUND``, their rate, and a JPEG-tiled TIFF read through
@@ -598,46 +618,63 @@ HGMMA_KERNELS = tuple(f"{k}<{t}>" for k in ("trunk_wg", "gates_fwd_wg", "gates_b
                       for t in ("__nv_bfloat16", "float"))
 K8_CHUNK_KERNELS = ("chunk_kernel<float>", "chunk_kernel<__nv_bfloat16>")
 GONE_KERNELS = ("tiled_pool_tc",)
+# the probe library's kernels (the K2/K3 ablations in
+# csrc/fused_trunk_ablate.cu, their variant the second template argument: 1
+# pre-lean, 2 lean2, 3 dwc only; the overlap probe's modes in
+# csrc/wgmma_overlap.cu), each with HGMMA, but the overlap's vpu mode (1),
+# which holds no products; none of them in the kernel library
+ABLATION_KERNELS = tuple(f"{k}<{t}, {v}>" for t in ("__nv_bfloat16", "float")
+                         for k, v in (("trunk_ablate_wg", 1), ("gates_fwd_ablate_wg", 1),
+                                      ("gates_bwd_ablate_wg", 1), ("gates_bwd_ablate_wg", 3),
+                                      ("dx_ablate_wg", 1))) + (
+    "dx_ablate_wg<__nv_bfloat16, 2>", "overlap_wg<0>", "overlap_wg<2>", "overlap_wg<3>")
+PROBE_NO_MMA_KERNELS = ("overlap_wg<1>",)
 
 
 def mangled(kernel: str) -> str:
     """The part of a kernel's mangled name that spells ``kernel``: each part
-    of the name by its length (``8wgrad_wg``), then its first template
-    argument (``12chunk_kernelIf``; a kernel's further template arguments,
-    such as ``pool_gates_bwd_wg``'s partials flag, follow it)."""
-    base, _, arg = kernel.partition("<")
+    of the name by its length (``8wgrad_wg``), then its template arguments
+    as far as given (``12chunk_kernelIf``, ``10overlap_wgILi0E``; a kernel's
+    further arguments, such as ``pool_gates_bwd_wg``'s partials flag, follow
+    them)."""
+    base, _, args = kernel.partition("<")
     out = "".join(f"{len(part)}{part}" for part in base.split("::"))
-    if arg:
-        arg = arg.rstrip(">")
-        out += "I" + ("f" if arg == "float" else f"{len(arg)}{arg}")
+    for i, arg in enumerate(a.strip() for a in args.rstrip(">").split(",") if a.strip()):
+        out += ("I" if i == 0 else "") + ("f" if arg == "float" else f"Li{arg}E" if
+                                          arg.isdigit() else f"{len(arg)}{arg}")
     return out
 
 
-def check_sass() -> dict:
-    """``cuobjdump -sass`` (beside nvcc) over the built kernel library: each
-    kernel of ``HGMMA_KERNELS`` (defined in ``csrc/fused_trunk.cu``,
-    ``csrc/attention_pool.cu`` and the headers they share) must hold HGMMA;
-    each of ``K8_CHUNK_KERNELS`` must be there, its tensor-core
-    instructions counted (none expected); none of ``GONE_KERNELS`` may be.
+def check_sass(probes: bool = False) -> dict:
+    """``cuobjdump -sass`` (beside nvcc) over the built kernel library (with
+    ``probes``, the probe library): each kernel of ``HGMMA_KERNELS``
+    (defined in ``csrc/fused_trunk.cu``, ``csrc/attention_pool.cu`` and the
+    headers they share; the probes' ``ABLATION_KERNELS``, in
+    ``csrc/fused_trunk_ablate.cu`` and ``csrc/wgmma_overlap.cu``) must hold
+    HGMMA; each of ``K8_CHUNK_KERNELS`` (``PROBE_NO_MMA_KERNELS``) must be
+    there, its tensor-core instructions counted (none expected); none of
+    ``GONE_KERNELS``, nor in the kernel library any probe kernel, may be.
     Returns the counts per kernel."""
     from murcl_tpu_torch.ops import _cuda
 
     tool = Path(_cuda._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path())], capture_output=True,
-                          text=True, check=True).stdout
+    sass = subprocess.run([str(tool), "-sass", str(_cuda.library_path(probes))],
+                          capture_output=True, text=True, check=True).stdout
+    mma, no_mma = ((ABLATION_KERNELS, PROBE_NO_MMA_KERNELS) if probes
+                   else (HGMMA_KERNELS, K8_CHUNK_KERNELS))
+    absent = GONE_KERNELS + (() if probes else ABLATION_KERNELS + PROBE_NO_MMA_KERNELS)
     counts, gone = {}, []
     for body in sass.split("Function : ")[1:]:
         name = body.split(None, 1)[0]
-        gone += [k for k in GONE_KERNELS if mangled(k) in name]
-        for k in HGMMA_KERNELS + K8_CHUNK_KERNELS:
+        gone += [k for k in absent if mangled(k) in name]
+        for k in mma + no_mma:
             if mangled(k) in name:
-                rule = r"\bHGMMA\b" if k in HGMMA_KERNELS else r"\bH(G)?MMA\b"
+                rule = r"\bHGMMA\b" if k in mma else r"\bH(G)?MMA\b"
                 counts[k] = counts.get(k, 0) + sum(
                     1 for line in body.splitlines() if re.search(rule, line))
-    check(set(counts) == set(HGMMA_KERNELS + K8_CHUNK_KERNELS)
-          and all(counts[k] for k in HGMMA_KERNELS),
+    check(set(counts) == set(mma + no_mma) and all(counts[k] for k in mma),
           f"kernels missing or without their warpgroup products: {counts}")
-    check(not gone, f"kernels that should be gone from the library: {sorted(set(gone))}")
+    check(not gone, f"kernels that should not be in the library: {sorted(set(gone))}")
     return counts
 
 
@@ -1300,6 +1337,242 @@ def check_tiled(dev, gen):
             res["bound_by"] = b_by
         del x
         torch.cuda.empty_cache()
+    return res
+
+
+# the ablation path: the ports of the JAX package's K2/K3 probes
+# (murcl_tpu_torch/scripts/dbg_bwd_ablate.py, dbg_vpu_lean.py,
+# dbg_mxu_vpu_overlap.py), each variant under its own launch count
+ABLATE_SHAPE = (B_MAIN, N_MAIN, FIN, L1, D)  # the JAX scripts' (1536, 1024, 512, 512, 256)
+ABLATE_CHECK_BAGS = 64  # bags in the second comparison, with a score cotangent
+ABLATE_FIN = 1000  # K2/K3's padded route: a Fin the kernels do not take
+ABLATE_GRADS = ("dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc")
+BWD_ZERO = {"full": (), "nodrop": (), "nowgrad": ("dwf", "dbf", "dwa", "dba", "dwb", "dbb"),
+            "nodx": ("dwf", "dbf"), "recompute": ("dwf", "dbf", "dwa", "dba", "dwb", "dbb"),
+            "prelean": (), "lean2": ()}
+# dbg_vpu_lean's timed kernels (its names) and the variants they run
+LEAN_BWD = {"bwd full": "prelean", "bwd lean": "full", "bwd lean2": "lean2"}
+LEAN_FWD = {"fwd full": "prelean", "fwd lean": "lean"}
+# lean2 in bf16: dWf and dbf, which its one rounding of dx moves (2.9e-3 of
+# dWf from the production kernel's on the H100), held between that gap and
+# the kernel's noise against its twin (3-5e-4)
+LEAN2_TOL = 1e-3
+OVERLAP_STEPS, OVERLAP_ROWS = 256, 1024
+
+
+def ablation_work(variant: str, b: int = B_MAIN) -> float:
+    """The products' FLOPs of K3's ablation ``variant`` (``fwd_lean`` and
+    ``fwd_prelean``: K2) at (b, N_MAIN, FIN) -> L1 -> D, gated: K3 recomputes
+    the trunk and the gates, takes dp, dx through the gates, dWa + dWb and
+    dWf; nowgrad drops the weight gradients, nodx dx and dWf, recompute all
+    three."""
+    r = b * N_MAIN
+    trunk, gates, dp = 2 * r * FIN * L1, 4 * r * L1 * D, 2 * r * L1
+    return {"fwd_lean": trunk + gates + dp, "fwd_prelean": trunk + gates + dp,
+            "nowgrad": trunk + 2 * gates + dp, "nodx": trunk + 2 * gates + dp,
+            "recompute": trunk + gates + dp}.get(variant, 2 * trunk + 3 * gates + dp)
+
+
+def trunk_abs_ds(h, w, mask, p, gm, gp, gs, rate, seed) -> float:
+    """sum |ds| of K3's softmax backward, ds = p (dp - c) + gs with dp = xc .
+    rnd(gm) + gp, as the twin takes it: the scale of dbc's rounding error,
+    where dbc = sum ds cancels near 0 (the scripts' gs = 0)."""
+    import torch
+
+    from murcl_tpu_torch.ops.attention import _trunk
+
+    xc = _trunk(h, *w[:6], rate, seed)[0]
+    dp = (xc.float() @ gm.to(h.dtype).float().unsqueeze(-1)).squeeze(-1) + gp
+    del xc
+    ds = torch.where(mask, p * (dp - (p * dp).sum(-1, keepdim=True)), 0.0) + gs
+    return float(ds.abs().sum())
+
+
+def hold_bwd(what, got, want, variant, tol, abs_ds=None, tols=None) -> float:
+    """One K3 variant's gradients against its twin's: those it skips exact
+    zeros, the others within ``tol`` relative Frobenius (``tols`` per name),
+    dbc, given ``abs_ds``, within ``tol`` of it. Prints the errors; returns
+    the largest absolute one."""
+    rels = {}
+    for n, g, wv in zip(ABLATE_GRADS, got, want):
+        if n in BWD_ZERO[variant]:
+            check(not g.any() and not wv.any(), f"{what}: {n} not zero")
+        elif n == "dbc" and abs_ds is not None:
+            rels[n] = float((g - wv).abs()) / abs_ds
+        else:
+            rels[n] = rel_err(g, wv)
+    lim = {n: (tols or {}).get(n, tol) for n in rels}
+    print(f"{what} against its twin: " + ", ".join(
+        f"{n} {e:.2e}" + (" of sum |ds|" if n == "dbc" and abs_ds is not None else "")
+        for n, e in rels.items()))
+    check(all(rels[n] <= lim[n] for n in rels), f"{what}: {rels} over {lim}")
+    return max(float((g.float() - wv.float()).abs().max()) for g, wv in zip(got, want))
+
+
+def ablation_path(dev):
+    """The K2/K3 ablation probes: the three scripts at their JAX shapes, every
+    launch count 0 before and read after (each variant must have launched),
+    each kernel's outputs kept from its last timed call. Then, not counted:
+    those outputs against the twins on the same inputs, the twins timed
+    (bf16 2e-2, f32 1e-4 relative Frobenius; dbc, which cancels near 0 at
+    the scripts' zero score cotangent, within that of the twin's sum |ds|;
+    lean2's dWf and dbf in bf16 within ``LEAN2_TOL`` and further from the
+    production kernel's than from its twin's; the gradients a variant skips
+    exact zeros; K2's pre-lean bitwise its lean), the overlap's modes
+    against theirs (2e-2) and bitwise against each other; every variant
+    again at ``ABLATE_CHECK_BAGS`` bags with a score cotangent, in both
+    dtypes; K2/K3 at Fin ``ABLATE_FIN`` (zero-padded) against the twin.
+    Prints K3's split in both dtypes, the lean diffs and the overlap's
+    verdict; returns the kernel rows' numbers (``err`` at the scripts'
+    shapes, ``err64`` at 64 bags)."""
+    import torch
+
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.ops import attention as att
+    from murcl_tpu_torch.ops.overlap import MODES, overlap_plain
+    from murcl_tpu_torch.scripts import dbg_bwd_ablate, dbg_mxu_vpu_overlap, dbg_vpu_lean
+    from murcl_tpu_torch.scripts.probes import median_ms as timed
+    from murcl_tpu_torch.scripts.probes import trunk_inputs
+
+    card = card_line()
+    kept = {"bwd": {}, "lean": {}, "overlap": {}}
+    _cuda.reset_launch_counts()
+    bwd = dbg_bwd_ablate.run(str(dev), outs=kept["bwd"])
+    lean = dbg_vpu_lean.run(str(dev), outs=kept["lean"])
+    ovl = dbg_mxu_vpu_overlap.run(str(dev), outs=kept["overlap"])
+    launches = {k: v for k, v in _cuda.LAUNCHES.items()
+                if k.startswith(("trunk_", "overlap_"))}
+    check(all(launches.values()), f"ablation kernels not launched: {launches}")
+    check(not any(v for k, v in _cuda.LAUNCHES.items() if k not in launches),
+          f"the probes launched production kernels: {_cuda.LAUNCHES}")
+    for dt, t in bwd.items():
+        print(f"K3 {dt} at {ABLATE_SHAPE[:3]} split by ablation: weight gradients (full - "
+              f"nowgrad) {t['full'] - t['nowgrad']:.2f} ms, dx chain (full - nodx) "
+              f"{t['full'] - t['nodx']:.2f} ms, floor (recompute) {t['recompute']:.2f} ms, "
+              f"hash (full - nodrop) {t['full'] - t['nodrop']:.2f} ms of {t['full']:.2f} ({card})")
+    print(f"K2/K3 lean (bf16): fwd max|diff| {lean['fwd_max_diff']}; bwd lean rel "
+          f"{max(lean['bwd_rel']['lean'].values()):.2e}, lean2 rel dwf "
+          f"{lean['bwd_rel']['lean2']['dwf']:.2e}; ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in lean["ms"].items()) + f" ({card})")
+    print(f"overlap: mxu {ovl['mxu']:.3f}, vpu {ovl['vpu']:.3f}, dep {ovl['dep']:.3f}, indep "
+          f"{ovl['indep']:.3f} ms, verdict {'OVERLAP' if ovl['overlap'] else 'NO overlap'}, "
+          f"indep hid {ovl['hidden']:.2f} of the shorter side ({card})")
+
+    res = {"launches": launches, "bwd": bwd, "lean": lean, "overlap": ovl, "err": {},
+           "err64": {}, "plain": {}}
+
+    def note(table, key, err):
+        table[key] = max(table.get(key, 0.0), err)
+
+    # the kernels' outputs at the scripts' shape against the twins there
+    for dtype, tol, dt in ((torch.bfloat16, 2e-2, "bfloat16"), (torch.float32, 1e-4, "float32")):
+        sfx = "" if dt == "bfloat16" else "_f32"
+        h, w, mask, p, cots = trunk_inputs(ABLATE_SHAPE, dtype, dev)
+        abs_ds = {r: trunk_abs_ds(h, w, mask, p, *cots, r, dbg_bwd_ablate.SEED)
+                  for r in (dbg_bwd_ablate.DROPOUT, 0.0)}
+        got = {v: [("dbg_bwd_ablate", kept["bwd"][dt][v])] for v in dbg_bwd_ablate.VARIANTS}
+        if dt == "bfloat16":
+            for tag, v in LEAN_BWD.items():
+                got.setdefault(v, []).append((f"dbg_vpu_lean {tag}", kept["lean"][tag]))
+        want = {}
+        for v, outs in got.items():
+            res["plain"][f"trunk_bwd_{v}{sfx}"], want[v] = timed(
+                lambda: att.fused_trunk_plain_bwd(h, *w[:7], mask, p, *cots,
+                                                  dbg_bwd_ablate.DROPOUT, dbg_bwd_ablate.SEED,
+                                                  variant=v), dev, reps=1)
+            tols = {"dwf": LEAN2_TOL, "dbf": LEAN2_TOL} if (v, dt) == ("lean2", "bfloat16") else {}
+            for who, g in outs:
+                note(res["err"], f"trunk_bwd_{v}{sfx}", hold_bwd(
+                    f"K3 {v} {dt} at {ABLATE_SHAPE[:3]} ({who}), gs 0", g, want[v], v, tol,
+                    abs_ds[0.0 if v == "nodrop" else dbg_bwd_ablate.DROPOUT], tols))
+        if dt == "bfloat16":  # lean2 apart from the production kernel, nearer its own twin
+            lean2, prod = kept["lean"]["bwd lean2"][0], kept["lean"]["bwd lean"][0]
+            to_prod, to_twin = rel_err(lean2, prod), rel_err(lean2, want["lean2"][0])
+            print(f"K3 lean2 bf16 dWf: {to_prod:.2e} from the production kernel's, "
+                  f"{to_twin:.2e} from its twin's")
+            check(to_prod > 2 * to_twin, f"K3 lean2: dWf {to_prod} from the production "
+                  f"kernel's, {to_twin} from its twin's")
+            for tag, v in LEAN_FWD.items():
+                res["plain"][f"trunk_fwd_{v}"], want_f = timed(lambda: att.fused_trunk_plain_fwd(
+                    h, *w, mask, 0.25, 7, lean=v == "lean"), dev, reps=1)
+                rels = [rel_err(g, wv) for g, wv in zip(kept["lean"][tag], want_f)]
+                print(f"K2 {v} bf16 at {ABLATE_SHAPE[:3]} against its twin: M, p, s " +
+                      ", ".join(f"{e:.2e}" for e in rels))
+                check(max(rels) <= tol, f"K2 {v} {dt}: {rels}")
+                note(res["err"], f"trunk_fwd_{v}", max(
+                    float((g - wv).abs().max()) for g, wv in zip(kept["lean"][tag], want_f)))
+            check(all(torch.equal(a, b) for a, b in zip(kept["lean"]["fwd lean"],
+                                                          kept["lean"]["fwd full"])),
+                  f"K2 pre-lean not bitwise lean at {ABLATE_SHAPE[:3]}")
+        del h, w, p, cots, want
+        torch.cuda.empty_cache()
+
+    # every variant again at 64 bags, with a score cotangent (dbc away from
+    # its cancellation), in both dtypes
+    for dtype, tol, dt in ((torch.bfloat16, 2e-2, "bfloat16"), (torch.float32, 1e-4, "float32")):
+        sfx = "" if dt == "bfloat16" else "_f32"
+        shape = (ABLATE_CHECK_BAGS, *ABLATE_SHAPE[1:])
+        h, w, mask, p, (gm, gp, _) = trunk_inputs(shape, dtype, dev)
+        gs = torch.randn(p.shape, device=dev) * 0.01
+        outs = {}
+        for v in BWD_ZERO:
+            outs[v] = att.fused_trunk_ablate_bwd(v, h, *w[:7], mask, p, gm, gp, gs, 0.25, 7)
+            want = att.fused_trunk_plain_bwd(h, *w[:7], mask, p, gm, gp, gs, 0.25, 7, variant=v)
+            tols = {"dwf": LEAN2_TOL, "dbf": LEAN2_TOL} if (v, dt) == ("lean2", "bfloat16") else {}
+            note(res["err64"], f"trunk_bwd_{v}{sfx}", hold_bwd(
+                f"K3 {v} {dt} at {shape[:3]} dropout 0.25", outs[v], want, v, tol, tols=tols))
+        if dt == "bfloat16":
+            to_prod = rel_err(outs["lean2"][0], outs["full"][0])
+            to_twin = rel_err(outs["lean2"][0], att.fused_trunk_plain_bwd(
+                h, *w[:7], mask, p, gm, gp, gs, 0.25, 7, variant="lean2")[0])
+            check(to_prod > 2 * to_twin, f"K3 lean2 at {shape[:3]}: dWf {to_prod} from the "
+                  f"production kernel's, {to_twin} from its twin's")
+        fwd = {}
+        for v in ("lean", "prelean"):
+            fwd[v] = att.fused_trunk_ablate_fwd(v, h, *w, mask, 0.25, 7)
+            want = att.fused_trunk_plain_fwd(h, *w, mask, 0.25, 7, lean=v == "lean")
+            rels = [rel_err(g, wv) for g, wv in zip(fwd[v], want)]
+            check(max(rels) <= tol, f"K2 {v} {dt}: {rels}")
+            note(res["err64"], f"trunk_fwd_{v}{sfx}",
+                 max(float((g - wv).abs().max()) for g, wv in zip(fwd[v], want)))
+        check(all(torch.equal(a, b) for a, b in zip(fwd["lean"], fwd["prelean"])),
+              f"K2 pre-lean not bitwise lean ({dt})")
+        del h, outs, fwd
+        torch.cuda.empty_cache()
+
+    # the overlap's modes, from their timed calls, against their twins
+    x, y, wo = dbg_mxu_vpu_overlap.inputs(dev, OVERLAP_STEPS, OVERLAP_ROWS)
+    got = kept["overlap"]
+    for m in MODES:
+        res["plain"][f"overlap_{m}"], want = timed(lambda: overlap_plain(m, x, y, wo), dev, reps=1)
+        rels = [rel_err(g, wv) for g, wv in zip(got[m], want)]
+        print(f"overlap {m} at ({OVERLAP_STEPS}, {OVERLAP_ROWS}, 512) against its twin: rel err "
+              f"m {rels[0]:.2e}, v {rels[1]:.2e}")
+        check(max(rels) <= 2e-2, f"overlap {m}: {rels}")
+        res["err"][f"overlap_{m}"] = max(float((g - wv).abs().max())
+                                         for g, wv in zip(got[m], want))
+    check(torch.equal(got["dep"][0], got["mxu"][0]) and torch.equal(got["indep"][0], got["mxu"][0])
+          and torch.equal(got["indep"][1], got["vpu"][1]), "overlap: modes' sums not bitwise")
+    del x, y
+
+    # K2/K3's padded route: Fin 1000 (to 1024), mixed bf16 and unmixed f32 with dh
+    for dtype, tol, mixed, need_dh in ((torch.bfloat16, 2e-2, True, False),
+                                       (torch.float32, 1e-4, False, True)):
+        gen = torch.Generator(device=dev).manual_seed(4)
+        h, w, mask, mix, cots = fused_inputs(8, dtype, gen, dev, True)
+        h = torch.randn(*h.shape[:2], ABLATE_FIN, generator=gen, device=dev).to(dtype)
+        w[0] = torch.randn(ABLATE_FIN, L1, generator=gen, device=dev) * ABLATE_FIN ** -0.5
+        got = run_fused(h, w, mask, 0.25, 77, mix if mixed else None, cots, True, need_dh)
+        want = run_plain(h, w, mask, 0.25, 77, mix if mixed else (None, None), cots, True,
+                         need_dh)
+        names = ["M", "p", "s", "dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc", "dh"]
+        rels = {n: rel_err(g, wv) for n, g, wv in zip(names, got, want)}
+        print(f"K2/K3 at Fin {ABLATE_FIN} (zero-padded to 1024) {dtype} mixed={mixed} "
+              f"dh={need_dh} dropout 0.25: rel err "
+              + ", ".join(f"{n} {e:.2e}" for n, e in rels.items()))
+        check(max(rels.values()) <= tol, f"K2/K3 at Fin {ABLATE_FIN}: {rels}")
+        del h, got, want
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3270,6 +3543,61 @@ def streaming_path(dev, root):
     return counts, k1, steady
 
 
+def ablation_rows(abl) -> list:
+    """The kernels line's rows of the probes' kernels (:func:`ablation_path`):
+    each variant's ms at the script's shape in bf16 (K3's also in f32, under
+    ``f32``) beside its twin's and its bound (the products at the bf16 peak,
+    f32's at TF32's; the overlap's vpu mode its bytes), launches from the
+    path's run, ``max_abs_err`` from the same calls against their twins;
+    the f32 lean variants, not timed, only at 64 bags."""
+    base = "murcl_tpu_torch/csrc/"
+    bwd_site, lean_fwd, lean_bwd = ("scripts/dbg_bwd_ablate.py:152",
+                                    "scripts/dbg_vpu_lean.py:122", "scripts/dbg_vpu_lean.py:280")
+    # bytes read once: the bags, their mask and the cotangents (K3: p, gp,
+    # gs per row, gm per bag) or written once (K2: M, p, s); the weights'
+    # and gradients' few MB left out
+    r = B_MAIN * N_MAIN
+    h_bytes = {dt: r * FIN * size + 13 * r + 4 * B_MAIN * L1
+               for dt, size in (("bf16", 2), ("f32", 4))}
+    rows = []
+
+    def row(name, src, rep, ms, plain, flops, nbytes, peak, err, extra=None):
+        b_ms, b_by = bound(flops, nbytes, peak)
+        rows.append({"name": name, "route": "cuda", "source": base + src, "replaces": rep,
+                     "launches": abl["launches"][name], "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                     **(extra or {})})
+
+    for v in ("full", "nodrop", "nowgrad", "nodx", "recompute"):
+        name = f"trunk_bwd_{v}"
+        b_f32 = bound(ablation_work(v), h_bytes["f32"], TF32_FLOPS)
+        f32 = {"ms": abl["bwd"]["float32"][v], "plain_ms": abl["plain"][name + "_f32"],
+               "bound_ms": b_f32[0], "bound_by": b_f32[1], "max_abs_err": abl["err"][name + "_f32"]}
+        rep = bwd_site + (f" ({v}); {lean_bwd} (lean)" if v == "full" else f" ({v})")
+        row(name, "fused_trunk.cu", rep, abl["bwd"]["bfloat16"][v], abl["plain"][name],
+            ablation_work(v), h_bytes["bf16"], BF16_FLOPS, abl["err"][name], {"f32": f32})
+    for v, tag in (("prelean", "bwd full"), ("lean2", "bwd lean2")):
+        name = f"trunk_bwd_{v}"
+        row(name, "fused_trunk.cu", f"{lean_bwd} ({tag.split()[1]})", abl["lean"]["ms"][tag],
+            abl["plain"][name], ablation_work(v), h_bytes["bf16"], BF16_FLOPS, abl["err"][name],
+            {"f32_max_abs_err_64_bags": abl["err64"][name + "_f32"]})
+    for v, tag in (("lean", "fwd lean"), ("prelean", "fwd full")):
+        name = f"trunk_fwd_{v}"
+        row(name, "fused_trunk.cu", f"{lean_fwd} ({tag.split()[1]})", abl["lean"]["ms"][tag],
+            abl["plain"][name], ablation_work("fwd_" + v), h_bytes["bf16"], BF16_FLOPS,
+            abl["err"][name], {"f32_max_abs_err_64_bags": abl["err64"][name + "_f32"]})
+    # the overlap: 4 products of (256 x 1024, 512) @ (512, 512); x and y read
+    r = OVERLAP_STEPS * OVERLAP_ROWS
+    mxu, io = 4 * 2 * r * 512 * 512, 2 * r * 512 * 2 + 512 * 512 * 2
+    vpu = 3 * 8 * r * 512  # tanh, sigmoid and their product, 8 rounds
+    for m in ("mxu", "vpu", "dep", "indep"):
+        flops, peak = (vpu, F32_FLOPS) if m == "vpu" else (mxu, BF16_FLOPS)
+        row(f"overlap_{m}", "wgmma_overlap.cu", f"scripts/dbg_mxu_vpu_overlap.py:96 ({m})",
+            abl["overlap"][m], abl["plain"][f"overlap_{m}"], flops, io, peak,
+            abl["err"][f"overlap_{m}"])
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3292,7 +3620,16 @@ def main() -> int:
     print("warpgroup products (HGMMA) in the K2/K3 and K7 kernels' SASS (K8's gate pass is "
           "pool_gates_fwd_wg), and tensor-core instructions in K8's chunk pass: "
           + ", ".join(f"{k} {v}" for k, v in counts.items())
-          + f"; {', '.join(GONE_KERNELS)} gone from the library")
+          + f"; {', '.join(GONE_KERNELS)} and the probes' kernels not in the library")
+    # the probes' own library (the ablation phase's), built apart from the
+    # kernels' so that no training path waits for it
+    t0 = time.time()
+    _cuda.probe_library()
+    print(f"probe library built and loaded in {time.time() - t0:.1f} s")
+    counts = check_sass(probes=True)
+    print("warpgroup products (HGMMA) in the probes' SASS (K2/K3's ablations, the overlap's "
+          "modes), and tensor-core instructions in the overlap's vpu mode: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
     k1 = check_compaction(dev, gen)
     print(f"K1 compaction bitwise ok; {k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms, "
@@ -3353,6 +3690,10 @@ def main() -> int:
           f"{k8['plain_ms_bf16']:.3f} ms, at (1, 12288, {L1}) {k8['ms_bf16_12288']:.3f} vs "
           f"{k8['plain_ms_bf16_12288']:.3f} ms; the op's backward (K7b) at (1, 60416, {L1}) f32 "
           f"{k8['bwd_ms']:.3f} vs {k8['bwd_plain_ms']:.3f} ms ({card})")
+
+    t0 = time.time()
+    abl = ablation_path(dev)
+    print(f"ablation phase in {time.time() - t0:.1f} s")
 
     work = REPO / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -3495,6 +3836,7 @@ def main() -> int:
                                           "autograd_plain_ms")})
             row["modes"] = (f"{', '.join(f'({b}, {d})' for b, d in NTXENT_SHAPES)} x 2 f32, with "
                             f"and without a zero row; timed at ({BATCH}, 128)")
+    kernels += ablation_rows(abl)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,13 +2,18 @@
 
 Each ``.cu`` source is compiled with ``nvcc`` for ``sm_90a`` by its own
 process, all started together, and the objects are linked into one shared
-library with a plain C interface, loaded with :mod:`ctypes`. The library
+library with a plain C interface, loaded with :mod:`ctypes`. The
+measurement probes (the ports of the JAX package's TPU probes,
+``murcl_tpu_torch/scripts/dbg_*.py``) build into a second library,
+:func:`probe_library`, on a probe's first call: their sources
+(:data:`PROBE_SOURCES`) beside the production source they drive, so that
+no training path waits for their build. The library
 links only the CUDA runtime: the warpgroup kernels' TMA descriptors come
 from the driver's ``cuTensorMapEncodeTiled``, reached at run time through
 the runtime's ``cudaGetDriverEntryPointByVersion`` (``csrc/wgmma_tiles.cuh``),
-so no ``-lcuda`` is needed at build time. The library is
+so no ``-lcuda`` is needed at build time. Each library is
 built on first use into ``build/murcl_tpu_torch/`` at the repository root,
-named by a hash of the sources and flags, so an edited source builds anew.
+named by a hash of its sources and flags, so an edited source builds anew.
 An exclusive file lock (``fcntl``) on ``build/murcl_tpu_torch/.build.lock``
 makes processes that need the library at once (data-parallel ranks, however
 they were started) wait for one build instead of compiling side by side.
@@ -55,6 +60,14 @@ LAUNCHES = {
     # not the port of a TPU kernel: libjpeg's upsampling and colour
     # conversion on nvJPEG's planes (preprocess/nvjpeg.py)
     "ycc_to_rgb": 0,
+    # the ports of the JAX package's TPU probes (scripts/dbg_vpu_lean.py,
+    # dbg_bwd_ablate.py, dbg_mxu_vpu_overlap.py): K2/K3's ablations
+    # (ops/attention.py TRUNK_FWD_VARIANTS, TRUNK_BWD_VARIANTS) and the
+    # overlap probe's modes (ops/overlap.py), each under its own name
+    **{f"trunk_fwd_{v}": 0 for v in ("lean", "prelean")},
+    **{f"trunk_bwd_{v}": 0 for v in ("full", "nodrop", "nowgrad", "nodx", "recompute",
+                                     "prelean", "lean2")},
+    **{f"overlap_{m}": 0 for m in ("mxu", "vpu", "dep", "indep")},
 }
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -96,8 +109,22 @@ _SIGNATURES = {
     "murcl_ycc_to_rgb": [_P] * 4 + [_I] * 6 + [_P],
 }
 
-_lib = None
-_lib_lock = threading.Lock()  # one build when several threads first need a kernel
+# the probe library's sources: the probes' own, which the kernel library
+# leaves out, and fused_trunk.cu, whose passes the K2/K3 ablations run
+_PROBE_ONLY = ("fused_trunk_ablate.cu", "wgmma_overlap.cu")
+PROBE_SOURCES = ("fused_trunk.cu",) + _PROBE_ONLY
+_PROBE_SIGNATURES = {
+    # variant, then murcl_fused_trunk_fwd's and murcl_fused_trunk_bwd's
+    "murcl_fused_trunk_fwd_ablate": [_I] + _SIGNATURES["murcl_fused_trunk_fwd"],
+    "murcl_fused_trunk_bwd_ablate": [_I] + _SIGNATURES["murcl_fused_trunk_bwd"],
+    # mode, x, y, w, m_out, v_out, steps, N, stream
+    "murcl_wgmma_overlap": [_I] + [_P] * 5 + [_I, _I, _P],
+}
+
+_lib = _probe_lib = None
+# one build when several threads first need a kernel; the probe library's
+# own, so that a probe's build holds up no production kernel
+_lib_lock, _probe_lock = threading.Lock(), threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -118,13 +145,21 @@ def _nvcc() -> str:
         "PATH or under $CUDA_HOME/bin")
 
 
-def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(probes: bool = False) -> list:
+    """The ``.cu`` sources of the kernel library, or of the probe library."""
+    cu = sorted(CSRC.glob("*.cu"))
+    if probes:
+        return [src for src in cu if src.name in PROBE_SOURCES]
+    return [src for src in cu if src.name not in _PROBE_ONLY]
+
+
+def library_path(probes: bool = False) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources(probes) + sorted(CSRC.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libmurcl_kernels_{digest.hexdigest()[:16]}.so"
+    name = "probes" if probes else "kernels"
+    return BUILD_DIR / f"libmurcl_{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _wait(procs) -> None:
@@ -138,10 +173,11 @@ def _wait(procs) -> None:
         raise RuntimeError("\n".join(failed))
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of the current sources exists;
-    one process at a time builds, the others then find its library."""
-    out = library_path()
+def build(probes: bool = False) -> Path:
+    """Compile the kernels (``probes``: the probe library) unless a library
+    of the current sources exists; one process at a time builds, the others
+    then find its library."""
+    out = library_path(probes)
     if out.exists():
         return out
     nvcc = _nvcc()
@@ -149,14 +185,14 @@ def build() -> Path:
     with open(BUILD_DIR / ".build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
         if not out.exists():
-            _compile(nvcc, out)
+            _compile(nvcc, out, sources(probes))
     return out
 
 
-def _compile(nvcc: str, out: Path) -> None:
+def _compile(nvcc: str, out: Path, srcs: list) -> None:
     tag = f"{out.stem}.{os.getpid()}"
     objs, procs = [], []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in srcs:
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         objs.append(obj)
         procs.append((subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
@@ -172,20 +208,35 @@ def _compile(nvcc: str, out: Path) -> None:
     os.replace(tmp, out)
 
 
+def _load(path: Path, signatures: dict) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+            lib = _load(build(), _SIGNATURES)
             lib.murcl_error_string.argtypes = [ctypes.c_int]
             lib.murcl_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def probe_library() -> ctypes.CDLL:
+    """The loaded probe library (built on first call): the K2/K3 ablations
+    and the overlap probe, off every training path."""
+    global _probe_lib
+    with _probe_lock:
+        if _probe_lib is None:
+            _probe_lib = _load(build(probes=True), _PROBE_SIGNATURES)
+    return _probe_lib
 
 
 def check(err: int, name: str) -> None:

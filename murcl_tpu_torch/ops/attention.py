@@ -30,6 +30,8 @@ agrees with the JAX package at dropout 0 only.)
 
 An ``h`` that requires grad gets ``dh = dz @ Wf^T`` (the TPU kernel's
 ``need_dh=True``, ``attention_pallas.py:797-800``), rounded to the bag dtype.
+The TPU kernel takes any Fin; the port's kernels take Fin in multiples of 64
+(128 with dh), and the wrappers zero-pad the rest (:func:`pad_trunk_fin`).
 With ``mix`` the bags must be data: the partner bag's share of ``dh`` would
 need a scatter, so the op refuses an ``h`` that requires grad, as
 ``attention_pallas.py:647-650`` does.
@@ -135,11 +137,24 @@ def _mm(x, w, dt):
     return x.to(dt).float() @ w.to(dt).float()
 
 
-def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated=True):
+def _kept(v, k, lean: bool):
+    """``v`` times its keep multiplier ``k`` (0 or the keep scale, in v's
+    dtype), rounded to that dtype: ``lean``, one product; else (the
+    ablations' pre-lean chains, ``csrc/fused_trunk.cu`` ``kept``) by the
+    keep bit as 0 or 1, then by the scale: the same values."""
+    if lean:
+        return v * k
+    return v * (k != 0).to(v.dtype) * k.amax()
+
+
+def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated=True, lean=True):
     """Shared forward/backward recompute: ``(xc, mzx, a, g, a_eff, g_eff, ka,
     kb)``; ``g``, ``g_eff`` and ``kb`` are None when ungated.
 
     ``mzx`` folds relu' with the trunk keep mask (the backward's dz factor).
+    ``lean=False`` takes the dropout products as the ablations' pre-lean
+    chains do (:func:`_kept`): xc as ``rnd(relu(z))`` by the keep bit, then
+    by the scale.
     """
     dt = h.dtype
     b, n, _ = h.shape
@@ -148,7 +163,7 @@ def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated=True):
     if dropout > 0:
         kx = _keep_scale(seed, dropout, b, n, l1, 0, h.device, dt)
         mzx = torch.where(z > 0, kx, torch.zeros((), dtype=dt, device=h.device))
-        xc = z.to(dt) * mzx
+        xc = z.to(dt) * mzx if lean else _kept(torch.relu(z).to(dt), kx, False)
     else:
         mzx = (z > 0).to(dt)
         xc = torch.relu(z).to(dt)
@@ -158,20 +173,22 @@ def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated=True):
     a_eff, g_eff = a, g
     if dropout > 0:
         ka = _keep_scale(seed, dropout, b, n, d, 1, h.device, dt)
-        a_eff = a * ka
+        a_eff = _kept(a, ka, lean)
         if gated:
             kb = _keep_scale(seed, dropout, b, n, d, 2, h.device, dt)
-            g_eff = g * kb
+            g_eff = _kept(g, kb, lean)
     return xc, mzx, a, g, a_eff, g_eff, ka, kb
 
 
 def fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout=0.0,
-                          seed=0, perm=None, lam=None, gated=True):
-    """Plain PyTorch forward (mirror of the TPU forward kernel): ``(M, p, s)``."""
+                          seed=0, perm=None, lam=None, gated=True, lean=True):
+    """Plain PyTorch forward (mirror of the TPU forward kernel): ``(M, p, s)``.
+    ``lean=False``: the pre-lean ablation's twin (:func:`_trunk`)."""
     dt = h.dtype
     if perm is not None:
         h = apply_mix(h, perm, lam)
-    xc, _, _, _, a_eff, g_eff, _, _ = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated)
+    xc, _, _, _, a_eff, g_eff, _, _ = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated,
+                                             lean)
     u = a_eff * g_eff if gated else a_eff
     s = (u.float() @ wc.to(dt).float()) + bc
     p = torch.softmax(torch.where(mask, s, torch.full_like(s, _NEG_INF)), dim=-1)
@@ -181,16 +198,23 @@ def fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout=0.0,
 
 def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
                           dropout=0.0, seed=0, perm=None, lam=None, gated=True,
-                          need_dh=False):
+                          need_dh=False, variant="full"):
     """Plain PyTorch backward (mirror of the TPU backward kernel):
     ``(dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)`` in float32, summed over bags
     (``dwb``/``dbb`` zeros when ungated), and with ``need_dh`` a ninth entry,
-    ``dh`` in the bag dtype."""
+    ``dh`` in the bag dtype. ``variant`` names an ablation's twin
+    (:data:`TRUNK_BWD_VARIANTS`): the passes it skips leave their gradients
+    zero, and ``prelean`` and ``lean2`` move roundings as their kernels do."""
+    if variant not in TRUNK_BWD_VARIANTS:
+        raise ValueError(f"fused_trunk_plain_bwd: no variant {variant!r}")
     dt = h.dtype
+    if variant == "nodrop":
+        dropout = 0.0
+    lean = variant != "prelean"
     if perm is not None:
         h = apply_mix(h, perm, lam)
     xc, mzx, a, g, a_eff, g_eff, ka, kb = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed,
-                                                 gated)
+                                                 gated, lean)
     u = a_eff * g_eff if gated else a_eff
 
     dp = (xc.float() @ gm.to(dt).float().unsqueeze(-1)).squeeze(-1) + gp
@@ -199,25 +223,44 @@ def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
     ds_t = ds.to(dt)
     dbc = ds.sum()
     dwc = torch.einsum("bnd,bn->d", u.float(), ds_t.float())
+    f32 = dict(dtype=torch.float32, device=h.device)
+    fin, l1, d = wf.shape[0], wf.shape[1], wa.shape[1]
+    if variant == "recompute":  # the gates replayed for u; dwc and dbc alone
+        return (torch.zeros((fin, l1), **f32), torch.zeros((l1,), **f32),
+                torch.zeros((l1, d), **f32), torch.zeros((d,), **f32),
+                torch.zeros((l1, d), **f32), torch.zeros((d,), **f32), dwc, dbc)
     du = ds_t.unsqueeze(-1) * wc.to(dt)
     da = du * g_eff if gated else du
     if dropout > 0:
-        da = da * ka
+        da = _kept(da, ka, lean)
     dza = da * (1 - a * a)
 
     flat = lambda t: t.reshape(-1, t.shape[-1]).float()  # noqa: E731
     dwa, dba = flat(xc).T @ flat(dza), flat(dza).sum(0)
-    dx = (p.unsqueeze(-1) * gm.unsqueeze(1)).to(dt) + (dza.float() @ wa.to(dt).float().T).to(dt)
     if gated:
         dg = du * a_eff
         if dropout > 0:
-            dg = dg * kb
+            dg = _kept(dg, kb, lean)
         dzb = dg * g * (1 - g)
         dwb, dbb = flat(xc).T @ flat(dzb), flat(dzb).sum(0)
-        dx = dx + (dzb.float() @ wb.to(dt).float().T).to(dt)
     else:
         dwb, dbb = torch.zeros_like(dwa), torch.zeros_like(dba)
-    dz = dx * mzx
+    if variant == "nowgrad":  # the weight-gradient passes sum the biases too
+        dwa, dba, dwb, dbb = (torch.zeros_like(t) for t in (dwa, dba, dwb, dbb))
+    if variant in ("nowgrad", "nodx"):
+        return (torch.zeros((fin, l1), **f32), torch.zeros((l1,), **f32), dwa, dba, dwb, dbb,
+                dwc, dbc)
+    pgm = p.unsqueeze(-1) * gm.unsqueeze(1)
+    back = lambda dz_, w: dz_.float() @ w.to(dt).float().T  # noqa: E731
+    if variant == "lean2":  # one f32 sum, one rounding
+        dx = (pgm + (back(dza, wa) + back(dzb, wb) if gated else back(dza, wa))).to(dt)
+    else:
+        dx = pgm.to(dt) + back(dza, wa).to(dt)
+        if gated:
+            dx = dx + back(dzb, wb).to(dt)
+    # pre-lean: dx by the keep bit, then the scale, then relu' (whose product
+    # is exact: mzx != 0 is relu' and the keep bit at once)
+    dz = dx * mzx if lean or dropout == 0 else _kept(dx, mzx, False)
     dwf, dbf = flat(h).T @ flat(dz), flat(dz).sum(0)
     grads = (dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)
     if need_dh:
@@ -265,17 +308,39 @@ def trunk_tile_smem(n: int, fin: int, l1: int, d: int, dtype: torch.dtype) -> in
     return max(tiles, 4 * (n + 32), refine)
 
 
+def trunk_fin(fin: int, need_dh: bool = False) -> int:
+    """The feature width K2/K3's kernels take for bags of width ``fin``: the
+    next multiple of 64 (the trunk's k-slices), of 128 with the bags'
+    gradient (dh's 128-column passes)."""
+    q = _TN if need_dh else 64
+    return -(-fin // q) * q
+
+
+def pad_trunk_fin(h, wf, need_dh: bool = False):
+    """``(h, wf)`` at :func:`trunk_fin`'s width: h's last axis and Wf's rows
+    zero-padded, each as given where ``fin`` is already so (the CLIs' 512,
+    1024, 2048 and 4096 copy nothing). Exact: a zero column of h meets a zero
+    row of Wf, and the trunk's dropout hash runs over (N, L1), not Fin, so
+    the keep bits do not move; dh and dWf are sliced back."""
+    fin = h.shape[-1]
+    fp = trunk_fin(fin, need_dh)
+    if fp == fin:
+        return h, wf
+    pad = torch.nn.functional.pad
+    return pad(h, (0, fp - fin)), pad(wf, (0, 0, 0, fp - fin))
+
+
 def _check_shapes(name, h, wf, wa, need_dh=False):
+    """K2/K3's rule: L1 and D multiples of 128 (the column passes; any Fin,
+    zero-padded by :func:`pad_trunk_fin`) and the tiles' shared memory at
+    the padded Fin."""
     b, n, fin = h.shape
     l1, d = wf.shape[1], wa.shape[1]
     if h.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: bags must be float32 or bfloat16")
-    if fin % 64 or l1 % _TN or d % _TN:
-        raise ValueError(f"{name}: needs Fin % 64 == 0 and L1, D multiples of {_TN} "
-                         f"(got {fin}, {l1}, {d})")
-    if need_dh and fin % _TN:
-        raise ValueError(f"{name}: the bags' gradient needs Fin % {_TN} == 0 (got {fin})")
-    smem = trunk_tile_smem(n, fin, l1, d, h.dtype)
+    if l1 % _TN or d % _TN:
+        raise ValueError(f"{name}: needs L1, D multiples of {_TN} (got {fin}, {l1}, {d})")
+    smem = trunk_tile_smem(n, trunk_fin(fin, need_dh), l1, d, h.dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: tiles need {smem} bytes of shared memory at (N, Fin, L1, "
                          f"D) = ({n}, {fin}, {l1}, {d}) in {h.dtype}")
@@ -315,9 +380,14 @@ def _planes_scratch(h, wf, wa, *widths):
                                                             device=h.device)]
 
 
-def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam, gated=True):
+def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam, gated=True,
+              variant=None):
+    """K2: ``(M, p, s)`` of :func:`fused_trunk_plain_fwd`; with ``variant``
+    (:data:`TRUNK_FWD_VARIANTS`) the ablation's entry point, counted under
+    its own name."""
     name = "fused_trunk_attention_pool"
     _check_shapes(name, h, wf, wa)
+    h, wf = pad_trunk_fin(h, wf)
     o, drop = _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed)
     bc32 = bc.to(torch.float32).reshape(1).contiguous()
     _cuda.require_cuda(name, *[t for t in o.values() if t is not None], bc32)
@@ -334,21 +404,31 @@ def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam,
     m = torch.empty((b, l1), dtype=torch.float32, device=dev)
     p = torch.empty((b, n), dtype=torch.float32, device=dev)
     s = torch.empty((b, n), dtype=torch.float32, device=dev)
-    err = _cuda.library().murcl_fused_trunk_fwd(
-        int(h.dtype == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
-        _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
-        _p(o["wc"]), _p(bc32), _p(x3), _p(o["mask"]), *drop, _p(xc), _p(hm), _p(m), _p(p),
-        _p(s), b, n, fin, l1, d, _cuda.stream())
-    _cuda.check(err, name)
-    _cuda.LAUNCHES["fused_trunk_fwd"] += 1
+    args = (int(h.dtype == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
+            _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
+            _p(o["wc"]), _p(bc32), _p(x3), _p(o["mask"]), *drop, _p(xc), _p(hm), _p(m), _p(p),
+            _p(s), b, n, fin, l1, d, _cuda.stream())
+    if variant is None:
+        _cuda.check(_cuda.library().murcl_fused_trunk_fwd(*args), name)
+        _cuda.LAUNCHES["fused_trunk_fwd"] += 1
+    else:
+        _cuda.check(_cuda.probe_library().murcl_fused_trunk_fwd_ablate(
+            TRUNK_FWD_VARIANTS[variant], *args), name)
+        _cuda.LAUNCHES[f"trunk_fwd_{variant}"] += 1
     return m, p, s
 
 
 def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
-              perm, lam, gated=True, need_dh=False):
-    """K3: the grads of :func:`fused_trunk_plain_bwd`, in its order."""
+              perm, lam, gated=True, need_dh=False, variant=None):
+    """K3: the grads of :func:`fused_trunk_plain_bwd`, in its order; with
+    ``variant`` (:data:`TRUNK_BWD_VARIANTS`) the ablation's entry point,
+    counted under its own name."""
     name = "fused_trunk_attention_pool backward"
     _check_shapes(name, h, wf, wa, need_dh)
+    fin_l = h.shape[-1]
+    h, wf = pad_trunk_fin(h, wf, need_dh)
+    if variant == "nodrop":
+        dropout = 0.0
     o, drop = _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed)
     p, gm, gp, gs = (t.to(torch.float32).contiguous() for t in (p, gm, gp, gs))
     b, n, fin = h.shape
@@ -373,14 +453,21 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
     dwb, dbb = torch.empty((l1, d), **f32), torch.empty((d,), **f32)
     dwc, dbc = torch.empty((d,), **f32), torch.empty((), **f32)
     _cuda.require_cuda(name, p, gm, gp, gs)
-    err = _cuda.library().murcl_fused_trunk_bwd(
-        int(dt == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
-        _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
-        _p(o["wc"]), _p(x3), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp), _p(gs), _p(hm),
-        _p(xc), _p(dpv), _p(dza), _p(dz), _p(dh), _p(dwf), _p(dbf), _p(dwa), _p(dba), _p(dwb),
-        _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d, _cuda.stream())
-    _cuda.check(err, name)
-    _cuda.LAUNCHES["fused_trunk_bwd"] += 1
+    args = (int(dt == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
+            _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
+            _p(o["wc"]), _p(x3), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp), _p(gs), _p(hm),
+            _p(xc), _p(dpv), _p(dza), _p(dz), _p(dh), _p(dwf), _p(dbf), _p(dwa), _p(dba),
+            _p(dwb), _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d, _cuda.stream())
+    if variant is None:
+        _cuda.check(_cuda.library().murcl_fused_trunk_bwd(*args), name)
+        _cuda.LAUNCHES["fused_trunk_bwd"] += 1
+    else:
+        _cuda.check(_cuda.probe_library().murcl_fused_trunk_bwd_ablate(
+            TRUNK_BWD_VARIANTS[variant], *args), name)
+        _cuda.LAUNCHES[f"trunk_bwd_{variant}"] += 1
+    if fin != fin_l:
+        dwf = dwf[:fin_l]
+        dh = _unpad(dh, fin_l) if need_dh else dh
     grads = (dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)
     return grads + (dh,) if need_dh else grads
 
@@ -436,6 +523,59 @@ def fused_trunk_attention_pool(h, wf, bf, wa, ba, wb, bb, wc, bc, mask=None,
     perm, lam = mix if mix is not None else (None, None)
     return _FusedTrunkAttention.apply(h, wf, bf, wa, ba, wb, bb, wc, bc, mask,
                                       float(dropout), int(seed), perm, lam, bool(gated))
+
+
+# ---------------------------------------------------------------------------
+# K2/K3's ablations: the ports of the JAX package's TPU probes
+# ---------------------------------------------------------------------------
+# ``scripts/dbg_vpu_lean.py`` (``run_fwd`` ``:122``, ``run_bwd`` ``:280``) and
+# ``scripts/dbg_bwd_ablate.py`` (``run_bwd`` ``:152``) time K2/K3 with parts
+# removed or their elementwise chains rearranged; the port's scripts of the
+# same names (``murcl_tpu_torch/scripts/``) run these variants of K2/K3
+# (``csrc/fused_trunk.cu`` ``murcl_fused_trunk_fwd_ablate`` and
+# ``murcl_fused_trunk_bwd_ablate``), each beside its twin here. Forward:
+# ``lean`` the production kernels, ``prelean`` the trunk's and gates'
+# epilogues with relu, the 0/1 keep and the scale as separate rounded
+# products (the same values). Backward: ``full`` the production kernels,
+# ``nodrop`` at dropout 0, ``nowgrad`` without the two weight-gradient
+# passes (dWf, dbf, dWa, dba, dWb and dbb zero: the kernel sums the biases
+# there), ``nodx`` without dx_wg and dWf's pass (dWf, dbf zero),
+# ``recompute`` the trunk, the softmax backward and a gate pass that sums
+# dwc alone (only dwc and dbc), ``prelean`` the pre-lean chains, ``lean2``
+# dx's three terms in one f32 sum, rounded once (bf16; float32 has one
+# accumulator already). They are measurement probes; no training path
+# takes them.
+TRUNK_FWD_VARIANTS = {"lean": 0, "prelean": 1}
+TRUNK_BWD_VARIANTS = {"full": 0, "nodrop": 0, "nowgrad": 1, "nodx": 2, "recompute": 3,
+                      "prelean": 4, "lean2": 5}
+
+
+def fused_trunk_ablate_fwd(variant, h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout=0.0,
+                           seed=0, gated=True):
+    """K2's ablation ``variant`` (:data:`TRUNK_FWD_VARIANTS`) on unmixed
+    bags: ``(M, p, s)``; CPU tensors take the twin
+    (:func:`fused_trunk_plain_fwd`, ``lean=False`` for ``prelean``)."""
+    if variant not in TRUNK_FWD_VARIANTS:
+        raise ValueError(f"fused_trunk_ablate_fwd: no variant {variant!r}")
+    if h.device.type == "cpu":
+        return fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed,
+                                     gated=gated, lean=variant == "lean")
+    return _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, None, None, gated,
+                     variant)
+
+
+def fused_trunk_ablate_bwd(variant, h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
+                           dropout=0.0, seed=0, gated=True):
+    """K3's ablation ``variant`` (:data:`TRUNK_BWD_VARIANTS`) on unmixed
+    bags, without dh: the eight gradients of :func:`fused_trunk_plain_bwd`,
+    those the variant skips zero; CPU tensors take that twin."""
+    if variant not in TRUNK_BWD_VARIANTS:
+        raise ValueError(f"fused_trunk_ablate_bwd: no variant {variant!r}")
+    args = (h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed, None, None,
+            gated)
+    if h.device.type == "cpu":
+        return fused_trunk_plain_bwd(*args, variant=variant)
+    return _bwd_cuda(*args, variant=variant)
 
 
 # ---------------------------------------------------------------------------

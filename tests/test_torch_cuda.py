@@ -34,7 +34,17 @@ lags behind the producer; the producer's error reaches the caller; and
 repeated whole-split stages (the evaluations) hold one pinned buffer.
 The PPO learning check (``murcl_tpu_torch/scripts/ppo_sanity.py``) runs
 once at ABMIL's widths through the kernels in f32 (``chip_smoke.py`` runs
-it at the JAX script's).
+it at the JAX script's). K2/K3 also at Fin 1000 (mixed) and, with dh, Fin
+192, which the wrappers zero-pad to the kernels' widths. The K2/K3
+ablations (the ports of the JAX package's TPU probes,
+``murcl_tpu_torch/scripts/dbg_*.py``) each against its twin at (64, 1024,
+512) -> 512 -> 256, dropout 0.25, in both dtypes at the K2/K3 tolerances,
+the gradients a variant skips exact zeros (lean2's dWf and dbf in bf16 at
+1e-3, and dWf further from the production kernel's than from its twin's),
+K2's pre-lean kernel bitwise
+its lean one; the overlap probe's four modes against their twins (2e-2 on
+the column sums: bf16 chains) and bitwise against each other where they
+share sums.
 """
 
 import pytest
@@ -808,3 +818,100 @@ def test_ppo_sanity_on_card(dev):
     assert all(math.isfinite(v) for v in [*s.stage1_losses, *s.rewards, *s.actions])
     assert sum(s.stage1_losses[-10:]) < 0.5 * sum(s.stage1_losses[:10])
     assert min(s.conf_random, s.conf_policy) > 0.75, report
+
+
+# K2/K3 at feature widths their kernels do not take, zero-padded by the
+# wrappers (pad_trunk_fin): Fin 1000 to 1024, and with the bags' gradient
+# Fin 192 to 256 (dh's 128-column passes), dh and dWf sliced back
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fin,need_dh,mixed", [(1000, False, True), (192, True, False)])
+def test_fused_trunk_padded_fin_matches_plain(dev, rate, dtype, tol, fin, need_dh, mixed):
+    _fused_edges(dev, dtype, tol, rate, fin, 256, 128, True, need_dh, mixed,
+                 lengths=[1000, 129, 1], n=1000)
+
+
+ABLATE_SHAPE = (64, 1024, 512, 512, 256)  # B, N, Fin, L1, D
+BWD_GRADS = ["dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc"]
+# the gradients each ablation of K3 leaves zero (the passes it skips)
+BWD_ZERO = {"full": (), "nodrop": (), "prelean": (), "lean2": (),
+            "nowgrad": ("dwf", "dbf", "dwa", "dba", "dwb", "dbb"), "nodx": ("dwf", "dbf"),
+            "recompute": ("dwf", "dbf", "dwa", "dba", "dwb", "dbb")}
+
+
+def _ablate_inputs(dev, dtype):
+    """The JAX probes' operands at B 64, with a cotangent of the scores of
+    scale 0.01: at the probes' gs = 0, dbc sums p (dp - c), which cancels
+    to rounding noise whatever computes it."""
+    from murcl_tpu_torch.scripts.probes import trunk_inputs
+
+    h, w, mask, p, (gm, gp, _) = trunk_inputs(ABLATE_SHAPE, dtype, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    return h, w, mask, p, (gm, gp, torch.randn(p.shape, generator=gen, device=dev) * 0.01)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("variant", list(BWD_ZERO))
+def test_trunk_bwd_ablations_match_twins(dev, dtype, tol, variant):
+    """Each ablation of K3 against its twin at dropout 0.25, on the JAX
+    probes' inputs at B 64: the kept gradients within the K2/K3 tolerance,
+    the skipped ones exact zeros; one launch under its own name."""
+    from murcl_tpu_torch.ops.attention import fused_trunk_ablate_bwd
+
+    h, w, mask, p, cots = _ablate_inputs(dev, dtype)
+    before = dict(_cuda.LAUNCHES)
+    got = fused_trunk_ablate_bwd(variant, h, *w[:7], mask, p, *cots, 0.25, 7)
+    changed = {k for k, v in _cuda.LAUNCHES.items() if v != before[k]}
+    assert changed == {f"trunk_bwd_{variant}"}
+    want = fused_trunk_plain_bwd(h, *w[:7], mask, p, *cots, 0.25, 7, variant=variant)
+    # lean2 in bf16: dWf and dbf, which its one rounding of dx moves, held
+    # between that move and the kernel's noise against its twin, and dWf
+    # further from the production kernel's than from the twin's
+    lean2 = variant == "lean2" and dtype == torch.bfloat16
+    for name, g, wv in zip(BWD_GRADS, got, want):
+        if name in BWD_ZERO[variant]:
+            assert not g.any() and not wv.any(), name
+            continue
+        lim = 1e-3 if lean2 and name in ("dwf", "dbf") else tol
+        assert _rel(g, wv) <= lim, (name, _rel(g, wv))
+    if lean2:
+        prod = fused_trunk_ablate_bwd("full", h, *w[:7], mask, p, *cots, 0.25, 7)
+        assert _rel(got[0], prod[0]) > 2 * _rel(got[0], want[0])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_trunk_fwd_ablations_match_twins(dev, dtype, tol):
+    """K2's lean (production) and pre-lean kernels against their twins, and
+    against each other bitwise (products by exact 1 or 0)."""
+    from murcl_tpu_torch.ops.attention import fused_trunk_ablate_fwd
+
+    h, w, mask, _, _ = _ablate_inputs(dev, dtype)
+    outs = {}
+    for variant in ("lean", "prelean"):
+        outs[variant] = fused_trunk_ablate_fwd(variant, h, *w, mask, 0.25, 7)
+        want = fused_trunk_plain_fwd(h, *w, mask, 0.25, 7, lean=variant == "lean")
+        for name, g, wv in zip("Mps", outs[variant], want):
+            assert _rel(g, wv) <= tol, (variant, name)
+    for g, wv in zip(outs["lean"], outs["prelean"]):
+        assert torch.equal(g, wv)
+
+
+def test_overlap_modes_match_twins(dev):
+    """The overlap probe's four modes against their twins (bf16 chains: the
+    kernel's tanhf, sigmoidf and product sums round apart from torch's, 2e-2
+    relative on the column sums), and the modes' shared sums bitwise: dep's
+    m is mxu's, indep's (m, v) are (mxu's m, vpu's v)."""
+    from murcl_tpu_torch.ops.overlap import MODES, overlap_plain, wgmma_overlap
+    from murcl_tpu_torch.scripts.dbg_mxu_vpu_overlap import inputs
+
+    x, y, w = inputs(dev, 6, 256)
+    got = {}
+    for mode in MODES:
+        before = _cuda.LAUNCHES[f"overlap_{mode}"]
+        got[mode] = wgmma_overlap(mode, x, y, w)
+        assert _cuda.LAUNCHES[f"overlap_{mode}"] == before + 1
+        for name, g, wv in zip("mv", got[mode], overlap_plain(mode, x, y, w)):
+            assert _rel(g, wv) <= 2e-2, (mode, name, _rel(g, wv))
+    assert torch.equal(got["dep"][0], got["mxu"][0])
+    assert torch.equal(got["indep"][0], got["mxu"][0])
+    assert torch.equal(got["indep"][1], got["vpu"][1])

@@ -322,7 +322,7 @@ def test_concurrent_builds_compile_once(tmp_path):
              for _ in range(2)]
     outs = [p.communicate(timeout=120) for p in procs]
     assert all(p.returncode == 0 for p in procs), outs
-    sources = sorted(_cuda.CSRC.glob("*.cu"))
+    sources = _cuda.sources()
     calls = (stub.parent / "calls.log").read_text().split()
     assert calls.count("compile") == len(sources) and calls.count("link") == 1, calls
     libs = sorted(p.name for p in build.iterdir() if not p.name.startswith("."))
@@ -330,3 +330,33 @@ def test_concurrent_builds_compile_once(tmp_path):
     assert {o.strip() for o, _ in outs} == {str(build / libs[0])}
     assert (build / libs[0]).read_bytes() == b"".join(b"[" + s.name.encode() + b"]"
                                                        for s in sources)
+
+
+def test_probe_library_builds_apart(tmp_path):
+    """The measurement probes' library, ``nvcc`` the recording stub: the
+    kernel library's sources leave out the probes' own, and the probe
+    library, built on its own, compiles the probes' sources beside
+    fused_trunk.cu (whose passes they run) and nothing else."""
+    stub = tmp_path / "bin" / "nvcc"
+    stub.parent.mkdir()
+    stub.write_text(STUB_NVCC.format(python=sys.executable))
+    stub.chmod(stub.stat().st_mode | stat.S_IEXEC)
+    build = tmp_path / "build"
+    code = ("from pathlib import Path; from murcl_tpu_torch.ops import _cuda; "
+            f"_cuda.BUILD_DIR = Path({str(build)!r}); print(_cuda.build(probes=True))")
+    env = dict(os.environ, PATH=f"{stub.parent}{os.pathsep}{os.environ['PATH']}",
+               PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    probes = _cuda.sources(probes=True)
+    assert [p.name for p in probes] == sorted(_cuda.PROBE_SOURCES)
+    kernels = {p.name for p in _cuda.sources()}
+    assert "fused_trunk.cu" in kernels and not kernels & {"fused_trunk_ablate.cu",
+                                                          "wgmma_overlap.cu"}
+    libs = [p for p in build.iterdir() if not p.name.startswith(".")]
+    assert [p.name for p in libs] == [_cuda.library_path(probes=True).name]
+    assert libs[0].name.startswith("libmurcl_probes_")
+    assert libs[0].read_bytes() == b"".join(b"[" + s.name.encode() + b"]" for s in probes)
+    assert _cuda.library_path(probes=True) != _cuda.library_path()
+
