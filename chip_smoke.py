@@ -11,8 +11,11 @@
    and the earlier ``mma.sync`` kernel (``tiled_pool_tc``) and the probes'
    kernels nowhere. Then builds the probe library (``csrc/fused_trunk.cu``
    with the K2/K3 ablations of ``csrc/fused_trunk_ablate.cu`` and the
-   overlap probe of ``csrc/wgmma_overlap.cu``), whose ablation kernels and
-   overlap modes must hold HGMMA, but the overlap's vpu mode.
+   overlap probe of ``csrc/wgmma_overlap.cu``, the one-hot compaction
+   probes of ``csrc/compact_onehot.cu`` and the gate-mask writer of
+   ``csrc/gate_masks.cu``), whose ablation kernels, overlap modes and
+   one-hot kernels must hold HGMMA, but the overlap's vpu mode, the one-hot
+   probes' dmafloor copy and the mask writer, which hold no products.
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
    K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape (one block
@@ -82,6 +85,21 @@
    with a score cotangent in both dtypes; the overlap's modes against
    theirs (2e-2) and bitwise against each other; the twins timed; K2/K3 at
    Fin 1000 (zero-padded) against the twin.
+   Then the compaction and dropout probes (``compaction_probe_path``): the
+   ports of the JAX package's ``scripts/tpu_smoke.py`` mask writer
+   (``dropout_smoke.py``: K7's determinism per seed, its gate keep masks at
+   (8, 256, 256), their keep rate within 0.02 of 0.75 and d/dwc within 1e-2
+   of the pool rebuilt with them) and of its one-hot compaction probes
+   (``dbg_compact_ablate.py``, ``dbg_grouped_ablate.py``,
+   ``dbg_grouped_gate.py``: 1536 bags of 2048-row windows -> 1024 x 512
+   bf16, bag by bag and 128 slides x 12 repeats in groups of 4), every
+   launch count 0 before and read after, each with K1 timed on the same
+   inputs: the masks bitwise their twin, every compaction variant bitwise
+   its twin (``noonehot`` within 1e-2: f32 row sums in another order) and,
+   where it keeps the result, K1's twin's, the twins timed; K2/K3 at L1
+   200, D 100 (zero-padded to 256, 128, the dropout hashed at the logical
+   widths) against the twin at the logical widths, bf16 mixed and f32 with
+   dh, dropout 0.25.
 4. Decodes JPEG tiles on the card with nvJPEG (``nvjpeg_path``): the
    committed fixture's tiles against PIL's decode, within
    ``FIXTURE_BOUND``, their rate, and a JPEG-tiled TIFF read through
@@ -354,14 +372,14 @@ def run_plain(h, w, mask, dropout, seed, mix, cots, gated=True, need_dh=False):
                                             gated=gated, need_dh=need_dh)]
 
 
-def fused_inputs(b, dtype, gen, dev, masked: bool, n: int = N_MAIN):
+def fused_inputs(b, dtype, gen, dev, masked: bool, n: int = N_MAIN, l1: int = L1, d: int = D):
     import torch
 
     def r(*shape, sc=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * sc
 
-    w = [r(FIN, L1, sc=FIN ** -0.5), r(L1, sc=0.1), r(L1, D, sc=L1 ** -0.5), r(D, sc=0.1),
-         r(L1, D, sc=L1 ** -0.5), r(D, sc=0.1), r(D, sc=D ** -0.5), r((), sc=0.1)]
+    w = [r(FIN, l1, sc=FIN ** -0.5), r(l1, sc=0.1), r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1),
+         r(l1, d, sc=l1 ** -0.5), r(d, sc=0.1), r(d, sc=d ** -0.5), r((), sc=0.1)]
     h = r(b, n, FIN).to(dtype)
     lengths = torch.randint(min(600, n), n + 1, (b,), generator=gen, device=dev)
     mask = torch.arange(n, device=dev)[None, :] < lengths[:, None]
@@ -369,7 +387,7 @@ def fused_inputs(b, dtype, gen, dev, masked: bool, n: int = N_MAIN):
         mask = torch.ones_like(mask)
     perm = torch.randperm(b, generator=gen, device=dev)
     lam = 0.9 + 0.1 * torch.rand(b, generator=gen, device=dev)
-    cots = [r(b, L1), r(b, n, sc=0.1), r(b, n, sc=0.01)]
+    cots = [r(b, l1), r(b, n, sc=0.1), r(b, n, sc=0.01)]
     return h, w, mask, (perm, lam), cots
 
 
@@ -395,7 +413,7 @@ def trunk_keep_rate(dev) -> float:
     err = _cuda.library().murcl_fused_trunk_fwd(
         1, 1, ptr(o["h"]), None, None, ptr(o["wf"]), ptr(o["bf"]), ptr(o["wa"]), ptr(o["ba"]),
         ptr(o["wb"]), ptr(o["bb"]), ptr(o["wc"]), ptr(bc), None, ptr(o["mask"]), *drop,
-        ptr(xc), None, ptr(m), ptr(p), ptr(s), b, N_MAIN, FIN, L1, D, _cuda.stream())
+        ptr(xc), None, ptr(m), ptr(p), ptr(s), b, N_MAIN, FIN, L1, D, L1, D, _cuda.stream())
     _cuda.check(err, "keep-rate probe")
     torch.cuda.synchronize()
     return float((xc != 0).float().mean())
@@ -621,14 +639,22 @@ GONE_KERNELS = ("tiled_pool_tc",)
 # the probe library's kernels (the K2/K3 ablations in
 # csrc/fused_trunk_ablate.cu, their variant the second template argument: 1
 # pre-lean, 2 lean2, 3 dwc only; the overlap probe's modes in
-# csrc/wgmma_overlap.cu), each with HGMMA, but the overlap's vpu mode (1),
-# which holds no products; none of them in the kernel library
+# csrc/wgmma_overlap.cu; the one-hot compaction probes' instantiations in
+# csrc/compact_onehot.cu: group, band type, slab by compare, scatter or
+# constant), each with HGMMA, but PROBE_NO_MMA_KERNELS; none of them in the
+# kernel library
 ABLATION_KERNELS = tuple(f"{k}<{t}, {v}>" for t in ("__nv_bfloat16", "float")
                          for k, v in (("trunk_ablate_wg", 1), ("gates_fwd_ablate_wg", 1),
                                       ("gates_bwd_ablate_wg", 1), ("gates_bwd_ablate_wg", 3),
                                       ("dx_ablate_wg", 1))) + (
-    "dx_ablate_wg<__nv_bfloat16, 2>", "overlap_wg<0>", "overlap_wg<2>", "overlap_wg<3>")
-PROBE_NO_MMA_KERNELS = ("overlap_wg<1>",)
+    "dx_ablate_wg<__nv_bfloat16, 2>", "overlap_wg<0>", "overlap_wg<2>", "overlap_wg<3>") + tuple(
+    f"oh::onehot_wg<{g}, {t}, {m}>" for g, t, m in (
+        (1, "float", 0), (1, "float", 1), (1, "__nv_bfloat16", 0), (1, "__nv_bfloat16", 1),
+        (4, "__nv_bfloat16", 0), (4, "__nv_bfloat16", 1), (4, "__nv_bfloat16", 2)))
+# the probes without products: the overlap's vpu mode, the one-hot probes'
+# dmafloor copy (csrc/compact_onehot.cu) and the gate-mask writer
+# (csrc/gate_masks.cu)
+PROBE_NO_MMA_KERNELS = ("overlap_wg<1>", "oh::onehot_dmafloor", "gate_masks_kernel")
 
 
 def mangled(kernel: str) -> str:
@@ -1571,6 +1597,158 @@ def ablation_path(dev):
               f"dh={need_dh} dropout 0.25: rel err "
               + ", ".join(f"{n} {e:.2e}" for n, e in rels.items()))
         check(max(rels.values()) <= tol, f"K2/K3 at Fin {ABLATE_FIN}: {rels}")
+        del h, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
+# the compaction and dropout probes: the ports of the JAX package's
+# scripts/tpu_smoke.py mask writer (murcl_tpu_torch/scripts/dropout_smoke.py)
+# and of its one-hot compaction probes (dbg_compact_ablate.py,
+# dbg_grouped_ablate.py, dbg_grouped_gate.py), each variant under its own
+# launch count, at the JAX scripts' shapes
+PROBE_REPS = 5  # the scripts' timed calls, after one warm-up
+# each compaction script times K1 on its inputs (a warm-up and PROBE_REPS
+# calls); dropout_smoke runs K7 three times for its determinism and once
+# through its backward for d/dwc
+PROBE_PRODUCTION = {"compact": 3 * (1 + PROBE_REPS), "attention_pool_fwd": 4,
+                    "attention_pool_bwd": 1}
+NOONEHOT_TOL = 1e-2  # its tile sums of 128 rows in f32, taken in another order
+PADDED_TRUNK = (200, 100)  # K2/K3's L1 and D, zero-padded to 256 and 128
+
+
+def compaction_bound(bank, offs, ranks, nump, feat: int, window: int = 0):
+    """K1's bound (bytes) for the function on these inputs: the bank rows it
+    reads (each once; ``window``: the windows' first ``window`` rows,
+    dmafloor's copy), the indices, and the sub-bags written."""
+    import torch
+
+    b, nmax = ranks.shape
+    p = torch.arange(nmax, device=ranks.device)[None, :]
+    live = (p < window) if window else ((ranks >= 0) & (p < nump[:, None]))
+    read = torch.unique((offs[:, None] + p).expand(b, nmax)[live.expand(b, nmax)]).numel()
+    return bound(0, read * bank.shape[1] * 2 + nbytes(ranks, offs, nump)
+                 + b * feat * bank.shape[1] * 2, BF16_FLOPS)
+
+
+def compaction_probe_path(dev):
+    """The compaction and dropout probes: the four scripts at their JAX
+    shapes, every launch count 0 before and read after (each new kernel
+    must have launched, and the production kernels only as the scripts call
+    them: K1's line and K7's checks), each variant's output kept from its
+    last timed call. Then, not counted: the masks bitwise against their twin
+    (and the script's two checks: the keep rate within 0.02 of 0.75, d/dwc
+    within 1e-2 of the rebuild with the masks); each compaction variant
+    against its twin on the script's inputs, bitwise (``noonehot`` within
+    ``NOONEHOT_TOL`` relative Frobenius), those that keep the result also
+    bitwise K1's twin's, the twins timed; K2/K3 at ``PADDED_TRUNK`` (L1 and
+    D zero-padded) against the twin at the logical widths in bf16 (mixed)
+    and f32 (with dh), dropout 0.25, at the K2/K3 tolerances (dbc, which
+    cancels within each bag, of the twin's sum |ds|). Returns the kernel
+    rows' numbers."""
+    import torch
+
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.ops.compact import gather_compact_plain
+    from murcl_tpu_torch.ops.compact_probes import KEEPS_RESULT, PROBES, onehot_compact_plain
+    from murcl_tpu_torch.ops.gate_masks import gate_keep_masks_plain
+    from murcl_tpu_torch.ops.mixup import apply_mix
+    from murcl_tpu_torch.scripts import (dbg_compact_ablate, dbg_grouped_ablate,
+                                         dbg_grouped_gate, dropout_smoke)
+    from murcl_tpu_torch.scripts.probes import median_ms as timed
+
+    card = card_line()
+    scripts = {"compact": dbg_compact_ablate, "grouped": dbg_grouped_ablate,
+               "gate": dbg_grouped_gate}
+    kept = {k: {} for k in ("dropout", *scripts)}
+    _cuda.reset_launch_counts()
+    drop = dropout_smoke.run(str(dev), reps=PROBE_REPS, outs=kept["dropout"])
+    times = {k: m.run(str(dev), reps=PROBE_REPS, outs=kept[k]) for k, m in scripts.items()}
+    launches = {k: v for k, v in _cuda.LAUNCHES.items()
+                if k == "gate_masks" or k.startswith("onehot_")}
+    check(all(launches.values()), f"probe kernels not launched: {launches}")
+    production = {k: v for k, v in _cuda.LAUNCHES.items() if v and k not in launches}
+    check(production == PROBE_PRODUCTION, f"the probes' production launches: {production}, "
+          f"expected {PROBE_PRODUCTION}")
+    res = {"launches": launches, "times": times, "dropout": drop, "err": {}, "plain": {},
+           "bound": {}, "floor": {}}
+
+    # the masks against their twin
+    b, n, _, d = dropout_smoke.SHAPE
+    res["plain"]["gate_masks"], want = timed(lambda: gate_keep_masks_plain(
+        dropout_smoke.MASK_SEED, dropout_smoke.RATE, b, n, d, dev), dev, reps=1)
+    check(all(torch.equal(g, wv) for g, wv in zip(kept["dropout"]["masks"], want)),
+          "gate masks not bitwise their twin")
+    res["err"]["gate_masks"] = 0.0
+    res["bound"]["gate_masks"] = bound(0, 2 * b * n * d, BF16_FLOPS)
+    print(f"gate masks at {(b, n, d)} seed {dropout_smoke.MASK_SEED}: bitwise the twin, keep "
+          f"rate {drop['keep_rate'][0]:.4f} / {drop['keep_rate'][1]:.4f}, d/dwc rel "
+          f"{drop['grad_rel']:.2e}; writer {drop['ms']:.4f} ms vs twin "
+          f"{res['plain']['gate_masks']:.3f} ms ({card})")
+
+    # each compaction variant against its twin on the script's inputs
+    for script, mod in scripts.items():
+        bank, offs, ranks, nump = kept[script].pop("inputs")
+        slides = mod.SHAPE[0] if script != "compact" else 0
+        feat = mod.SHAPE[-1]
+        k1 = gather_compact_plain(bank, offs, ranks, feat, nump)
+        fn_bound = compaction_bound(bank, offs, ranks, nump, feat)
+        for v in mod.VARIANTS:
+            name = f"onehot_{script}_{v}"
+            probe = PROBES[script][v]
+            res["plain"][name], want = timed(lambda: onehot_compact_plain(
+                probe, bank, offs, ranks, feat, nump, slides), dev, reps=1)
+            got = kept[script].pop(v)
+            if v == "noonehot":
+                err = rel_err(got.float(), want.float())
+                check(err <= NOONEHOT_TOL, f"{name}: rel err {err}")
+            else:
+                check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                      f"{name} not bitwise its twin")
+            if (script, v) in KEEPS_RESULT:
+                check(torch.equal(got, k1), f"{name} not bitwise K1's twin")
+            res["err"][name] = float((got.float() - want.float()).abs().max())
+            res["bound"][name] = (compaction_bound(bank, offs, ranks, nump, feat, feat)
+                                  if probe.dmafloor else fn_bound)
+            bsz, nmax = ranks.shape
+            if probe.dmafloor:  # its own bytes: each window (a group's once) read, F rows written
+                rows = bsz // probe.group * nmax
+                res["floor"][name] = bound(0, rows * bank.shape[1] * 2
+                                           + bsz * feat * bank.shape[1] * 2, BF16_FLOPS)
+            else:  # the one-hot products: a (256 x 128) by (128 x D) product per tile
+                res["floor"][name] = bound(bsz * (nmax // 128) * 2 * 256 * 128 * bank.shape[1],
+                                           0, BF16_FLOPS)
+            del got, want
+        print(f"{script} probes at {mod.SHAPE}: every variant against its twin (bitwise; "
+              f"noonehot {NOONEHOT_TOL:g}); K1 {times[script]['production']:.3f} ms, "
+              + ", ".join(f"{v} {times[script][v]:.3f}" for v in mod.VARIANTS)
+              + f" ms; function bound {fn_bound[0]:.3f} ms ({card})")
+        del bank, offs, ranks, nump, k1
+        torch.cuda.empty_cache()
+
+    # K2/K3 at L1 and D the kernels do not take (zero-padded by the op)
+    l1, d = PADDED_TRUNK
+    res["padded_trunk"] = {}
+    for dtype, tol, mixed, need_dh in ((torch.bfloat16, 2e-2, True, False),
+                                       (torch.float32, 1e-4, False, True)):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        h, w, mask, mix, cots = fused_inputs(8, dtype, gen, dev, True, l1=l1, d=d)
+        got = run_fused(h, w, mask, 0.25, 77, mix if mixed else None, cots, True, need_dh)
+        want = run_plain(h, w, mask, 0.25, 77, mix if mixed else (None, None), cots, True,
+                         need_dh)
+        names = ["M", "p", "s", "dwf", "dbf", "dwa", "dba", "dwb", "dbb", "dwc", "dbc", "dh"]
+        rels = {nm: rel_err(g, wv) for nm, g, wv in zip(names, got, want) if nm != "dbc"}
+        # dbc = sum ds cancels within each bag: held, as the ablation path
+        # holds it, against the scale of its rounding error, sum |ds|
+        abs_ds = trunk_abs_ds(apply_mix(h, *mix) if mixed else h, w, mask, want[1], *cots, 0.25,
+                              77)
+        rels["dbc"] = float((got[10] - want[10]).abs()) / abs_ds
+        print(f"K2/K3 at L1 {l1}, D {d} (zero-padded to 256, 128) {dtype} mixed={mixed} "
+              f"dh={need_dh} dropout 0.25: rel err "
+              + ", ".join(f"{nm} {e:.2e}" for nm, e in rels.items()) + " (dbc of sum |ds|)")
+        check(max(rels.values()) <= tol, f"K2/K3 at L1 {l1}, D {d}: {rels}")
+        res["padded_trunk"]["float32" if dtype == torch.float32 else "bfloat16"] = max(
+            rels.values())
         del h, got, want
     torch.cuda.empty_cache()
     return res
@@ -3598,6 +3776,40 @@ def ablation_rows(abl) -> list:
     return rows
 
 
+def compaction_rows(cp) -> list:
+    """The kernels line's rows of the compaction and dropout probes
+    (:func:`compaction_probe_path`): each variant's ms at its script's shape
+    beside its twin's and its function's bound (bytes: K1's rule; dmafloor's
+    function the windows' first rows copied), K1's ms on the same inputs
+    (``production_ms``), the formulation's floor (``formulation_floor_ms``:
+    the one-hot products at the bf16 peak, dmafloor's own bytes), launches
+    from the path's run, ``max_abs_err`` from the same calls against their
+    twins."""
+    base = "murcl_tpu_torch/csrc/"
+    sites = {"compact": "scripts/dbg_compact_ablate.py:160", "grouped":
+             "scripts/dbg_grouped_ablate.py:176", "gate": "scripts/dbg_grouped_gate.py:187"}
+    b_ms, b_by = cp["bound"]["gate_masks"]
+    rows = [{"name": "gate_masks", "route": "cuda", "source": base + "gate_masks.cu",
+             "replaces": "scripts/tpu_smoke.py:101 (mask_kernel :96-99)",
+             "launches": cp["launches"]["gate_masks"], "max_abs_err": cp["err"]["gate_masks"],
+             "ms": cp["dropout"]["ms"], "plain_ms": cp["plain"]["gate_masks"], "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None, "keep_rate": cp["dropout"]["keep_rate"],
+             "wc_grad_rel": cp["dropout"]["grad_rel"]}]
+    for script, times in cp["times"].items():
+        for v, ms in times.items():
+            if v == "production":
+                continue
+            name = f"onehot_{script}_{v}"
+            b_ms, b_by = cp["bound"][name]
+            rows.append({"name": name, "route": "cuda", "source": base + "compact_onehot.cu",
+                         "replaces": f"{sites[script]} ({v})", "launches": cp["launches"][name],
+                         "max_abs_err": cp["err"][name], "ms": ms, "plain_ms": cp["plain"][name],
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                         "production_ms": times["production"],
+                         "formulation_floor_ms": cp["floor"][name][0]})
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -3694,6 +3906,9 @@ def main() -> int:
     t0 = time.time()
     abl = ablation_path(dev)
     print(f"ablation phase in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cprobe = compaction_probe_path(dev)
+    print(f"compaction probe phase in {time.time() - t0:.1f} s")
 
     work = REPO / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -3789,6 +4004,9 @@ def main() -> int:
             row["f32"] = {k[len(side) + 1:]: v for k, v in f32.items() if k.startswith(side)}
             row["f32"]["max_rel"] = f32["max_rel"]
             row["f32"]["max_abs_err"] = f32[f"max_abs_err_{side}"]
+            # L1 200, D 100, zero-padded by the op: the largest relative
+            # Frobenius error of the forward and backward against the twin
+            row["padded_l1_d_max_rel"] = cprobe["padded_trunk"]
             if ab:  # the op timed in turns beside the parent's, ms per side run
                 key = "k2" if row["name"].endswith("fwd") else "k3"
                 row["ab_ms"] = [s[key + "_ms"] for s in ab["this"]]
@@ -3836,7 +4054,7 @@ def main() -> int:
                                           "autograd_plain_ms")})
             row["modes"] = (f"{', '.join(f'({b}, {d})' for b, d in NTXENT_SHAPES)} x 2 f32, with "
                             f"and without a zero row; timed at ({BATCH}, 128)")
-    kernels += ablation_rows(abl)
+    kernels += ablation_rows(abl) + compaction_rows(cprobe)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -144,19 +144,24 @@ int split_inputs(const void*& h, const void* perm, const void* lam, const void*&
 // The flagged elements of the trunk, a warp per 32 (row, 128-column pass)
 // entries of the masks: for each entry with a flag, the warp stages the
 // bag's row, mixed as split_kernel mixes it, in shared memory, and for each
-// flagged column Wf's column; then one lane takes z again as their f32 dot
-// product, one fused multiply-add after another from k = 0, as an f32 matrix
-// product accumulates (the twin's): a sum in another order rounds
-// otherwise, and where |z| is about 1e-7 can land on the other side of 0
-// than the twin's. Then xc = drop(relu(z + bf)) as the trunk's epilogue
-// takes it, written over xc's two planes, so relu and the backward's relu'
-// see the f32 product's side of 0. A kernel of its own: in the epilogue
-// each such 512-term chain of loads would hold its warpgroup for
-// microseconds (the trunk ran at 31 TFLOP/s so), and a thread an entry
-// reading device memory took 4 ms a call at the main shape. With dpp, the
-// pass's dp partial of the row gets the change of xc . gm from the lane
-// that owns the entry, so dp stays a sum in a fixed order (no atomics on
-// dh's path). 2 Fin floats of shared memory a warp.
+// flagged column Wf's column; then the warp takes z again as their dot
+// product in float64, each lane a stride of the Fin terms (a product of two
+// f32 values is exact there), the lanes' sums added by shuffles, and z + bf
+// rounded to f32 once: its side of 0 is the exact product's wherever |z|
+// exceeds about 1e-15. The f32 twin takes the same elements again in
+// float64 (ops/attention.py _trunk_z), so the two agree on relu's side of 0:
+// two f32 sums in different orders put a z of 2.7e-7 on different sides
+// (one lane's chain of f32 multiply-adds from k = 0, this kernel's design
+// before, against cuBLAS's f32 product at L1 200 and 256, moving dWf by
+// 1.2e-4). Then xc = drop(relu(z + bf)) as the trunk's epilogue takes it,
+// written over xc's two planes, so relu and the backward's relu' see that
+// side of 0. A kernel of its own: in the epilogue each such 512-term
+// product would hold its warpgroup for microseconds (the trunk ran at 31
+// TFLOP/s so), and a thread an entry reading device memory took 4 ms a call
+// at the main shape. With dpp, the pass's dp partial of the row gets the
+// change of xc . gm from the lane that owns the entry, so dp stays a sum in
+// a fixed order (no atomics on dh's path). 2 Fin floats of shared memory a
+// warp.
 constexpr int kRefineWarps = 4;
 
 __global__ void __launch_bounds__(32 * kRefineWarps)
@@ -196,15 +201,15 @@ refine_kernel(Refine rf, const int64_t* __restrict__ perm, const float* __restri
         __syncwarp();  // the last column's reads of bv are done
         for (int i = lane; i < Fin; i += 32) bv[i] = rf.wft[(size_t)col * Fin + i];
         __syncwarp();
+        double sum = 0.0;
+        for (int i = lane; i < Fin; i += 32) sum = fma((double)av[i], (double)bv[i], sum);
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(murcl::kFull, sum, o);
         if (lane != 0) continue;
-        float sum = 0.f;
-#pragma unroll 8  // shared-memory reads ahead of the chain of multiply-adds
-        for (int i = 0; i < Fin; ++i) sum = fmaf(av[i], bv[i], sum);
-        const float z = sum + bf[col];
+        const float z = (float)(sum + (double)bf[col]);
         float x;
         if (dp.on) {
           const bool keep = murcl::dropout_bits(murcl::bag_key(dp.seed, bag, 0),
-                                                (uint32_t)row * L1 + col) >= dp.thresh;
+                                                (uint32_t)row * dp.l1 + col) >= dp.thresh;
           x = __fmul_rn(z, z > 0.f && keep ? dp.scale : 0.f);
         } else {
           x = fmaxf(z, 0.f);
@@ -495,13 +500,15 @@ int zero_grads(void* dwf, void* dbf, void* dwa, void* dba, void* dwb, void* dbb,
 // Scratch (see fwd_wg). bf16 bags: xc (B, N, L1), hm the mixed bag (B, N,
 // Fin) when mixed, else null, x3 null. f32 bags: xc (2, B, N, L1) and hm (2,
 // B, N, Fin) bf16, x3 4 (Fin L1 + 2 L1 D) + B N L1 / 8 + 4 (B N + L1 + L1
-// Fin) bytes.
+// Fin) bytes. L1 and D are the kernels' widths (multiples of 128: the
+// wrappers zero-pad the weights), L1l and Dl the logical ones, the dropout
+// hash's row strides (Dropout).
 MURCL_API int murcl_fused_trunk_fwd(TRUNK_FWD_API_PARAMS) {
   return fused_trunk_fwd_with(TrunkKernels{}, TRUNK_FWD_API_ARGS);
 }
 
 int fused_trunk_fwd_with(const TrunkKernels& k, TRUNK_FWD_API_PARAMS) {
-  const Dropout dp{use_dropout, seed, thresh, scale};
+  const Dropout dp{use_dropout, seed, thresh, scale, L1l, Dl};
   auto strm = (cudaStream_t)stream;
   if (is_bf16)
     return fwd_wg<bf16>(k, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, x3, mask, dp, gated, xc,
@@ -519,7 +526,7 @@ MURCL_API int murcl_fused_trunk_bwd(TRUNK_BWD_API_PARAMS) {
 }
 
 int fused_trunk_bwd_with(const TrunkKernels& k, int skip, TRUNK_BWD_API_PARAMS) {
-  const Dropout dp{use_dropout, seed, thresh, scale};
+  const Dropout dp{use_dropout, seed, thresh, scale, L1l, Dl};
   auto strm = (cudaStream_t)stream;
   const int err = zero_grads(dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, Fin, L1, D, strm);
   if (err) return err;

@@ -28,10 +28,10 @@ struct TrunkKernels {
       const void *bf, const void *wa, const void *ba, const void *wb, const void *bb,          \
       const void *wc, const void *bc, void *x3, const void *mask, int use_dropout,             \
       uint32_t seed, uint32_t thresh, float scale, void *xc, void *hm, void *m, void *p,       \
-      void *s, int B, int N, int Fin, int L1, int D, void *stream
+      void *s, int B, int N, int Fin, int L1, int D, int L1l, int Dl, void *stream
 #define TRUNK_FWD_API_ARGS                                                                     \
   is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, x3, mask, use_dropout, seed,   \
-      thresh, scale, xc, hm, m, p, s, B, N, Fin, L1, D, stream
+      thresh, scale, xc, hm, m, p, s, B, N, Fin, L1, D, L1l, Dl, stream
 #define TRUNK_BWD_API_PARAMS                                                                   \
   int is_bf16, int gated, const void *h, const void *perm, const void *lam, const void *wf,    \
       const void *bf, const void *wa, const void *ba, const void *wb, const void *bb,          \
@@ -39,11 +39,11 @@ struct TrunkKernels {
       uint32_t thresh, float scale, const void *p, const void *gm, const void *gp,             \
       const void *gs, void *hm, void *xc, void *dpv, void *dzab, void *dz, void *dh,           \
       void *dwf, void *dbf, void *dwa, void *dba, void *dwb, void *dbb, void *dwc, void *dbc,  \
-      int B, int N, int Fin, int L1, int D, void *stream
+      int B, int N, int Fin, int L1, int D, int L1l, int Dl, void *stream
 #define TRUNK_BWD_API_ARGS                                                                     \
   is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, x3, mask, use_dropout, seed,       \
       thresh, scale, p, gm, gp, gs, hm, xc, dpv, dzab, dz, dh, dwf, dbf, dwa, dba, dwb, dbb,   \
-      dwc, dbc, B, N, Fin, L1, D, stream
+      dwc, dbc, B, N, Fin, L1, D, L1l, Dl, stream
 
 // The backward's passes that an ablation skips (fused_trunk_bwd_with's
 // `skip`): kSkipWgrad both weight-gradient passes (dWf, dbf, dWa, dba, dWb
@@ -62,10 +62,16 @@ __attribute__((visibility("hidden"))) int fused_trunk_bwd_with(const TrunkKernel
 
 namespace {
 
+// The keep bits of element (row, col) hash index row * stride + col, the
+// strides the logical L1 (trunk, dx chain) and D (gates): at widths the
+// wrappers zero-padded to 128 (ops/attention.py pad_trunk_widths) every
+// real unit keeps the twin's bit, and a padded unit's bit, which lands on
+// another index, meets a value that is 0 whatever it is.
 struct Dropout {
   int on;
   uint32_t seed, thresh;
   float scale;  // 1 / (1 - rate) in f32; rounded to T at each use
+  int l1, d;    // the hash's row strides: the logical L1 and D
 };
 
 // The bodies' variants (the ablations' in fused_trunk_ablate.cu, the ports
@@ -235,8 +241,8 @@ __device__ __forceinline__ void trunk_body(TRUNK_PARAMS(BMAP)) {
       // the keep bits of pass (t, n0), made one pass ahead of the mixing
       auto bits = [&](int t, int n0) {
         const int bag = t / tiles;
-        wg::make_bits(pipe, murcl::bag_key(dp.seed, bag, 0), 0, false, L1, (t % tiles) * BM, n0,
-                      dp.thresh, mt);
+        wg::make_bits(pipe, murcl::bag_key(dp.seed, bag, 0), 0, false, dp.l1, (t % tiles) * BM,
+                      n0, dp.thresh, mt);
       };
       if (dp.on && (int)blockIdx.x < tiles * B) bits(blockIdx.x, 0);
       for (int t = blockIdx.x; t < tiles * B; t += gridDim.x) {
@@ -370,7 +376,7 @@ __device__ __forceinline__ void gates_fwd_body(GATES_FWD_PARAMS(BMAP)) {
     if (threadIdx.x == wg::PRODUCER)
       produce_gates(pipe, &xc_map, &wa_map, &wb_map, gated, B, N, L1, D, X3);
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
-      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
+      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N, dp.d);
     return;
   }
   wg::consumer_regs();
@@ -441,7 +447,7 @@ __device__ __forceinline__ void gates_bwd_body(GATES_BWD_PARAMS(BMAP)) {
     if (threadIdx.x == wg::PRODUCER)
       produce_gates(pipe, &xc_map, &wa_map, &wb_map, gated, B, N, L1, D, X3);
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
-      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N);
+      bits_passes(pipe, dp.seed, dp.thresh, 1, gated, gated ? 64 : BN, D, B, N, dp.d);
     return;
   }
   wg::consumer_regs();
@@ -570,7 +576,7 @@ __device__ __forceinline__ void dx_body(DX_PARAMS(BMAP)) {
             }
       }
     else if (dp.on && threadIdx.x >= wg::PRODUCER + 32)
-      bits_passes(pipe, dp.seed, dp.thresh, 0, false, BN, L1, B, N);
+      bits_passes(pipe, dp.seed, dp.thresh, 0, false, BN, L1, B, N, dp.l1);
     return;
   }
   wg::consumer_regs();

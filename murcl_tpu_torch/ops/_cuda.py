@@ -4,7 +4,8 @@ Each ``.cu`` source is compiled with ``nvcc`` for ``sm_90a`` by its own
 process, all started together, and the objects are linked into one shared
 library with a plain C interface, loaded with :mod:`ctypes`. The
 measurement probes (the ports of the JAX package's TPU probes,
-``murcl_tpu_torch/scripts/dbg_*.py``) build into a second library,
+``murcl_tpu_torch/scripts/dbg_*.py`` and ``dropout_smoke.py``) build into a
+second library,
 :func:`probe_library`, on a probe's first call: their sources
 (:data:`PROBE_SOURCES`) beside the production source they drive, so that
 no training path waits for their build. The library
@@ -68,6 +69,16 @@ LAUNCHES = {
     **{f"trunk_bwd_{v}": 0 for v in ("full", "nodrop", "nowgrad", "nodx", "recompute",
                                      "prelean", "lean2")},
     **{f"overlap_{m}": 0 for m in ("mxu", "vpu", "dep", "indep")},
+    # the ports of scripts/tpu_smoke.py's mask writer (ops/gate_masks.py)
+    # and of the one-hot compaction probes, dbg_compact_ablate.py,
+    # dbg_grouped_ablate.py and dbg_grouped_gate.py (ops/compact_probes.py),
+    # each variant under its own name
+    "gate_masks": 0,
+    **{f"onehot_compact_{v}": 0 for v in ("full", "dmafloor", "normw", "bf16acc", "leanoh",
+                                          "bf16lean")},
+    **{f"onehot_grouped_{v}": 0 for v in ("full", "dmafloor", "normw", "noonehot", "leanoh",
+                                          "chunk16")},
+    **{f"onehot_gate_{v}": 0 for v in ("copy", "nolive", "noinner", "nogate")},
 }
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
@@ -84,14 +95,15 @@ _SIGNATURES = {
     "murcl_ntxent_bwd": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _P],
     # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, bc, x3, mask,
     # use_dropout, seed, thresh, scale, xc_scratch, hm_scratch, m, p, s, B, N,
-    # Fin, L1, D, stream
+    # Fin, L1, D, L1l, Dl (the logical L1 and D), stream
     "murcl_fused_trunk_fwd": [_I, _I] + [_P] * 13 + [_I, _U, _U, _F] + [_P] * 5
-    + [_I] * 5 + [_P],
+    + [_I] * 7 + [_P],
     # is_bf16, gated, h, perm, lam, wf, bf, wa, ba, wb, bb, wc, x3, mask,
     # use_dropout, seed, thresh, scale, p, gm, gp, gs, hm, xc, dp, dzab, dz,
-    # dh, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1, D, stream
+    # dh, dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc, B, N, Fin, L1, D, L1l, Dl,
+    # stream
     "murcl_fused_trunk_bwd": [_I, _I] + [_P] * 12 + [_I, _U, _U, _F] + [_P] * 18
-    + [_I] * 5 + [_P],
+    + [_I] * 7 + [_P],
     # is_bf16, gated, x, wa, ba, wb, bb, wc, bc, mask, use_dropout, seed,
     # thresh, scale, xpl, m, p, s, B, N, F, D, Dl (the logical D), stream
     "murcl_attention_pool_fwd": [_I, _I] + [_P] * 8 + [_I, _U, _U, _F] + [_P] * 4
@@ -111,7 +123,8 @@ _SIGNATURES = {
 
 # the probe library's sources: the probes' own, which the kernel library
 # leaves out, and fused_trunk.cu, whose passes the K2/K3 ablations run
-_PROBE_ONLY = ("fused_trunk_ablate.cu", "wgmma_overlap.cu")
+_PROBE_ONLY = ("fused_trunk_ablate.cu", "wgmma_overlap.cu", "gate_masks.cu",
+               "compact_onehot.cu")
 PROBE_SOURCES = ("fused_trunk.cu",) + _PROBE_ONLY
 _PROBE_SIGNATURES = {
     # variant, then murcl_fused_trunk_fwd's and murcl_fused_trunk_bwd's
@@ -119,6 +132,12 @@ _PROBE_SIGNATURES = {
     "murcl_fused_trunk_bwd_ablate": [_I] + _SIGNATURES["murcl_fused_trunk_bwd"],
     # mode, x, y, w, m_out, v_out, steps, N, stream
     "murcl_wgmma_overlap": [_I] + [_P] * 5 + [_I, _I, _P],
+    # seed, thresh, B, N, D, ka, kb, stream
+    "murcl_gate_masks": [_U, _U] + [_I] * 3 + [_P, _P, _P],
+    # group, acc_bf16, onehot, overwrite, tile_gate, live_gate, chunk_tiles,
+    # dmafloor, bank, bank_rows, offs, ranks, nump, out, B, nmax, feat, D,
+    # slides, stream
+    "murcl_compact_onehot": [_I] * 8 + [_P, _L] + [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib = _probe_lib = None
@@ -230,8 +249,9 @@ def library() -> ctypes.CDLL:
 
 
 def probe_library() -> ctypes.CDLL:
-    """The loaded probe library (built on first call): the K2/K3 ablations
-    and the overlap probe, off every training path."""
+    """The loaded probe library (built on first call): the K2/K3 ablations,
+    the overlap probe, the gate-mask writer and the one-hot compaction
+    probes, off every training path."""
     global _probe_lib
     with _probe_lock:
         if _probe_lib is None:

@@ -30,8 +30,10 @@ agrees with the JAX package at dropout 0 only.)
 
 An ``h`` that requires grad gets ``dh = dz @ Wf^T`` (the TPU kernel's
 ``need_dh=True``, ``attention_pallas.py:797-800``), rounded to the bag dtype.
-The TPU kernel takes any Fin; the port's kernels take Fin in multiples of 64
-(128 with dh), and the wrappers zero-pad the rest (:func:`pad_trunk_fin`).
+The TPU kernel takes any width; the port's kernels take Fin in multiples of
+64 (128 with dh) and L1 and D in multiples of 128, and the wrappers zero-pad
+the rest (:func:`pad_trunk_fin`, :func:`pad_trunk_widths`), the dropout hash
+keeping the logical L1 and D as its row strides.
 With ``mix`` the bags must be data: the partner bag's share of ``dh`` would
 need a scatter, so the op refuses an ``h`` that requires grad, as
 ``attention_pallas.py:647-650`` does.
@@ -147,21 +149,49 @@ def _kept(v, k, lean: bool):
     return v * (k != 0).to(v.dtype) * k.amax()
 
 
-def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated=True, lean=True):
+# csrc/fused_trunk.cu kRefine: the f32 route takes z again where |z| is at
+# most this times ||h row|| ||Wf column||
+_REFINE = 2.0 ** -15
+
+
+def _trunk_z(h, wf, bf, dt):
+    """The trunk's pre-activations ``z = h @ Wf + bf``: in bf16 the product of
+    the rounded operands in f32; in float32 the f32 product and, where
+    ``|z|`` lies within ``2**-15 ||h row|| ||Wf column||`` of 0 (the
+    elements the kernels' f32 route flags), the dot product again in
+    float64, ``z + bf`` rounded to f32 once, as ``csrc/fused_trunk.cu``
+    ``refine_kernel`` takes it: relu and relu' then see the exact product's
+    side of 0 in both (two f32 sums in different orders can put a ``z`` of
+    1e-7 on different sides)."""
+    z = _mm(h, wf, dt) + bf
+    if dt != torch.float32:
+        return z
+    near = z.abs() <= _REFINE * h.norm(dim=-1, keepdim=True) * wf.norm(dim=0)
+    for idx in near.nonzero().split(1 << 16):
+        b, n, c = idx.unbind(1)
+        exact = (h[b, n].double() * wf[:, c].T.double()).sum(-1) + bf[c].double()
+        z[b, n, c] = exact.float()
+    return z
+
+
+def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated=True, lean=True, hash_l1=None,
+           hash_d=None):
     """Shared forward/backward recompute: ``(xc, mzx, a, g, a_eff, g_eff, ka,
     kb)``; ``g``, ``g_eff`` and ``kb`` are None when ungated.
 
     ``mzx`` folds relu' with the trunk keep mask (the backward's dz factor).
     ``lean=False`` takes the dropout products as the ablations' pre-lean
     chains do (:func:`_kept`): xc as ``rnd(relu(z))`` by the keep bit, then
-    by the scale.
+    by the scale. ``hash_l1`` / ``hash_d``: the trunk's and the gates'
+    dropout hash row strides, L1 and D unless given (the kernels' at widths
+    zero-padded by :func:`pad_trunk_widths`).
     """
     dt = h.dtype
     b, n, _ = h.shape
     l1, d = wf.shape[1], wa.shape[1]
-    z = _mm(h, wf, dt) + bf
+    z = _trunk_z(h, wf, bf, dt)
     if dropout > 0:
-        kx = _keep_scale(seed, dropout, b, n, l1, 0, h.device, dt)
+        kx = _keep_scale(seed, dropout, b, n, l1, 0, h.device, dt, hash_l1)
         mzx = torch.where(z > 0, kx, torch.zeros((), dtype=dt, device=h.device))
         xc = z.to(dt) * mzx if lean else _kept(torch.relu(z).to(dt), kx, False)
     else:
@@ -172,23 +202,25 @@ def _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated=True, lean=True):
     ka = kb = None
     a_eff, g_eff = a, g
     if dropout > 0:
-        ka = _keep_scale(seed, dropout, b, n, d, 1, h.device, dt)
+        ka = _keep_scale(seed, dropout, b, n, d, 1, h.device, dt, hash_d)
         a_eff = _kept(a, ka, lean)
         if gated:
-            kb = _keep_scale(seed, dropout, b, n, d, 2, h.device, dt)
+            kb = _keep_scale(seed, dropout, b, n, d, 2, h.device, dt, hash_d)
             g_eff = _kept(g, kb, lean)
     return xc, mzx, a, g, a_eff, g_eff, ka, kb
 
 
 def fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout=0.0,
-                          seed=0, perm=None, lam=None, gated=True, lean=True):
+                          seed=0, perm=None, lam=None, gated=True, lean=True, hash_l1=None,
+                          hash_d=None):
     """Plain PyTorch forward (mirror of the TPU forward kernel): ``(M, p, s)``.
-    ``lean=False``: the pre-lean ablation's twin (:func:`_trunk`)."""
+    ``lean=False``: the pre-lean ablation's twin; ``hash_l1``, ``hash_d``:
+    the dropout hash's row strides (:func:`_trunk`)."""
     dt = h.dtype
     if perm is not None:
         h = apply_mix(h, perm, lam)
     xc, _, _, _, a_eff, g_eff, _, _ = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed, gated,
-                                             lean)
+                                             lean, hash_l1, hash_d)
     u = a_eff * g_eff if gated else a_eff
     s = (u.float() @ wc.to(dt).float()) + bc
     p = torch.softmax(torch.where(mask, s, torch.full_like(s, _NEG_INF)), dim=-1)
@@ -198,13 +230,14 @@ def fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout=0.0,
 
 def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
                           dropout=0.0, seed=0, perm=None, lam=None, gated=True,
-                          need_dh=False, variant="full"):
+                          need_dh=False, variant="full", hash_l1=None, hash_d=None):
     """Plain PyTorch backward (mirror of the TPU backward kernel):
     ``(dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)`` in float32, summed over bags
     (``dwb``/``dbb`` zeros when ungated), and with ``need_dh`` a ninth entry,
     ``dh`` in the bag dtype. ``variant`` names an ablation's twin
     (:data:`TRUNK_BWD_VARIANTS`): the passes it skips leave their gradients
-    zero, and ``prelean`` and ``lean2`` move roundings as their kernels do."""
+    zero, and ``prelean`` and ``lean2`` move roundings as their kernels do.
+    ``hash_l1``, ``hash_d``: the dropout hash's row strides (:func:`_trunk`)."""
     if variant not in TRUNK_BWD_VARIANTS:
         raise ValueError(f"fused_trunk_plain_bwd: no variant {variant!r}")
     dt = h.dtype
@@ -214,7 +247,7 @@ def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
     if perm is not None:
         h = apply_mix(h, perm, lam)
     xc, mzx, a, g, a_eff, g_eff, ka, kb = _trunk(h, wf, bf, wa, ba, wb, bb, dropout, seed,
-                                                 gated, lean)
+                                                 gated, lean, hash_l1, hash_d)
     u = a_eff * g_eff if gated else a_eff
 
     dp = (xc.float() @ gm.to(dt).float().unsqueeze(-1)).squeeze(-1) + gp
@@ -330,17 +363,36 @@ def pad_trunk_fin(h, wf, need_dh: bool = False):
     return pad(h, (0, fp - fin)), pad(wf, (0, 0, 0, fp - fin))
 
 
+def pad_trunk_widths(wf, bf, wa, ba, wb, bb, wc):
+    """K2/K3's weights at widths the kernels take: L1 and D zero-padded to
+    multiples of 128 (Wf's columns and ``bf`` to L1; Wa's and Wb's rows to
+    L1 and columns to D; ``ba``, ``bb`` and ``wc`` to D), each as given
+    where its widths are already so (the CLIs' 512 -> 256 and 512 -> 384
+    copy nothing). Exact: a padded trunk unit has ``relu(0 + 0) = 0`` and
+    meets a zero row of Wa and Wb; a padded gate has ``tanh(0) sigmoid(0)
+    = 0`` and meets ``wc = 0``. The kernels hash the dropout at the logical
+    L1 and D (the twins' ``hash_l1``, ``hash_d``), so every real unit keeps
+    its bit; the gradients are sliced back."""
+    l1, d = wa.shape
+    lp, dp = _padded(l1), _padded(d)
+    if (lp, dp) == (l1, d):
+        return wf, bf, wa, ba, wb, bb, wc
+    pad = torch.nn.functional.pad
+    wf, bf = pad(wf, (0, lp - l1)), pad(bf, (0, lp - l1))
+    wa, wb = (pad(w, (0, dp - d, 0, lp - l1)) for w in (wa, wb))
+    ba, bb, wc = (pad(v, (0, dp - d)) for v in (ba, bb, wc))
+    return wf, bf, wa, ba, wb, bb, wc
+
+
 def _check_shapes(name, h, wf, wa, need_dh=False):
-    """K2/K3's rule: L1 and D multiples of 128 (the column passes; any Fin,
-    zero-padded by :func:`pad_trunk_fin`) and the tiles' shared memory at
-    the padded Fin."""
+    """K2/K3's rule: the tiles' shared memory at the widths the kernels take
+    (any Fin, L1 and D, zero-padded by :func:`pad_trunk_fin` and
+    :func:`pad_trunk_widths`)."""
     b, n, fin = h.shape
     l1, d = wf.shape[1], wa.shape[1]
     if h.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name}: bags must be float32 or bfloat16")
-    if l1 % _TN or d % _TN:
-        raise ValueError(f"{name}: needs L1, D multiples of {_TN} (got {fin}, {l1}, {d})")
-    smem = trunk_tile_smem(n, trunk_fin(fin, need_dh), l1, d, h.dtype)
+    smem = trunk_tile_smem(n, trunk_fin(fin, need_dh), _padded(l1), _padded(d), h.dtype)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"{name}: tiles need {smem} bytes of shared memory at (N, Fin, L1, "
                          f"D) = ({n}, {fin}, {l1}, {d}) in {h.dtype}")
@@ -387,7 +439,9 @@ def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam,
     its own name."""
     name = "fused_trunk_attention_pool"
     _check_shapes(name, h, wf, wa)
+    l1_l, d_l = wa.shape
     h, wf = pad_trunk_fin(h, wf)
+    wf, bf, wa, ba, wb, bb, wc = pad_trunk_widths(wf, bf, wa, ba, wb, bb, wc)
     o, drop = _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed)
     bc32 = bc.to(torch.float32).reshape(1).contiguous()
     _cuda.require_cuda(name, *[t for t in o.values() if t is not None], bc32)
@@ -407,7 +461,7 @@ def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam,
     args = (int(h.dtype == torch.bfloat16), int(gated), _p(o["h"]), _p(o["perm"]), _p(o["lam"]),
             _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
             _p(o["wc"]), _p(bc32), _p(x3), _p(o["mask"]), *drop, _p(xc), _p(hm), _p(m), _p(p),
-            _p(s), b, n, fin, l1, d, _cuda.stream())
+            _p(s), b, n, fin, l1, d, l1_l, d_l, _cuda.stream())
     if variant is None:
         _cuda.check(_cuda.library().murcl_fused_trunk_fwd(*args), name)
         _cuda.LAUNCHES["fused_trunk_fwd"] += 1
@@ -415,7 +469,7 @@ def _fwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout, seed, perm, lam,
         _cuda.check(_cuda.probe_library().murcl_fused_trunk_fwd_ablate(
             TRUNK_FWD_VARIANTS[variant], *args), name)
         _cuda.LAUNCHES[f"trunk_fwd_{variant}"] += 1
-    return m, p, s
+    return _unpad(m, l1_l), p, s
 
 
 def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
@@ -425,8 +479,10 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
     counted under its own name."""
     name = "fused_trunk_attention_pool backward"
     _check_shapes(name, h, wf, wa, need_dh)
-    fin_l = h.shape[-1]
+    fin_l, (l1_l, d_l) = h.shape[-1], wa.shape
     h, wf = pad_trunk_fin(h, wf, need_dh)
+    wf, bf, wa, ba, wb, bb, wc = pad_trunk_widths(wf, bf, wa, ba, wb, bb, wc)
+    gm = torch.nn.functional.pad(gm, (0, wa.shape[0] - l1_l)) if wa.shape[0] != l1_l else gm
     if variant == "nodrop":
         dropout = 0.0
     o, drop = _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed)
@@ -457,7 +513,7 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
             _p(o["wf"]), _p(o["bf"]), _p(o["wa"]), _p(o["ba"]), _p(o["wb"]), _p(o["bb"]),
             _p(o["wc"]), _p(x3), _p(o["mask"]), *drop, _p(p), _p(gm), _p(gp), _p(gs), _p(hm),
             _p(xc), _p(dpv), _p(dza), _p(dz), _p(dh), _p(dwf), _p(dbf), _p(dwa), _p(dba),
-            _p(dwb), _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d, _cuda.stream())
+            _p(dwb), _p(dbb), _p(dwc), _p(dbc), b, n, fin, l1, d, l1_l, d_l, _cuda.stream())
     if variant is None:
         _cuda.check(_cuda.library().murcl_fused_trunk_bwd(*args), name)
         _cuda.LAUNCHES["fused_trunk_bwd"] += 1
@@ -466,8 +522,11 @@ def _bwd_cuda(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, dropout, seed,
             TRUNK_BWD_VARIANTS[variant], *args), name)
         _cuda.LAUNCHES[f"trunk_bwd_{variant}"] += 1
     if fin != fin_l:
-        dwf = dwf[:fin_l]
         dh = _unpad(dh, fin_l) if need_dh else dh
+    if (fin, l1, d) != (fin_l, l1_l, d_l):
+        dwf, dwa, dwb = (w[:r, :c].contiguous() for w, r, c in
+                         ((dwf, fin_l, l1_l), (dwa, l1_l, d_l), (dwb, l1_l, d_l)))
+        dbf, dba, dbb, dwc = dbf[:l1_l], dba[:d_l], dbb[:d_l], dwc[:d_l]
     grads = (dwf, dbf, dwa, dba, dwb, dbb, dwc, dbc)
     return grads + (dh,) if need_dh else grads
 

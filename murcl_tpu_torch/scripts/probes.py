@@ -1,6 +1,7 @@
 """What the ports of the JAX package's TPU probes share (``dbg_bwd_ablate``,
-``dbg_vpu_lean``, ``dbg_mxu_vpu_overlap``): the device rule, the timer and
-the trunk probes' inputs.
+``dbg_vpu_lean``, ``dbg_mxu_vpu_overlap``, ``dbg_compact_ablate``,
+``dbg_grouped_ablate``, ``dbg_grouped_gate``, ``dropout_smoke``): the device
+rule, the timer and the trunk and compaction probes' inputs.
 
 Each probe runs on ``cuda:0`` unless told otherwise; with ``--device cpu`` it
 runs the kernels' plain twins at the size the caller gives, timed by the
@@ -13,6 +14,7 @@ from __future__ import annotations
 import statistics
 import time
 
+import numpy as np
 import torch
 
 
@@ -80,3 +82,31 @@ def trunk_inputs(shape, dtype, dev, seed: int = 0):
     p = torch.full((b, n), 1.0 / n, **f32)
     cots = (r(b, l1, sc=0.1), torch.zeros(b, n, **f32), torch.zeros(b, n, **f32))
     return h, w, mask, p, cots
+
+
+BANK_SLIDES = 64  # the compaction probes' bank: this many windows, and one more
+
+
+def compact_inputs(b: int, nmax: int, d: int, feat: int, dev, slides: int = 0):
+    """The JAX compaction probes' operands (``scripts/dbg_compact_ablate.py``
+    ``:56-64``, ``dbg_grouped_ablate.py`` and ``dbg_grouped_gate.py``
+    ``:53-62``), drawn from ``np.random.default_rng(0)`` in their order: the
+    bank, ``(64 nmax + nmax, d)`` normals times 0.3 in bf16; each bag's
+    window at a random one of 64 slides (``slides`` given: the grouped
+    layout's ``slides`` windows, repeated ``b / slides`` times); the ranks,
+    the cumsum of a Bernoulli(feat / nmax) selection, cut at ``feat``
+    (int32, -1 unkept); ``nump`` ``nmax``. Returns ``(bank, offs, ranks,
+    nump)`` on ``dev``."""
+    rng = np.random.default_rng(0)
+    bank = torch.from_numpy(rng.normal(size=(BANK_SLIDES * nmax + nmax, d)) * 0.3)
+    if slides:
+        offs = np.tile(rng.integers(0, BANK_SLIDES, size=slides).astype(np.int32) * nmax,
+                       b // slides)
+    else:
+        offs = rng.integers(0, BANK_SLIDES, size=b) * nmax
+    sel = rng.random((b, nmax)) < (feat / nmax)
+    ranks = np.where(sel, np.cumsum(sel, axis=1) - 1, -1)
+    ranks = np.where(ranks >= feat, -1, ranks)
+    return (bank.to(torch.bfloat16).to(dev), torch.as_tensor(offs, dtype=torch.int64, device=dev),
+            torch.as_tensor(ranks, dtype=torch.int32, device=dev),
+            torch.full((b,), nmax, dtype=torch.int64, device=dev))

@@ -45,6 +45,14 @@ K2's pre-lean kernel bitwise
 its lean one; the overlap probe's four modes against their twins (2e-2 on
 the column sums: bf16 chains) and bitwise against each other where they
 share sums.
+K2/K3 at L1 200 and D 100, which the wrappers zero-pad to 256 and 128
+(``pad_trunk_widths``, the dropout hashed at the logical widths), against the
+twin at the logical widths, in both dtypes at dropout 0 and 0.25. The
+gate-mask writer (``ops/gate_masks.py``) bitwise against its twin; each
+variant of the one-hot compaction probes (``ops/compact_probes.py``) against
+its twin on windows of 512 rows, bags whose slides end at 512 and 300 rows,
+bitwise but ``noonehot`` (its row sums in f32 are taken in another order:
+1e-2 relative Frobenius), one launch under its own name.
 """
 
 import pytest
@@ -915,3 +923,69 @@ def test_overlap_modes_match_twins(dev):
     assert torch.equal(got["dep"][0], got["mxu"][0])
     assert torch.equal(got["indep"][0], got["mxu"][0])
     assert torch.equal(got["indep"][1], got["vpu"][1])
+
+
+# K2/K3 at L1 and D that are not multiples of 128: zero-padded by the
+# wrappers, the dropout hashed at the logical widths, the outputs sliced back,
+# against the twin at the logical widths
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("fin,gated,need_dh,mixed", [(512, True, False, True),
+                                                     (192, True, True, False),
+                                                     (512, False, False, False)])
+def test_fused_trunk_padded_widths_match_plain(dev, rate, dtype, tol, fin, gated, need_dh,
+                                               mixed):
+    _fused_edges(dev, dtype, tol, rate, fin, 200, 100, gated, need_dh, mixed,
+                 lengths=[1000, 129, 1], n=1000)
+
+
+@pytest.mark.parametrize("b,n,d", [(3, 70, 40), (8, 256, 256)])
+def test_gate_masks_match_twin(dev, b, n, d):
+    from murcl_tpu_torch.ops.gate_masks import gate_keep_masks, gate_keep_masks_plain
+
+    before = _cuda.LAUNCHES["gate_masks"]
+    got = gate_keep_masks(11, 0.25, b, n, d, dev)
+    assert _cuda.LAUNCHES["gate_masks"] == before + 1
+    for g, wv in zip(got, gate_keep_masks_plain(11, 0.25, b, n, d, dev)):
+        assert g.dtype == torch.bool and torch.equal(g, wv)
+
+
+def _onehot_inputs(dev, script):
+    """Windows of 512 rows at D 128, feat 384: 6 bags (compact), or 2 slides
+    x 4 repeats (grouped); slides end at 512 and 300 rows, the ranks past
+    them -1."""
+    from murcl_tpu_torch.scripts.probes import compact_inputs
+
+    slides = 0 if script == "compact" else 2
+    b = 6 if script == "compact" else 8
+    bank, offs, ranks, nump = compact_inputs(b, 512, 128, 384, dev, slides=slides)
+    ends = torch.tensor([512, 300], device=dev)[torch.arange(b, device=dev) % 2]
+    ranks = torch.where(torch.arange(512, device=dev)[None, :] < ends[:, None], ranks, -1)
+    return bank, offs, ranks.contiguous(), ends, slides
+
+
+_ONEHOT = [(s, v) for s, vs in (("compact", ("full", "dmafloor", "normw", "bf16acc", "leanoh",
+                                             "bf16lean")),
+                                ("grouped", ("full", "dmafloor", "normw", "noonehot", "leanoh",
+                                             "chunk16")),
+                                ("gate", ("copy", "nolive", "noinner", "nogate"))) for v in vs]
+
+
+@pytest.mark.parametrize("script,variant", _ONEHOT)
+def test_onehot_compaction_probes_match_twins(dev, script, variant):
+    from murcl_tpu_torch.ops.compact_probes import (KEEPS_RESULT, PROBES, onehot_compact,
+                                                    onehot_compact_plain)
+
+    bank, offs, ranks, nump, slides = _onehot_inputs(dev, script)
+    name = f"onehot_{script}_{variant}"
+    before = _cuda.LAUNCHES[name]
+    got = onehot_compact(script, variant, bank, offs, ranks, 384, nump, slides)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == before + 1
+    want = onehot_compact_plain(PROBES[script][variant], bank, offs, ranks, 384, nump, slides)
+    if variant == "noonehot":
+        assert _rel(got.float(), want.float()) <= 1e-2
+    else:
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if (script, variant) in KEEPS_RESULT:
+        assert torch.equal(got, gather_compact_plain(bank, offs, ranks, 384, nump))

@@ -9,10 +9,14 @@ many as fit up to 6, each with three 8-byte barriers, beside 1,024 bytes of
 alignment, the output staging and the kernels' f32 arrays) from
 ``trunk_plans``; every width the port's CLAM sizes give must fit one H100
 block's 232,448 bytes, and the float32 route takes every shape the FMA
-tiles it replaced took. ``_check_shapes`` raises, naming the shape, on an L1
-or D that is not a multiple of 128 (the kernels' column passes), on the
-meta device: no data and no card needed.
+tiles it replaced took. ``_check_shapes`` takes an L1 or D that is not a
+multiple of 128 (the kernels' column passes: the wrappers zero-pad them,
+``pad_trunk_widths``), reckoning its blocks at the padded widths, and raises,
+naming the shape, on bags whose pool pass does not fit; on the meta device:
+no data and no card needed.
 """
+
+import re
 
 import pytest
 import torch
@@ -26,22 +30,25 @@ def _operands(n, fin, l1, d, dtype):
             torch.empty(l1, d, **meta))
 
 
-@pytest.mark.parametrize("fin,l1,d,refused", [
-    (512, 512, 256, None),   # CLAM "small" at dim 512 (the bench.py shape)
-    (512, 512, 384, None),   # CLAM "big"
-    (1024, 512, 256, None),  # CLAM "small" at dim 1024 (ResNet-50 features)
-    (512, 192, 256, "(512, 192, 256)"),
-    (512, 512, 200, "(512, 512, 200)"),
+@pytest.mark.parametrize("n,fin,l1,d,refused", [
+    (1024, 512, 512, 256, None),   # CLAM "small" at dim 512 (the bench.py shape)
+    (1024, 512, 512, 384, None),   # CLAM "big"
+    (1024, 1024, 512, 256, None),  # CLAM "small" at dim 1024 (ResNet-50 features)
+    (1024, 512, 192, 256, None),   # padded to 256 -> 256
+    (1024, 512, 512, 200, None),   # padded to 512 -> 256
+    (1024, 512, 200, 100, None),   # padded to 256 -> 128
+    (60000, 512, 200, 100, "(60000, 512, 200, 100)"),  # the pool pass's 4 (N + 32) bytes
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_trunk_tiles_fit_and_refuse(fin, l1, d, refused, dtype):
-    h, wf, wa = _operands(1024, fin, l1, d, dtype)
+def test_trunk_tiles_fit_and_refuse(n, fin, l1, d, refused, dtype):
+    h, wf, wa = _operands(n, fin, l1, d, dtype)
     if refused:
-        with pytest.raises(ValueError, match=r"L1, D multiples of 128 \(got "
-                           + refused.strip("()") + r"\)"):
+        with pytest.raises(ValueError, match=r"shared memory at \(N, Fin, L1, D\) = "
+                           + re.escape(refused)):
             tat._check_shapes("fused_trunk_attention_pool", h, wf, wa)
         return
-    smem = tat.trunk_tile_smem(1024, fin, l1, d, dtype)
+    lp, dp = -(-l1 // 128) * 128, -(-d // 128) * 128
+    smem = tat.trunk_tile_smem(n, fin, lp, dp, dtype)
     assert smem <= tat._SMEM_LIMIT == 232448
     tat._check_shapes("fused_trunk_attention_pool", h, wf, wa, need_dh=True)
     if dtype == torch.bfloat16:  # the mixing trunk: 3 stages of bag, partner, Wf; staging
