@@ -18,9 +18,16 @@
    probes' dmafloor copy and the mask writer, which hold no products.
 3. Holds each kernel against its plain PyTorch twin on the card at the
    paths' per-bag shapes, and times both at the full shapes:
-   K1 compaction bitwise (f32, bf16) at the MuRCL stage-1 shape (one block
-   per bag) and at the supervised per-step shape (64 distinct slides, the
-   JAX package's K5; each bag's slots split over slot slices), both timed;
+   K1 compaction bitwise (f32, bf16) at every bag count the main paths
+   launch (``COMPACT_SHAPES``: 1536, MuRCL stage 1; 256, its stages 2/3;
+   384, supervised stage 1; 64 distinct slides, its stages 2/3, the JAX
+   package's K5, each bag's slots over two blocks), each timed in both
+   dtypes (one call by events, ten back to back, device time by
+   torch.profiler) beside its twin, its bound and ``torch.index_select`` of
+   the same live rows, and bitwise on ``tests/torch_compact_cases.py``'s
+   cases at D 512; then selection's breakdown (``select_probe_path``, the
+   port of ``scripts/dbg_select.py``), its launches and outputs held
+   against the twins;
    K6 mixup bitwise in bf16 at (1536, 1024, 512) and in f32 at (192, 1024,
    512); K4 NT-Xent loss, residual and grads <= 1e-5 at (128, 128), (256,
    128) and (128, 100) x 2 f32, with and without a zero row, K4's loss and
@@ -196,7 +203,8 @@
    (``ab_parent``): K7f and K7b at the supervised stage-1 shape and in
    ABMIL's mode in bf16 and in f32, K2 and K3 through the op at the timed
    call in bf16 and in f32, K8 at (1, 60416, 512) and (1, 12288, 512) in
-   f32 and bf16, and the steady steps of ``AB_STEPS``
+   f32 and bf16, K1 at ``COMPACT_SHAPES`` and a TCGA-like shape in both,
+   and the steady steps of ``AB_STEPS``
    (supervised CLAM_SB stage 1 in bf16, and in f32 stages 1 and 3;
    supervised ABMIL stage 1 f32; MuRCL ABMIL stage 1 in bf16 and f32; MuRCL
    CLAM_SB stage 1 f32), of the parent's tree and of this one in turns
@@ -216,8 +224,8 @@
    into the kernels line. Then ``--policy_conv`` with ``--streaming``: a
    MuRCL stage 2 and an RLMIL stage 2 whose checkpoints' conv policies load
    back; K1 bitwise against its twin on a staged mini-bank at ranks (1536,
-   10240) in f32 and bf16, timed beside its bound (the ``tcga_*`` fields of
-   the ``compact`` row); and steady stage-1 steps in turns, streaming and
+   10240) in f32 and bf16, timed in both beside its bound (the ``tcga_*``
+   fields of the ``compact`` row); and steady stage-1 steps in turns, streaming and
    resident, twice round, each batch 128 distinct slides as at TCGA's
    10,000+ slides: step ms, the host's staging ms per batch, the copy's
    bytes and GB/s (the feed's ``stage_log``), the peak device memory and,
@@ -419,76 +427,231 @@ def trunk_keep_rate(dev) -> float:
     return float((xc != 0).float().mean())
 
 
-def compact_bound(ranks, offs, nump):
-    """K1's bound in bf16: the bank rows this run reads (each once), the
-    indices, and the sub-bags written."""
+def compact_bound(ranks, offs, nump, esize: int, feat: int = N_MAIN, d: int = FIN):
+    """K1's bound at ``esize`` bytes an element: the bank rows this run
+    reads (each once), the indices, and the sub-bags written."""
     import torch
 
     p = torch.arange(ranks.shape[1], device=ranks.device)[None, :]
     live = (ranks >= 0) & (p < nump[:, None])
     read = torch.unique((offs[:, None] + p)[live]).numel()
-    return bound(0, read * FIN * 2 + nbytes(ranks, offs, nump)
-                 + ranks.shape[0] * N_MAIN * FIN * 2, BF16_FLOPS)
+    return bound(0, read * d * esize + nbytes(ranks, offs, nump)
+                 + ranks.shape[0] * feat * d * esize, BF16_FLOPS)
 
 
-def check_compaction(dev, gen):
+# K1's bag counts on the main paths: bags a launch -> (the path, launches a
+# step; ppo_sanity adds 484 a run at RL_BATCH)
+COMPACT_SHAPES = {B_MAIN: ("MuRCL stage 1", 1), 2 * BATCH: ("MuRCL stages 2/3", 6),
+                  POOL_BAGS: ("supervised stage 1", 1), RL_BATCH: ("supervised stages 2/3", 6)}
+COMPACTION_KEYS = ("ms", "b2b_ms", "device_ms", "plain_ms", "index_select_ms", "bound_ms",
+                   "bound_by", "share_of", "share")
+COMPACT_CASE_BAGS = (64, 200)  # tests/torch_compact_cases.py's cases at D 512: one wave, two
+TCGA_LIKE = (128, 3000, 10240, 12)  # slides, patches from .. to, bags a slide (2 views x T)
+
+
+def compaction_inputs(dev, gen):
+    """K1's operands at each of ``COMPACT_SHAPES``: a bank of ``SLIDES``
+    random slides of ``PATCHES`` x ``FIN`` (f32, K clusters), and the ranks
+    ``select_ranks`` draws for each path's bags, as the engines lay them
+    out: MuRCL stage 1 ``cat([ids, ids]).repeat(T)`` of ``BATCH`` ids, its
+    stages 2/3 ``cat([ids, ids])``, supervised stage 1 ``ids.repeat(T)`` of
+    ``RL_BATCH`` distinct slides, its stages 2/3 ``ids``. The bank, the ids
+    and the actions at ``B_MAIN`` and ``RL_BATCH`` bags come from ``gen`` in
+    the order the compaction check has always drawn them, so that the
+    checks after it draw the same inputs from ``gen`` as before; the other
+    two counts' actions from a generator of their own. Returns ``(feats,
+    {bags: (ranks, offs, nump)})``."""
+    import numpy as np
     import torch
 
     from murcl_tpu_torch.data.bank import bank_from_arrays
-    from murcl_tpu_torch.ops.compact import (_gather_compact_cuda, compact_slot_slice,
-                                             gather_compact_plain)
     from murcl_tpu_torch.ops.select import select_ranks
-    import numpy as np
 
     rng = np.random.default_rng(0)
     clusters = []
     for _ in range(SLIDES):
         a = rng.integers(0, K, size=PATCHES)
         clusters.append([np.flatnonzero(a == c).tolist() for c in range(K)])
-    feats = [np.zeros((PATCHES, FIN), np.float32)] * SLIDES
-    bank = bank_from_arrays(feats, clusters, [0] * SLIDES).to(dev)
-    bank.feats = torch.randn(bank.feats.shape, generator=gen, device=dev)
+    bank = bank_from_arrays([np.zeros((PATCHES, FIN), np.float32)] * SLIDES, clusters,
+                            [0] * SLIDES).to(dev)
+    own = torch.Generator(device=dev).manual_seed(3)
+    feats = torch.randn(bank.feats.shape, generator=gen, device=dev)
     ids = torch.randint(0, SLIDES, (BATCH,), generator=gen, device=dev)
-    flat = torch.cat([ids, ids]).repeat(T)
-    actions = torch.rand(B_MAIN, K, generator=gen, device=dev)
-    ranks, offs, _ = select_ranks(flat, bank.offsets, bank.num_patches, bank.cluster_sizes,
-                                  actions, bank.patch_cluster, bank.patch_pos, N_MAIN)
-    nump = bank.num_patches[flat]
-    res = {}
-    for dtype, view in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
-        feats_dt = bank.feats.to(dtype)
-        got = _gather_compact_cuda(feats_dt, offs, ranks, N_MAIN, nump)
-        want = gather_compact_plain(feats_dt, offs, ranks, N_MAIN, nump)
-        check(torch.equal(got.view(view), want.view(view)), f"K1 not bitwise ({dtype})")
-        del got, want
-        if dtype == torch.bfloat16:
-            res["ms"] = median_ms(lambda: _gather_compact_cuda(feats_dt, offs, ranks,
-                                                               N_MAIN, nump))
-            res["plain_ms"] = median_ms(lambda: gather_compact_plain(feats_dt, offs, ranks,
-                                                                     N_MAIN, nump))
-            res["bound_ms"], res["bound_by"] = compact_bound(ranks, offs, nump)
-    # the supervised per-step shape (the JAX package's K5): 64 distinct slides
-    ids = torch.randperm(SLIDES, generator=gen, device=dev)[:RL_BATCH]
-    actions = torch.rand(RL_BATCH, K, generator=gen, device=dev)
-    ranks, offs, _ = select_ranks(ids, bank.offsets, bank.num_patches, bank.cluster_sizes,
-                                  actions, bank.patch_cluster, bank.patch_pos, N_MAIN)
-    nump = bank.num_patches[ids]
-    res["k5_slices"] = -(-N_MAIN // compact_slot_slice(RL_BATCH, N_MAIN))
-    check(res["k5_slices"] > 1 and compact_slot_slice(B_MAIN, N_MAIN) == N_MAIN,
-          f"K1's slot slices: {res['k5_slices']} at {RL_BATCH} bags")
-    for dtype, view in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
-        feats_dt = bank.feats.to(dtype)
-        got = _gather_compact_cuda(feats_dt, offs, ranks, N_MAIN, nump)
-        want = gather_compact_plain(feats_dt, offs, ranks, N_MAIN, nump)
-        check(torch.equal(got.view(view), want.view(view)), f"K1 at K5's shape ({dtype})")
-        if dtype == torch.bfloat16:
-            res["k5_ms"] = median_ms(lambda: _gather_compact_cuda(feats_dt, offs, ranks,
-                                                                  N_MAIN, nump))
-            res["k5_plain_ms"] = median_ms(lambda: gather_compact_plain(feats_dt, offs, ranks,
-                                                                        N_MAIN, nump))
-            res["k5_bound_ms"] = compact_bound(ranks, offs, nump)[0]
-    res["max_abs_err"] = 0.0
+    main = torch.rand(B_MAIN, K, generator=gen, device=dev)
+    sup = torch.randperm(SLIDES, generator=gen, device=dev)[:RL_BATCH]
+    layouts = {B_MAIN: (torch.cat([ids, ids]).repeat(T), main),
+               RL_BATCH: (sup, torch.rand(RL_BATCH, K, generator=gen, device=dev)),
+               2 * BATCH: (torch.cat([ids, ids]), torch.rand(2 * BATCH, K, generator=own,
+                                                              device=dev)),
+               POOL_BAGS: (sup.repeat(T), torch.rand(POOL_BAGS, K, generator=own, device=dev))}
+    shapes = {}
+    for bags in COMPACT_SHAPES:
+        flat, actions = layouts[bags]
+        ranks, offs, _ = select_ranks(flat, bank.offsets, bank.num_patches, bank.cluster_sizes,
+                                      actions, bank.patch_cluster, bank.patch_pos, N_MAIN)
+        shapes[bags] = (ranks, offs, bank.num_patches[flat])
+    return feats, shapes
+
+
+def tcga_like_inputs(dev, gen):
+    """K1's operands at the TCGA shape without the streaming corpus:
+    ``TCGA_LIKE``'s slides of random lengths back to back in a random f32
+    bank, each slide's bags side by side as a MuRCL stage-1 batch of
+    distinct slides lays them out, each bag a Bernoulli(N_MAIN / n)
+    selection of its slide's patches cut at N_MAIN. Returns ``(feats,
+    ranks, offs, nump)``, ranks ``(slides x bags, patches' upper bound)``."""
+    import torch
+
+    slides, lo, hi, per = TCGA_LIKE
+    n = torch.randint(lo, hi + 1, (slides,), generator=gen, device=dev)
+    sid = torch.arange(slides, device=dev).repeat(per)
+    p = torch.arange(hi, device=dev)[None, :]
+    pick = (torch.rand(len(sid), hi, generator=gen, device=dev) < (N_MAIN / n[sid])[:, None]) \
+        & (p < n[sid, None])
+    ranks = torch.where(pick, torch.cumsum(pick.int(), 1) - 1, -1)
+    ranks = torch.where(ranks >= N_MAIN, -1, ranks).int().contiguous()
+    feats = torch.randn(int(n.sum()), FIN, generator=gen, device=dev)
+    return feats, ranks, (torch.cumsum(n, 0) - n)[sid].contiguous(), n[sid].contiguous()
+
+
+def compaction_times(feats, ranks, offs, nump) -> dict:
+    """K1 through its wrapper on these operands: ms (CUDA events around one
+    call, the host's enqueue included), ms per call of 10 back to back
+    (``back_to_back_ms``), device ms (torch.profiler tracing host and
+    device, every kernel of the call: the order kernel too where it runs;
+    None where the trace holds none of them), the twin's ms, the bound and
+    its share of the device time (of the back-to-back time where the trace
+    held no kernel: ``share_of``), and ``torch.index_select`` of the same
+    live rows (a copy-rate yardstick: it writes no zero slots and not the
+    sub-bags' layout, so it is not the function)."""
+    import torch
+
+    from murcl_tpu_torch.ops.compact import _gather_compact_cuda, gather_compact_plain
+
+    p = torch.arange(ranks.shape[1], device=ranks.device)[None, :]
+    rows = (offs[:, None] + p)[(ranks >= 0) & (p < nump[:, None])]
+
+    def fn():
+        return _gather_compact_cuda(feats, offs, ranks, N_MAIN, nump)
+
+    r = {"ms": median_ms(fn), "b2b_ms": back_to_back_ms(fn),
+         "device_ms": device_ms(fn, reps=5, host=True) or None,
+         "plain_ms": median_ms(lambda: gather_compact_plain(feats, offs, ranks, N_MAIN, nump)),
+         "index_select_ms": median_ms(lambda: feats.index_select(0, rows))}
+    r["bound_ms"], r["bound_by"] = compact_bound(ranks, offs, nump, feats.element_size())
+    r["share_of"] = "device" if r["device_ms"] else "b2b"
+    r["share"] = r["bound_ms"] / (r["device_ms"] or r["b2b_ms"])
+    return r
+
+
+def compaction_line(r) -> str:
+    """``compaction_times``' numbers as one line's words."""
+    dev = "not traced" if r["device_ms"] is None else f"{r['device_ms']:.4f}"
+    return (f"{r['ms']:.4f} ms (back to back {r['b2b_ms']:.4f}, device {dev}) vs twin "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms ({100 * r['share']:.1f}% "
+            f"of it by the {r['share_of']} time); index_select of the live rows "
+            f"{r['index_select_ms']:.4f} ms")
+
+
+def check_compaction(dev, gen):
+    """K1 bitwise against its twin (f32, bf16) at each of ``COMPACT_SHAPES``
+    and timed there in both dtypes (``compaction_times``); its planner at the
+    supervised stages' 64 bags (two slot slices a bag, one wave) and at the
+    others (one slice a bag, the bags in slide order); and bitwise on
+    ``tests/torch_compact_cases.py``'s cases at D 512, at ``COMPACT_CASE_BAGS``."""
+    import torch
+
+    from murcl_tpu_torch.ops.compact import (_gather_compact_cuda, compact_plan,
+                                             gather_compact_plain)
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_compact_cases import CASES, compact_case
+
+    card = card_line()
+    feats32, shapes = compaction_inputs(dev, gen)
+    res = {"shapes": {}, "max_abs_err": 0.0}
+    for bags, (ranks, offs, nump) in shapes.items():
+        path, per_step = COMPACT_SHAPES[bags]
+        for dtype, view, tag in ((torch.float32, torch.int32, "f32"),
+                                 (torch.bfloat16, torch.int16, "bf16")):
+            feats = feats32.to(dtype)
+            got = _gather_compact_cuda(feats, offs, ranks, N_MAIN, nump)
+            want = gather_compact_plain(feats, offs, ranks, N_MAIN, nump)
+            check(torch.equal(got.view(view), want.view(view)),
+                  f"K1 not bitwise at ({bags}, {N_MAIN}, {FIN}) {tag}")
+            del got, want
+            r = compaction_times(feats, ranks, offs, nump)
+            r["per_step"] = per_step
+            res["shapes"][f"{bags}_{tag}"] = r
+            print(f"K1 at ({bags}, {N_MAIN}, {FIN}) {tag} ({path}, {per_step} a step): "
+                  f"{compaction_line(r)} ({card})")
+            del feats
+            torch.cuda.empty_cache()
+    k5, k1 = (compact_plan(b, N_MAIN, FIN * 2) for b in (RL_BATCH, B_MAIN))
+    check(k5.slices > 1 and not k5.by_slide and k1.slices == 1 and k1.by_slide,
+          f"K1's plans: {k5} at {RL_BATCH} bags, {k1} at {B_MAIN}")
+    res["k5_slices"] = k5.slices
+    for name in CASES:
+        for bags in COMPACT_CASE_BAGS:
+            bank, offs, ranks, nump, feat = compact_case(name, d=FIN, bags=bags)
+            offs, ranks, nump = (torch.from_numpy(x).to(dev) for x in (offs, ranks, nump))
+            for dtype, view in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+                if name == "rows400" and dtype == torch.bfloat16:
+                    continue  # 200-byte rows: the wrapper refuses them
+                b = torch.from_numpy(bank).to(dev, dtype)
+                got = _gather_compact_cuda(b, offs, ranks, feat, nump)
+                want = gather_compact_plain(b, offs, ranks, feat, nump)
+                check(torch.equal(got.view(view), want.view(view)),
+                      f"K1 not bitwise on the {name} case, {bags} bags, {dtype}")
+                del b, got, want
+    print(f"K1 bitwise on the cases {', '.join(CASES)} at D {FIN}, {COMPACT_CASE_BAGS} bags")
+    main, k5r = res["shapes"][f"{B_MAIN}_bf16"], res["shapes"][f"{RL_BATCH}_bf16"]
+    res.update({k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")})
+    res.update({"k5_" + k: k5r[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")})
     return res
+
+
+def select_probe_path(dev) -> dict:
+    """Selection's breakdown at the JAX script's shape (the port of
+    ``scripts/dbg_select.py``): every launch count 0 before and read after
+    (K1 12 a call of ``compact`` and of ``select``, K6 12 a call of
+    ``mixup``, a warm-up and 5 timed calls each, and nothing else); then,
+    not counted, the last ``select`` step's sub-bags, the ``compact`` output
+    and the mixup's bitwise against the twins on the same draws. Returns
+    the script's ms."""
+    import torch
+
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.ops.compact import gather_compact_plain
+    from murcl_tpu_torch.ops.mixup import apply_mix
+    from murcl_tpu_torch.ops.select import select_ranks
+    from murcl_tpu_torch.scripts import dbg_select
+
+    outs = {}
+    _cuda.reset_launch_counts()
+    times = dbg_select.run(str(dev), reps=PROBE_REPS, outs=outs)
+    t_steps, calls = dbg_select.SHAPE[-1], 1 + PROBE_REPS
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    check(launches == {"compact": 2 * t_steps * calls, "mixup_rows": t_steps * calls},
+          f"dbg_select's launches: {launches}")
+    bank, ids, feat = outs["bank"], outs["ids"], dbg_select.SHAPE[3]
+    nump = bank.num_patches[ids]
+    for key, a in (("select", outs["actions"]), ("compact", outs["first_actions"])):
+        ranks, offs, _ = select_ranks(ids, bank.offsets, bank.num_patches, bank.cluster_sizes,
+                                      a, bank.patch_cluster, bank.patch_pos, feat)
+        want = gather_compact_plain(bank.feats, offs, ranks, feat, nump)
+        check(torch.equal(outs[key].view(torch.int16), want.view(torch.int16)),
+              f"dbg_select's {key} not bitwise the twin")
+    lam, perm = outs["mix"]
+    check(torch.equal(outs["mixup"].view(torch.int16),
+                      apply_mix(outs["x0"], perm, lam).view(torch.int16)),
+          "dbg_select's mixup not bitwise the twin")
+    print(f"dbg_select: K1 alone {times['compact']:.3f} ms of select_feats' "
+          f"{times['select']:.3f} ms ({100 * times['compact'] / times['select']:.1f}%), the index "
+          f"computation {times['index']:.3f} ms, a plain row gather {times['gather']:.3f} ms, the "
+          f"mixup {times['mixup']:.3f} ms ({t_steps} steps a call; launches {launches}; "
+          f"{card_line()})")
+    return times
 
 
 # K4's shapes: the main path's (B 128, projection width 128), then a batch
@@ -590,17 +753,17 @@ def check_ntxent(dev, gen):
     return tuple(out)
 
 
-def kernel_split(fn, own: bool = True, reps: int = 1) -> list:
+def kernel_split(fn, own: bool = True, reps: int = 1, host: bool = False) -> list:
     """``[(kernel, device ms)]`` of the port's kernels that ``reps`` calls
     of ``fn`` launch, in launch order (torch.profiler; PyTorch's own copies
     and memsets left out); with ``own=False`` every device event, PyTorch's
-    included, by its full name."""
+    included, by its full name; ``host`` traces the host's activity too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -617,10 +780,27 @@ def kernel_split(fn, own: bool = True, reps: int = 1) -> list:
     return out
 
 
-def device_ms(fn, own: bool = True, reps: int = 20) -> float:
+def device_ms(fn, own: bool = True, reps: int = 20, host: bool = False) -> float:
     """Device ms per call of ``fn``: ``kernel_split``'s events of ``reps``
     calls, summed, over ``reps``."""
-    return sum(ms for _, ms in kernel_split(fn, own, reps)) / reps
+    return sum(ms for _, ms in kernel_split(fn, own, reps, host)) / reps
+
+
+def back_to_back_ms(fn, reps: int = 10) -> float:
+    """ms per call of ``reps`` calls of ``fn`` between two CUDA events, after
+    one warm-up: the device's time per call where the host enqueues faster
+    than the card runs, the host's where it does not."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # the kernels that must run on the tensor cores: the kernels of
@@ -3018,7 +3198,9 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
     from ``tree``: K7f and K7b through ``_pool_fwd_cuda`` / ``_pool_bwd_cuda``
     at ``AB_POOL``'s shapes and dtypes, K2 (the op's forward, under
     no_grad) and K3 (its backward) at the timed call of ``check_fused``, in
-    bf16 and in f32, and K8 through ``_tiled_fwd_cuda`` at ``AB_K8``'s
+    bf16 and in f32, K8 through ``_tiled_fwd_cuda`` at ``AB_K8``'s, and K1
+    through ``_gather_compact_cuda`` at each of ``COMPACT_SHAPES`` and at a
+    TCGA-like shape (``tcga_like_inputs``) in both dtypes
     (median ms of 5, and one call's device ms by kernel),
     then the steady steps of ``AB_STEPS`` (supervised at batch 64, finetuned
     from ``ds["pretrained"]`` or, ABMIL, ``ds["abmil_pretrained"]``, stage 3
@@ -3031,6 +3213,7 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
     from murcl_tpu_torch.drivers import murcl, rlmil
     from murcl_tpu_torch.ops import _cuda
     from murcl_tpu_torch.ops import attention as att
+    from murcl_tpu_torch.ops import compact as comp
 
     check(Path(_cuda.__file__).resolve().is_relative_to(Path(tree).resolve()),
           f"A/B side imported {_cuda.__file__}, not {tree}'s port")
@@ -3082,6 +3265,26 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
         res[key + "_ms"], res[key + "_split"] = median_ms(k8), kernel_split(k8)
         del x
         torch.cuda.empty_cache()
+    # K1 at every bag count of the main paths and at a TCGA-like shape, both
+    # dtypes, each call through the side's wrapper (the same inputs on both
+    # sides: the generator seeded alike)
+    cgen = torch.Generator(device=dev).manual_seed(5)
+    feats32, shapes = compaction_inputs(dev, cgen)
+    tcga = tcga_like_inputs(dev, cgen)
+    cases = [(str(b), feats32, *v) for b, v in shapes.items()] + [("tcga", *tcga)]
+    for name, f32, ranks, offs, nump in cases:
+        for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            feats = f32.to(dtype)
+
+            def k1():
+                return comp._gather_compact_cuda(feats, offs, ranks, N_MAIN, nump)
+
+            key = f"compact_{name}_{dt}"
+            res[key + "_ms"], res[key + "_split"] = median_ms(k1, reps=20), kernel_split(k1)
+            del feats
+            torch.cuda.empty_cache()
+    del feats32, shapes, tcga, cases
+    torch.cuda.empty_cache()
     for key, (mod, arch, stage, dtype) in AB_STEPS.items():
         if mod == "rlmil":
             pretrained = ds["pretrained" if arch == "CLAM_SB" else "abmil_pretrained"]
@@ -3110,7 +3313,8 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
 
 
 def ab_parent(ds, results):
-    """K7f/K7b and K2/K3 in bf16 and f32, K8 in both, and the steady steps
+    """K7f/K7b and K2/K3 in bf16 and f32, K8 and K1 (every bag count of the
+    main paths, and a TCGA-like shape) in both, and the steady steps
     of ``AB_STEPS`` of the parent's tree and of this one, in turns (parent,
     this, this, parent), each side a process of its own on this card; all
     printed, none held. Returns ``{"parent": [side, side], "this": [side,
@@ -3145,6 +3349,8 @@ def ab_parent(ds, results):
                          "dropout 0.25"),
               ("k3_f32", "K3 f32 (the op's backward), the same call")]
     calls += [(key, f"K8 at (1, {n}, {L1}) {dt} gated") for key, (n, dt) in AB_K8.items()]
+    calls += [(f"compact_{b}_{dt}", f"K1 at ({b}, {N_MAIN}, {FIN}) {dt}")
+              for b in (*COMPACT_SHAPES, "tcga") for dt in ("bf16", "f32")]
     for key, what in calls:
         print(f"A/B {what}, in turns: " + "; ".join(
             f"{n} {[round(s[key + '_ms'], 3) for s in v]} ms, device "
@@ -3582,7 +3788,8 @@ def policy_conv_runs(dev, sds, results, murcl_stage1, rlmil_stage1):
 def check_compaction_tcga(dev, sds):
     """K1 against its twin on a staged mini-bank at the TCGA shape: a batch of
     128 distinct slides of the corpus, patch tables 10,240 wide, ranks
-    (1536, 10240); bitwise in f32 and bf16, timed in bf16."""
+    (1536, 10240); bitwise in f32 and bf16, timed in both
+    (``compaction_times``)."""
     import numpy as np
     import torch
 
@@ -3601,17 +3808,17 @@ def check_compaction_tcga(dev, sds):
     check(tuple(ranks.shape) == (B_MAIN, STREAM_NMAX), f"K1 TCGA ranks {tuple(ranks.shape)}")
     nump = bank.num_patches[flat]
     res = {"tcga_slides": bank.num_slides, "tcga_rows": int(bank.feats.shape[0])}
-    for dtype, view in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+    for dtype, view, tag in ((torch.float32, torch.int32, "_f32"),
+                             (torch.bfloat16, torch.int16, "")):
         feats = bank.feats.to(dtype)
         got = _gather_compact_cuda(feats, offs, ranks, N_MAIN, nump)
         want = gather_compact_plain(feats, offs, ranks, N_MAIN, nump)
         check(torch.equal(got.view(view), want.view(view)),
               f"K1 at ({B_MAIN}, {STREAM_NMAX}) on a staged mini-bank ({dtype})")
         del got, want
-    res["tcga_ms"] = median_ms(lambda: _gather_compact_cuda(feats, offs, ranks, N_MAIN, nump))
-    res["tcga_plain_ms"] = median_ms(lambda: gather_compact_plain(feats, offs, ranks, N_MAIN,
-                                                                  nump))
-    res["tcga_bound_ms"] = compact_bound(ranks, offs, nump)[0]
+        r = compaction_times(feats, ranks, offs, nump)
+        res.update({f"tcga{tag}_{k}": v for k, v in r.items()})
+        del feats
     return res
 
 
@@ -3713,9 +3920,10 @@ def streaming_path(dev, root):
     policy_conv_runs(dev, sds, root, murcl_stage1, rlmil_stage1)
     k1 = check_compaction_tcga(dev, sds)
     print(f"K1 on a staged mini-bank ({k1['tcga_slides']} distinct slides, {k1['tcga_rows']} "
-          f"rows) at ranks ({B_MAIN}, {STREAM_NMAX}) bitwise ok; bf16 {k1['tcga_ms']:.3f} ms vs "
-          f"plain {k1['tcga_plain_ms']:.3f} ms, bound {k1['tcga_bound_ms']:.4f} ms "
-          f"({card_line()})")
+          f"rows) at ranks ({B_MAIN}, {STREAM_NMAX}) bitwise ok; bf16 "
+          + compaction_line({k: k1["tcga_" + k] for k in COMPACTION_KEYS}) + "; f32 "
+          + compaction_line({k: k1["tcga_f32_" + k] for k in COMPACTION_KEYS})
+          + f" ({card_line()})")
     steady = steady_stream_steps(dev, sds, root)
     print(f"streaming phase in {time.time() - t0:.1f} s")
     return counts, k1, steady
@@ -3844,11 +4052,11 @@ def main() -> int:
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
     k1 = check_compaction(dev, gen)
-    print(f"K1 compaction bitwise ok; {k1['ms']:.3f} ms vs plain {k1['plain_ms']:.3f} ms, "
-          f"bound {k1['bound_ms']:.4f} ms at ({B_MAIN}, {N_MAIN}, {FIN}); at K5's shape "
-          f"({RL_BATCH}, {N_MAIN}, {FIN}) {k1['k5_ms']:.3f} ms vs plain "
-          f"{k1['k5_plain_ms']:.3f} ms, bound {k1['k5_bound_ms']:.4f} ms, "
-          f"{k1['k5_slices']} slot slices per bag ({card})")
+    print(f"K1 compaction bitwise ok; at ({B_MAIN}, {N_MAIN}, {FIN}) bf16 "
+          + compaction_line(k1["shapes"][f"{B_MAIN}_bf16"]) + f"; at K5's shape ({RL_BATCH}, "
+          f"{N_MAIN}, {FIN}) " + compaction_line(k1["shapes"][f"{RL_BATCH}_bf16"])
+          + f", {k1['k5_slices']} slot slices per bag ({card})")
+    sel = select_probe_path(dev)
     k4f, k4b = check_ntxent(dev, gen)
     print(f"K4 NT-Xent at ({BATCH}, 128) x 2 f32: fwd {k4f['ms']:.4f} ms vs plain "
           f"{k4f['plain_ms']:.4f} ms (device {k4f['device_ms']:.4f} vs "
@@ -4046,8 +4254,21 @@ def main() -> int:
                 row["ab_ms"] = {k: [r[k + "_ms"] for r in ab["this"]] for k in AB_K8}
                 row["ab_parent_ms"] = {k: [r[k + "_ms"] for r in ab["parent"]] for k in AB_K8}
         if row["name"] == "compact":
-            row.update({k: k1[k] for k in ("k5_ms", "k5_plain_ms", "k5_bound_ms", "tcga_ms",
-                                           "tcga_plain_ms", "tcga_bound_ms")})
+            # every bag count of the main paths in both dtypes (device_ms and
+            # share: torch.profiler's device time, the order kernel included),
+            # the TCGA shape, and selection's breakdown (dbg_select)
+            row.update({k: v for k, v in k1.items() if k.startswith(("k5_", "tcga"))})
+            row.update({"device_ms": k1["device_ms"], "shapes": k1["shapes"],
+                        "dbg_select_ms": sel})
+            if ab:  # timed in turns beside the parent's: ms and device ms per side run
+                keys = [k[:-3] for k in ab["this"][0] if k.startswith("compact_")
+                        and k.endswith("_ms")]
+                for side in ("this", "parent"):
+                    row[f"ab{'_parent' if side == 'parent' else ''}_ms"] = {
+                        k: [r[k + "_ms"] for r in ab[side]] for k in keys}
+                    row[f"ab{'_parent' if side == 'parent' else ''}_device_ms"] = {
+                        k: [sum(ms for _, ms in r[k + "_split"]) for r in ab[side]]
+                        for k in keys}
         if row["name"].startswith("ntxent"):
             r = k4f if row["name"] == "ntxent_fwd" else k4b
             row.update({k: r[k] for k in ("device_ms", "plain_device_ms", "autograd_ms",

@@ -84,9 +84,9 @@ LAUNCHES = {
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # bank, offsets, ranks, num_patches, out, B, nmax, F, row_bytes,
-    # slot_slice, stream
-    "murcl_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # bank, offsets, ranks, num_patches, order (or null), out, B, nmax, F,
+    # row_bytes, slot_slice, rows, ring (ops/compact.py compact_plan), stream
+    "murcl_compact": [_P] * 6 + [_I] * 7 + [_P],
     # is_bf16, x, perm, lam, out, B, per_bag, vec, stream
     "murcl_mixup_rows": [_I, _P, _P, _P, _P, _I, _L, _I, _P],
     # zi, zj, temp, loss, stats, terms, ticket, zn, B, d, stream

@@ -166,7 +166,11 @@ def _trunk_z(h, wf, bf, dt):
     z = _mm(h, wf, dt) + bf
     if dt != torch.float32:
         return z
-    near = z.abs() <= _REFINE * h.norm(dim=-1, keepdim=True) * wf.norm(dim=0)
+    bound = _REFINE * h.norm(dim=-1, keepdim=True) * wf.norm(dim=0)
+    # a zero bound means a zero h row or Wf column: the f32 product is then
+    # exactly 0, z exactly bf, and the float64 sum would give the same (the
+    # padded rows of a bag, against every column whose bias is 0)
+    near = (z.abs() <= bound) & (bound > 0)
     for idx in near.nonzero().split(1 << 16):
         b, n, c = idx.unbind(1)
         exact = (h[b, n].double() * wf[:, c].T.double()).sum(-1) + bf[c].double()

@@ -35,14 +35,28 @@ def accuracy_topk(outputs, targets, topk=(1,)):
     return [100.0 * correct[:, :k].any(axis=1).sum() / targets.shape[0] for k in topk]
 
 
+def _average_ranks(x: np.ndarray) -> np.ndarray:
+    """1-based ranks of ``x`` with ties given their average rank, as
+    ``scipy.stats.rankdata`` gives them (all NaN where ``x`` holds a NaN);
+    importing ``scipy.stats`` alone takes seconds of a trainer's start."""
+    x = np.asarray(x, dtype=np.float64).reshape(-1)
+    if np.isnan(x).any():
+        return np.full(x.size, np.nan)
+    order = np.argsort(x, kind="stable")
+    xs = x[order]
+    starts = np.flatnonzero(np.r_[True, xs[1:] != xs[:-1]])
+    counts = np.diff(np.r_[starts, x.size])
+    ranks = np.empty(x.size)
+    ranks[order] = np.repeat(starts + (counts + 1) / 2.0, counts)
+    return ranks
+
+
 def _binary_auc(positive: np.ndarray, score: np.ndarray) -> float:
     n_pos = int(positive.sum())
     n_neg = positive.size - n_pos
     if n_pos == 0 or n_neg == 0:
         raise ValueError("ROC AUC needs both classes among the targets")
-    from scipy.stats import rankdata  # here: importing scipy.stats takes seconds
-
-    ranks = rankdata(score)  # average ranks for ties
+    ranks = _average_ranks(score)
     return float((ranks[positive].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
 
 

@@ -26,7 +26,9 @@ product on the tensor cores) also at F 1024 and D 384 and at the padded
 widths (32, 8) and (448, 192), with a bag that ends mid-tile and one whose
 later chunks are all masked; one backward through K8's op at the heatmap's
 largest bag, (1, 60416, 512) f32, past K7f's softmax pass. K1 also
-at 64 bags of 1000 slots, split over slot slices whose last is partial.
+at 64 bags of 1000 slots, split over slot slices whose last is partial, and
+bitwise on the cases of ``tests/torch_compact_cases.py`` in both dtypes, at
+8 bags and at 200, past one wave, where the bags go in slide order.
 The streaming feed (not a kernel, but its pinned buffers, side-stream copy
 and prefetch thread exist only on the card): each staged batch bitwise the
 CPU's staging of it, in f32 and bf16 banks, while the consumer's stream
@@ -70,6 +72,7 @@ from murcl_tpu_torch.ops.mixup import apply_mix, mixup_rows
 from murcl_tpu_torch.ops.ntxent import (_bwd_cuda, _fwd_cuda, nt_xent, nt_xent_plain,
                                         nt_xent_plain_bwd, nt_xent_plain_fwd)
 from murcl_tpu_torch.ops.select import select_ranks
+from torch_compact_cases import CASES, compact_case
 
 pytestmark = pytest.mark.cuda
 
@@ -110,8 +113,9 @@ def test_compaction_bitwise(dev, dtype, view):
 
 
 def test_compaction_slot_slices_bitwise(dev):
-    """64 bags of 1000 slots: 8 slices of 128 slots per bag, the last of 104."""
-    from murcl_tpu_torch.ops.compact import compact_slot_slice
+    """64 bags of 1000 slots: 2 slices of 512 slots per bag, the last of 488
+    (seven tiles of 64 bf16 rows and one of 40)."""
+    from murcl_tpu_torch.ops.compact import compact_plan
 
     gen = torch.Generator().manual_seed(1)
     feats, clusters = [], []
@@ -125,11 +129,37 @@ def test_compaction_slot_slices_bitwise(dev):
     actions = torch.rand(64, 5, generator=gen).to(dev)
     ranks, offs, _ = select_ranks(ids, bank.offsets, bank.num_patches, bank.cluster_sizes,
                                   actions, bank.patch_cluster, bank.patch_pos, 1000)
-    assert compact_slot_slice(64, 1000) == 128
+    plan = compact_plan(64, 1000, 512)
+    assert (plan.slot_slice, plan.slices, plan.rows) == (512, 2, 64)
     nump = bank.num_patches[ids]
     got = gather_compact(bank.feats, offs, ranks, 1000, nump)
     want = gather_compact_plain(bank.feats, offs, ranks, 1000, nump)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("bags", [8, 200])
+@pytest.mark.parametrize("case,dtype,view", [
+    (c, dt, v) for c in CASES for dt, v in ((torch.float32, torch.int32),
+                                            (torch.bfloat16, torch.int16))
+    if not (c == "rows400" and dt == torch.bfloat16)])  # 200-byte rows: refused
+def test_compaction_cases_bitwise(dev, case, dtype, view, bags):
+    """K1 on the cases of ``tests/torch_compact_cases.py`` (a ragged last
+    tile, 400-byte f32 rows, num_patches below nmax 4096, bags with no live
+    rank, every slot live in a permuted order) at D 128, bitwise against the
+    twin; at 200 bags past one wave, the bags in slide order (the order
+    kernel first). One launch a call."""
+    from murcl_tpu_torch.ops.compact import compact_plan
+
+    bank, offs, ranks, nump, feat = compact_case(case, d=128, bags=bags, seed=bags)
+    bank = torch.from_numpy(bank).to(dev, dtype)
+    offs, ranks, nump = (torch.from_numpy(x).to(dev) for x in (offs, ranks, nump))
+    plan = compact_plan(bags, feat, bank.shape[1] * bank.element_size())
+    assert plan.by_slide == (bags == 200)
+    before = _cuda.LAUNCHES["compact"]
+    got = gather_compact(bank, offs, ranks, feat, nump)
+    assert _cuda.LAUNCHES["compact"] == before + 1
+    want = gather_compact_plain(bank, offs, ranks, feat, nump)
+    assert torch.equal(got.view(view), want.view(view))
 
 
 def _ntxent_views(dev, b, d, zero_row, seed=1):

@@ -3,7 +3,11 @@
 ``select_ranks`` is bitwise equal to JAX's under the same actions; the
 plain compaction is bitwise equal to ``gather_compact_xla`` in f32 and
 bf16, including truncation (feat_size below the selection) and zero
-padding (feat_size above it).
+padding (feat_size above it), and on the cases K1's tiles must get right
+(``tests/torch_compact_cases.py``: a ragged last tile at feat 1000, 400-byte
+rows, ``num_patches`` below nmax 4096, bags with no live rank, every slot
+live in a permuted order), where JAX's golden takes the ranks past
+``num_patches`` as unselected.
 """
 
 import jax.numpy as jnp
@@ -18,6 +22,7 @@ from murcl_tpu.ops.select import select_ranks as jax_select_ranks
 from murcl_tpu_torch.data.bank import bank_from_arrays
 from murcl_tpu_torch.ops.compact import gather_compact
 from murcl_tpu_torch.ops.select import select_feats, select_ranks
+from torch_compact_cases import CASES, compact_case, golden_ranks
 
 DIM, K = 16, 4
 
@@ -87,3 +92,30 @@ def test_cuda_path_never_falls_back():
     with pytest.raises(ValueError, match="CUDA"):
         gather_compact(bank.feats.to("meta"), bank.offsets, ranks, 8,
                        bank.num_patches)
+
+
+def _bits(x, dtype):
+    if dtype == "bfloat16":
+        return np.asarray(x).view(ml_dtypes.bfloat16).view(np.int16) \
+            if isinstance(x, np.ndarray) else x.view(torch.int16).numpy()
+    return np.asarray(x).view(np.int32) if isinstance(x, np.ndarray) \
+        else x.numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_compaction_cases_match_jax(case, dtype):
+    bank, offs, ranks, nump, feat = compact_case(case)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    want = np.asarray(gather_compact_xla(jnp.asarray(bank).astype(jdt), jnp.asarray(offs),
+                                         jnp.asarray(golden_ranks(ranks, nump)), feat))
+    got = gather_compact(torch.from_numpy(bank).to(getattr(torch, dtype)),
+                         torch.from_numpy(offs), torch.from_numpy(ranks), feat,
+                         torch.from_numpy(nump))
+    assert got.shape == (len(offs), feat, bank.shape[1])
+    np.testing.assert_array_equal(_bits(got, dtype), _bits(want, dtype))
+    zero_slots = (got == 0).all(-1)
+    if case == "empty":
+        assert zero_slots[:2].all() and not zero_slots[2:].all()
+    if case == "full":
+        assert not zero_slots.any()

@@ -14,8 +14,10 @@ an f64 product to 1e-5, where one bf16 product does not. The twin
 chunk's 32-row halves, as the chunk pass does: it matches a row-by-row walk
 in the kernel's order, in f64, to 1e-6, and in bf16 differs from rounding at
 each chunk's final max. ``tiled_chunk`` gives whole 64-row tiles per block,
-and ``compact_slot_slice`` splits a few bags' slots so that K1's grid fills
-the card, its slices tiling the slots exactly.
+and K1's planner ``compact_plan`` splits a few bags' slots so that its grid
+fills one wave of the card, its slices tiling the slots exactly in whole
+tiles, orders the bags by slide past one wave, and keeps its tile ring within
+a block's shared memory in both dtypes.
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from murcl_tpu_torch.ops import attention as tat
-from murcl_tpu_torch.ops.compact import compact_slot_slice
+from murcl_tpu_torch.ops.compact import SMEM_LIMIT, compact_plan
 
 NAME = "attention_pool_tiled"
 
@@ -166,23 +168,58 @@ def test_tiled_chunk(b, n, rows):
     assert chunk == 64 or b * -(-n // chunk) >= 8 * 132
 
 
-@pytest.mark.parametrize("batch,feat,slices", [(64, 1024, 8), (1536, 1024, 1), (128, 1024, 4),
-                                               (64, 1000, 8), (64, 100, 4), (1, 1024, 32),
-                                               (384, 1024, 1)])
-def test_compact_slot_slices(batch, feat, slices):
-    per = compact_slot_slice(batch, feat)
-    assert per % 32 == 0 and per >= 32
-    n = -(-feat // per)
-    assert n == slices
+@pytest.mark.parametrize("batch,feat,row_bytes,slices", [
+    (64, 1024, 1024, 2), (64, 1024, 2048, 2), (128, 1024, 1024, 1), (256, 1024, 1024, 1),
+    (256, 1024, 2048, 1), (384, 1024, 1024, 1), (1536, 1024, 1024, 1), (1536, 1024, 2048, 1),
+    (1, 1024, 1024, 16), (1, 1024, 2048, 32), (64, 1000, 1024, 2), (64, 100, 400, 2),
+    (64, 1024, 400, 2), (1, 10000, 1024, 79)])
+def test_compact_slot_slices(batch, feat, row_bytes, slices):
+    """K1's slices of a bag's slots: as many as fill one wave of blocks (one
+    block of 256 threads per SM at these rows) where the bags are few, one a
+    bag where they are many; whole tiles but the last; the slices tile the
+    slots exactly; past one wave the bags go in slide order."""
+    plan = compact_plan(batch, feat, row_bytes)
+    per, n = plan.slot_slice, plan.slices
+    assert n == slices and per % plan.rows == 0 and per <= 4096 + 64
     ranges = [(i * per, min(feat, (i + 1) * per)) for i in range(n)]
     assert ranges[0][0] == 0 and ranges[-1][1] == feat
     assert all(a < b for a, b in ranges) and all(ranges[i][1] == ranges[i + 1][0]
                                                  for i in range(n - 1))
-    assert batch * n >= 2 * 132 or per == 32  # two blocks per SM where the slots allow
+    assert batch * n <= 132 or n == 1  # one wave where the bags are few
+    assert plan.by_slide == (batch * n > 132)
 
 
 def test_k5_shape_fills_the_card():
-    """At a supervised step's 64 bags of 1024 slots: at least two blocks per
-    SM; at the main shape's 1536 bags: one block per bag."""
-    assert 64 * -(-1024 // compact_slot_slice(64, 1024)) >= 2 * 132
-    assert compact_slot_slice(1536, 1024) == 1024
+    """At a supervised step's 64 bags of 1024 slots: a block on all but 4 of
+    the 132 SMs in one wave, each bag in two slices; at 256, 384 and 1536
+    bags (MuRCL stages 2/3, supervised stage 1, MuRCL stage 1): one block per
+    bag, the bags in slide order."""
+    for row_bytes in (1024, 2048):
+        plan = compact_plan(64, 1024, row_bytes)
+        assert 64 * plan.slices == 128 and not plan.by_slide
+        for batch in (256, 384, 1536):
+            plan = compact_plan(batch, 1024, row_bytes)
+            assert plan.slot_slice == 1024 and plan.slices == 1 and plan.by_slide
+
+
+@pytest.mark.parametrize("dtype,d", [(dt, d) for dt in (torch.float32, torch.bfloat16)
+                                     for d in (32, 100, 512, 1024, 2048, 4096, 16384)
+                                     if d * (4 if dt == torch.float32 else 2) % 16 == 0])
+@pytest.mark.parametrize("batch,feat", [(64, 1024), (1536, 1024), (1, 10240)])
+def test_compact_plan_fits(batch, feat, d, dtype):
+    """The ring of tiles, the slot table and the barriers fit a block's
+    232,448 bytes in both dtypes; the ring keeps about 128 KB of loads in
+    flight (or all that fits), at least 2 tiles; a tile is at most 64 rows
+    and about 64 KB; at D 512 one block a SM (three 64 KB tiles). Rows of
+    whole 16-byte vectors only (the wrapper refuses others: bf16 at D 100)."""
+    row_bytes = d * torch.empty((), dtype=dtype).element_size()
+    plan = compact_plan(batch, feat, row_bytes)
+    tile = plan.rows * row_bytes
+    assert plan.smem == 128 + -(-4 * plan.slot_slice // 128) * 128 + plan.ring * tile
+    assert plan.smem <= SMEM_LIMIT == 232448
+    assert 2 <= plan.ring <= 8 and 1 <= plan.rows <= 64
+    assert (plan.ring - 1) * tile >= 131072 or plan.ring == 8 or \
+        plan.smem + tile > SMEM_LIMIT
+    assert tile <= 65536 or plan.rows == 1
+    if d == 512:
+        assert tile == 65536 and plan.ring == 3 and 2 * (plan.smem + 1024) > 233472
