@@ -198,7 +198,16 @@
    warm-up steps, then a host clock around 5 synchronised steps, read also
    when the step call returns (the host's enqueue time), and the peak
    device memory; then ``torch.profiler`` traces 3 more steps of each and
-   prints device time by kernel and the device's busy share. Where the
+   prints device time by kernel and the device's busy share
+   (``murcl_tpu_torch/scripts/profiling.py``). Then the step diagnostics
+   (``step_diagnostics_path``), the ports of the JAX package's
+   ``scripts/profile_step.py``, ``profile_stages.py`` (stages 2 and 3),
+   ``dbg_step.py`` and ``scale_smoke.py`` at their JAX shapes, every launch
+   count 0 before a script and read after: the tables of top ops by device
+   time (which must name the hand-written kernels), the step against its
+   pieces (forward-only faster than the full step), the streaming stage-3
+   steps/s and the full-bag pool's seconds, every loss and score finite,
+   and the kernels each launches (``STEP_DIAG_KERNELS``). Where the
    parent commit's tree is unpacked under ``build/parent``, the A/B
    (``ab_parent``): K7f and K7b at the supervised stage-1 shape and in
    ABMIL's mode in bf16 and in f32, K2 and K3 through the op at the timed
@@ -312,6 +321,22 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def profiling():
+    """The profile helpers, ``murcl_tpu_torch/scripts/profiling.py`` of this
+    tree, loaded from their file (they import torch alone): an A/B side
+    process imports the parent tree's port, and both sides are measured
+    with the same helpers."""
+    import importlib.util
+
+    name = "chip_smoke_profiling"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, REPO / "murcl_tpu_torch" / "scripts" / "profiling.py")
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -2162,7 +2187,7 @@ def preprocess_path(dev, root):
                      "--num_workers", "8", *extra])
                 torch.cuda.synchronize()
                 wall_ms = 1e3 * (time.perf_counter() - t)
-            busy = busy_union_ms(device_events(prof))
+            busy = profiling().busy_union_ms(profiling().device_events(prof))
             n = sum(r["num_patches"] for r in records)
             check(n == sum(counts), f"extract {mode}: {n} patches")
             feats[mode] = {i: np.load(save / "resnet18" / f"wsi_{i}.npz")["img_features"]
@@ -2433,7 +2458,7 @@ def jpeg_slide_path(dev, root):
              "--device", str(dev), "--batch_size", str(PRE_BATCH), "--num_workers", "8"])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t)
-    busy = busy_union_ms(device_events(prof))
+    busy = profiling().busy_union_ms(profiling().device_events(prof))
     n = sum(r["num_patches"] for r in records)
     ycc_launches = _cuda.LAUNCHES["ycc_to_rgb"]
     check(n == sum(counts) and ycc_launches > 0,
@@ -3128,7 +3153,7 @@ def steady_steps(dev, ds, results, runs):
         print(f"{name}, batch {RL_BATCH}: median step {out[name]:.2f} ms "
               f"({1e3 / out[name]:.3f} steps/s), host enqueue {enqueue:.2f} ms, "
               f"peak device memory {peak:.2f} GiB")
-        profile_steps(step, name, out[name])
+        profiling().profile_steps(step, name, out[name])
         del s
         torch.cuda.empty_cache()
     return out
@@ -3160,10 +3185,93 @@ def steady_murcl_steps(dev, ds, results):
         print(f"{name}, batch {BATCH}: median step {out[name]:.2f} ms "
               f"({1e3 / out[name]:.3f} steps/s), host enqueue {enqueue:.2f} ms, "
               f"peak device memory {peak:.2f} GiB")
-        profile_steps(step, name, out[name])
+        profiling().profile_steps(step, name, out[name])
         del s
         torch.cuda.empty_cache()
     return out
+
+
+# The step diagnostics (``step_diagnostics_path``): the ports of the JAX
+# package's scripts/profile_step.py, profile_stages.py (stages 2 and 3),
+# dbg_step.py and scale_smoke.py at their JAX shapes, and the kernels each
+# run launches (every other count of LAUNCHES stays 0): stage 1 K1, K2, K3
+# and K4; stage 2 no backward; dbg_step also K6 (its selection and mixup
+# piece); scale_smoke's supervised CLAM_SB steps K1 and K7, and its
+# 10,000-patch slide K8 (20 MiB of f32 rows, past the 6 MiB route rule)
+STAGE13 = ("compact", "fused_trunk_fwd", "fused_trunk_bwd", "ntxent_fwd", "ntxent_bwd")
+STEP_DIAG_KERNELS = {
+    "profile_step": STAGE13,
+    "profile_stages 2": ("compact", "fused_trunk_fwd", "ntxent_fwd"),
+    "profile_stages 3": STAGE13,
+    "dbg_step": STAGE13 + ("mixup_rows",),
+    "scale_smoke": ("compact", "attention_pool_fwd", "attention_pool_bwd",
+                    "attention_pool_tiled"),
+}
+# the hand-written kernels each profile table must name among its rows
+STEP_DIAG_ROWS = {
+    "profile_step": ("compact_kernel", "trunk_wg", "gates_fwd_wg", "gates_bwd_wg", "dx_wg",
+                     "wgrad_wg", "ntxent_fwd_kernel", "ntxent_bwd_kernel"),
+    "profile_stages 2": ("compact_kernel", "trunk_wg", "gates_fwd_wg", "ntxent_fwd_kernel"),
+    "profile_stages 3": ("compact_kernel", "trunk_wg", "gates_fwd_wg", "gates_bwd_wg", "dx_wg",
+                         "wgrad_wg", "ntxent_fwd_kernel", "ntxent_bwd_kernel"),
+}
+
+
+def step_diagnostics_path(dev, root):
+    """The four step scripts' ``run()`` on ``dev`` at their JAX shapes:
+    ``profile_step``, ``profile_stages`` at stages 2 and 3, ``dbg_step`` and
+    ``scale_smoke`` (its slides under ``root``), every launch count 0 before
+    a script and read after it, failing unless the launched kernels are
+    ``STEP_DIAG_KERNELS``' of the script; every loss and score finite, the
+    profile tables naming ``STEP_DIAG_ROWS``' kernels, and dbg_step's
+    forward-only rollout faster than its full step. Prints the phase's wall
+    time; returns ``(launch counts per script, {script: numbers})``."""
+    import torch
+
+    from murcl_tpu_torch.ops import _cuda
+    from murcl_tpu_torch.scripts import dbg_step, profile_stages, profile_step, scale_smoke
+
+    t_phase = time.time()
+    counts, res = [], {}
+
+    def counted(name, fn):
+        _cuda.reset_launch_counts()
+        t0 = time.time()
+        out = fn()
+        used = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        print(f"{name}: {time.time() - t0:.1f} s, launches {used}", flush=True)
+        check(set(used) == set(STEP_DIAG_KERNELS[name]),
+              f"{name}: launched {sorted(used)}, expected {sorted(STEP_DIAG_KERNELS[name])}")
+        counts.append(dict(_cuda.LAUNCHES))
+        res[name] = out
+        torch.cuda.empty_cache()
+        return out
+
+    def profiled(name, out):
+        check(all(math.isfinite(x) for x in out["losses"]), f"{name}: losses {out['losses']}")
+        check(out["on_device"], f"{name}: the trace recorded no device event")
+        ops = " ".join(r["op"] for r in out["rows"])
+        missing = [k for k in STEP_DIAG_ROWS[name] if k not in ops]
+        check(not missing, f"{name}: the table names none of {missing}")
+        del out["prof"]
+
+    profiled("profile_step", counted("profile_step", lambda: profile_step.run(
+        dev, out=root / "profile_step.trace.json")))
+    for stage in (2, 3):
+        name = f"profile_stages {stage}"
+        profiled(name, counted(name, lambda: profile_stages.run(
+            dev, stage=stage, out=root / f"profile_stage{stage}.trace.json")))
+    outs = {}
+    dbg = counted("dbg_step", lambda: dbg_step.run(dev, outs=outs))
+    check(all(math.isfinite(x) for x in outs["losses"].values()), f"dbg_step: {outs['losses']}")
+    check(dbg["fwd"] < dbg["full"], f"dbg_step: forward-only {dbg['fwd']} ms, not below the "
+          f"full step's {dbg['full']}")
+    del outs
+    scale = counted("scale_smoke", lambda: scale_smoke.run(dev, root=root / "scale"))
+    check(all(math.isfinite(x) for x in scale["losses"]) and scale["attention_finite"],
+          f"scale_smoke: losses {scale['losses']}, scores finite {scale['attention_finite']}")
+    print(f"step diagnostics phase in {time.time() - t_phase:.1f} s ({card_line()})")
+    return counts, res
 
 
 # The A/B against the parent commit: its tree unpacked under build/parent
@@ -3304,7 +3412,7 @@ def ab_side(tree: str, ds: dict, results: str) -> dict:
             s.engine.train_step(bank, ids, g)
 
         ms, enqueue, peak = timed_step(step)
-        busy = profile_steps(step, f"A/B {Path(tree).name} {key}", ms)
+        busy = profiling().profile_steps(step, f"A/B {Path(tree).name} {key}", ms)
         res[key] = {"ms": ms, "enqueue_ms": enqueue, "busy_ms": busy, "busy_pct": 100 * busy / ms,
                     "peak_gib": peak}
         del s, bank
@@ -3595,49 +3703,6 @@ def dp_step_path(dev, ds, results):
     return {"loss_rel": loss_rel, "grad_rel": rels[worst], "backend": backend}
 
 
-def device_events(prof) -> list:
-    import torch
-
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def busy_union_ms(kernels) -> float:
-    """The union of the kernels' device intervals, ms."""
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in kernels):
-        if b > end:  # us
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
-
-
-def profile_steps(step, what: str, step_ms: float, n: int = 3) -> float:
-    """Device time by kernel over ``n`` traced steps, and the union of the
-    kernel intervals per step against the untraced step time ``step_ms``;
-    returns that union, ms per step."""
-    import collections
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    kernels = device_events(prof)
-    by_name = collections.defaultdict(float)
-    for e in kernels:
-        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3 / n
-    busy_ms = busy_union_ms(kernels) / n
-    print(f"profile {what}: device busy {busy_ms:.2f} ms per step, "
-          f"{100 * busy_ms / step_ms:.2f}% of the untraced {step_ms:.2f} ms step; "
-          f"device ms per step by kernel ({len(kernels) / n:.0f} launches per step):")
-    for name, ms in sorted(by_name.items(), key=lambda r: -r[1])[:12]:
-        print(f"  {ms:9.3f}  {name[:110]}")
-    return busy_ms
-
-
 # the streaming phase: a corpus of TCGA-sized slides drawn as the JAX
 # package's scripts/bench_tcga_scale.py:41-49 draws them (patch counts uniform
 # in 3,000-10,240; dim 512, K 10); the K1 check stages its tables at
@@ -3874,8 +3939,8 @@ def steady_stream_steps(dev, sds, results):
             stats[name]["peak"] = max(stats[name]["peak"],
                                       torch.cuda.max_memory_allocated() / 2**30)
             if rnd == 1:
-                profile_steps(step, f"MuRCL CLAM_SB stage 1, {name}, TCGA corpus",
-                              statistics.median(stats[name]["ms"]))
+                profiling().profile_steps(step, f"MuRCL CLAM_SB stage 1, {name}, TCGA corpus",
+                                          statistics.median(stats[name]["ms"]))
             if name != "resident":
                 for _ in feed:  # the producer's staged-ahead batch
                     pass
@@ -4153,6 +4218,7 @@ def main() -> int:
                                               ("CLAM_SB", 3, pretrained, "float32"),
                                               ("ABMIL", 1, abmil_pretrained, "float32")])
         steady_murcl_steps(dev, ds, tmp / "murcl")
+        diag_counts, _ = step_diagnostics_path(dev, tmp / "diag")
         t0 = time.time()
         ab = ab_parent({**{k: str(ds[k]) for k in ("data_csv", "data_split_json",
                                                    "rlmil_split_json")},
@@ -4169,7 +4235,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
     for counts in [pre, *clam_stages.values(), *cli_stages.values(), *abmil_stages.values(), heat,
-                   rl_cli, *ppo_counts,
+                   rl_cli, *ppo_counts, *diag_counts,
                    *(c for path in rl_stages for c in path.values()), *dp_counts,
                    *stream_counts]:
         for k, v in counts.items():

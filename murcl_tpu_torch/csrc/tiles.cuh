@@ -88,16 +88,33 @@ pool_kernel(const float* __restrict__ s, const uint8_t* __restrict__ mask,
   m_out[(size_t)bag * L1 + col] = acc;
 }
 
+__device__ double block_sum_d(double v, double* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(murcl::kFull, v, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
+  return s;
+}
+
 // The softmax backward over one bag per block (K3 and K7): dp_r =
 // the sum of the `passes` partials dpp (in pass order) + gp_r,
 // c = sum_r p_r dp_r, ds_r = p_r (dp_r - c) on live rows, plus gs_r;
-// dbc += sum_r ds_r.
+// dbc += sum_r ds_r. That sum is sum_r gs_r plus the softmax part
+// sum_r p_r (dp_r - c) = c (1 - sum_r p_r), zero in exact arithmetic (a
+// shift of every score moves no p) but in f32 about 1e-6 a bag, from p's
+// own sum and from c's rounding, which at 48 bags reached 1e-4 of a small
+// dbc. So the bag's dbc is summed in double, its softmax part against c
+// taken in double over the bag's own sum of p: it cancels to double's
+// rounding. ds keeps the f32 expression.
 __global__ void __launch_bounds__(THREADS)
 softmax_bwd_kernel(const float* __restrict__ dpp, int passes, const float* __restrict__ p,
                    const float* __restrict__ gp, const float* __restrict__ gs,
                    const uint8_t* __restrict__ mask, float* __restrict__ ds,
                    float* __restrict__ dbc, int B, int N) {
   __shared__ float red[32];
+  __shared__ double redd[32];
   const size_t base = (size_t)blockIdx.x * N;
   auto dp_at = [&](int r) {
     float v = 0.f;
@@ -105,17 +122,27 @@ softmax_bwd_kernel(const float* __restrict__ dpp, int passes, const float* __res
     return v + gp[base + r];
   };
   float part = 0.f;
-  for (int r = threadIdx.x; r < N; r += THREADS) part += p[base + r] * dp_at(r);
-  const float csum = block_sum(part, red);
-  float dsum = 0.f;
+  double part_d = 0.0, psum_d = 0.0;
   for (int r = threadIdx.x; r < N; r += THREADS) {
-    float d = mask[base + r] ? p[base + r] * (dp_at(r) - csum) : 0.f;
+    const float pr = p[base + r], dpr = dp_at(r);
+    part += pr * dpr;
+    part_d += (double)pr * dpr;
+    if (mask[base + r]) psum_d += pr;
+  }
+  const float csum = block_sum(part, red);
+  part_d = block_sum_d(part_d, redd);
+  const double c = part_d / block_sum_d(psum_d, redd);
+  double dsum = 0.0;
+  for (int r = threadIdx.x; r < N; r += THREADS) {
+    const bool live = mask[base + r];
+    const float pr = p[base + r], dpr = dp_at(r);
+    float d = live ? pr * (dpr - csum) : 0.f;
     d += gs[base + r];
     ds[base + r] = d;
-    dsum += d;
+    dsum += (live ? (double)pr * ((double)dpr - c) : 0.0) + gs[base + r];
   }
-  dsum = block_sum(dsum, red);
-  if (threadIdx.x == 0) atomicAdd(dbc, dsum);
+  dsum = block_sum_d(dsum, redd);
+  if (threadIdx.x == 0) atomicAdd(dbc, (float)dsum);
 }
 
 template <typename K>

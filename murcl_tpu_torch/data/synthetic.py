@@ -42,9 +42,12 @@ def generate_synthetic_dataset(root, num_slides: int = 8, dim: int = 64,
                                num_clusters: int = 5, min_patches: int = 60,
                                max_patches: int = 200, seed: int = 985,
                                splits: Optional[dict] = None,
-                               slide_patches: Optional[int] = None) -> dict:
+                               slide_patches: Optional[int] = None,
+                               signal: float = 2.0) -> dict:
     """Write ``features/``, ``k-means-K/``, ``synthetic_{K}.csv`` and
-    ``data_split.json`` under ``root``; return their paths."""
+    ``data_split.json`` under ``root``; return their paths. ``signal`` is
+    the shift of the label-1 slides' tumour cluster (times ``1 / sqrt(dim)``;
+    ``scale_smoke`` draws 6.0)."""
     root = Path(root)
     feat_dir = root / "features"
     cluster_dir = root / f"k-means-{num_clusters}"
@@ -58,7 +61,7 @@ def generate_synthetic_dataset(root, num_slides: int = 8, dim: int = 64,
         case_id = f"synt_{i:03d}"
         label = i % 2
         n = slide_patches or int(rng.integers(min_patches, max_patches + 1))
-        feats, assignment = make_synthetic_slide(rng, n, dim, num_clusters, label)
+        feats, assignment = make_synthetic_slide(rng, n, dim, num_clusters, label, signal)
         side = int(np.ceil(np.sqrt(n)))
         coords = np.stack([np.arange(n) // side, np.arange(n) % side], axis=1)
         feat_path = feat_dir / f"{case_id}.npz"

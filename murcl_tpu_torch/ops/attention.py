@@ -232,6 +232,23 @@ def fused_trunk_plain_fwd(h, wf, bf, wa, ba, wb, bb, wc, bc, mask, dropout=0.0,
     return m, p, s
 
 
+def softmax_bwd(p, dp, gs, mask):
+    """The softmax backward over each bag, as K3's and K7's
+    ``softmax_bwd_kernel`` takes it: ``(ds, dbc)``, ``ds = p (dp - c)`` on
+    live rows plus ``gs``, in f32 with ``c = sum p dp``, and ``dbc`` the sum
+    of ``ds`` over every bag, taken in float64: ``sum gs`` plus each bag's
+    softmax part against ``c`` over the bag's own sum of ``p``, which
+    cancels to float64's rounding (a shift of every score moves no ``p``;
+    in f32 the part carried about 1e-6 a bag, from ``p``'s own sum and
+    ``c``'s rounding)."""
+    ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
+    ds = torch.where(mask, ds, torch.zeros_like(ds)) + gs
+    p64, dp64 = p.double(), dp.double()
+    c = (p64 * dp64).sum(-1, keepdim=True) / torch.where(mask, p64, 0.0).sum(-1, keepdim=True)
+    soft = torch.where(mask, p64 * (dp64 - c), 0.0)
+    return ds, (gs.double().sum() + soft.sum()).float()
+
+
 def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
                           dropout=0.0, seed=0, perm=None, lam=None, gated=True,
                           need_dh=False, variant="full", hash_l1=None, hash_d=None):
@@ -255,10 +272,8 @@ def fused_trunk_plain_bwd(h, wf, bf, wa, ba, wb, bb, wc, mask, p, gm, gp, gs,
     u = a_eff * g_eff if gated else a_eff
 
     dp = (xc.float() @ gm.to(dt).float().unsqueeze(-1)).squeeze(-1) + gp
-    ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
-    ds = torch.where(mask, ds, torch.zeros_like(ds)) + gs
+    ds, dbc = softmax_bwd(p, dp, gs, mask)
     ds_t = ds.to(dt)
-    dbc = ds.sum()
     dwc = torch.einsum("bnd,bn->d", u.float(), ds_t.float())
     f32 = dict(dtype=torch.float32, device=h.device)
     fin, l1, d = wf.shape[0], wf.shape[1], wa.shape[1]
@@ -403,13 +418,15 @@ def _check_shapes(name, h, wf, wa, need_dh=False):
 
 
 def _cuda_args(h, wf, bf, wa, ba, wb, bb, wc, mask, perm, lam, dropout, seed):
-    """Kernel operands: weights in the bag dtype, biases f32, all contiguous."""
+    """Kernel operands: weights in the bag dtype, biases f32, the mask (B, N)
+    (one broadcast over the bags is written out: the kernels read a bag's
+    row of it), all contiguous."""
     dt = h.dtype
     c = lambda t, ty: t.to(ty).contiguous()  # noqa: E731
     ops = dict(
         h=h.contiguous(), wf=c(wf, dt), bf=c(bf, torch.float32), wa=c(wa, dt),
         ba=c(ba, torch.float32), wb=c(wb, dt), bb=c(bb, torch.float32), wc=c(wc, dt),
-        mask=c(mask, torch.bool),
+        mask=c(mask.expand(h.shape[:2]), torch.bool),
         perm=None if perm is None else c(perm, torch.int64),
         lam=None if lam is None else c(lam, torch.float32))
     drop = (int(dropout > 0), int(seed) & _M32,
@@ -718,9 +735,7 @@ def gated_attention_pool_plain_bwd(x, wa, ba, wb, bb, wc, mask, p, gm, gp, gs, g
         u = a_eff * g_eff
 
     dp = (xf @ gm.to(dt).float().unsqueeze(-1)).squeeze(-1) + gp
-    ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
-    ds = torch.where(mask, ds, torch.zeros_like(ds)) + gs
-    dbc = ds.sum()
+    ds, dbc = softmax_bwd(p, dp, gs, mask)
     dwc = torch.einsum("bnd,bn->d", u, ds)
     du = ds.unsqueeze(-1) * wc.float()
     da = du * g_eff if gated else du
@@ -850,7 +865,8 @@ def _pool_args(name, x, wa, ba, wb, bb, wc, mask, dropout, seed, gated):
     """Kernel operands at widths the kernels take (already padded): the
     gate products' Wa/Wb (bf16 bags: rounded to bf16; float32 bags: their
     :func:`_w_planes_cuda` planes, Wb's planes Wa's when ungated), biases and
-    wc f32, all contiguous; and the dropout arguments."""
+    wc f32, the mask (B, N) (written out where it is broadcast over the
+    bags), all contiguous; and the dropout arguments."""
     c = lambda t, ty: t.to(ty).contiguous()  # noqa: E731
     f32 = torch.float32
     if x.dtype == torch.bfloat16:
@@ -859,7 +875,7 @@ def _pool_args(name, x, wa, ba, wb, bb, wc, mask, dropout, seed, gated):
         wa_k = _w_planes_cuda(name, wa)
         wb_k = _w_planes_cuda(name, wb) if gated else wa_k
     ops = dict(x=x.contiguous(), wa=wa_k, ba=c(ba, f32), wb=wb_k, bb=c(bb, f32), wc=c(wc, f32),
-               mask=c(mask, torch.bool))
+               mask=c(mask.expand(x.shape[:2]), torch.bool))
     drop = (int(dropout > 0), int(seed) & _M32,
             dropout_threshold(dropout) if dropout > 0 else 0, float(1.0 / (1.0 - dropout)))
     return ops, drop

@@ -45,16 +45,17 @@ K, ALPHA = 10, 0.9
 PIECES = ("index", "gather", "mixup", "compact", "select")
 
 
-def select_bank(slides: int, patches: int, d: int, dev):
+def select_bank(slides: int, patches: int, d: int, dev, labels=None):
     """The JAX script's bank: per slide normal features and uniform cluster
-    labels from ``np.random.default_rng(0)``, in bf16 on ``dev``."""
+    labels from ``np.random.default_rng(0)``, in bf16 on ``dev``; slide
+    labels ``labels`` (zeros by default; the step scripts' ``i % 2``)."""
     rng = np.random.default_rng(0)
     feats, clusters = [], []
     for _ in range(slides):
         feats.append(rng.normal(size=(patches, d)).astype(np.float32))
         a = rng.integers(0, K, size=patches)
         clusters.append([[int(j) for j in np.where(a == c)[0]] for c in range(K)])
-    return bank_from_arrays(feats, clusters, [0] * slides).to(dev, torch.bfloat16)
+    return bank_from_arrays(feats, clusters, labels or [0] * slides).to(dev, torch.bfloat16)
 
 
 def run(device="cuda:0", shape=SHAPE, reps: int = 5, outs: dict | None = None) -> dict:

@@ -184,3 +184,22 @@ def test_split_bf16_three_products_match_f32():
 
     assert rel(three) <= 1e-5, rel(three)
     assert rel(one) > 1e-3, rel(one)
+
+
+@pytest.mark.parametrize("which", ["pool", "trunk"])
+def test_kernel_args_write_out_a_broadcast_mask(which):
+    """A mask of shape (1, N) broadcast over B bags reaches the kernels as
+    (B, N): they read bag b's row at b * N (a (1, N) buffer there was read
+    past its end); a (B, N) mask passes as it is."""
+    b, n, f, d = 3, 40, 128, 128
+    x = torch.zeros(b, n, f, dtype=torch.bfloat16)
+    w = [torch.zeros(f, d), torch.zeros(d), torch.zeros(f, d), torch.zeros(d), torch.zeros(d)]
+    mask = torch.arange(n)[None, :] < n - 5
+    for m in (mask, mask.expand(b, n).clone()):
+        if which == "pool":
+            ops, _ = tat._pool_args("K7", x, *w, m, 0.0, 0, True)
+        else:
+            ops, _ = tat._cuda_args(x, torch.zeros(f, f), torch.zeros(f), *w, m, None, None,
+                                    0.0, 0)
+        assert ops["mask"].shape == (b, n) and ops["mask"].is_contiguous()
+        assert torch.equal(ops["mask"], mask.expand(b, n))
