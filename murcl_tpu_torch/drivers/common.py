@@ -7,6 +7,7 @@ generator (:func:`rank_generator`)."""
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Iterator, List, Optional, Tuple
 
@@ -17,6 +18,7 @@ from murcl_tpu_torch.engine.checkpoint import transfer_state
 from murcl_tpu_torch.ops.metrics import get_metrics
 from murcl_tpu_torch.parallel import Ranks
 from murcl_tpu_torch.utils.general import CSVWriter, increment_path
+from murcl_tpu_torch.utils.trace import host_waits, reset_host_waits
 
 
 def murcl_save_dir(args) -> str:
@@ -127,7 +129,10 @@ class ProfilerHook:
     and the card's kernels when ``device`` is CUDA. Call :meth:`step` before
     each step and :meth:`close` at the end; the trace goes to
     ``<dir>/steps_1-N.pt.trace.json`` (Chrome's trace format, which
-    TensorBoard's profiler plugin and Perfetto read)."""
+    TensorBoard's profiler plugin and Perfetto read), with the program's
+    spans (``murcl.*``) in it, and the steps' host waits by span and
+    ``file:line`` (:func:`~murcl_tpu_torch.utils.trace.host_waits`, counted
+    on the card only) to ``<dir>/host_waits.json``."""
 
     def __init__(self, save_dir, num_steps: int = 0, device=None):
         self.dir = Path(save_dir)
@@ -142,6 +147,7 @@ class ProfilerHook:
 
             activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.cuda else [])
             self._prof = profile(activities=activities)
+            reset_host_waits()
             self._prof.start()
         elif self.remaining == 0 and self._prof is not None:
             self._stop()
@@ -153,9 +159,14 @@ class ProfilerHook:
             torch.cuda.synchronize()
         self._prof.stop()
         self.dir.mkdir(parents=True, exist_ok=True)
-        self.trace_path = self.dir / f"steps_1-{self.num_steps - self.remaining}.pt.trace.json"
+        steps = self.num_steps - self.remaining
+        self.trace_path = self.dir / f"steps_1-{steps}.pt.trace.json"
         self._prof.export_chrome_trace(str(self.trace_path))
         self._prof = None
+        waits = sorted(host_waits().items(), key=lambda kv: -kv[1])
+        with open(self.dir / "host_waits.json", "w", encoding="utf-8") as fp:
+            json.dump({"steps": steps, "waits": [{"span": span, "site": site, "count": n}
+                                                 for (span, site), n in waits]}, fp, indent=1)
 
     def close(self) -> None:
         if self._prof is not None:

@@ -49,6 +49,10 @@ and 3: the t=0 actions ``(2, B, K)``; then per step, for t >= 1 the policy
 noise of view 0 and of view 1, and for every step the mixup draws of view 0
 and of view 1 and the forward's dropout seed. Tests inject the actions, the
 noise and the mixup draws.
+
+Under a profiler each step opens the spans of
+:mod:`murcl_tpu_torch.utils.trace`: the draws and their moves to the card
+share one ``murcl.draws`` span a rollout step, ahead of the selection.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ from murcl_tpu_torch.ops.mixup import mixup_factors, mixup_ref, mixup_rows
 from murcl_tpu_torch.ops.ntxent import nt_xent
 from murcl_tpu_torch.ops.select import select_feats
 from murcl_tpu_torch.parallel import SINGLE, Ranks
+from murcl_tpu_torch.utils.trace import span, step
 
 ARCHS = ("ABMIL", "CLAM_SB")
 
@@ -107,8 +112,9 @@ class ContrastiveEngine:
     def _encode(self, x, generator, mix=None):
         """Aggregator forward of the bags ``x``: the f32 embedding ``(B, F)``."""
         kwargs = {"mix": mix} if mix is not None else {}
-        emb, _ = self.model.encoder(x.to(self.cdtype), generator=generator, **kwargs)
-        return emb.float()
+        with span("murcl.aggregator"):
+            emb, _ = self.model.encoder(x.to(self.cdtype), generator=generator, **kwargs)
+            return emb.float()
 
     def _nt_xent(self, a, b):
         """NT-Xent over the global batch: both views' projections gathered."""
@@ -124,26 +130,28 @@ class ContrastiveEngine:
         cfg = self.cfg
         b, t_steps = slide_ids.shape[0], cfg.T
         dev = bank.feats.device
-        if actions is None:
-            actions = torch.rand((t_steps, 2, b, cfg.num_clusters), generator=generator,
-                                 device=generator.device)
-        if mix is None:
-            draws = [mixup_factors(generator, b, cfg.alpha) for _ in range(t_steps * 2)]
-            mix = (torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws]))
-        lams, perms = mix
+        with span("murcl.draws"):
+            if actions is None:
+                actions = torch.rand((t_steps, 2, b, cfg.num_clusters), generator=generator,
+                                     device=generator.device)
+            if mix is None:
+                draws = [mixup_factors(generator, b, cfg.alpha) for _ in range(t_steps * 2)]
+                mix = (torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws]))
+            lams, perms = mix
+            actions = actions.to(dev).reshape(t_steps * 2 * b, cfg.num_clusters)
+            # mixup permutes within each (step, view) group of b bags
+            base = torch.arange(t_steps * 2)[:, None] * b
+            perm_abs = (perms.to(torch.int64).cpu() + base).reshape(-1).to(dev)
+            lam_flat = lams.reshape(-1).to(dev)
 
         both_ids = torch.cat([slide_ids, slide_ids]).repeat(t_steps)
-        x_flat = select_feats(bank, both_ids,
-                              actions.to(dev).reshape(t_steps * 2 * b, cfg.num_clusters),
-                              cfg.feat_size)
-        # mixup permutes within each (step, view) group of b bags
-        base = torch.arange(t_steps * 2)[:, None] * b
-        perm_abs = (perms.to(torch.int64).cpu() + base).reshape(-1).to(dev)
-        lam_flat = lams.reshape(-1).to(dev)
+        x_flat = select_feats(bank, both_ids, actions, cfg.feat_size)
         if self.fused_mix:
             emb = self._encode(x_flat, generator, mix=(perm_abs, lam_flat))
         else:
-            emb = self._encode(mixup_rows(x_flat, perm_abs, lam_flat), generator)
+            with span("murcl.mixup"):
+                x_flat = mixup_rows(x_flat, perm_abs, lam_flat)
+            emb = self._encode(x_flat, generator)
         emb = emb.reshape(t_steps, 2, b, -1)
 
         proj_a, _ = self.fc(emb[0, 0])
@@ -153,12 +161,12 @@ class ContrastiveEngine:
             pa, c_mid = self.fc(emb[t, 0], carry)
             pb, carry = self.fc(emb[t, 1], c_mid)
             projs.append((pa, pb))
-        step_losses = torch.stack([self._nt_xent(pa, pb) for pa, pb in projs])
-        total = step_losses.sum() / t_steps
-
-        with torch.no_grad():  # rewards are reported only in stage 1
-            sims = torch.stack([cosine_similarity(pa, pb) for pa, pb in projs])
-            rewards = self.dp.mean((sims[:-1] - sims[1:]).mean(dim=1))
+        with span("murcl.loss"):
+            step_losses = torch.stack([self._nt_xent(pa, pb) for pa, pb in projs])
+            total = step_losses.sum() / t_steps
+            with torch.no_grad():  # rewards are reported only in stage 1
+                sims = torch.stack([cosine_similarity(pa, pb) for pa, pb in projs])
+                rewards = self.dp.mean((sims[:-1] - sims[1:]).mean(dim=1))
         return total, PretrainStats(total.detach(), step_losses.detach(), rewards)
 
     def _pair_forward(self, bank, slide_ids, actions, carry, generator, mix_t):
@@ -169,18 +177,21 @@ class ContrastiveEngine:
         cfg = self.cfg
         b = slide_ids.shape[0]
         dev = bank.feats.device
-        x2 = select_feats(bank, torch.cat([slide_ids, slide_ids]),
-                          torch.cat([actions[0], actions[1]]).to(dev), cfg.feat_size)
-        if mix_t is None:
-            mix_t = [mixup_factors(generator, b, cfg.alpha) for _ in range(2)]
-        (lam_a, perm_a), (lam_b, perm_b) = ((lam.to(dev), perm.to(dev, torch.int64))
-                                            for lam, perm in mix_t)
+        with span("murcl.draws"):
+            actions = torch.cat([actions[0], actions[1]]).to(dev)
+            if mix_t is None:
+                mix_t = [mixup_factors(generator, b, cfg.alpha) for _ in range(2)]
+            (lam_a, perm_a), (lam_b, perm_b) = [(lam.to(dev), perm.to(dev, torch.int64))
+                                                for lam, perm in mix_t]
+        x2 = select_feats(bank, torch.cat([slide_ids, slide_ids]), actions, cfg.feat_size)
         if self.fused_mix:
             emb2 = self._encode(x2, generator, mix=(torch.cat([perm_a, perm_b + b]),
                                                     torch.cat([lam_a, lam_b])))
         else:
-            emb2 = self._encode(torch.cat([mixup_ref(x2[:b], perm_a, lam_a),
-                                           mixup_ref(x2[b:], perm_b, lam_b)]), generator)
+            with span("murcl.mixup"):
+                x2 = torch.cat([mixup_ref(x2[:b], perm_a, lam_a),
+                                mixup_ref(x2[b:], perm_b, lam_b)])
+            emb2 = self._encode(x2, generator)
         if carry is None:
             proj_a, _ = self.fc(emb2[:b])
             proj_b, carry = self.fc(emb2[b:])
@@ -203,12 +214,14 @@ class ContrastiveEngine:
         mix_of = lambda t: None if mix is None else [(mix[0][t, v], mix[1][t, v])  # noqa: E731
                                                      for v in (0, 1)]
         if actions0 is None:
-            actions0 = torch.rand((2, b, cfg.num_clusters), generator=generator,
-                                  device=generator.device)
+            with span("murcl.draws"):
+                actions0 = torch.rand((2, b, cfg.num_clusters), generator=generator,
+                                      device=generator.device)
         projs, states, fc_carry = self._pair_forward(bank, slide_ids, actions0, None,
                                                      generator, mix_of(0))
-        losses = [self._nt_xent(projs[0], projs[1])]
-        sim_last = cosine_similarity(projs[0].detach(), projs[1].detach())
+        with span("murcl.loss"):
+            losses = [self._nt_xent(projs[0], projs[1])]
+            sim_last = cosine_similarity(projs[0].detach(), projs[1].detach())
 
         pol = [self.ppo.zero_hidden(b, dev), self.ppo.zero_hidden(b, dev)]
         steps, rewards = ([], []), []
@@ -221,14 +234,16 @@ class ContrastiveEngine:
                 steps[v].append(pstep)
             projs, states, fc_carry = self._pair_forward(bank, slide_ids, acts, fc_carry,
                                                          generator, mix_of(t))
-            losses.append(self._nt_xent(projs[0], projs[1]))
-            sim = cosine_similarity(projs[0].detach(), projs[1].detach())
-            rewards.append(sim_last - sim)
-            sim_last = sim
+            with span("murcl.loss"):
+                losses.append(self._nt_xent(projs[0], projs[1]))
+                sim = cosine_similarity(projs[0].detach(), projs[1].detach())
+                rewards.append(sim_last - sim)
+                sim_last = sim
 
-        step_losses = torch.stack(losses)
-        total = step_losses.sum() / cfg.T
-        rewards = torch.stack(rewards)
+        with span("murcl.loss"):
+            step_losses = torch.stack(losses)
+            total = step_losses.sum() / cfg.T
+            rewards = torch.stack(rewards)
         rollouts = tuple(
             Rollout(states=torch.stack([s.state for s in view]),
                     actions=torch.stack([s.action for s in view]),
@@ -242,22 +257,23 @@ class ContrastiveEngine:
         """One optimizer step (stages 1/3) or one PPO update per view (stage
         2). ``draws`` go to the rollout (tests inject the random draws)."""
         cfg = self.cfg
-        if cfg.train_stage == 2:
-            self.model.eval()
-            self.fc.eval()
-            with torch.no_grad():
-                _, stats, rollouts = self.rollout_sequential(bank, slide_ids, generator,
-                                                             **draws)
-            for rollout in rollouts:  # view 0 first (train_MuRCL.py:296-298)
-                self.ppo.update(Rollout(*(self.dp.gather(x, dim=1) for x in rollout)))
+        with step(bank.feats.device):
+            if cfg.train_stage == 2:
+                self.model.eval()
+                self.fc.eval()
+                with torch.no_grad():
+                    _, stats, rollouts = self.rollout_sequential(bank, slide_ids, generator,
+                                                                 **draws)
+                for rollout in rollouts:  # view 0 first (train_MuRCL.py:296-298)
+                    self.ppo.update(Rollout(*(self.dp.gather(x, dim=1) for x in rollout)))
+                return stats
+            self.model.train()
+            self.fc.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            if cfg.uses_policy:
+                total, stats, _ = self.rollout_sequential(bank, slide_ids, generator, **draws)
+            else:
+                total, stats = self.rollout_batched(bank, slide_ids, generator, **draws)
+            total.backward()
+            optim.step(self.optimizer, self.dp)
             return stats
-        self.model.train()
-        self.fc.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        if cfg.uses_policy:
-            total, stats, _ = self.rollout_sequential(bank, slide_ids, generator, **draws)
-        else:
-            total, stats = self.rollout_batched(bank, slide_ids, generator, **draws)
-        total.backward()
-        optim.step(self.optimizer, self.dp)
-        return stats

@@ -28,6 +28,7 @@ import torch
 
 from murcl_tpu_torch.engine.weights import jax_leaf_path
 from murcl_tpu_torch.parallel import SINGLE, Ranks
+from murcl_tpu_torch.utils.trace import span
 
 # JAX leaf names that stay trainable under linear eval
 # (``murcl_tpu/engine/optim.py:150``)
@@ -81,10 +82,11 @@ def fill_missing_grads(params) -> None:
 def step(optimizer: torch.optim.Optimizer, dp: Ranks = SINGLE) -> None:
     """``optimizer.step()`` after :func:`fill_missing_grads` over its groups
     and the sum of the gradients over the ranks ``dp``."""
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    fill_missing_grads(params)
-    dp.all_reduce_grads(params)
-    optimizer.step()
+    with span("murcl.optimizer"):
+        params = [p for group in optimizer.param_groups for p in group["params"]]
+        fill_missing_grads(params)
+        dp.all_reduce_grads(params)
+        optimizer.step()
 
 
 def set_learning_rates(opt: torch.optim.Optimizer, backbone_lr: float, fc_lr: float) -> None:

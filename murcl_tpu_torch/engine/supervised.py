@@ -43,7 +43,8 @@ update, which every rank runs on the same numbers.
 
 Random draws come from one CPU ``torch.Generator``: actions, then a dropout
 seed per aggregator forward, then the policy noise of each step. Tests
-inject the actions and the noise.
+inject the actions and the noise. Under a profiler each step opens the spans
+of :mod:`murcl_tpu_torch.utils.trace`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from murcl_tpu_torch.engine.losses import cross_entropy, label_confidence, maske
 from murcl_tpu_torch.models.rlmil import Rollout, act
 from murcl_tpu_torch.ops.select import select_feats
 from murcl_tpu_torch.parallel import SINGLE, Ranks
+from murcl_tpu_torch.utils.trace import span, step
 
 
 class StepStats(NamedTuple):
@@ -96,16 +98,17 @@ class SupervisedEngine:
     def _encode(self, feats, labels, generator):
         """``(fc_in (B, F) f32, extra (B,))``: the bag embedding and the
         weighted extra loss of each bag."""
-        x = feats.to(self.cdtype)
-        if self.cfg.arch == "ABMIL":
-            out, _ = self.model(x, generator=generator)
-            return out.float(), torch.zeros(x.shape[0], device=x.device)
-        if self.cfg.arch == "CLAM_SB":
-            m, aux = self.model(x, instance_eval=True, label=labels, generator=generator)
-            return m.float(), (1.0 - self.cfg.bag_weight) * aux["instance_loss"].float()
-        inst, bag, _ = self.model(x, generator=generator)
-        logp = torch.log_softmax(inst.amax(dim=1).float(), dim=-1)
-        return bag.mean(dim=1).float(), -0.5 * logp.gather(1, labels[:, None])[:, 0]
+        with span("murcl.aggregator"):
+            x = feats.to(self.cdtype)
+            if self.cfg.arch == "ABMIL":
+                out, _ = self.model(x, generator=generator)
+                return out.float(), torch.zeros(x.shape[0], device=x.device)
+            if self.cfg.arch == "CLAM_SB":
+                m, aux = self.model(x, instance_eval=True, label=labels, generator=generator)
+                return m.float(), (1.0 - self.cfg.bag_weight) * aux["instance_loss"].float()
+            inst, bag, _ = self.model(x, generator=generator)
+            logp = torch.log_softmax(inst.amax(dim=1).float(), dim=-1)
+            return bag.mean(dim=1).float(), -0.5 * logp.gather(1, labels[:, None])[:, 0]
 
     def rollout_batched(self, bank, slide_ids, labels, valid, generator: torch.Generator,
                         actions: Optional[torch.Tensor] = None):
@@ -114,28 +117,29 @@ class SupervisedEngine:
         cfg = self.cfg
         b, t_steps = slide_ids.shape[0], cfg.T
         dev = bank.feats.device
-        if actions is None:
-            actions = torch.rand((t_steps, b, cfg.num_clusters), generator=generator,
-                                 device=generator.device)
-        actions = actions.to(dev)
+        with span("murcl.draws"):
+            if actions is None:
+                actions = torch.rand((t_steps, b, cfg.num_clusters), generator=generator,
+                                     device=generator.device)
+            actions = actions.to(dev)
         x = select_feats(bank, slide_ids.repeat(t_steps),
                          actions.reshape(t_steps * b, cfg.num_clusters), cfg.feat_size)
         fc_in_flat, extra_flat = self._encode(x, labels.repeat(t_steps), generator)
         fc_in = fc_in_flat.reshape(t_steps, b, -1)
-        extra_step = torch.stack([masked_mean(e, valid, self.dp)
-                                  for e in extra_flat.reshape(t_steps, b)])
 
         logits, carry = [], None
         for t in range(t_steps):
             lg, carry = self.fc(fc_in[t], carry)
             logits.append(lg)
         logits_all = torch.stack(logits)  # (T, B, C)
-        step_ce = torch.stack([cross_entropy(lg, labels, valid, self.dp) for lg in logits])
-        step_losses = self.ce_weight * step_ce + extra_step
-        total = step_losses.sum() / t_steps
-
-        conf = label_confidence(logits_all.detach(), labels)  # (T, B)
-        rewards = conf[1:] - conf[:-1]
+        with span("murcl.loss"):
+            extra_step = torch.stack([masked_mean(e, valid, self.dp)
+                                      for e in extra_flat.reshape(t_steps, b)])
+            step_ce = torch.stack([cross_entropy(lg, labels, valid, self.dp) for lg in logits])
+            step_losses = self.ce_weight * step_ce + extra_step
+            total = step_losses.sum() / t_steps
+            conf = label_confidence(logits_all.detach(), labels)  # (T, B)
+            rewards = conf[1:] - conf[:-1]
         rollout = Rollout(states=fc_in.detach()[:-1], actions=actions[1:],
                           logprobs=torch.zeros((t_steps - 1, b), device=dev), rewards=rewards)
         stats = StepStats(total.detach(), step_losses.detach(),
@@ -154,26 +158,29 @@ class SupervisedEngine:
         dev = bank.feats.device
 
         def forward(actions, carry):
-            x = select_feats(bank, slide_ids, actions.to(dev), cfg.feat_size)
+            with span("murcl.draws"):
+                actions = actions.to(dev)
+            x = select_feats(bank, slide_ids, actions, cfg.feat_size)
             fc_in, extra = self._encode(x, labels, generator)
             logits, carry = self.fc(fc_in, carry)
-            loss = self.ce_weight * cross_entropy(logits, labels, valid, self.dp) + \
-                masked_mean(extra, valid, self.dp)
-            return logits, carry, fc_in.detach(), loss
+            with span("murcl.loss"):
+                loss = self.ce_weight * cross_entropy(logits, labels, valid, self.dp) + \
+                    masked_mean(extra, valid, self.dp)
+                conf = label_confidence(logits.detach(), labels)
+            return logits, carry, fc_in.detach(), loss, conf
 
         if actions0 is None:
-            actions0 = torch.rand((b, cfg.num_clusters), generator=generator,
-                                  device=generator.device)
-        logits, fc_carry, state, loss = forward(actions0, None)
-        conf_last = label_confidence(logits.detach(), labels)
+            with span("murcl.draws"):
+                actions0 = torch.rand((b, cfg.num_clusters), generator=generator,
+                                      device=generator.device)
+        logits, fc_carry, state, loss, conf_last = forward(actions0, None)
         pol_hidden = self.ppo.zero_hidden(b, dev)
 
         losses, steps, rewards = [loss], [], []
         for t in range(1, cfg.T):
             action, pol_hidden, pstep = act(self.ppo.policy_old, state, pol_hidden, generator,
                                             None if noise is None else noise[t - 1])
-            logits, fc_carry, state, loss = forward(action, fc_carry)
-            conf = label_confidence(logits.detach(), labels)
+            logits, fc_carry, state, loss, conf = forward(action, fc_carry)
             rewards.append(conf - conf_last)
             conf_last = conf
             losses.append(loss)
@@ -202,30 +209,32 @@ class SupervisedEngine:
                    valid: Optional[torch.Tensor] = None, **draws) -> StepStats:
         """One optimizer step (stages 1/3) or one PPO update (stage 2).
         ``draws`` go to the rollout (tests inject the random draws)."""
-        labels = bank.labels[slide_ids]
-        if valid is None:
-            valid = torch.ones(slide_ids.shape, dtype=torch.bool, device=slide_ids.device)
-        if self.cfg.train_stage == 2:
-            self._modes(False)
-            with torch.no_grad():
-                _, stats, rollout = self._rollout(bank, slide_ids, labels, valid, generator,
-                                                  **draws)
-            self.ppo.update(Rollout(*(self.dp.gather(x, dim=1) for x in rollout)))
+        with step(bank.feats.device):
+            labels = bank.labels[slide_ids]
+            if valid is None:
+                valid = torch.ones(slide_ids.shape, dtype=torch.bool, device=slide_ids.device)
+            if self.cfg.train_stage == 2:
+                self._modes(False)
+                with torch.no_grad():
+                    _, stats, rollout = self._rollout(bank, slide_ids, labels, valid, generator,
+                                                      **draws)
+                self.ppo.update(Rollout(*(self.dp.gather(x, dim=1) for x in rollout)))
+                return stats
+            self._modes(True)
+            self.optimizer.zero_grad(set_to_none=True)
+            total, stats, _ = self._rollout(bank, slide_ids, labels, valid, generator, **draws)
+            total.backward()
+            optim.step(self.optimizer, self.dp)
             return stats
-        self._modes(True)
-        self.optimizer.zero_grad(set_to_none=True)
-        total, stats, _ = self._rollout(bank, slide_ids, labels, valid, generator, **draws)
-        total.backward()
-        optim.step(self.optimizer, self.dp)
-        return stats
 
     @torch.no_grad()
     def eval_step(self, bank, slide_ids, generator: torch.Generator,
                   valid: Optional[torch.Tensor] = None, **draws) -> StepStats:
         """T-step rollout in eval mode (sampled actions, reference quirk) of
         this rank's rows; the logits come back for every rank's rows."""
-        labels = bank.labels[slide_ids]
-        if valid is None:
-            valid = torch.ones(slide_ids.shape, dtype=torch.bool, device=slide_ids.device)
-        self._modes(False)
-        return self._rollout(bank, slide_ids, labels, valid, generator, **draws)[1]
+        with step(bank.feats.device):
+            labels = bank.labels[slide_ids]
+            if valid is None:
+                valid = torch.ones(slide_ids.shape, dtype=torch.bool, device=slide_ids.device)
+            self._modes(False)
+            return self._rollout(bank, slide_ids, labels, valid, generator, **draws)[1]

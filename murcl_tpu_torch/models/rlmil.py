@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from murcl_tpu_torch.utils.trace import span
+
 
 def _gru_step(rnn: nn.GRU, x, hidden):
     """One ``nn.GRUCell`` step with the weights of the one-layer ``rnn``."""
@@ -63,16 +65,17 @@ class FullLayer(nn.Module):
                 setattr(self, f"fc_{t}", nn.Linear(feature_num * t, class_num))
 
     def forward(self, x, hidden: Optional[torch.Tensor] = None):
-        if self.fc_rnn:
-            if hidden is None:
-                hidden = x.new_zeros((x.shape[0], self.hidden_state_dim))
-            h = _gru_step(self.rnn, x, hidden)
-            return self.fc(h), h
-        acc = x if hidden is None else torch.cat([hidden, x], dim=1)
-        t, rest = divmod(acc.shape[1], self.feature_num)
-        if rest or not 1 <= t <= 5:
-            raise ValueError(f"cascaded FullLayer supports T<=5, got width {acc.shape[1]}")
-        return (None if t == 1 else getattr(self, f"fc_{t}")(acc)), acc
+        with span("murcl.head"):
+            if self.fc_rnn:
+                if hidden is None:
+                    hidden = x.new_zeros((x.shape[0], self.hidden_state_dim))
+                h = _gru_step(self.rnn, x, hidden)
+                return self.fc(h), h
+            acc = x if hidden is None else torch.cat([hidden, x], dim=1)
+            t, rest = divmod(acc.shape[1], self.feature_num)
+            if rest or not 1 <= t <= 5:
+                raise ValueError(f"cascaded FullLayer supports T<=5, got width {acc.shape[1]}")
+            return (None if t == 1 else getattr(self, f"fc_{t}")(acc)), acc
 
     def zero_carry(self, batch: int, device=None) -> Optional[torch.Tensor]:
         """The restart carry: zeros for the GRU, ``None`` for the cascaded head."""
@@ -183,13 +186,14 @@ def act(model: ActorCritic, state, hidden, generator: Optional[torch.Generator] 
     action is ``clamp(mean + action_std * noise, 0, 1)`` and the log-prob is
     that of the clamped action (``murcl_tpu/models/rlmil.py:179-185``).
     """
-    mean, _, new_hidden = model(state, hidden)
-    if noise is None:
-        dev = generator.device if generator is not None else mean.device
-        noise = torch.randn(mean.shape, generator=generator, device=dev)
-    clamped = (mean + noise.to(mean.device) * model.action_std).clamp(0.0, 1.0)
-    logprob = _diag_gaussian_logprob(clamped, mean, model.action_std)
-    return clamped, new_hidden, PolicyStep(state=state, action=clamped, logprob=logprob)
+    with span("murcl.policy"):
+        mean, _, new_hidden = model(state, hidden)
+        if noise is None:
+            dev = generator.device if generator is not None else mean.device
+            noise = torch.randn(mean.shape, generator=generator, device=dev)
+        clamped = (mean + noise.to(mean.device) * model.action_std).clamp(0.0, 1.0)
+        logprob = _diag_gaussian_logprob(clamped, mean, model.action_std)
+        return clamped, new_hidden, PolicyStep(state=state, action=clamped, logprob=logprob)
 
 
 def evaluate(model: ActorCritic, states, actions):
@@ -258,20 +262,22 @@ class PPO:
 
     def update(self, rollout: Rollout) -> torch.Tensor:
         """``K_epochs`` of the clipped loss with Adam; returns the last loss."""
-        returns = self.discounted_returns(rollout.rewards.detach())
-        states, actions = rollout.states.detach(), rollout.actions.detach()
-        old_logprobs = rollout.logprobs.detach()
-        loss = returns.new_zeros(())
-        for _ in range(self.K_epochs):
-            logprobs, values, entropy = evaluate(self.policy, states, actions)
-            ratios = torch.exp(logprobs - old_logprobs)
-            advantages = returns - values.detach()
-            surr1 = ratios * advantages
-            surr2 = torch.clamp(ratios, 1.0 - self.eps_clip, 1.0 + self.eps_clip) * advantages
-            loss = (-torch.minimum(surr1, surr2).mean() + 0.5 * ((values - returns) ** 2).mean()
-                    - 0.01 * entropy.mean())
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self.optimizer.step()
-        self.policy_old.load_state_dict(self.policy.state_dict())
-        return loss.detach()
+        with span("murcl.ppo_update"):
+            returns = self.discounted_returns(rollout.rewards.detach())
+            states, actions = rollout.states.detach(), rollout.actions.detach()
+            old_logprobs = rollout.logprobs.detach()
+            loss = returns.new_zeros(())
+            for _ in range(self.K_epochs):
+                logprobs, values, entropy = evaluate(self.policy, states, actions)
+                ratios = torch.exp(logprobs - old_logprobs)
+                advantages = returns - values.detach()
+                surr1 = ratios * advantages
+                surr2 = torch.clamp(ratios, 1.0 - self.eps_clip,
+                                    1.0 + self.eps_clip) * advantages
+                loss = (-torch.minimum(surr1, surr2).mean()
+                        + 0.5 * ((values - returns) ** 2).mean() - 0.01 * entropy.mean())
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+                self.optimizer.step()
+            self.policy_old.load_state_dict(self.policy.state_dict())
+            return loss.detach()

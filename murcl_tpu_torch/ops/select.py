@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from murcl_tpu_torch.ops.compact import gather_compact
+from murcl_tpu_torch.utils.trace import span
 
 
 def _python_slice_bounds(l, r, n):
@@ -70,8 +71,9 @@ def select_ranks(slide_ids, offsets, num_patches, cluster_sizes, actions,
 def select_feats(bank, slide_ids, actions, feat_size: int):
     """The reference ``get_feats``: ``(B, feat_size, D)`` sub-bags of
     ``bank`` (a :class:`~murcl_tpu_torch.data.bank.FeatureBank`)."""
-    ranks, row_offsets, _ = select_ranks(
-        slide_ids, bank.offsets, bank.num_patches, bank.cluster_sizes, actions,
-        bank.patch_cluster, bank.patch_pos, feat_size)
-    return gather_compact(bank.feats, row_offsets, ranks, feat_size,
-                          bank.num_patches[slide_ids])
+    with span("murcl.select"):
+        ranks, row_offsets, _ = select_ranks(
+            slide_ids, bank.offsets, bank.num_patches, bank.cluster_sizes, actions,
+            bank.patch_cluster, bank.patch_pos, feat_size)
+        return gather_compact(bank.feats, row_offsets, ranks, feat_size,
+                              bank.num_patches[slide_ids])

@@ -8,10 +8,10 @@ PPO update per view; stage 3 with the policy fixed, the full backward and
 Adam at 1e-4), ``ContrastiveEngine.train_step`` in the traced window. The
 build is ``profile_step``'s (the JAX script's bank, CLAM_SB, the GRU head,
 batch 128, T 6, bf16) with ``PPO(hidden 1024, action 10, lr 1e-5, gamma
-0.1, K_epochs 3)``. For stage 2 each ``ppo.update`` runs inside
-``record_function("ppo.update")``, and the script also prints the share of
-the step in the updates' own ops: the card's ops launched inside those
-spans (the host's spans on the CPU).
+0.1, K_epochs 3)``, and the tables are ``profile_step``'s. For stage 2 the
+script also prints the share of the step in the PPO updates' own ops: the
+card's ops launched inside the program's ``murcl.ppo_update`` spans (the
+host's spans on the CPU).
 
     python -m murcl_tpu_torch.scripts.profile_stages --stage 2   # cuda:0
     python -m murcl_tpu_torch.scripts.profile_stages --device cpu --stage 2 --shape 4 96 32 64 8 2
@@ -21,24 +21,11 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-
 from murcl_tpu_torch.scripts.probes import probe_device, where
 from murcl_tpu_torch.scripts.profile_step import OUT, SHAPE, build_step, profile_run
 from murcl_tpu_torch.scripts.profiling import busy_union_ms, host_events, range_events
 
-UPDATE = "ppo.update"
-
-
-def _mark_updates(ppo) -> None:
-    """Run each of ``ppo``'s updates inside ``record_function(UPDATE)``."""
-    update = ppo.update
-
-    def marked(*args, **kwargs):
-        with torch.profiler.record_function(UPDATE):
-            return update(*args, **kwargs)
-
-    ppo.update = marked
+UPDATE = "murcl.ppo_update"  # the program's span around PPO.update
 
 
 def run(device="cuda:0", shape=SHAPE, stage: int = 3, steps: int = 3, out=None) -> dict:
@@ -54,8 +41,7 @@ def run(device="cuda:0", shape=SHAPE, stage: int = 3, steps: int = 3, out=None) 
     print(f"profile of the stage-{stage} step, CLAM_SB bf16, batch {shape[4]} of {shape[0]} "
           f"slides x {shape[1]} patches x {shape[2]}, feat_size {shape[3]}, T {shape[5]} "
           f"({where(dev)})", flush=True)
-    annotate = (lambda: _mark_updates(s.ppo)) if stage == 2 else None
-    res = profile_run(s, dev, steps, out, f"stage-{stage} steps", annotate)
+    res = profile_run(s, dev, steps, out, f"stage-{stage} steps")
     if stage == 2:
         prof = res["prof"]
         if res["on_device"]:

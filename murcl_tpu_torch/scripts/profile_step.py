@@ -16,7 +16,11 @@ median of 3 steps, each synchronised), then ``--steps`` steps under
 to ``--out`` (Chrome's trace format) and the table of the top 35 ops by
 summed device time per step is printed, with the union of the device's
 intervals (its busy time) beside the untraced step time, and on the card
-the host's copies and synchronisations per step. ``--device cpu``
+the host's copies and synchronisations per step. Three tables follow from
+the program's own spans and counter (``murcl_tpu_torch/utils/trace.py``):
+device ms per step by program span, the device's idle ms per step by the
+program span open when each gap began, and the host waits per step by span
+and ``file:line``. ``--device cpu``
 runs the plain twins at the ``--shape`` given, and the table holds host
 times. The JAX script's ``--layout sequential`` selects a TPU-only stage-1
 layout that the port does not have (``murcl_tpu_torch/train_MuRCL.py``'s
@@ -43,7 +47,9 @@ from murcl_tpu_torch.models import CL, PPO, FullLayer, build_aggregator
 from murcl_tpu_torch.scripts.dbg_select import K, select_bank
 from murcl_tpu_torch.scripts.probes import probe_device, where
 from murcl_tpu_torch.scripts.profiling import (busy_union_ms, host_events, op_table,
-                                               print_table, table_events, trace)
+                                               print_spans, print_table, print_waits,
+                                               table_events, trace)
+from murcl_tpu_torch.utils.trace import host_waits, reset_host_waits
 
 SHAPE = (64, 2048, 512, 1024, 128, 6)  # slides, patches, D, feat_size, batch, T
 CLASSES, HIDDEN = 128, 1024  # the projection's classes, the GRU head's hidden width
@@ -106,16 +112,15 @@ def synced_step_ms(step, dev, seeds) -> float:
     return statistics.median(times)
 
 
-def profile_run(s, dev, steps: int, out, what: str, annotate=None) -> dict:
+def profile_run(s, dev, steps: int, out, what: str) -> dict:
     """Warm-up, the untraced step time, ``steps`` traced steps, the trace to
-    ``out`` and the table: what ``profile_step`` and ``profile_stages``
-    share. ``annotate`` runs before the traced steps (a span to mark)."""
+    ``out`` and the tables: what ``profile_step`` and ``profile_stages``
+    share."""
     stats = s.step(0)
     losses = [float(stats.loss)]
     print(f"warmup loss {losses[0]:.4f}", file=sys.stderr)
     step_ms = synced_step_ms(s.step, dev, range(1, 4))
-    if annotate is not None:
-        annotate()
+    reset_host_waits()
     seeds = iter(range(1, steps + 1))
     last = {}
 
@@ -142,20 +147,24 @@ def profile_run(s, dev, steps: int, out, what: str, annotate=None) -> dict:
     host = {k: names.count(k) / steps for k in HOST_CALLS}
     if on_device:
         print("host runtime calls per step: " + ", ".join(f"{k} {v:.0f}" for k, v in host.items()))
+    print_spans(prof, steps, on_device)
+    waits = host_waits()
+    print_waits(waits, steps)
     return {"step_ms": step_ms, "busy_ms": busy, "rows": rows, "on_device": on_device,
-            "losses": losses, "host_calls": host, "prof": prof,
+            "losses": losses, "host_calls": host, "waits": waits, "prof": prof,
             "trace": str(out) if out else None}
 
 
 def run(device="cuda:0", shape=SHAPE, steps: int = 3, out=OUT / "profile_step.trace.json"
         ) -> dict:
-    """Prints the table and returns ``{"step_ms", "busy_ms", "rows",
-    "on_device", "losses", "host_calls", "prof", "trace"}``: the untraced
-    step ms, the union of the traced events per step,
+    """Prints the tables and returns ``{"step_ms", "busy_ms", "rows",
+    "on_device", "losses", "host_calls", "waits", "prof", "trace"}``: the
+    untraced step ms, the union of the traced events per step,
     :func:`~murcl_tpu_torch.scripts.profiling.op_table`'s rows, whether they
     are the card's, the warm-up's and the last traced step's losses, the
     host's copies and synchronisations per step (``HOST_CALLS``), the
-    profiler run and the trace's path."""
+    program's host waits over the traced steps (``{(span, "file:line"):
+    count}``), the profiler run and the trace's path."""
     dev = probe_device(device)
     s = build_step(dev, shape, stage=1)
     print(f"profile of the stage-1 step, CLAM_SB bf16, batch {shape[4]} of {shape[0]} slides x "

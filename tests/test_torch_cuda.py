@@ -55,7 +55,13 @@ variant of the one-hot compaction probes (``ops/compact_probes.py``) against
 its twin on windows of 512 rows, bags whose slides end at 512 and 300 rows,
 bitwise but ``noonehot`` (its row sums in f32 are taken in another order:
 1e-2 relative Frobenius), one launch under its own name.
+The program's host-wait counter (``murcl_tpu_torch/utils/trace.py``, not a
+kernel, but torch's sync debug mode flags only CUDA syncs): inside a span
+of a step under the profiler, a pageable copy to the card counts one wait
+at its line, a device-to-device copy none, and the mode is restored after.
 """
+
+import sys
 
 import pytest
 import torch
@@ -1019,3 +1025,24 @@ def test_onehot_compaction_probes_match_twins(dev, script, variant):
         assert torch.equal(got.view(torch.int16), want.view(torch.int16))
     if (script, variant) in KEEPS_RESULT:
         assert torch.equal(got, gather_compact_plain(bank, offs, ranks, 384, nump))
+
+
+def test_host_waits_count_blocking_copies_only(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from murcl_tpu_torch.utils import trace
+
+    host, on_card, dst = torch.ones(4096), torch.ones(4096, device=dev), torch.empty(4096,
+                                                                                      device=dev)
+    trace.reset_host_waits()
+    mode = torch.cuda.get_sync_debug_mode()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with trace.step(dev), trace.span("murcl.draws"):
+            line = sys._getframe().f_lineno + 1
+            moved = host.to(dev)
+            dst.copy_(on_card)
+        torch.cuda.synchronize()
+    assert trace.host_waits() == {("murcl.draws", f"tests/test_torch_cuda.py:{line}"): 1}
+    assert torch.cuda.get_sync_debug_mode() == mode
+    assert torch.equal(moved, on_card) and torch.equal(dst, on_card)
+    trace.reset_host_waits()

@@ -3,7 +3,9 @@ the CPU.
 
 - ``--profile 2`` writes a ``torch.profiler`` trace of the first two steps
   into ``<save_dir>/profile`` (Chrome's trace format, naming the steps'
-  operators), in MuRCL and in supervised RLMIL.
+  operators and the program's spans), in MuRCL and in supervised RLMIL,
+  and ``host_waits.json`` beside it (the host-wait counter arms on the card
+  only, so its list is empty here).
 - ``--use_tensorboard`` writes the scalar tags the JAX drivers write
   (``murcl_tpu/drivers/murcl.py`` and ``rlmil.py``, read from their
   source), one value per epoch, read back with tensorboard's own event
@@ -63,6 +65,10 @@ def test_profile_writes_a_trace(synthetic_dataset, tmp_path, driver):
     events = json.loads(traces[0].read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any(n.startswith("aten::") for n in names), sorted(names)[:20]
+    assert {"murcl.step", "murcl.select", "murcl.aggregator", "murcl.head",
+            "murcl.optimizer"} <= names
+    waits = json.loads((traces[0].parent / "host_waits.json").read_text())
+    assert waits == {"steps": 2, "waits": []}
 
 
 @pytest.mark.parametrize("driver", ["murcl", "rlmil"])
